@@ -1,0 +1,51 @@
+"""The run context handed to the port's entrypoints.
+
+A minimal counterpart of ``polyaxon_tpu/tracking/context.py``: params,
+seed, leadership, and metric / text logging.  Records go to a list the
+caller passes, or to stdout as JSON lines; there is no reporter or
+registry yet.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from typing import Any, Dict, List, Optional
+
+
+class Context:
+    """What a ``module:function`` entrypoint receives as its only argument."""
+
+    def __init__(
+        self,
+        *,
+        params: Dict[str, Any],
+        process_id: int = 0,
+        seed: Optional[int] = None,
+        records: Optional[List[Dict[str, Any]]] = None,
+    ) -> None:
+        self.params = params
+        self.process_id = process_id
+        self.seed = seed
+        #: Where log_metrics / log_text append; None = stdout.
+        self.records = records
+
+    @property
+    def is_leader(self) -> bool:
+        """Process 0 — the one that reports."""
+        return self.process_id == 0
+
+    def _emit(self, record: Dict[str, Any]) -> None:
+        if self.records is not None:
+            self.records.append(record)
+        else:
+            print(json.dumps(record), file=sys.stdout, flush=True)
+
+    def log_metrics(self, step: Optional[int] = None, **values: Any) -> None:
+        self._emit({"kind": "metric", "step": step, "values": values})
+
+    def log_text(self, line: str) -> None:
+        self._emit({"kind": "log", "line": line})
+
+    def get_param(self, name: str, default: Any = None) -> Any:
+        return self.params.get(name, default)
