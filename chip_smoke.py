@@ -4,32 +4,43 @@
 Run from the repository root, on a machine with one NVIDIA Hopper card and
 the CUDA toolkit: ``python3 chip_smoke.py``.  It builds the port's kernels
 from ``polyaxon_tpu_torch/csrc``, holds each against its plain PyTorch
-version, and drives the port's serving path (``lm_generate``: prefill
-through the flash kernel, then KV-cache decode) at the full width of the
-671M bench model.  Phases:
+version, and drives the port's two paths at the full width of the 671M
+bench model: serving (``lm_generate``: prefill through the flash forward
+kernel, then KV-cache decode) and training (``lm_train``: the flash forward
+and the two backward kernels in every layer).  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
-3. each kernel against its plain version on the card, at the prefill
-   shape of the main path and at edge shapes, with its time beside the
-   plain version's, the PyTorch library call's and its bound;
-4. a small float32 model: greedy ``generate`` through the kernel gives the
-   same tokens as with dense attention;
-5. the main path: ``lm_generate`` at the 671M width (batch 4, prompt 512,
-   64 new tokens, greedy, bf16 compute, random weights from a seed), with
-   the kernels' launch counts set to 0 before it and read after;
+3. each kernel against its plain version on the card, at the shape of the
+   path that runs it and at edge shapes, with its time beside the plain
+   version's, the PyTorch library call's and its bound: the forward at the
+   prefill shape, then the two backward kernels (and the forward) at the
+   training shape;
+4. small float32 models: greedy ``generate`` through the kernel gives the
+   same tokens as with dense attention, and ``loss_fn`` and every
+   parameter grad through the kernels match dense attention;
+5. the serving path: ``lm_generate`` at the 671M width (batch 4, prompt
+   512, 64 new tokens, greedy, bf16 compute, random weights from a seed),
+   with the kernels' launch counts set to 0 before it and read after;
 6. the prefill logits through the kernel against the same forward with
    dense attention;
-7. where the time goes: device time by kernel over one prefill and over
-   decode steps (torch.profiler), and the device's idle share.
+7. the training path: ``lm_train`` at the 671M width (batch 20, seq 1024,
+   5 steps, lr 3e-4, no remat, float32 mu), its launch counts per step,
+   tokens/s, MFU and a falling loss; then bench.py's train configuration
+   (remat ``save_attn``, bf16 mu) through ``build_train_step`` for 3 steps,
+   whose first step must give the same loss and grad norm;
+8. where the time goes: device time by kernel over one prefill, over
+   decode steps and over one train step (torch.profiler), and the device's
+   idle share.
 
 Any failed check raises, and the script exits non-zero.  On success its
-last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 at once.
+last lines are the card's name and power limit, the kernels' JSON record
+and ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -47,11 +58,21 @@ H100_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sp
 BENCH_MODEL = dict(vocab_size=32768, d_model=2048, n_layers=8, n_heads=32,
                    head_dim=64, d_ff=8192)
 BATCH, PROMPT, NEW_TOKENS, SEED = 4, 512, 64, 0
+# The 671M bench train shape (bench.py: batch 20, seq 1024) and the steps run.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, BENCH_STEPS, LR = 20, 1024, 5, 3, 3e-4
 
 # Kernel vs plain version: p is rounded to bf16 before P.V in both, but the
 # kernel's online softmax rounds p against a running max that the one-pass
 # plain version never sees, so o differs by bf16 rounding of p.
 O_ATOL, LSE_ATOL = 2e-2, 1e-3
+# Backward kernels vs plain version: both round ds and p to the input type
+# at the same places; a float32 difference in summation order can flip one
+# bf16 rounding.  Float32 inputs differ by summation order alone.
+BWD_ATOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+# The backward bounds at the training shape, worked from the data sheet
+# (bytes moved and FLOPs): attention_bound must reproduce them.
+TRAIN_SHAPE_BOUNDS = {"fwd": (422.1e6, None), "dq": (508.6e6, 129.0e9),
+                      "dkv": (676.3e6, 172.0e9)}
 
 
 def log(*args) -> None:
@@ -75,18 +96,50 @@ def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def attention_bound(BH, Tq, Tk, d, dtype, causal):
-    """Least time (ms) the card could take for one flash_block_fwd call, and
-    what sets it: each input byte read once and each output written once at
-    the HBM rate, against the two products over the visible (q, k) pairs at
-    the tensor-core peak for the input type."""
-    in_bytes = torch.tensor([], dtype=dtype).element_size()
-    moved = BH * (Tq + 2 * Tk) * d * in_bytes + BH * Tq * d * 4 + BH * Tq * 4
+def _counts():
+    """The kernels' launch counts: (flash_fwd, flash_bwd_dq, flash_bwd_dkv)."""
+    from polyaxon_tpu_torch.parallel import flash
+
+    return (flash.flash_block_fwd.launches, flash.flash_block_dq.launches,
+            flash.flash_block_dkv.launches)
+
+
+def _reset_counts() -> None:
+    from polyaxon_tpu_torch.parallel import flash
+
+    flash.flash_block_fwd.launches = 0
+    flash.flash_block_dq.launches = 0
+    flash.flash_block_dkv.launches = 0
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def attention_bound(BH, Tq, Tk, d, dtype, causal, kind="fwd"):
+    """Least time (ms) the card could take for one flash kernel call, what
+    sets it, and the bytes and operations counted: each input byte read
+    once and each output written once at the HBM rate, against the
+    products over the visible (q, k) pairs at the tensor-core peak for the
+    input type.  ``kind``: ``fwd`` reads q, k, v and writes o (f32) and lse
+    (two products: q·kᵀ, p·v); ``dq`` reads q, k, v, do, lse, delta and
+    writes dq (three: q·kᵀ, do·vᵀ, ds·k); ``dkv`` reads the same and writes
+    dk, dv (four: q·kᵀ, do·vᵀ, pᵀ·do, dsᵀ·q)."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    rows = BH * Tq * 4  # one float32 per query row (lse, delta)
+    if kind == "fwd":
+        moved, products = BH * (Tq + 2 * Tk) * d * e + BH * Tq * d * 4 + rows, 2
+    elif kind == "dq":
+        moved, products = BH * 2 * (Tq + Tk) * d * e + 2 * rows + BH * Tq * d * 4, 3
+    else:
+        moved, products = BH * 2 * (Tq + Tk) * d * e + 2 * rows + 2 * BH * Tk * d * 4, 4
     pairs = sum(min(r + 1, Tk) for r in range(Tq)) if causal else Tq * Tk
-    ops = 4 * d * pairs * BH
+    ops = 2 * d * products * pairs * BH
     t_bytes = moved / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return (*bound, moved, ops)
 
 
 def phase_device():
@@ -154,7 +207,7 @@ def phase_kernels():
             q4, k4, v4 = (x.view(B, H, -1, d) for x in (q, k, v))
             library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=causal, scale=scale))
-            bound_ms, bound_by = attention_bound(BH, Tq, Tk, d, dtype, causal)
+            bound_ms, bound_by, _, _ = attention_bound(BH, Tq, Tk, d, dtype, causal)
             log(f"  kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms (sdpa) "
                 f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
             record = {
@@ -165,6 +218,91 @@ def phase_kernels():
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             }
     return record
+
+
+def _sdpa_bwd_ms(q, k, v, do, B, causal, scale):
+    """SDPA's backward on the same inputs: one autograd call that computes
+    dq, dk and dv together."""
+    q4, k4, v4 = (x.view(B, -1, *x.shape[1:]).detach().requires_grad_(True) for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                                           scale=scale)
+    do4 = do.view(B, -1, *do.shape[1:])
+    return time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True),
+                   reps=20)
+
+
+def phase_bwd_kernels():
+    """The two backward kernels against their plain version at the training
+    shape, then at edge shapes; at the training shape, each kernel's time
+    (and the forward kernel's) beside the plain version's, SDPA's and the
+    bound.  Returns the records, keyed by kernel."""
+    from polyaxon_tpu_torch.parallel import flash
+
+    H = BENCH_MODEL["n_heads"]
+    cases = [  # (BH, Tq, Tk, d, dtype, causal): the training path's shape first
+        (TRAIN_BATCH * H, TRAIN_SEQ, TRAIN_SEQ, 64, torch.bfloat16, True),
+        (8, 1000, 1000, 64, torch.bfloat16, True),  # ragged tail
+        (8, 300, 200, 64, torch.bfloat16, False),  # non-causal, Tq != Tk
+        (16, 512, 512, 128, torch.bfloat16, True),  # d = 128
+        (4, 100, 100, 64, torch.float32, True),  # float32 inputs
+        (8, 300, 200, 128, torch.float32, False),  # all the edges at once
+    ]
+    records = {}
+    for BH, Tq, Tk, d, dtype, causal in cases:
+        g = torch.Generator(device="cuda").manual_seed(BH + Tq + Tk + d)
+        q, do = (torch.randn(BH, Tq, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn(BH, Tk, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+        kw = dict(causal=causal, sm_scale=d**-0.5)
+        o, lse = flash.flash_block_fwd(q, k, v, **kw)
+        delta = (do.float() * o.to(dtype).float()).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        got = (flash.flash_block_dq(*args, **kw), *flash.flash_block_dkv(*args, **kw))
+        torch.cuda.synchronize()
+        ref = flash.flash_block_bwd_reference(*args, **kw)
+        errs = [(a - b).abs().max().item() for a, b in zip(got, ref)]
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        log(f"flash_bwd BH={BH} Tq={Tq} Tk={Tk} d={d} {dtype} causal={causal}: max abs err "
+            f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (<= {BWD_ATOL[dtype]}); "
+            f"finite {finite}")
+        if max(errs) > BWD_ATOL[dtype] or not finite:
+            raise AssertionError("a backward kernel disagrees with its plain version")
+        if records:
+            continue
+        del ref
+        dq_ms = time_ms(lambda: flash.flash_block_dq(*args, **kw), reps=20)
+        dkv_ms = time_ms(lambda: flash.flash_block_dkv(*args, **kw), reps=20)
+        fwd_ms = time_ms(lambda: flash.flash_block_fwd(q, k, v, **kw), reps=20)
+        plain_ms = time_ms(lambda: flash.flash_block_bwd_reference(*args, **kw), reps=5, warmup=1)
+        fwd_plain_ms = time_ms(lambda: flash.flash_block_fwd_reference(q, k, v, **kw), reps=5,
+                               warmup=1)
+        sdpa_bwd_ms = _sdpa_bwd_ms(q, k, v, do, TRAIN_BATCH, causal, kw["sm_scale"])
+        q4, k4, v4 = (x.view(TRAIN_BATCH, H, -1, d) for x in (q, k, v))
+        sdpa_fwd_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, scale=kw["sm_scale"]), reps=20)
+        bounds = {}
+        for kind in ("fwd", "dq", "dkv"):
+            bound_ms, bound_by, moved, ops = attention_bound(BH, Tq, Tk, d, dtype, causal, kind)
+            want_bytes, want_ops = TRAIN_SHAPE_BOUNDS[kind]
+            if abs(moved - want_bytes) > 0.1e6 or (want_ops and abs(ops - want_ops) > 0.1e9):
+                raise AssertionError(f"attention_bound({kind}) gives {moved} B, {ops} FLOP; "
+                                     f"expected {want_bytes} B, {want_ops} FLOP")
+            bounds[kind] = (bound_ms, bound_by)
+            log(f"  bound {kind}: {moved / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP -> "
+                f"{bound_ms * 1e3:.1f} us ({bound_by})")
+        log(f"  training shape: dq kernel_ms {dq_ms:.4f}, dk/dv kernel_ms {dkv_ms:.4f}, "
+            f"fwd kernel_ms {fwd_ms:.4f}; plain_ms bwd {plain_ms:.4f} fwd {fwd_plain_ms:.4f}; "
+            f"library_ms (sdpa) bwd {sdpa_bwd_ms:.4f} fwd {sdpa_fwd_ms:.4f}")
+        common = {"route": "cuda", "source": "polyaxon_tpu_torch/csrc/flash_bwd.cu",
+                  "plain_ms": plain_ms, "library_ms": sdpa_bwd_ms}
+        records["dq"] = dict(name="flash_bwd_dq", replaces="polyaxon_tpu/parallel/flash.py:177",
+                             max_abs_err=errs[0], ms=dq_ms, bound_ms=bounds["dq"][0],
+                             bound_by=bounds["dq"][1], **common)
+        records["dkv"] = dict(name="flash_bwd_dkv", replaces="polyaxon_tpu/parallel/flash.py:219",
+                              max_abs_err=max(errs[1:]), ms=dkv_ms, bound_ms=bounds["dkv"][0],
+                              bound_by=bounds["dkv"][1], **common)
+        records["fwd"] = dict(ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=sdpa_fwd_ms,
+                              bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1])
+    return records
 
 
 def phase_small_model():
@@ -188,6 +326,39 @@ def phase_small_model():
         f"greedy tokens equal: {torch.equal(outs['auto'], outs['dense'])}")
     if diff > 1e-3 or not torch.equal(outs["auto"], outs["dense"]):
         raise AssertionError("small-model generate through the kernel disagrees with dense")
+
+
+def phase_small_model_grads():
+    """Autograd through the kernels: on a small float32 model (head_dim 64,
+    a ragged 100-token sequence), the loss and every parameter grad of
+    loss_fn with attention_impl "auto" (the three kernels) match "dense"."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
+    from polyaxon_tpu_torch.runtime.optim import tree_leaves
+
+    cfg = TransformerConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=4, head_dim=64,
+                            d_ff=512, max_seq=128, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3))
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tok = torch.as_tensor(np.random.default_rng(4).integers(0, 256, (2, 101)), device="cuda")
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    out = {}
+    for impl in ("auto", "dense"):
+        _reset_counts()
+        loss = loss_fn(params, batch, cfg.scaled(attention_impl=impl), device="cuda")
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        out[impl] = (loss.item(), grads, _counts())
+    loss_diff = abs(out["auto"][0] - out["dense"][0])
+    grad_diff = max((a - b).abs().max().item() for a, b in zip(out["auto"][1], out["dense"][1]))
+    grad_max = max(b.abs().max().item() for b in out["dense"][1])
+    log(f"small f32 model loss_fn: loss {out['auto'][0]:.6f} kernel vs dense diff {loss_diff:.3e} "
+        f"(<= 1e-5); grads max abs diff {grad_diff:.3e} (<= 1e-5, largest grad {grad_max:.3e}); "
+        f"launches fwd/dq/dkv {out['auto'][2]} (expected (2, 2, 2)), dense {out['dense'][2]}")
+    if loss_diff > 1e-5 or grad_diff > 1e-5 or out["auto"][2] != (2, 2, 2) or \
+            out["dense"][2] != (0, 0, 0):
+        raise AssertionError("loss_fn grads through the kernels disagree with dense attention")
 
 
 def phase_main_path():
@@ -257,13 +428,42 @@ def phase_prefill_parity():
     return params, cfg, prompt
 
 
-def phase_profile(params, cfg, prompt, steps: int = 8):
-    """Where the time goes: device time by kernel over one prefill and over
-    ``steps`` decode steps at the main path's shapes (torch.profiler), beside
-    the same window's wall time taken without the profiler."""
+def _profile(label, fn, calls, top=8):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), beside
+    the same call's wall time taken without the profiler; returns the
+    device's idle share, or None where the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, launches = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+            launches += 1
+    busy_ms = sum(by_name.values())
+    if busy_ms == 0:
+        log(f"profile {label}: the trace holds no device time (not measured)")
+        return None
+    idle = max(0.0, 1 - busy_ms / wall_ms)
+    log(f"profile {label}: wall_ms {wall_ms:.3f} device_busy_ms {busy_ms:.3f} "
+        f"idle_share {idle:.3f} device_ops_per_call {launches / calls:.0f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"    {ms:9.3f} ms {ms / busy_ms:6.1%}  {name[:120]}")
+    return idle
+
+
+def phase_profile(params, cfg, prompt, steps: int = 8):
+    """Where the serving time goes: one prefill and ``steps`` decode steps
+    at the serving path's shapes."""
     from polyaxon_tpu_torch.models import decode
 
     cache = decode.init_cache(cfg, BATCH, PROMPT + NEW_TOKENS, "cuda")
@@ -277,29 +477,116 @@ def phase_profile(params, cfg, prompt, steps: int = 8):
         for i in range(steps):
             decode.decode_step(params, cache, token, PROMPT + i, cfg)
 
-    for label, fn, calls in (("prefill", run_prefill, 1), (f"decode x{steps}", run_decode, steps)):
-        fn()
-        torch.cuda.synchronize()
+    _profile("prefill", run_prefill, 1)
+    _profile(f"decode x{steps}", run_decode, steps)
+
+
+def _train_setup(cfg, optimizer):
+    """A train step for ``cfg`` on lm_train's weights (seeded init on the
+    card) and lm_train's batch."""
+    from polyaxon_tpu_torch.models.transformer import init_params, loss_fn
+    from polyaxon_tpu_torch.runtime.train import build_train_step
+
+    ts = build_train_step(loss_fn=lambda p, b: loss_fn(p, b, cfg, device="cuda"),
+                          init_fn=lambda g: init_params(cfg, g), optimizer=optimizer)
+    params, opt_state = ts.init(torch.Generator(device="cuda").manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+                          device="cuda")
+    return ts, params, opt_state, {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+
+
+def phase_train():
+    """The training path: lm_train at the 671M width.  Returns the launch
+    counts of the run and the first step's metrics."""
+    from polyaxon_tpu_torch.builtins.trainers import lm_train
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig
+    from polyaxon_tpu_torch.tracking.context import Context
+    from polyaxon_tpu_torch.tracking.ledger import transformer_flops_per_token
+
+    records = []
+    ctx = Context(params=dict(BENCH_MODEL, seq=TRAIN_SEQ, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                              lr=LR, device="cuda"), seed=SEED, records=records)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    lm_train(ctx)
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    for r in records:
+        if r["kind"] == "log":
+            log(r["line"])
+    steps = {r["step"]: r["values"] for r in records if r["kind"] == "metric"}
+    final = steps[TRAIN_STEPS]
+    cfg = TransformerConfig(max_seq=TRAIN_SEQ, **BENCH_MODEL)
+    fpt = transformer_flops_per_token(cfg.n_params, cfg.n_layers, cfg.n_heads, cfg.head_dim,
+                                      TRAIN_SEQ)
+    mfu = final["tokens_per_s"] * fpt / H100_PEAK_FLOPS[torch.bfloat16]
+    first, last = steps[0], steps[TRAIN_STEPS - 1]
+    per_step = tuple(n / TRAIN_STEPS for n in launches)
+    log(f"lm_train 671M (batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, {TRAIN_STEPS} steps): "
+        f"tokens_per_s {final['tokens_per_s']} mfu {mfu:.4f} first_step_s "
+        f"{final['first_step_s']} step_wall_s {final['step_wall_s']} "
+        f"peak_memory_allocated {peak} B; loss {first['loss']} -> {last['loss']}, "
+        f"grad_norm {first['grad_norm']} -> {last['grad_norm']}; launches fwd/dq/dkv "
+        f"{launches}, per step {per_step}")
+    n = BENCH_MODEL["n_layers"]
+    if per_step != (n, n, n):
+        raise AssertionError(f"expected {n} launches of each flash kernel per step, got {per_step}")
+    if not (np.isfinite(first["loss"]) and np.isfinite(last["loss"]) and
+            last["loss"] < first["loss"]):
+        raise AssertionError("lm_train's loss is not finite and falling")
+    return launches, first
+
+
+def phase_bench_config(first):
+    """bench.py's train configuration (remat save_attn, bf16 mu) through
+    build_train_step on the same weights and batch: its first step gives
+    lm_train's first loss and grad norm (the recompute repeats the same
+    ops, so only reduction order may differ: loss rtol 1e-4, grad norm
+    rtol 1e-3)."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+
+    cfg = TransformerConfig(max_seq=TRAIN_SEQ, remat=True, remat_policy="save_attn",
+                            **BENCH_MODEL)
+    ts, params, opt_state, batch = _train_setup(cfg, AdamW(LR, mu_dtype=torch.bfloat16))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    metrics, walls = [], []
+    for _ in range(BENCH_STEPS):
         t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name, launches = {}, 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-                launches += 1
-        busy_ms = sum(by_name.values())
-        if busy_ms == 0:
-            log(f"profile {label}: the trace holds no device time (not measured)")
-            continue
-        log(f"profile {label}: wall_ms {wall_ms:.3f} device_busy_ms {busy_ms:.3f} "
-            f"idle_share {max(0.0, 1 - busy_ms / wall_ms):.3f} device_ops_per_call {launches / calls:.0f}")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            log(f"    {ms:9.3f} ms {ms / busy_ms:6.1%}  {name[:120]}")
+        params, opt_state, m = ts.step(params, opt_state, batch)
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))  # a host read syncs
+        walls.append(time.perf_counter() - t0)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady = TRAIN_BATCH * TRAIN_SEQ / statistics.median(walls[1:])
+    loss_rel = abs(metrics[0][0] - first["loss"]) / abs(first["loss"])
+    gn_rel = abs(metrics[0][1] - first["grad_norm"]) / abs(first["grad_norm"])
+    per_step = tuple(n / BENCH_STEPS for n in launches)
+    log(f"bench config (remat save_attn, bf16 mu), {BENCH_STEPS} steps: losses "
+        f"{[x[0] for x in metrics]} grad_norms {[x[1] for x in metrics]}; first step vs "
+        f"lm_train: loss rel diff {loss_rel:.3e} (<= 1e-4), grad_norm {gn_rel:.3e} (<= 1e-3); "
+        f"step walls {walls} s, tokens_per_s after the first {steady}; "
+        f"peak_memory_allocated {peak} B; launches fwd/dq/dkv per step {per_step}")
+    n = BENCH_MODEL["n_layers"]
+    if per_step != (n, n, n):
+        raise AssertionError(f"save_attn: expected {n} launches of each kernel per step "
+                             f"(the policy keeps the forward's output), got {per_step}")
+    if loss_rel > 1e-4 or gn_rel > 1e-3:
+        raise AssertionError("bench config's first step disagrees with lm_train's")
+
+
+def phase_profile_train():
+    """Where the training time goes: one train step of the lm_train
+    configuration (no remat, float32 mu)."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+
+    cfg = TransformerConfig(max_seq=TRAIN_SEQ, **BENCH_MODEL)
+    ts, params, opt_state, batch = _train_setup(cfg, AdamW(LR))
+    _profile("train step", lambda: ts.step(params, opt_state, batch), 1, top=12)
 
 
 def main() -> int:
@@ -310,14 +597,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     phase_build()
-    record = phase_kernels()
+    fwd = phase_kernels()
+    bwd = phase_bwd_kernels()
     phase_small_model()
-    record["launches"] = phase_main_path()
+    phase_small_model_grads()
+    serve_launches = phase_main_path()
     phase_profile(*phase_prefill_parity())
+    _free()
+    train_launches, first = phase_train()
+    _free()
+    phase_bench_config(first)
+    _free()
+    phase_profile_train()
+    fwd["launches"] = serve_launches + train_launches[0]
+    fwd["launches_by_path"] = {"lm_generate": serve_launches, "lm_train": train_launches[0]}
+    fwd["train_shape"] = bwd["fwd"]
+    bwd["dq"]["launches"], bwd["dkv"]["launches"] = train_launches[1:]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [record]}))
+    print(smi)
+    print(json.dumps({"kernels": [fwd, bwd["dq"], bwd["dkv"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

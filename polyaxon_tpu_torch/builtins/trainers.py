@@ -1,6 +1,7 @@
 """Built-in entrypoints of the port.
 
-Counterpart of ``polyaxon_tpu/builtins/trainers.py``; so far ``lm_generate``.
+Counterpart of ``polyaxon_tpu/builtins/trainers.py``; so far ``lm_generate``
+and ``lm_train``.
 """
 
 from __future__ import annotations
@@ -12,13 +13,20 @@ import torch
 
 from polyaxon_tpu_torch._device import resolve_device
 from polyaxon_tpu_torch.models import decode
-from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params
+from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
+from polyaxon_tpu_torch.runtime.optim import AdamW
+from polyaxon_tpu_torch.runtime.train import build_train_step
 from polyaxon_tpu_torch.tracking.context import Context
+from polyaxon_tpu_torch.tracking.profiling import StepClock
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _int_params(ctx: Context, names) -> dict:
+    return {f: int(ctx.get_param(f)) for f in names if ctx.get_param(f) is not None}
 
 
 def lm_generate(ctx: Context) -> torch.Tensor:
@@ -38,16 +46,11 @@ def lm_generate(ctx: Context) -> torch.Tensor:
             "(ROADMAP: checkpoint restore for lm_generate)"
         )
     device = resolve_device(ctx.get_param("device", "cuda"))
-    cfg_fields = {
-        f: int(ctx.get_param(f))
-        for f in (
-            "vocab_size", "d_model", "n_layers", "n_heads",
-            "head_dim", "d_ff", "n_kv_heads", "n_experts",
-        )
-        if ctx.get_param(f) is not None
-    }
     seq = int(ctx.get_param("seq", 256))
-    cfg = TransformerConfig(max_seq=seq, **cfg_fields)
+    cfg = TransformerConfig(max_seq=seq, **_int_params(ctx, (
+        "vocab_size", "d_model", "n_layers", "n_heads",
+        "head_dim", "d_ff", "n_kv_heads", "n_experts",
+    )))
     batch = int(ctx.get_param("batch", 1))
     prompt_len = int(ctx.get_param("prompt_len", 16))
     max_new = int(ctx.get_param("max_new_tokens", 64))
@@ -102,3 +105,76 @@ def lm_generate(ctx: Context) -> torch.Tensor:
             f"decode (prefill {prefill_s*1e3:.0f} ms); sample: {first.tolist()}"
         )
     return out
+
+
+def lm_train(ctx: Context) -> None:
+    """Train the flagship transformer LM on one device.
+
+    Counterpart of the JAX ``lm_train``: the same params (``steps``,
+    ``batch``, ``seq``, ``lr``, ``attention_impl`` and the
+    ``TransformerConfig`` fields ``vocab_size``, ``d_model``, ``n_layers``,
+    ``n_heads``, ``head_dim``, ``d_ff``, ``n_experts``, ``n_kv_heads``,
+    ``ce_chunk``), plus ``device`` (default ``cuda``; ``cpu`` only when
+    asked).  Data is the same synthetic next-token batch, drawn once from
+    ``np.random.default_rng(seed)`` and fed every step; the optimizer is
+    ``AdamW(lr)``.  Logs ``loss`` and ``grad_norm`` at every tenth step and
+    the last, then ``tokens_per_s``, ``first_step_s`` (the first step's wall,
+    synchronized, kernel loading included) and the ``StepClock`` means.
+
+    Not ported yet, each named in ROADMAP: ``save_every`` checkpointing
+    (raises when > 0), the profiler and capture hooks, fault injection, the
+    utilization ledger and the metrics drain; ``aot_compile_s`` has no
+    counterpart in eager mode.
+    """
+    if int(ctx.get_param("save_every", 0)) > 0:
+        raise NotImplementedError(
+            "lm_train save_every (checkpoint save/resume) is not ported yet "
+            "(ROADMAP: device-side runtime glue, runtime/checkpoint.py)"
+        )
+    device = resolve_device(ctx.get_param("device", "cuda"))
+    steps = int(ctx.get_param("steps", 10))
+    batch_size = int(ctx.get_param("batch", 8))
+    seq = int(ctx.get_param("seq", 128))
+    lr = float(ctx.get_param("lr", 3e-4))
+    cfg_fields = _int_params(ctx, (
+        "vocab_size", "d_model", "n_layers", "n_heads",
+        "head_dim", "d_ff", "n_experts", "n_kv_heads", "ce_chunk",
+    ))
+    if ctx.get_param("attention_impl") is not None:
+        cfg_fields["attention_impl"] = str(ctx.get_param("attention_impl"))
+    cfg = TransformerConfig(max_seq=seq, **cfg_fields)
+    seed = ctx.seed or 0
+
+    ts = build_train_step(
+        loss_fn=lambda p, b: loss_fn(p, b, cfg, device=device),
+        init_fn=lambda g: init_params(cfg, g),
+        optimizer=AdamW(lr),
+    )
+    params, opt_state = ts.init(torch.Generator(device=device).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch_size, seq + 1)), device=device)
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+
+    clock = StepClock()
+    t0 = time.perf_counter()
+    clock.start()
+    for i in range(steps):
+        params, opt_state, metrics = ts.step(params, opt_state, batch)
+        if ctx.is_leader and (i % 10 == 0 or i == steps - 1):
+            ctx.log_metrics(step=i, loss=float(metrics["loss"]),
+                            grad_norm=float(metrics["grad_norm"]))
+        if i == 0:
+            _sync(device)  # the cold-start metric is the first step's full time
+            first_step_s = clock.tick()
+        else:
+            clock.tick()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    if steps <= 0 or not ctx.is_leader:
+        return
+    tps = steps * batch_size * seq / dt
+    ctx.log_metrics(step=steps, tokens_per_s=tps, first_step_s=first_step_s, **clock.summary())
+    ctx.log_text(
+        f"lm_train done: {steps} steps, final loss {float(metrics['loss']):.4f}, "
+        f"{tps:.0f} tokens/s (first step {first_step_s:.2f}s)"
+    )

@@ -6,23 +6,43 @@ fields, the same stacked ``[L, ...]`` parameter layouts (``wq [L,D,H,hd]``,
 block arithmetic, so a JAX parameter tree carries over leaf by leaf
 (:mod:`polyaxon_tpu_torch.models.weights`).  The layer scan is a Python loop.
 
-Ported: the plain single-device forward, dense MLP, GQA, and flash or dense
-attention.  Parallelism templates and meshes, MoE, remat and ring/Ulysses
-attention raise ``NotImplementedError`` naming their ROADMAP item.
+Ported: the plain single-device forward, dense MLP, GQA, flash or dense
+attention, the remat policies (per-layer ``torch.utils.checkpoint``,
+selective for the named policies), and the training loss with its
+blockwise cross-entropy.  Parallelism templates and meshes, MoE and
+ring/Ulysses attention raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
 from polyaxon_tpu_torch.parallel.flash import flash_attention
 
 _ATTENTION_IMPLS = ("auto", "dense", "flash")
+_REMAT_POLICIES = (
+    "none", "dots", "dots_no_batch", "save_attn", "save_attn_mlp", "save_qkv_attn",
+)
+#: The values each named policy keeps (JAX's ``save_only_these_names``).
+_SAVED_NAMES = {
+    "save_attn": ("attn_out",),
+    "save_attn_mlp": ("attn_out", "mlp_act"),
+    "save_qkv_attn": ("q_proj", "k_proj", "v_proj", "attn_out"),
+}
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
 
 
 @dataclass(frozen=True)
@@ -40,7 +60,7 @@ class TransformerConfig:
     #: 0 = dense MLP; >0 = MoE (not ported yet).
     n_experts: int = 0
     capacity_factor: float = 1.25
-    #: Activation checkpointing (training slice; not ported yet).
+    #: Activation checkpointing of each layer (see :class:`_SavePolicy`).
     remat: bool = False
     remat_policy: str = "none"
     #: The TPU kernel's VMEM tile edge; kept so configs carry over.  The
@@ -52,17 +72,13 @@ class TransformerConfig:
     #: "flash" = the flash wrapper (its plain version on a CPU tensor);
     #: "dense" = :func:`_dense_attention`.
     attention_impl: str = "auto"
-    #: Blockwise cross-entropy chunk (read by the training loss; not ported yet).
+    #: Blockwise cross-entropy chunk of :func:`loss_fn` (0 = whole logits).
     ce_chunk: int = 0
 
     def __post_init__(self) -> None:
-        allowed = (
-            "none", "dots", "dots_no_batch", "save_attn", "save_attn_mlp",
-            "save_qkv_attn",
-        )
-        if self.remat_policy not in allowed:
+        if self.remat_policy not in _REMAT_POLICIES:
             raise ValueError(
-                f"Unknown remat_policy {self.remat_policy!r} (one of {allowed})"
+                f"Unknown remat_policy {self.remat_policy!r} (one of {_REMAT_POLICIES})"
             )
         if self.attention_impl not in _ATTENTION_IMPLS:
             raise ValueError(
@@ -167,6 +183,89 @@ def _use_flash(cfg: TransformerConfig, x: torch.Tensor) -> bool:
     return cfg.attention_impl == "flash"
 
 
+class _SavePolicy:
+    """What a checkpointed layer keeps for its backward under one
+    ``remat_policy``; everything else is recomputed.
+
+    Counterpart of the JAX checkpoint policies (``transformer.py:493-512``).
+    A selective-checkpoint policy sees dispatcher ops, so:
+
+    - ``dots`` keeps every matrix product's output (``aten.mm`` /
+      ``aten.bmm``; the einsums lower to ``bmm``), ``dots_no_batch`` those
+      with no batch dimension (``mm``, and ``bmm`` over a batch of one, which
+      is how an einsum without batch axes lowers);
+    - the named policies keep every op run inside :meth:`scope` of a name
+      they list, the counterpart of ``checkpoint_name``.  The attention is
+      one op there, the custom operator ``polyaxon_tpu_torch::flash_attention``
+      on the flash path, so ``save_attn`` keeps its ``(out, lse)`` and the
+      recompute launches no forward kernel: a ``save_attn`` step makes one
+      forward launch per layer, ``none`` and ``dots`` two;
+    - ``none`` keeps only the layer's inputs (plain checkpointing).
+    """
+
+    def __init__(self, remat_policy: str) -> None:
+        self.remat_policy = remat_policy
+        self.names = frozenset(_SAVED_NAMES.get(remat_policy, ()))
+        self._scope: Optional[str] = None
+
+    @contextlib.contextmanager
+    def scope(self, name: str) -> Iterator[None]:
+        prev, self._scope = self._scope, name
+        try:
+            yield
+        finally:
+            self._scope = prev
+
+    def __call__(self, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+        keep = self._scope in self.names
+        if self.remat_policy == "dots":
+            keep = op in _MATMULS
+        elif self.remat_policy == "dots_no_batch":
+            keep = op is torch.ops.aten.mm.default or (
+                op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
+            )
+        return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    def checkpoint_kwargs(self) -> Dict[str, Any]:
+        if self.remat_policy == "none":
+            return {}
+        return {"context_fn": functools.partial(create_selective_checkpoint_contexts, self)}
+
+
+def _layer(x, positions, layer, cfg: TransformerConfig, use_flash: bool,
+           policy: _SavePolicy, want_kv: bool):
+    """One decoder block (JAX ``forward.block``): ``(x, (k, v) or None)``."""
+    c = cfg
+    h = _rmsnorm(x, layer["attn_norm"])
+    wq, wk, wv = (layer[n].to(h.dtype) for n in ("wq", "wk", "wv"))
+    with policy.scope("q_proj"):
+        q = _rope(torch.einsum("btd,dhk->bthk", h, wq), positions, c.rope_theta)
+    with policy.scope("k_proj"):
+        k = _rope(torch.einsum("btd,dhk->bthk", h, wk), positions, c.rope_theta)
+    with policy.scope("v_proj"):
+        v = torch.einsum("btd,dhk->bthk", h, wv)
+    kv = (k, v) if want_kv else None  # post-rope, pre-broadcast (GQA)
+    group = c.n_heads // c.kv_heads
+    if group > 1:
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    with policy.scope("attn_out"):
+        if use_flash:
+            attn = flash_attention(q, k, v, q.shape[-1] ** -0.5, device=x.device)
+        else:
+            attn = _dense_attention(q, k, v, positions, positions)
+    x = x + torch.einsum("bthk,hkd->btd", attn, layer["wo"].to(h.dtype))
+
+    h = _rmsnorm(x, layer["mlp_norm"])
+    up = torch.einsum("btd,df->btf", h, layer["wi"].to(h.dtype))
+    gate = torch.einsum("btd,df->btf", h, layer["wg"].to(h.dtype))
+    act = F.silu(gate)
+    with policy.scope("mlp_act"):
+        y = act * up
+    x = x + torch.einsum("btf,fd->btd", y, layer["wd"].to(h.dtype))
+    return x, kv
+
+
 def forward(
     params: Dict[str, Any],
     tokens: torch.Tensor,
@@ -175,6 +274,7 @@ def forward(
     mesh=None,
     positions: Optional[torch.Tensor] = None,
     return_kv: bool = False,
+    return_hidden: bool = False,
     *,
     device: DeviceLike = "cuda",
 ):
@@ -182,8 +282,12 @@ def forward(
 
     ``return_kv`` also returns the per-layer post-rope, unexpanded (GQA)
     key/value stacks ``(k, v)``, each ``[L,B,T,Hkv,d]`` — the decode
-    prefill fills its cache from them.  ``params`` must already lie on
-    ``device``; ``tokens`` is moved there.
+    prefill fills its cache from them.  ``return_hidden`` returns the
+    final-norm hidden states [B,T,D] in the compute dtype instead of the
+    logits, for :func:`loss_fn`'s blockwise cross-entropy.  With
+    ``cfg.remat`` each layer is checkpointed while grads are being
+    recorded.  ``params`` must already lie on ``device``; ``tokens`` is
+    moved there.
     """
     c = cfg
     dev = resolve_device(device)
@@ -194,8 +298,6 @@ def forward(
         )
     if c.n_experts:
         raise NotImplementedError("MoE is not ported yet (ROADMAP: MoE / expert parallelism)")
-    if c.remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP: training slice)")
     require_on(dev, embed=params["embed"])
     tokens = tokens.to(dev)
     B, T = tokens.shape
@@ -206,37 +308,95 @@ def forward(
 
     x = params["embed"].to(c.dtype)[tokens]  # [B,T,D]
     use_flash = _use_flash(c, x)
-    group = c.n_heads // c.kv_heads
-    blk = params["block"]
+    policy = _SavePolicy(c.remat_policy)
+    remat = c.remat and torch.is_grad_enabled()
+    # unbind, not w[i]: its backward stacks the per-layer grads once.
+    per_layer = {name: w.unbind(0) for name, w in params["block"].items()}
     ks, vs = [], []
     for i in range(c.n_layers):
-        layer = {name: w[i] for name, w in blk.items()}
-        h = _rmsnorm(x, layer["attn_norm"])
-        q = torch.einsum("btd,dhk->bthk", h, layer["wq"].to(h.dtype))
-        k = torch.einsum("btd,dhk->bthk", h, layer["wk"].to(h.dtype))
-        v = torch.einsum("btd,dhk->bthk", h, layer["wv"].to(h.dtype))
-        q = _rope(q, positions, c.rope_theta)
-        k = _rope(k, positions, c.rope_theta)
-        if return_kv:
-            ks.append(k)  # post-rope, pre-broadcast (GQA)
-            vs.append(v)
-        if group > 1:
-            k = k.repeat_interleave(group, dim=2)
-            v = v.repeat_interleave(group, dim=2)
-        if use_flash:
-            attn = flash_attention(q, k, v, q.shape[-1] ** -0.5, device=dev)
+        layer = {name: ws[i] for name, ws in per_layer.items()}
+        args = (x, positions, layer, c, use_flash, policy, return_kv)
+        if remat:
+            x, kv = checkpoint(_layer, *args, use_reentrant=False, **policy.checkpoint_kwargs())
         else:
-            attn = _dense_attention(q, k, v, positions, positions)
-        x = x + torch.einsum("bthk,hkd->btd", attn, layer["wo"].to(h.dtype))
-
-        h = _rmsnorm(x, layer["mlp_norm"])
-        up = torch.einsum("btd,df->btf", h, layer["wi"].to(h.dtype))
-        gate = torch.einsum("btd,df->btf", h, layer["wg"].to(h.dtype))
-        y = F.silu(gate) * up
-        x = x + torch.einsum("btf,fd->btd", y, layer["wd"].to(h.dtype))
+            x, kv = _layer(*args)
+        if return_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
 
     x = _rmsnorm(x, params["final_norm"])
+    if return_hidden:
+        return x
     logits = torch.einsum("btd,dv->btv", x, params["unembed"].to(x.dtype)).float()
     if return_kv:
         return logits, (torch.stack(ks), torch.stack(vs))
     return logits
+
+
+def _ce_chunk(xc, unembed, tc, mc):
+    logits = torch.einsum("bcd,dv->bcv", xc, unembed.to(xc.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = logits.gather(-1, tc[..., None])[..., 0]
+    return ((lse - tl) * mc).sum(), mc.sum()
+
+
+def _blockwise_ce(
+    x: torch.Tensor,
+    unembed: torch.Tensor,
+    targets: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    chunk: int,
+) -> torch.Tensor:
+    """Mean masked next-token NLL without materializing [B,T,V] logits.
+
+    Counterpart of the JAX ``_blockwise_ce``: each ``chunk`` of the sequence
+    is projected to logits, reduced to logsumexp and the target logit, and
+    dropped; each chunk is checkpointed, so the backward recomputes its
+    logits instead of keeping them.
+    """
+    B, T, _ = x.shape
+    m = torch.ones((B, T), dtype=torch.float32, device=x.device) if mask is None else mask.float()
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(0, T, chunk):
+        args = (x[:, s:s + chunk], unembed, targets[:, s:s + chunk], m[:, s:s + chunk])
+        if torch.is_grad_enabled():
+            part, n = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            part, n = _ce_chunk(*args)
+        nll_sum = nll_sum + part
+        cnt = cnt + n
+    return nll_sum / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(
+    params: Dict[str, Any],
+    batch: Dict[str, torch.Tensor],
+    cfg: TransformerConfig,
+    template=None,
+    mesh=None,
+    *,
+    device: DeviceLike = "cuda",
+) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch`` (``tokens``, ``targets``, and
+    optional ``mask`` and ``positions``), a float32 scalar.
+
+    With ``cfg.ce_chunk`` dividing the sequence it goes through
+    :func:`_blockwise_ce`.  Dense MLP only: MoE (and its balance loss)
+    raises in :func:`forward`.
+    """
+    dev = resolve_device(device)
+    targets = batch["targets"].to(dev).long()
+    mask = batch.get("mask")
+    mask = None if mask is None else mask.to(dev)
+    chunked = bool(cfg.ce_chunk and targets.shape[-1] % cfg.ce_chunk == 0)
+    out = forward(params, batch["tokens"], cfg, template=template, mesh=mesh,
+                  positions=batch.get("positions"), return_hidden=chunked, device=dev)
+    if chunked:
+        return _blockwise_ce(out, params["unembed"], targets, mask, cfg.ce_chunk)
+    logp = torch.log_softmax(out, dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,17 +1,21 @@
-"""Flash attention forward: the Hopper kernel, its wrapper and its plain version.
+"""Flash attention: the Hopper kernels, their wrappers and their plain versions.
 
-Counterpart of ``polyaxon_tpu/parallel/flash.py`` (``flash_block_fwd`` and
-the single-device ``flash_attention``).  The kernel is hand-written CUDA C++
-for ``sm_90a`` (``csrc/flash_fwd.cu``, replacing the TPU's ``_fwd_kernel``),
-built at first use and bound through ``ctypes``.
+Counterpart of ``polyaxon_tpu/parallel/flash.py`` (``flash_block_fwd``,
+``flash_block_bwd`` and the single-device ``flash_attention`` with its
+custom VJP).  The kernels are hand-written CUDA C++ for ``sm_90a``, built at
+first use and bound through ``ctypes``: ``csrc/flash_fwd.cu`` replaces the
+TPU's ``_fwd_kernel``, ``csrc/flash_bwd.cu`` its ``_dq_kernel`` and
+``_dkv_kernel``.
 
-The wrapper dispatches on where its tensors lie, and on nothing else: a CPU
-tensor goes to :func:`flash_block_fwd_reference`, a CUDA tensor to the
-kernel, which either launches or raises.  ``lse`` is ``[BH, T]``: the TPU's
-lane-replicated ``[BH, T, 128]`` layout was a Mosaic tiling rule.
+Each wrapper dispatches on where its tensors lie, and on nothing else: a CPU
+tensor goes to the plain version, a CUDA tensor to the kernel, which either
+launches or raises.  ``lse`` is ``[BH, T]``: the TPU's lane-replicated
+``[BH, T, 128]`` layout was a Mosaic tiling rule.
 
-The backward kernels (``_dq_kernel``, ``_dkv_kernel``) belong to the
-training slice; until then the kernel path refuses to run under autograd.
+``flash_attention`` is differentiable: it is the custom operator
+``polyaxon_tpu_torch::flash_attention`` (so a selective-checkpoint policy
+can name it and keep its output) with a registered autograd formula that
+mirrors the JAX ``_flash_fwd``/``_flash_bwd`` pair.
 """
 
 from __future__ import annotations
@@ -28,6 +32,11 @@ from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
 _NEG_BIG = -1e30  # mask value; finite so masked rows stay NaN-free
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
+
+
+def _visible(Tq: int, Tk: int, device: torch.device) -> torch.Tensor:
+    """[Tq, Tk] causal mask, q and k sharing one global offset."""
+    return torch.ones((Tq, Tk), dtype=torch.bool, device=device).tril()
 
 
 def flash_block_fwd_reference(
@@ -47,7 +56,7 @@ def flash_block_fwd_reference(
         )
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
     if causal:
-        keep = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device).tril()
+        keep = _visible(Tq, Tk, q.device)
         s = s.masked_fill(~keep, _NEG_BIG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -124,6 +133,147 @@ def flash_block_fwd(
 flash_block_fwd.launches = 0
 
 
+def flash_block_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the two backward kernels: ``(dq, dk, dv)`` f32.
+
+    p = exp(s·scale − lse), masked to 0; dp = do·vᵀ; ds = p ⊙ (dp − delta)
+    ·scale.  It rounds where the TPU kernels round (``flash.py:210, 249,
+    258``): ds to k's dtype before dq = ds·k, p to do's dtype before
+    dv = pᵀ·do, ds to q's dtype before dk = dsᵀ·q.  A row whose lse is −inf
+    (it saw no key) contributes nothing, instead of exp(+inf).
+    """
+    Tq, Tk = q.shape[1], k.shape[1]
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * sm_scale
+    live = ~torch.isneginf(lse)
+    p = torch.exp(s - torch.where(live, lse, 0.0)[..., None])
+    keep = live[..., None]
+    if causal:
+        keep = keep & _visible(Tq, Tk, q.device)
+    p = torch.where(keep, p, 0.0)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dq = torch.einsum("bqk,bkd->bqd", ds.to(k.dtype).float(), kf)
+    dv = torch.einsum("bqk,bqd->bkd", p.to(do.dtype).float(), dof)
+    dk = torch.einsum("bqk,bqd->bkd", ds.to(q.dtype).float(), qf)
+    return dq, dk, dv
+
+
+def check_bwd_inputs(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor,
+) -> None:
+    """Raise on anything the backward kernels do not take: the forward's
+    checks on q, k, v, then do like q, and lse, delta float32 ``[BH, Tq]``."""
+    check_kernel_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do must match q: {tuple(do.shape)} {do.dtype}, "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {tuple(q.shape[:2])}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if not (do.is_contiguous() and lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("kernel takes contiguous do, lse, delta")
+    if not (q.device == do.device == lse.device == delta.device):
+        raise ValueError("q, do, lse, delta must lie on one device")
+
+
+@functools.cache
+def _bwd_kernel_fns():
+    lib = _build.load("flash_bwd")
+    ints = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + ints  # 6 inputs, dq
+    lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + ints  # 6 inputs, dk, dv
+    for fn in (lib.flash_bwd_dq, lib.flash_bwd_dkv):
+        fn.restype = ctypes.c_int
+    return lib.flash_bwd_dq, lib.flash_bwd_dkv
+
+
+def _launch_bwd(fn, name, q, k, v, do, lse, delta, outs, causal, sm_scale) -> None:
+    BH, Tq, d = q.shape
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), *(o.data_ptr() for o in outs), BH, Tq, k.shape[1], d,
+                 _KERNEL_DTYPES[q.dtype], int(bool(causal)), float(sm_scale),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _on_cuda(q: torch.Tensor) -> bool:
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device}")
+    return True
+
+
+def flash_block_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+) -> torch.Tensor:
+    """dq of one attention block, float32 [BH, Tq, d]: the dq kernel on CUDA
+    tensors (adding one to ``flash_block_dq.launches``), the plain version
+    on CPU tensors."""
+    if not _on_cuda(q):
+        return flash_block_bwd_reference(q, k, v, do, lse, delta, causal=causal,
+                                         sm_scale=sm_scale)[0]
+    check_bwd_inputs(q, k, v, do, lse, delta)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if q.shape[0] and q.shape[1]:  # the kernel runs whenever dq is not empty
+        _launch_bwd(_bwd_kernel_fns()[0], "flash_bwd dq", q, k, v, do, lse, delta, (dq,),
+                    causal, sm_scale)
+        flash_block_dq.launches += 1
+    return dq
+
+
+def flash_block_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of one attention block, float32 [BH, Tk, d]: the dk/dv kernel
+    on CUDA tensors (adding one to ``flash_block_dkv.launches``), the plain
+    version on CPU tensors."""
+    if not _on_cuda(q):
+        return flash_block_bwd_reference(q, k, v, do, lse, delta, causal=causal,
+                                         sm_scale=sm_scale)[1:]
+    check_bwd_inputs(q, k, v, do, lse, delta)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    if k.shape[0] and k.shape[1]:  # the kernel runs whenever dk, dv are not empty
+        _launch_bwd(_bwd_kernel_fns()[1], "flash_bwd dk/dv", q, k, v, do, lse, delta,
+                    (dk, dv), causal, sm_scale)
+        flash_block_dkv.launches += 1
+    return dk, dv
+
+
+flash_block_dq.launches = 0
+flash_block_dkv.launches = 0
+
+
+def flash_block_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of one attention block: ``(dq, dk, dv)``, float32.
+
+    q, do: [BH, Tq, d]; k, v: [BH, Tk, d]; lse, delta: [BH, Tq] float32
+    (delta = rowsum(do ⊙ o)).  On CUDA tensors this launches the dq kernel
+    (:func:`flash_block_dq`) and the dk/dv kernel (:func:`flash_block_dkv`);
+    on CPU tensors it is the plain version, once.
+    """
+    if not _on_cuda(q):
+        return flash_block_bwd_reference(q, k, v, do, lse, delta, causal=causal,
+                                         sm_scale=sm_scale)
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    return (flash_block_dq(q, k, v, do, lse, delta, **kw),
+            *flash_block_dkv(q, k, v, do, lse, delta, **kw))
+
+
 def _bhd(x: torch.Tensor) -> torch.Tensor:
     B, T, H, d = x.shape
     return x.transpose(1, 2).reshape(B * H, T, d)
@@ -134,6 +284,44 @@ def _unbhd(x: torch.Tensor, B: int, H: int) -> torch.Tensor:
     return x.reshape(B, H, T, d).transpose(1, 2)
 
 
+@torch.library.custom_op("polyaxon_tpu_torch::flash_attention", mutates_args=())
+def _flash_attention_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal attention of [B, T, H, d] q/k/v: ``(out, lse)``, out in q's
+    dtype (as JAX's ``_flash_fwd`` casts it), lse float32 [B*H, T]."""
+    B, T, H, d = q.shape
+    o, lse = flash_block_fwd(_bhd(q), _bhd(k), _bhd(v), causal=True, sm_scale=sm_scale)
+    return _unbhd(o, B, H).to(q.dtype), lse
+
+
+def _flash_setup_context(ctx, inputs, output) -> None:
+    q, k, v, sm_scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)  # JAX's residuals (q, k, v, out, lse)
+    ctx.sm_scale = sm_scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, dout: torch.Tensor, _dlse: torch.Tensor):
+    """JAX's ``_flash_bwd``: delta = rowsum(do ⊙ out) in float32 from do
+    cast to q's dtype and the saved out, then the two backward kernels; the
+    grads come back in the inputs' dtypes."""
+    q, k, v, out, lse = ctx.saved_tensors
+    B, T, H, d = q.shape
+    dof = _bhd(dout.to(q.dtype))
+    delta = (dof.float() * _bhd(out).float()).sum(dim=-1)
+    dq, dk, dv = flash_block_bwd(_bhd(q), _bhd(k), _bhd(v), dof, lse, delta, causal=True,
+                                 sm_scale=ctx.sm_scale)
+    return (_unbhd(dq, B, H).to(q.dtype), _unbhd(dk, B, H).to(k.dtype),
+            _unbhd(dv, B, H).to(v.dtype), None)
+
+
+torch.library.register_autograd(
+    "polyaxon_tpu_torch::flash_attention", _flash_backward, setup_context=_flash_setup_context
+)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -142,16 +330,12 @@ def flash_attention(
     *,
     device: DeviceLike = "cuda",
 ) -> torch.Tensor:
-    """Causal flash attention. q/k/v: [B, T, H, d] → [B, T, H, d] in q's dtype."""
+    """Causal flash attention. q/k/v: [B, T, H, d] → [B, T, H, d] in q's dtype.
+
+    Differentiable: the backward runs :func:`flash_block_bwd` (the two
+    backward kernels on CUDA, their plain version on the CPU).
+    """
     dev = resolve_device(device)
     require_on(dev, q=q, k=k, v=v)
-    if dev.type == "cuda" and torch.is_grad_enabled() and (
-        q.requires_grad or k.requires_grad or v.requires_grad
-    ):
-        raise NotImplementedError(
-            "flash attention backward (_dq_kernel/_dkv_kernel) is not ported yet "
-            "(ROADMAP: training slice)"
-        )
-    B, T, H, d = q.shape
-    o, _ = flash_block_fwd(_bhd(q), _bhd(k), _bhd(v), causal=True, sm_scale=sm_scale)
-    return _unbhd(o, B, H).to(q.dtype)
+    out, _ = _flash_attention_op(q, k, v, float(sm_scale))
+    return out

@@ -4,7 +4,11 @@ Marked ``cuda``: they skip without one.  This file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerances: o atol 2e-2 (p is rounded to bf16 against the kernel's running
-max, not the final one), lse atol 1e-3; float32 inputs 1e-5.
+max, not the final one), lse atol 1e-3; float32 inputs 1e-5.  Backward
+kernels: dq/dk/dv atol 2e-3 with bf16 inputs (the kernels and the plain
+version round ds and p to bf16 at the same places, but a float32 difference
+in summation order can flip one rounding), 1e-4 with float32 inputs
+(summation order over up to 1000 terms).
 """
 
 import pytest
@@ -50,6 +54,66 @@ def test_flash_fwd_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(2, 8, 32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash.flash_block_fwd(q, q, q, causal=True, sm_scale=1.0)
-    q = torch.zeros(2, 8, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash.flash_attention(q.view(2, 8, 1, 64), q.view(2, 8, 1, 64), q.view(2, 8, 1, 64), 1.0)
+    # Under autograd, grads now flow through the kernels (forward, dq, dk/dv).
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 80, 3, 64, generator=g, device=cuda).requires_grad_(True)
+               for _ in range(3))
+    before = (flash.flash_block_fwd.launches, flash.flash_block_dq.launches,
+              flash.flash_block_dkv.launches)
+    out = flash.flash_attention(q, k, v, 0.125)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (flash.flash_block_fwd.launches, flash.flash_block_dq.launches,
+            flash.flash_block_dkv.launches) == tuple(n + 1 for n in before)
+    qc, kc, vc = (x.detach().cpu().requires_grad_(True) for x in (q, k, v))
+    ref = torch.autograd.grad(flash.flash_attention(qc, kc, vc, 0.125, device="cpu")
+                              .square().sum(), (qc, kc, vc))
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+def _bwd_inputs(device, BH, Tq, Tk, d, dtype, causal, seed):
+    """Inputs of one backward call: q, k, v, do, and the forward's lse and
+    delta = rowsum(do ⊙ o) from the plain forward."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn(BH, Tq, d, generator=g, device=device).to(dtype) for _ in range(2))
+    k, v = (torch.randn(BH, Tk, d, generator=g, device=device).to(dtype) for _ in range(2))
+    o, lse = flash.flash_block_fwd_reference(q, k, v, causal=causal, sm_scale=d**-0.5)
+    delta = (do.float() * o.to(dtype).float()).sum(-1)
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize(
+    "BH, Tq, Tk, d, dtype, causal",
+    [
+        (640, 1024, 1024, 64, torch.bfloat16, True),  # 671M training: B=20 x H=32, T=1024
+        (8, 1000, 1000, 64, torch.bfloat16, True),  # ragged tail
+        (8, 300, 200, 128, torch.float32, False),  # non-causal, Tq != Tk, d = 128, f32
+        (8, 200, 300, 128, torch.bfloat16, True),  # causal, Tq < Tk
+        (4, 70, 0, 64, torch.float32, False),  # empty key block
+    ],
+)
+def test_flash_bwd_kernels_match_plain(cuda, BH, Tq, Tk, d, dtype, causal):
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, BH, Tq, Tk, d, dtype, causal, Tq + Tk)
+    before = (flash.flash_block_dq.launches, flash.flash_block_dkv.launches)
+    grads = flash.flash_block_bwd(q, k, v, do, lse, delta, causal=causal, sm_scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert (flash.flash_block_dq.launches, flash.flash_block_dkv.launches) == (
+        before[0] + 1, before[1] + (1 if Tk else 0))
+    ref = flash.flash_block_bwd_reference(q, k, v, do, lse, delta, causal=causal,
+                                          sm_scale=d**-0.5)
+    atol = 2e-3 if dtype == torch.bfloat16 else 1e-4
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        assert got.dtype == torch.float32 and got.shape == want.shape, name
+        torch.testing.assert_close(got, want, atol=atol, rtol=0, msg=name)
+
+
+def test_flash_bwd_kernels_zero_rows_with_lse_minus_inf(cuda):
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 4, 130, 90, 64, torch.float32, False, 1)
+    lse[1, 5] = lse[2, 64:] = float("-inf")
+    grads = flash.flash_block_bwd(q, k, v, do, lse, delta, causal=False, sm_scale=0.125)
+    ref = flash.flash_block_bwd_reference(q, k, v, do, lse, delta, causal=False, sm_scale=0.125)
+    assert all(bool(torch.isfinite(x).all()) for x in grads)
+    assert torch.all(grads[0][1, 5] == 0) and torch.all(grads[0][2, 64:] == 0)
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

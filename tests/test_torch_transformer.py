@@ -132,7 +132,11 @@ def test_unported_paths_raise(kwargs, match):
         ttr.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("override, match", [({"n_experts": 4}, "MoE"), ({"remat": True}, "remat")])
+@pytest.mark.parametrize(
+    "override, match",
+    [({"n_experts": 4}, "MoE"), ({"n_experts": 4, "remat": True}, "MoE")],
+    ids=["override0-MoE", "override1-remat"],  # remat is ported; it must not skip the MoE refusal
+)
 def test_unported_config_raises(override, match):
     _, tcfg = configs("mha", "dense")
     tp = ttr.init_params(tcfg, torch.Generator().manual_seed(0))
