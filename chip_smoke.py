@@ -15,10 +15,15 @@ and the two backward kernels in every layer).  Phases:
    path that runs it and at edge shapes, with its time beside the plain
    version's, the PyTorch library call's and its bound: the forward at the
    prefill shape, then the two backward kernels (and the forward) at the
-   training shape;
+   training shape (bf16 inputs run the tensor-core kernels, float32 inputs
+   the FMA kernels);
 4. small float32 models: greedy ``generate`` through the kernel gives the
    same tokens as with dense attention, and ``loss_fn`` and every
-   parameter grad through the kernels match dense attention;
+   parameter grad through the kernels match dense attention; small bf16
+   models (head_dim 64 and 128): the grads of ``loss_fn`` through the
+   tensor-core kernels match the plain backward after the same forward on
+   the card, and the loss and grads match the plain versions on the CPU;
+   a control run with dk scaled by 1.01 fails the card comparison;
 5. the serving path: ``lm_generate`` at the 671M width (batch 4, prompt
    512, 64 new tokens, greedy, bf16 compute, random weights from a seed),
    with the kernels' launch counts set to 0 before it and read after;
@@ -40,6 +45,7 @@ and ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -61,6 +67,18 @@ BATCH, PROMPT, NEW_TOKENS, SEED = 4, 512, 64, 0
 # The 671M bench train shape (bench.py: batch 20, seq 1024) and the steps run.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, BENCH_STEPS, LR = 20, 1024, 5, 3, 3e-4
 
+# bf16 small models, the backward kernels vs the plain backward on the card
+# after the same forward kernel: the same GEMMs and the same forward, so
+# only the backward kernels differ.  A dq, dk or dv a float32 ulp away can
+# round to another bf16 value, and such flips spread through the bf16
+# model's backward, so each parameter grad may differ by 5e-3 of its norm;
+# dk scaled by 1.01 moves k's projection grad by 1e-2, and must fail.
+# Against the plain versions on the CPU the whole bf16 model runs on two
+# devices (every GEMM output rounds to bf16 on each), so the loss may
+# differ by 1e-3 and grads by 2e-2 of their norm there; printed beside: the
+# two devices' spread with dense attention, where no kernel runs.
+BF16_BWD_GRAD_RTOL = 5e-3
+BF16_MODEL_LOSS_ATOL, BF16_MODEL_GRAD_RTOL = 1e-3, 2e-2
 # Kernel vs plain version: p is rounded to bf16 before P.V in both, but the
 # kernel's online softmax rounds p against a running max that the one-pass
 # plain version never sees, so o differs by bf16 rounding of p.
@@ -69,6 +87,10 @@ O_ATOL, LSE_ATOL = 2e-2, 1e-3
 # at the same places; a float32 difference in summation order can flip one
 # bf16 rounding.  Float32 inputs differ by summation order alone.
 BWD_ATOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+# What the bf16 paths of the two redesigned kernels are built from.
+FWD_DESIGN = "mma.sync m16n8k16 bf16, cp.async two-stage K/V ring, p in registers"
+DKV_DESIGN = ("mma.sync m16n8k16 bf16, transposed scores, cp.async two-stage q/do ring, "
+              "p/ds near a bf16 rounding boundary summed again in the plain order")
 # The backward bounds at the training shape, worked from the data sheet
 # (bytes moved and FLOPs): attention_bound must reproduce them.
 TRAIN_SHAPE_BOUNDS = {"fwd": (422.1e6, None), "dq": (508.6e6, 129.0e9),
@@ -180,6 +202,8 @@ def phase_kernels():
         (8, 1000, 1000, 64, torch.bfloat16, True),  # ragged tail
         (8, 300, 200, 64, torch.bfloat16, False),  # non-causal, Tq != Tk
         (16, 512, 512, 128, torch.bfloat16, True),  # d = 128
+        (8, 129, 129, 64, torch.bfloat16, True),  # one row past a tile edge
+        (8, 300, 200, 128, torch.bfloat16, True),  # causal, Tq > Tk
         (4, 100, 100, 64, torch.float32, True),  # float32 inputs
     ]
     record = None
@@ -211,7 +235,7 @@ def phase_kernels():
             log(f"  kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms (sdpa) "
                 f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
             record = {
-                "name": "flash_fwd", "route": "cuda",
+                "name": "flash_fwd", "route": "cuda", "design": FWD_DESIGN,
                 "source": "polyaxon_tpu_torch/csrc/flash_fwd.cu",
                 "replaces": "polyaxon_tpu/parallel/flash.py:58",
                 "max_abs_err": o_err, "ms": ms, "plain_ms": plain_ms,
@@ -244,6 +268,8 @@ def phase_bwd_kernels():
         (8, 1000, 1000, 64, torch.bfloat16, True),  # ragged tail
         (8, 300, 200, 64, torch.bfloat16, False),  # non-causal, Tq != Tk
         (16, 512, 512, 128, torch.bfloat16, True),  # d = 128
+        (8, 129, 129, 64, torch.bfloat16, True),  # one row past a tile edge
+        (8, 300, 200, 128, torch.bfloat16, True),  # causal, Tq > Tk
         (4, 100, 100, 64, torch.float32, True),  # float32 inputs
         (8, 300, 200, 128, torch.float32, False),  # all the edges at once
     ]
@@ -297,7 +323,8 @@ def phase_bwd_kernels():
         records["dq"] = dict(name="flash_bwd_dq", replaces="polyaxon_tpu/parallel/flash.py:177",
                              max_abs_err=errs[0], ms=dq_ms, bound_ms=bounds["dq"][0],
                              bound_by=bounds["dq"][1], **common)
-        records["dkv"] = dict(name="flash_bwd_dkv", replaces="polyaxon_tpu/parallel/flash.py:219",
+        records["dkv"] = dict(name="flash_bwd_dkv", design=DKV_DESIGN,
+                              replaces="polyaxon_tpu/parallel/flash.py:219",
                               max_abs_err=max(errs[1:]), ms=dkv_ms, bound_ms=bounds["dkv"][0],
                               bound_by=bounds["dkv"][1], **common)
         records["fwd"] = dict(ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=sdpa_fwd_ms,
@@ -359,6 +386,96 @@ def phase_small_model_grads():
     if loss_diff > 1e-5 or grad_diff > 1e-5 or out["auto"][2] != (2, 2, 2) or \
             out["dense"][2] != (0, 0, 0):
         raise AssertionError("loss_fn grads through the kernels disagree with dense attention")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device)
+
+
+@contextlib.contextmanager
+def _swapped(**fns):
+    """Replace functions of the flash module while the block runs (the
+    attention op and its backward look them up by name at each call)."""
+    from polyaxon_tpu_torch.parallel import flash
+
+    saved = {name: getattr(flash, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(flash, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(flash, name, fn)
+
+
+def phase_small_model_grads_bf16():
+    """The bf16 paths under autograd, on small bf16 models (head_dim 64 and
+    128, a ragged 100-token sequence), attention_impl "flash" throughout.
+    Every parameter grad of loss_fn through the tensor-core kernels matches
+    the same forward kernel with the plain backward swapped in on the card
+    (so only the backward kernels differ), and, more loosely, the loss and
+    grads match the plain versions on the CPU.  A control run with dk
+    scaled by 1.01 must fail the card comparison: it shows the limit can
+    see a kernel error of that size."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
+    from polyaxon_tpu_torch.parallel import flash
+    from polyaxon_tpu_torch.runtime.optim import tree_leaves
+
+    real_bwd = flash.flash_block_bwd
+
+    def bwd_with_dk_off_by_one_percent(*args, **kw):
+        dq, dk, dv = real_bwd(*args, **kw)
+        return dq, dk * 1.01, dv
+
+    plain_bwd_on_card = dict(flash_block_bwd=flash.flash_block_bwd_reference)
+    runs = (("kernel", "flash", "cuda", {}), ("plain_bwd", "flash", "cuda", plain_bwd_on_card),
+            ("fault", "flash", "cuda", dict(flash_block_bwd=bwd_with_dk_off_by_one_percent)),
+            ("plain", "flash", "cpu", {}), ("dense", "dense", "cpu", {}),
+            ("dense_cuda", "dense", "cuda", {}))
+    tok = np.random.default_rng(6).integers(0, 256, (2, 101))
+    for head_dim, n_heads in ((64, 4), (128, 2)):
+        base = TransformerConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=n_heads,
+                                 head_dim=head_dim, d_ff=512, max_seq=128, dtype=torch.bfloat16)
+        weights = init_params(base, torch.Generator(device="cuda").manual_seed(5))
+        out = {}
+        for name, impl, device, swap in runs:
+            params = _to(weights, device)
+            leaves = tree_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            t = torch.as_tensor(tok, device=device)
+            _reset_counts()
+            with _swapped(**swap):
+                loss = loss_fn(params, {"tokens": t[:, :-1], "targets": t[:, 1:]},
+                               base.scaled(attention_impl=impl), device=device)
+                grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+            out[name] = (loss.item(), grads, _counts())
+
+        def spread(a, b):
+            return (abs(out[a][0] - out[b][0]),
+                    max(((x - y).norm() / y.norm()).item() for x, y in zip(out[a][1], out[b][1])))
+
+        _, card_rel = spread("kernel", "plain_bwd")
+        _, fault_rel = spread("fault", "plain_bwd")
+        loss_diff, grad_rel = spread("kernel", "plain")
+        dev_loss, dev_rel = spread("dense_cuda", "dense")
+        log(f"small bf16 model head_dim {head_dim}: loss {out['kernel'][0]:.6f}; backward "
+            f"kernels vs the plain backward on the card: largest grad error / grad norm "
+            f"{card_rel:.3e} (<= {BF16_BWD_GRAD_RTOL}); control with dk x 1.01: "
+            f"{fault_rel:.3e} (> {BF16_BWD_GRAD_RTOL}); kernels vs plain on the CPU: loss diff {loss_diff:.3e} "
+            f"(<= {BF16_MODEL_LOSS_ATOL}), grads {grad_rel:.3e} (<= {BF16_MODEL_GRAD_RTOL}); "
+            f"dense on the card vs the CPU: {dev_loss:.3e}, {dev_rel:.3e}; launches "
+            f"fwd/dq/dkv {out['kernel'][2]} (expected (2, 2, 2)), plain backward "
+            f"{out['plain_bwd'][2]} (expected (2, 0, 0))")
+        if card_rel > BF16_BWD_GRAD_RTOL or loss_diff > BF16_MODEL_LOSS_ATOL or \
+                grad_rel > BF16_MODEL_GRAD_RTOL or out["kernel"][2] != (2, 2, 2) or \
+                out["plain_bwd"][2] != (2, 0, 0):
+            raise AssertionError("bf16 loss_fn grads through the kernels disagree with the "
+                                 "plain versions")
+        if fault_rel <= BF16_BWD_GRAD_RTOL:
+            raise AssertionError("the bf16 grad check does not see dk scaled by 1.01")
 
 
 def phase_main_path():
@@ -456,8 +573,10 @@ def _profile(label, fn, calls, top=8):
     idle = max(0.0, 1 - busy_ms / wall_ms)
     log(f"profile {label}: wall_ms {wall_ms:.3f} device_busy_ms {busy_ms:.3f} "
         f"idle_share {idle:.3f} device_ops_per_call {launches / calls:.0f}")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        log(f"    {ms:9.3f} ms {ms / busy_ms:6.1%}  {name[:120]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for i, (name, ms) in enumerate(ranked):  # the largest, and the port's own kernels
+        if i < top or "flash_" in name:
+            log(f"    {ms:9.3f} ms {ms / busy_ms:6.1%}  {name[:120]}")
     return idle
 
 
@@ -603,6 +722,7 @@ def main() -> int:
     bwd = phase_bwd_kernels()
     phase_small_model()
     phase_small_model_grads()
+    phase_small_model_grads_bf16()
     serve_launches = phase_main_path()
     phase_profile(*phase_prefill_parity())
     _free()

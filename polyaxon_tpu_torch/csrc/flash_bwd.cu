@@ -20,7 +20,8 @@
 // (2 x 2.6 MB) and writes dq (167.8 MB), 508.6 MB or 151.8 us, against 129.0
 // GFLOP of products (three per visible pair) or 130.4 us: bound by bytes.
 // The dk/dv pass reads the same and writes dk, dv (2 x 167.8 MB), 676.3 MB
-// or 201.9 us, against 172.0 GFLOP (four products) or 173.9 us: bytes.
+// or 201.9 us, against 172.0 GFLOP (four products) or 173.9 us: bytes, with
+// the products close behind.
 //
 // Design.  The TPU runs each pass as a grid whose innermost axis is
 // sequential and carries the accumulator in VMEM scratch; Hopper blocks run
@@ -32,26 +33,58 @@
 //   dk/dv pass: one block per (bh, 64-row k tile).  It walks the q/do tiles
 //              from the diagonal on and keeps its dk and dv rows in
 //              registers.
-// Each of the 8 warps owns 8 rows of the block's tile; a lane holds two
-// columns of the 64 x 64 score tile for each (so s and do v^T are computed
-// once per pass, from shared memory), writes its p / ds values to a shared
-// tile, and then owns d / 32 output columns of each of its rows for the
-// products that follow.  Tiles are staged in shared memory as float32;
-// tiles read one row per lane are padded by one word so the 32 lanes hit
-// 32 banks.  The products are plain float32 FMAs, as in flash_fwd.cu: this
-// first kernel is simple and right, and is bound by its own instruction
-// rate far above the byte floor.  Tensor-core products, TMA loads and a
-// software pipeline are the later work that closes that gap.  The ragged
-// tail (T not a multiple of 64) is masked in the kernel: out-of-range rows
-// load as zeros with lse = -inf, so they add nothing, and are never
-// written.
+//
+// dq pass, bf16 and float32 (`flash_bwd_dq_kernel`): each of the 8 warps
+// owns 8 rows of the q tile; a lane holds two columns of the 64 x 64 score
+// tile for each, writes its ds values to a shared tile, and then owns d / 32
+// dq columns of each of its rows.  Tiles are staged in shared memory as
+// float32, padded by one word where read one row per lane, and the products
+// are plain float32 FMAs: bound by its own instruction rate far above the
+// byte floor.  Tensor-core products are the next redesign.
+//
+// dk/dv pass, picked by dtype (dispatch by type, not a fallback):
+//   bf16, `flash_bwd_dkv_bf16_kernel` (mma.sync): 4 warps of 16 key rows.
+//     K and V are staged once as bf16; the q, do, lse and delta tiles arrive
+//     through cp.async in a two-stage ring, tile j + 1 in flight while tile
+//     j is used.  The score tiles are computed transposed, s^T = K Q^T and
+//     dp^T = V dO^T, as mma.sync m16n8k16 bf16 products (ldmatrix-fed,
+//     shared rows padded by 16 bytes), so their accumulator fragments
+//     convert in registers into the bf16 A fragments of dV += P^T dO and
+//     dK += dS^T Q: that conversion is the TPU kernel's rounding of p to
+//     do's dtype and of ds to q's dtype, and neither tile goes through
+//     shared memory.  dO and Q enter those products through
+//     ldmatrix.trans.  The mma sums of s and dp run in another order than
+//     the plain version's, so a p or ds within a few float32 ulps of a
+//     bf16 rounding boundary could round the other way; the kernel screens
+//     for those and sums them again in the plain version's order
+//     (`resum_near_ties`), so p and ds of 2^-7 or more round as there, and
+//     dk and dv differ from the plain version by summation order and by
+//     flips of smaller values, each at most 2^-15 |q| or |do|.  q tiles
+//     are 64 rows at d = 64 and 32 at d = 128, so the dK and dV
+//     accumulators (d registers a lane together) sit beside the score
+//     tiles without spills; K and V fragments are re-read from shared
+//     memory for each q tile.  With k tiles of 64 rows the first q tile a
+//     causal block visits is (k0 / BQ) * BQ.  What holds it back now: the
+//     screen and the serial FMA chains of the re-summed pairs (a warp's
+//     round stalls its block at the tile's barrier), mma.sync at about two
+//     thirds of the wgmma rate, and the dk/dv pass and the dq pass each
+//     read q, k, v and do (a fused single pass would read them once).
+//   float32, `flash_bwd_dkv_kernel`: the dq pass's FMA design transposed
+//     (a lane holds two q columns of each of its warp's 8 key rows), for
+//     the small float32 correctness runs.
+// The ragged tail (T not a multiple of the tile) is masked in the kernels:
+// out-of-range rows load as zeros and are masked out of p (lse = -inf in
+// the FMA kernels), so they add nothing, and are never written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
+// The FMA kernels (dq pass, float32 dk/dv pass).
 constexpr int kBlockQ = 64;  // q rows per tile
 constexpr int kBlockK = 64;  // k rows per tile (the causal loop bounds rely on kBlockQ == kBlockK)
 constexpr int kWarps = 8;
@@ -259,8 +292,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     __syncthreads();
 
     // s^T = k q^T and dp^T = v do^T for this warp's k rows; the lane owns q
-    // columns lane and lane + 32.  Same products in the same order as the
-    // dq pass, so both passes see bitwise the same s and p.
+    // columns lane and lane + 32.
     float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
@@ -330,6 +362,293 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dk/dv pass: tensor-core kernel.  Its own tile constants: the dq pass
+// keeps kBlockQ / kBlockK above.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcBlockK = 64;  // key rows per block, 16 per warp
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = kTcWarps * 32;
+
+// q rows per tile: 64 at d = 64; 32 at d = 128, where the dK and dV
+// accumulators take 128 registers a lane.
+template <int D>
+constexpr int kTcBlockQ = D == 64 ? 64 : 32;
+
+template <int D>
+constexpr size_t dkv_bf16_smem_bytes() {
+  // k, v tiles [BK][D+8]; q, do rings [2][BQ][D+8]; lse, delta rings [2][BQ] f32;
+  // per warp, 32 re-summed pairs: results (float2) and (query, key) items
+  return sizeof(bf16) * (2 * kTcBlockK + 4 * kTcBlockQ<D>) * (D + 8) +
+         sizeof(float) * 4 * kTcBlockQ<D> + kTcWarps * 32 * (sizeof(float2) + sizeof(uint32_t));
+}
+
+// Rounding p and ds to bf16 as the plain version does.  The mma sums of s
+// and dp add the same exact bf16 products as the plain version's float32
+// sums, in another order, so the two differ by a few float32 ulps of the
+// partial sums; a p or ds that lies that close to a bf16 rounding boundary
+// could round the other way, and a flipped ds near 0.5 moves dk by 2^-9 |q|.
+// Such pairs are summed again in the plain version's order, float32 FMAs
+// over d from 0, which gives its p and ds bit for bit.  The screen bounds
+// the two sums' difference by kSumErr (|x| + 16) for a sum x of s or dp,
+// 3e-5 or more: several times what the two orders differ by on sums of 64
+// to 128 unit-scale products.  Values below kTieFloor are not screened: a
+// flip there moves dk or dv by at most 2^-15 |q| or |do|.  Each screened
+// pair costs a 64- to 128-step FMA chain, so the floor sets the kernel's
+// price: at 2^-9 about one warp tile in 1.5 has a pair to sum again, at
+// 2^-7 one in 6.
+constexpr float kSumErr = 0x1p-19f;
+constexpr float kTieFloor = 0x1p-7f;
+
+// Distance from x to the midpoint between the two bf16 values around it
+// (the rounding boundary; exact, both lie in one binade).
+__device__ __forceinline__ float tie_gap(float x) {
+  return fabsf(x - __uint_as_float((__float_as_uint(x) & 0xffff0000u) | 0x8000u));
+}
+
+// p and ds of one (query, key) pair in the plain version's order: s and dp
+// as float32 FMAs over d from 0 (the FMA kernels' order, and that of the
+// plain version's float32 GEMMs), s * scale rounded before lse is taken off.
+// The pair was screened with p > 0, so it is visible and lse is finite.
+// acc + a . b over the 8 bf16 pairs of a and b (16 bytes each), one FMA
+// each, in order (the lower half of a word is the earlier element).
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    acc = fmaf(__uint_as_float(aw[w] << 16), __uint_as_float(bw[w] << 16), acc);
+    acc = fmaf(__uint_as_float(aw[w] & 0xffff0000u), __uint_as_float(bw[w] & 0xffff0000u), acc);
+  }
+  return acc;
+}
+
+template <int D>
+__device__ __forceinline__ float2 pair_in_plain_order(const bf16* qrow, const bf16* krow,
+                                                      const bf16* dorow, const bf16* vrow,
+                                                      float lse, float delta, float sm_scale) {
+  float s = 0.f, dp = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < D; c += 8) {
+    s = dot8(*reinterpret_cast<const uint4*>(qrow + c), *reinterpret_cast<const uint4*>(krow + c), s);
+    dp = dot8(*reinterpret_cast<const uint4*>(dorow + c), *reinterpret_cast<const uint4*>(vrow + c),
+              dp);
+  }
+  const float p = expf(__fmul_rn(s, sm_scale) - lse);
+  return make_float2(p, p * (dp - delta) * sm_scale);
+}
+
+// Replace the screened pairs (bit j * 4 + e of `near`: element [j][e] of
+// this lane's p^T and ds^T fragments) by their plain-order values.  The
+// warp lists its pairs in shared memory and each lane sums one, 32 a round.
+template <int D, int BQ>
+__device__ __forceinline__ void resum_near_ties(float (&p)[BQ / 8][4], float (&ds)[BQ / 8][4],
+                                                uint32_t near, const bf16* qst, const bf16* dost,
+                                                const bf16* kw, const bf16* vw, const float* lst,
+                                                const float* dlt, uint32_t* items, float2* vals,
+                                                int lane, float sm_scale) {
+  constexpr int kS = D + 8;
+  const int g = lane / 4, t = lane % 4;
+  const int n = __popc(near);
+  int incl = n;  // inclusive prefix sum over the warp's lanes
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  // Pair i of this lane takes slot first + (its rank among the lane's
+  // pairs) - r0 in round r0.  Both loops below are free of per-pair
+  // branches: lanes differ in which pairs they hold.
+  for (int r0 = 0; r0 < total; r0 += 32) {
+    const int first = incl - n - r0;
+    for (uint32_t m = near; m; m &= m - 1) {
+      const int i = __ffs(m) - 1;
+      const int slot = first + __popc(near & ((1u << i) - 1));
+      if (static_cast<unsigned>(slot) < 32)  // query in the tile | key row in the warp's 16 << 8
+        items[slot] = ((i / 4) * 8 + 2 * t + (i & 1)) | (g + (i & 2) * 4) << 8;
+    }
+    __syncwarp();
+    if (lane < total - r0) {
+      const int qi = items[lane] & 0xff, kr = items[lane] >> 8;
+      vals[lane] = pair_in_plain_order<D>(qst + qi * kS, kw + kr * kS, dost + qi * kS,
+                                          vw + kr * kS, lst[qi], dlt[qi], sm_scale);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int slot = first + __popc(near & ((1u << i) - 1));
+      const bool hit = (near >> i & 1) & (static_cast<unsigned>(slot) < 32);
+      const float2 v = vals[slot & 31];
+      p[i / 4][i % 4] = hit ? v.x : p[i / 4][i % 4];
+      ds[i / 4][i % 4] = hit ? v.y : ds[i / 4][i % 4];
+    }
+    __syncwarp();  // the next round rewrites items and vals
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int tq, int tk,
+                          int causal, float sm_scale) {
+  using namespace mma_bf16;
+  constexpr int kS = D + 8;  // shared row stride, elements
+  constexpr int BQ = kTcBlockQ<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);                // [BK][kS]
+  bf16* vs = ks + kTcBlockK * kS;                              // [BK][kS]
+  bf16* qs = vs + kTcBlockK * kS;                              // [2][BQ][kS]
+  bf16* dos = qs + 2 * BQ * kS;                                // [2][BQ][kS]
+  float* lses = reinterpret_cast<float*>(dos + 2 * BQ * kS);  // [2][BQ]
+  float* deltas = lses + 2 * BQ;                               // [2][BQ]
+  float2* vals = reinterpret_cast<float2*>(deltas + 2 * BQ);   // [warps][32]
+  uint32_t* items = reinterpret_cast<uint32_t*>(vals + kTcWarps * 32);  // [warps][32]
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTcBlockK;  // low k tiles walk the most q tiles and start first
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key_lo = k0 + warp * 16 + g;  // this lane's key rows: key_lo, key_lo + 8
+  const bf16* qb = q + (size_t)bh * tq * D;
+  const bf16* dob = dout + (size_t)bh * tq * D;
+  const float* lb = lse + (size_t)bh * tq;
+  const float* db = delta + (size_t)bh * tq;
+
+  // q, do, lse and delta rows [q0, q0 + BQ) into stage st; rows past tq
+  // arrive as zeros and are masked out of p below.
+  auto load_q_tile = [&](int q0, int st) {
+    load_rows<BQ, D, kTcThreads>(qs + st * BQ * kS, qb, q0, tq);
+    load_rows<BQ, D, kTcThreads>(dos + st * BQ * kS, dob, q0, tq);
+    if (threadIdx.x < 2 * BQ) {
+      const int i = threadIdx.x % BQ;
+      const bool in = q0 + i < tq;
+      const float* src = threadIdx.x < BQ ? lb : db;
+      float* dst = (threadIdx.x < BQ ? lses : deltas) + st * BQ + i;
+      cp_async4(dst, in ? src + q0 + i : src, in ? 4 : 0);
+    }
+  };
+
+  // Causal: q tiles that end before this k tile's first row are all masked.
+  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  const int n_tiles = q_begin < tq ? (tq - q_begin + BQ - 1) / BQ : 0;
+
+  const float tie_scale = kSumErr * sm_scale;
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];  // 8 columns per block
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+
+  if (n_tiles > 0) {
+    load_rows<kTcBlockK, D, kTcThreads>(ks, k + (size_t)bh * tk * D, k0, tk);
+    load_rows<kTcBlockK, D, kTcThreads>(vs, v + (size_t)bh * tk * D, k0, tk);
+    load_q_tile(q_begin, 0);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * BQ;
+    const int st = it & 1;
+    if (it + 1 < n_tiles) load_q_tile(q0 + BQ, st ^ 1);  // released by the last barrier
+    cp_async_commit();  // possibly empty, so that one group always stays in flight
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* qst = qs + st * BQ * kS;
+    const bf16* dost = dos + st * BQ * kS;
+    const float* lst = lses + st * BQ;
+    const float* dlt = deltas + st * BQ;
+
+    // s^T = k q^T and dp^T = v do^T: 16 keys x BQ queries a warp.
+    float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      ldmatrix_x4(ka, a_frag(ks, kS, warp * 16, kk * 16, lane));
+      ldmatrix_x4(va, a_frag(vs, kS, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int j = 0; j < BQ / 16; ++j) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_pair(qst, kS, j * 16, kk * 16, lane));
+        mma(s[2 * j], ka, b[0], b[1]);
+        mma(s[2 * j + 1], ka, b[2], b[3]);
+        ldmatrix_x4(b, b_pair(dost, kS, j * 16, kk * 16, lane));
+        mma(dp[2 * j], va, b[0], b[1]);
+        mma(dp[2 * j + 1], va, b[2], b[3]);
+      }
+    }
+
+    // p^T and ds^T = p^T (dp^T - delta) scale, in place of s^T and dp^T;
+    // the mask only where the tiles cross the diagonal or a ragged end.
+    const bool masked = q0 + BQ > tq || k0 + kTcBlockK > tk ||
+                        (causal && q0 < k0 + kTcBlockK - 1);
+    uint32_t near = 0;  // pairs whose bf16 rounding the order of the sums could flip
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = j * 8 + 2 * t + (e & 1);  // the query, in the tile
+        const int row = q0 + qi;
+        const int key = key_lo + (e >> 1) * 8;
+        const bool keep = !masked || (key < tk && row < tq && (!causal || row >= key));
+        const float p = prob(s[j][e], lst[qi], keep, sm_scale);
+        const float ds = p * (dp[j][e] - dlt[qi]) * sm_scale;
+        // kSumErr (|x| + 16) scale, as one FMA: |change of p| / p, and of dp * scale
+        const float es = fmaf(fabsf(s[j][e]), tie_scale, 16.f * tie_scale);
+        const float edp = fmaf(fabsf(dp[j][e]), tie_scale, 16.f * tie_scale);
+        // bitwise, not short-circuit: no branch per pair
+        const bool near_p = (p >= kTieFloor) & (tie_gap(p) <= p * es);
+        const bool near_ds = (fabsf(ds) >= kTieFloor) & (tie_gap(ds) <= fabsf(ds) * es + p * edp);
+        near |= static_cast<uint32_t>(near_p | near_ds) << (j * 4 + e);
+        dp[j][e] = ds;
+        s[j][e] = p;
+      }
+    if (__any_sync(0xffffffffu, near))
+      resum_near_ties<D, BQ>(s, dp, near, qst, dost, ks + warp * 16 * kS, vs + warp * 16 * kS,
+                             lst, dlt, items + warp * 32, vals + warp * 32, lane, sm_scale);
+
+    // dv += p^T do and dk += ds^T q: p^T and ds^T rounded to bf16 in the A
+    // fragments, do and q through ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      a_from_acc(pa, s[2 * kk], s[2 * kk + 1]);
+      a_from_acc(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, bt_pair(dost, kS, kk * 16, j * 16, lane));
+        mma(acc_dv[2 * j], pa, b[0], b[1]);
+        mma(acc_dv[2 * j + 1], pa, b[2], b[3]);
+        ldmatrix_x4_trans(b, bt_pair(qst, kS, kk * 16, j * 16, lane));
+        mma(acc_dk[2 * j], da, b[0], b[1]);
+        mma(acc_dk[2 * j + 1], da, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed: the next iteration's prefetch may refill it
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key_lo + 8 * h;
+    if (key >= tk) continue;
+    float* dkrow = dk + ((size_t)bh * tk + key) * D + 2 * t;
+    float* dvrow = dv + ((size_t)bh * tk + key) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dkrow + j * 8) = make_float2(acc_dk[j][2 * h], acc_dk[j][2 * h + 1]);
+      *reinterpret_cast<float2*>(dvrow + j * 8) = make_float2(acc_dv[j][2 * h], acc_dv[j][2 * h + 1]);
+    }
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, float* dq, int bh, int tq, int tk,
@@ -362,10 +681,27 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, float* dk, float* dv, int bh,
+                            int tq, int tk, int causal, float sm_scale, cudaStream_t stream) {
+  auto kernel = flash_bwd_dkv_bf16_kernel<D>;
+  constexpr size_t smem = dkv_bf16_smem_bytes<D>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tk + kTcBlockK - 1) / kTcBlockK);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, dk, dv, tq, tk, causal, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry points, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// The caller has checked shapes, types and contiguity, launches the dq pass
+// C entry points, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16
+// (the dk/dv pass runs its tensor-core kernel for bf16).  The caller has
+// checked shapes, types, contiguity and 16-byte alignment, launches the dq pass
 // only when bh > 0 and tq > 0 and the dk/dv pass only when bh > 0 and
 // tk > 0.  Each returns its launch's CUDA error code (0 = none).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -401,10 +737,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   if (dtype == 0 && d == 128)
     return launch_dkv<float, 128>(q, k, v, dout, l, dl, gk, gv, bh, tq, tk, causal, sm_scale, s);
   if (dtype == 1 && d == 64)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dl, gk, gv, bh, tq, tk, causal,
-                                         sm_scale, s);
+    return launch_dkv_bf16<64>(q, k, v, dout, l, dl, gk, gv, bh, tq, tk, causal, sm_scale, s);
   if (dtype == 1 && d == 128)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, dl, gk, gv, bh, tq, tk, causal,
-                                          sm_scale, s);
+    return launch_dkv_bf16<128>(q, k, v, dout, l, dl, gk, gv, bh, tq, tk, causal, sm_scale, s);
   return cudaErrorInvalidValue;
 }

@@ -5,7 +5,9 @@ Counterpart of ``polyaxon_tpu/parallel/flash.py`` (``flash_block_fwd``,
 custom VJP).  The kernels are hand-written CUDA C++ for ``sm_90a``, built at
 first use and bound through ``ctypes``: ``csrc/flash_fwd.cu`` replaces the
 TPU's ``_fwd_kernel``, ``csrc/flash_bwd.cu`` its ``_dq_kernel`` and
-``_dkv_kernel``.
+``_dkv_kernel``.  With bf16 inputs the forward and the dk/dv pass run on
+the tensor cores (``mma.sync``); float32 inputs and the dq pass use float32
+FMAs.
 
 Each wrapper dispatches on where its tensors lie, and on nothing else: a CPU
 tensor goes to the plain version, a CUDA tensor to the kernel, which either
@@ -71,6 +73,14 @@ def flash_block_fwd_reference(
     return o, lse[..., 0]
 
 
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    """The bf16 kernels copy rows 16 bytes at a time (``cp.async``)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"kernel takes 16-byte aligned tensors; {name}.data_ptr() is "
+                             f"{t.data_ptr()}")
+
+
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on anything the CUDA kernel does not take."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -84,6 +94,7 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         raise ValueError(f"kernel takes head_dim in {_KERNEL_HEAD_DIMS}, got {q.shape[2]}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel takes contiguous q, k, v")
+    _check_aligned(q=q, k=k, v=v)
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
 
@@ -112,22 +123,26 @@ def flash_block_fwd(
         raise ValueError(f"no flash kernel for device {q.device}")
     check_kernel_inputs(q, k, v)
     BH, Tq, d = q.shape
-    Tk = k.shape[1]
     o = torch.empty((BH, Tq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=q.device)
     if BH == 0 or Tq == 0:
         return o, lse
-    fn = _kernel_fn()
+    _launch_fwd(q, k, v, o, lse, causal, sm_scale)
+    flash_block_fwd.launches += 1
+    return o, lse
+
+
+def _launch_fwd(q, k, v, o, lse, causal, sm_scale) -> None:
+    """Launch the forward kernel on checked inputs, writing ``o`` and ``lse``."""
+    BH, Tq, d = q.shape
     with torch.cuda.device(q.device):
-        err = fn(
+        err = _kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            BH, Tq, Tk, d, _KERNEL_DTYPES[q.dtype], int(bool(causal)), float(sm_scale),
+            BH, Tq, k.shape[1], d, _KERNEL_DTYPES[q.dtype], int(bool(causal)), float(sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    flash_block_fwd.launches += 1
-    return o, lse
 
 
 flash_block_fwd.launches = 0
@@ -178,6 +193,7 @@ def check_bwd_inputs(
                              f"{t.dtype} {tuple(t.shape)}")
     if not (do.is_contiguous() and lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError("kernel takes contiguous do, lse, delta")
+    _check_aligned(do=do)
     if not (q.device == do.device == lse.device == delta.device):
         raise ValueError("q, do, lse, delta must lie on one device")
 

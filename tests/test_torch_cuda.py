@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on a card.
 
-Marked ``cuda``: they skip without one.  This file imports neither JAX nor
+Marked ``cuda``: they skip without one.  With bf16 inputs the forward and
+the dk/dv pass run their tensor-core kernels, with float32 inputs the FMA
+kernels, so each edge case appears in both types.  This file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerances: o atol 2e-2 (p is rounded to bf16 against the kernel's running
@@ -10,6 +12,8 @@ version round ds and p to bf16 at the same places, but a float32 difference
 in summation order can flip one rounding), 1e-4 with float32 inputs
 (summation order over up to 1000 terms).
 """
+
+import math
 
 import pytest
 import torch
@@ -35,6 +39,12 @@ def cuda():
         (16, 512, 512, 128, torch.bfloat16, True),
         (4, 100, 100, 64, torch.float32, True),
         (4, 70, 0, 128, torch.float32, False),  # empty key block
+        # bf16 runs the tensor-core kernel: its edges
+        (4, 70, 0, 64, torch.bfloat16, True),  # empty key block: lse = -inf, o = 0
+        (4, 70, 0, 128, torch.bfloat16, False),
+        *((8, T, T, 64, torch.bfloat16, True) for T in (1, 63, 65, 127, 129)),  # tile edges
+        (8, 200, 300, 128, torch.bfloat16, True),  # causal, Tq < Tk
+        (8, 300, 200, 128, torch.bfloat16, True),  # causal, Tq > Tk
     ],
 )
 def test_flash_fwd_kernel_matches_plain(cuda, BH, Tq, Tk, d, dtype, causal):
@@ -48,6 +58,32 @@ def test_flash_fwd_kernel_matches_plain(cuda, BH, Tq, Tk, d, dtype, causal):
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(o, ro, atol=atol, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    if Tk == 0:
+        assert torch.all(o == 0) and torch.all(torch.isneginf(lse))
+
+
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose data starts one element past 16 bytes."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_refuse_unaligned_pointers(cuda, dtype):
+    """cp.async copies 16 bytes at a time: the wrappers raise before launching."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, do = (torch.randn(2, 64, 64, generator=g, device=cuda).to(dtype) for _ in range(4))
+    lse = torch.zeros(2, 64, device=cuda)
+    before = (flash.flash_block_fwd.launches, flash.flash_block_dq.launches,
+              flash.flash_block_dkv.launches)
+    with pytest.raises(ValueError, match="aligned"):
+        flash.flash_block_fwd(q, _unaligned(k), v, causal=True, sm_scale=0.125)
+    with pytest.raises(ValueError, match="aligned"):
+        flash.flash_block_dkv(q, k, v, _unaligned(do), lse, lse, causal=True, sm_scale=0.125)
+    assert (flash.flash_block_fwd.launches, flash.flash_block_dq.launches,
+            flash.flash_block_dkv.launches) == before
 
 
 def test_flash_fwd_kernel_refuses_what_it_does_not_take(cuda):
@@ -91,6 +127,11 @@ def _bwd_inputs(device, BH, Tq, Tk, d, dtype, causal, seed):
         (8, 300, 200, 128, torch.float32, False),  # non-causal, Tq != Tk, d = 128, f32
         (8, 200, 300, 128, torch.bfloat16, True),  # causal, Tq < Tk
         (4, 70, 0, 64, torch.float32, False),  # empty key block
+        # bf16 runs the tensor-core dk/dv kernel: its edges
+        *((8, T, T, 64, torch.bfloat16, True) for T in (1, 63, 65, 127, 129)),  # tile edges
+        (8, 300, 200, 128, torch.bfloat16, True),  # causal, Tq > Tk
+        (8, 129, 129, 128, torch.bfloat16, False),  # d = 128 tile edge, non-causal
+        (4, 70, 0, 64, torch.bfloat16, False),  # empty key block
     ],
 )
 def test_flash_bwd_kernels_match_plain(cuda, BH, Tq, Tk, d, dtype, causal):
@@ -108,12 +149,60 @@ def test_flash_bwd_kernels_match_plain(cuda, BH, Tq, Tk, d, dtype, causal):
         torch.testing.assert_close(got, want, atol=atol, rtol=0, msg=name)
 
 
-def test_flash_bwd_kernels_zero_rows_with_lse_minus_inf(cuda):
-    q, k, v, do, lse, delta = _bwd_inputs(cuda, 4, 130, 90, 64, torch.float32, False, 1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_zero_rows_with_lse_minus_inf(cuda, dtype):
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 4, 130, 90, 64, dtype, False, 1)
     lse[1, 5] = lse[2, 64:] = float("-inf")
     grads = flash.flash_block_bwd(q, k, v, do, lse, delta, causal=False, sm_scale=0.125)
     ref = flash.flash_block_bwd_reference(q, k, v, do, lse, delta, causal=False, sm_scale=0.125)
     assert all(bool(torch.isfinite(x).all()) for x in grads)
     assert torch.all(grads[0][1, 5] == 0) and torch.all(grads[0][2, 64:] == 0)
+    atol = 2e-3 if dtype == torch.bfloat16 else 1e-4
     for got, want in zip(grads, ref):
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "BH, Tq, Tk, d, causal",
+    [
+        (8, 1, 1, 64, True),
+        (8, 65, 65, 64, True),
+        (8, 129, 129, 128, True),
+        (8, 200, 300, 128, True),
+        (8, 300, 200, 64, True),
+        (8, 300, 200, 128, False),
+        (4, 70, 0, 64, False),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_write_every_output_element(cuda, BH, Tq, Tk, d, causal, dtype):
+    """Outputs filled with NaN before the launch hold no NaN after it: every
+    element of o, lse, dq, dk and dv is written (lse may be -inf)."""
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, BH, Tq, Tk, d, dtype, causal, Tq + 3)
+    scale = d**-0.5
+    o, l = torch.full((BH, Tq, d), math.nan, device=cuda), torch.full((BH, Tq), math.nan, device=cuda)
+    flash._launch_fwd(q, k, v, o, l, causal, scale)
+    dq = torch.full(q.shape, math.nan, device=cuda)
+    dk, dv = (torch.full(k.shape, math.nan, device=cuda) for _ in range(2))
+    fn_dq, fn_dkv = flash._bwd_kernel_fns()
+    flash._launch_bwd(fn_dq, "dq", q, k, v, do, lse, delta, (dq,), causal, scale)
+    if Tk:
+        flash._launch_bwd(fn_dkv, "dk/dv", q, k, v, do, lse, delta, (dk, dv), causal, scale)
+    torch.cuda.synchronize()
+    for name, x in (("o", o), ("lse", l), ("dq", dq), ("dk", dk), ("dv", dv)):
+        assert not bool(torch.isnan(x).any()), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_are_deterministic(cuda, dtype):
+    """No atomics: two runs on the same inputs give bitwise the same o, lse,
+    dq, dk and dv."""
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 16, 300, 300, 64, dtype, True, 7)
+    runs = []
+    for _ in range(2):
+        o, l = flash.flash_block_fwd(q, k, v, causal=True, sm_scale=0.125)
+        runs.append((o, l, *flash.flash_block_bwd(q, k, v, do, lse, delta, causal=True,
+                                                  sm_scale=0.125)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

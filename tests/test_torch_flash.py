@@ -126,6 +126,7 @@ def test_entry_point_rejects_tensors_on_another_device():
         (lambda: [torch.zeros(2, 8, 64), torch.zeros(2, 8, 64), torch.zeros(2, 9, 64)], ValueError),
         (lambda: [torch.zeros(2, 8, 64), torch.zeros(2, 8, 64, dtype=torch.bfloat16),
                   torch.zeros(2, 8, 64)], TypeError),
+        (lambda: [torch.zeros(2 * 8 * 64 + 1)[1:].view(2, 8, 64)] * 3, ValueError),  # unaligned
     ],
 )
 def test_kernel_input_checks(make, err):
