@@ -23,7 +23,7 @@ and the two backward kernels in every layer).  Phases:
    models (head_dim 64 and 128): the grads of ``loss_fn`` through the
    tensor-core kernels match the plain backward after the same forward on
    the card, and the loss and grads match the plain versions on the CPU;
-   a control run with dk scaled by 1.01 fails the card comparison;
+   control runs with dq and with dk scaled by 1.01 fail the card comparison;
 5. the serving path: ``lm_generate`` at the 671M width (batch 4, prompt
    512, 64 new tokens, greedy, bf16 compute, random weights from a seed),
    with the kernels' launch counts set to 0 before it and read after;
@@ -72,7 +72,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, BENCH_STEPS, LR = 20, 1024, 5, 3, 3e-4
 # only the backward kernels differ.  A dq, dk or dv a float32 ulp away can
 # round to another bf16 value, and such flips spread through the bf16
 # model's backward, so each parameter grad may differ by 5e-3 of its norm;
-# dk scaled by 1.01 moves k's projection grad by 1e-2, and must fail.
+# dq or dk scaled by 1.01 moves q's or k's projection grad by 1e-2, and must
+# fail.
 # Against the plain versions on the CPU the whole bf16 model runs on two
 # devices (every GEMM output rounds to bf16 on each), so the loss may
 # differ by 1e-3 and grads by 2e-2 of their norm there; printed beside: the
@@ -87,8 +88,11 @@ O_ATOL, LSE_ATOL = 2e-2, 1e-3
 # at the same places; a float32 difference in summation order can flip one
 # bf16 rounding.  Float32 inputs differ by summation order alone.
 BWD_ATOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
-# What the bf16 paths of the two redesigned kernels are built from.
+# What the bf16 paths of the three kernels are built from.
 FWD_DESIGN = "mma.sync m16n8k16 bf16, cp.async two-stage K/V ring, p in registers"
+DQ_DESIGN = ("mma.sync m16n8k16 bf16, q fragments in registers, cp.async two-stage K/V ring, "
+             "ds in registers, ds near a bf16 rounding boundary summed again in the plain "
+             "order")
 DKV_DESIGN = ("mma.sync m16n8k16 bf16, transposed scores, cp.async two-stage q/do ring, "
               "p/ds near a bf16 rounding boundary summed again in the plain order")
 # The backward bounds at the training shape, worked from the data sheet
@@ -315,12 +319,14 @@ def phase_bwd_kernels():
             bounds[kind] = (bound_ms, bound_by)
             log(f"  bound {kind}: {moved / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP -> "
                 f"{bound_ms * 1e3:.1f} us ({bound_by})")
-        log(f"  training shape: dq kernel_ms {dq_ms:.4f}, dk/dv kernel_ms {dkv_ms:.4f}, "
-            f"fwd kernel_ms {fwd_ms:.4f}; plain_ms bwd {plain_ms:.4f} fwd {fwd_plain_ms:.4f}; "
-            f"library_ms (sdpa) bwd {sdpa_bwd_ms:.4f} fwd {sdpa_fwd_ms:.4f}")
+        log(f"  training shape: dq kernel_ms {dq_ms:.4f} (bound_ms {bounds['dq'][0]:.4f}), "
+            f"dk/dv kernel_ms {dkv_ms:.4f} (bound_ms {bounds['dkv'][0]:.4f}), fwd kernel_ms "
+            f"{fwd_ms:.4f} (bound_ms {bounds['fwd'][0]:.4f}); plain_ms bwd {plain_ms:.4f} fwd "
+            f"{fwd_plain_ms:.4f}; library_ms (sdpa) bwd {sdpa_bwd_ms:.4f} fwd {sdpa_fwd_ms:.4f}")
         common = {"route": "cuda", "source": "polyaxon_tpu_torch/csrc/flash_bwd.cu",
                   "plain_ms": plain_ms, "library_ms": sdpa_bwd_ms}
-        records["dq"] = dict(name="flash_bwd_dq", replaces="polyaxon_tpu/parallel/flash.py:177",
+        records["dq"] = dict(name="flash_bwd_dq", design=DQ_DESIGN,
+                             replaces="polyaxon_tpu/parallel/flash.py:177",
                              max_abs_err=errs[0], ms=dq_ms, bound_ms=bounds["dq"][0],
                              bound_by=bounds["dq"][1], **common)
         records["dkv"] = dict(name="flash_bwd_dkv", design=DKV_DESIGN,
@@ -416,14 +422,18 @@ def phase_small_model_grads_bf16():
     Every parameter grad of loss_fn through the tensor-core kernels matches
     the same forward kernel with the plain backward swapped in on the card
     (so only the backward kernels differ), and, more loosely, the loss and
-    grads match the plain versions on the CPU.  A control run with dk
-    scaled by 1.01 must fail the card comparison: it shows the limit can
-    see a kernel error of that size."""
+    grads match the plain versions on the CPU.  Control runs with dq and
+    with dk scaled by 1.01 must fail the card comparison: they show the
+    limit can see an error of that size in either backward kernel."""
     from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
     from polyaxon_tpu_torch.parallel import flash
     from polyaxon_tpu_torch.runtime.optim import tree_leaves
 
     real_bwd = flash.flash_block_bwd
+
+    def bwd_with_dq_off_by_one_percent(*args, **kw):
+        dq, dk, dv = real_bwd(*args, **kw)
+        return dq * 1.01, dk, dv
 
     def bwd_with_dk_off_by_one_percent(*args, **kw):
         dq, dk, dv = real_bwd(*args, **kw)
@@ -431,6 +441,7 @@ def phase_small_model_grads_bf16():
 
     plain_bwd_on_card = dict(flash_block_bwd=flash.flash_block_bwd_reference)
     runs = (("kernel", "flash", "cuda", {}), ("plain_bwd", "flash", "cuda", plain_bwd_on_card),
+            ("fault_dq", "flash", "cuda", dict(flash_block_bwd=bwd_with_dq_off_by_one_percent)),
             ("fault", "flash", "cuda", dict(flash_block_bwd=bwd_with_dk_off_by_one_percent)),
             ("plain", "flash", "cpu", {}), ("dense", "dense", "cpu", {}),
             ("dense_cuda", "dense", "cuda", {}))
@@ -458,13 +469,15 @@ def phase_small_model_grads_bf16():
                     max(((x - y).norm() / y.norm()).item() for x, y in zip(out[a][1], out[b][1])))
 
         _, card_rel = spread("kernel", "plain_bwd")
+        _, fault_dq_rel = spread("fault_dq", "plain_bwd")
         _, fault_rel = spread("fault", "plain_bwd")
         loss_diff, grad_rel = spread("kernel", "plain")
         dev_loss, dev_rel = spread("dense_cuda", "dense")
         log(f"small bf16 model head_dim {head_dim}: loss {out['kernel'][0]:.6f}; backward "
             f"kernels vs the plain backward on the card: largest grad error / grad norm "
-            f"{card_rel:.3e} (<= {BF16_BWD_GRAD_RTOL}); control with dk x 1.01: "
-            f"{fault_rel:.3e} (> {BF16_BWD_GRAD_RTOL}); kernels vs plain on the CPU: loss diff {loss_diff:.3e} "
+            f"{card_rel:.3e} (<= {BF16_BWD_GRAD_RTOL}); controls with dq x 1.01: "
+            f"{fault_dq_rel:.3e}, dk x 1.01: {fault_rel:.3e} (each > {BF16_BWD_GRAD_RTOL}); "
+            f"kernels vs plain on the CPU: loss diff {loss_diff:.3e} "
             f"(<= {BF16_MODEL_LOSS_ATOL}), grads {grad_rel:.3e} (<= {BF16_MODEL_GRAD_RTOL}); "
             f"dense on the card vs the CPU: {dev_loss:.3e}, {dev_rel:.3e}; launches "
             f"fwd/dq/dkv {out['kernel'][2]} (expected (2, 2, 2)), plain backward "
@@ -474,6 +487,8 @@ def phase_small_model_grads_bf16():
                 out["plain_bwd"][2] != (2, 0, 0):
             raise AssertionError("bf16 loss_fn grads through the kernels disagree with the "
                                  "plain versions")
+        if fault_dq_rel <= BF16_BWD_GRAD_RTOL:
+            raise AssertionError("the bf16 grad check does not see dq scaled by 1.01")
         if fault_rel <= BF16_BWD_GRAD_RTOL:
             raise AssertionError("the bf16 grad check does not see dk scaled by 1.01")
 

@@ -28,21 +28,53 @@
 // in no order, so that axis becomes a loop inside one thread block, and the
 // accumulators stay in registers.  Neither pass needs atomics, and both are
 // deterministic:
-//   dq pass:   one block per (bh, 64-row q tile).  It walks the 64-row k/v
-//              tiles up to the diagonal and keeps its dq rows in registers.
+//   dq pass:   one block per (bh, q tile).  It walks the 64-row k/v tiles
+//              up to the diagonal and keeps its dq rows in registers.
 //   dk/dv pass: one block per (bh, 64-row k tile).  It walks the q/do tiles
 //              from the diagonal on and keeps its dk and dv rows in
 //              registers.
+// Each pass picks its kernel by dtype (dispatch by type, not a fallback):
+// bf16 inputs run the tensor-core kernels, float32 inputs the FMA kernels
+// (tensor cores would need TF32 there, a different result).
 //
-// dq pass, bf16 and float32 (`flash_bwd_dq_kernel`): each of the 8 warps
-// owns 8 rows of the q tile; a lane holds two columns of the 64 x 64 score
-// tile for each, writes its ds values to a shared tile, and then owns d / 32
-// dq columns of each of its rows.  Tiles are staged in shared memory as
-// float32, padded by one word where read one row per lane, and the products
-// are plain float32 FMAs: bound by its own instruction rate far above the
-// byte floor.  Tensor-core products are the next redesign.
+// The mma sums of s and dp run in another order than the plain version's,
+// so a p or ds within a few float32 ulps of a bf16 rounding boundary could
+// round the other way; both tensor-core kernels screen for those and sum
+// them again in the plain version's order (`resum_near_ties`), so each
+// value they round of 2^-7 or more rounds as there, and the grads differ
+// from the plain version by summation order and by flips of smaller
+// values, each at most 2^-15 |k|, |q| or |do|.
 //
-// dk/dv pass, picked by dtype (dispatch by type, not a fallback):
+// dq pass:
+//   bf16, `flash_bwd_dq_bf16_kernel` (mma.sync): 4 warps; 128-row q tiles
+//     at d = 64 (two m16 tiles a warp, so that each K and V fragment read
+//     from shared memory feeds two products) and 64 at d = 128 (one).  The
+//     q and do tiles are staged once; the q rows stay in registers as A
+//     fragments, the do rows are read again for each chunk of keys.  K and
+//     V tiles arrive through cp.async in a two-stage ring, tile j + 1 in
+//     flight while tile j is used.  S = Q K^T and dP = dO V^T are
+//     mma.sync m16n8k16 bf16 products with q rows as mma rows (K and V as B
+//     fragments through ldmatrix), taken over chunks of 32 keys at d = 64
+//     and 64 at d = 128, so that s and dp of a chunk are 32 registers a
+//     lane each.  ds = p (dp - delta) scale is screened (ds only: the pass
+//     rounds nothing else) and converted in registers into the bf16 A
+//     fragment of dQ += dS K, K through ldmatrix.trans: that conversion is
+//     the TPU kernel's ds.astype(k.dtype), and ds never goes through shared
+//     memory.  Each lane reads lse and delta of its rows once.  Causal q
+//     tiles are scheduled longest first.  What holds it back: the screen
+//     and the rounds of re-summing (about a quarter of its time), mma.sync at
+//     about two thirds of the wgmma rate, and the 128-row q tiles at
+//     d = 64, which span two key tiles on the diagonal, where part of each
+//     warp's scores are masked.
+//   float32, `flash_bwd_dq_kernel`: each of the 8 warps owns 8 rows of a
+//     64-row q tile; a lane holds two columns of the 64 x 64 score tile for
+//     each, writes its ds values to a shared tile, and then owns d / 32 dq
+//     columns of each of its rows.  Tiles are staged in shared memory,
+//     padded by one word where read one row per lane, and the products are
+//     plain float32 FMAs: bound by its own instruction rate.  It serves the
+//     small float32 correctness runs.
+//
+// dk/dv pass:
 //   bf16, `flash_bwd_dkv_bf16_kernel` (mma.sync): 4 warps of 16 key rows.
 //     K and V are staged once as bf16; the q, do, lse and delta tiles arrive
 //     through cp.async in a two-stage ring, tile j + 1 in flight while tile
@@ -53,13 +85,7 @@
 //     dK += dS^T Q: that conversion is the TPU kernel's rounding of p to
 //     do's dtype and of ds to q's dtype, and neither tile goes through
 //     shared memory.  dO and Q enter those products through
-//     ldmatrix.trans.  The mma sums of s and dp run in another order than
-//     the plain version's, so a p or ds within a few float32 ulps of a
-//     bf16 rounding boundary could round the other way; the kernel screens
-//     for those and sums them again in the plain version's order
-//     (`resum_near_ties`), so p and ds of 2^-7 or more round as there, and
-//     dk and dv differ from the plain version by summation order and by
-//     flips of smaller values, each at most 2^-15 |q| or |do|.  q tiles
+//     ldmatrix.trans.  It screens both p and ds.  q tiles
 //     are 64 rows at d = 64 and 32 at d = 128, so the dK and dV
 //     accumulators (d registers a lane together) sit beside the score
 //     tiles without spills; K and V fragments are re-read from shared
@@ -73,8 +99,8 @@
 //     (a lane holds two q columns of each of its warp's 8 key rows), for
 //     the small float32 correctness runs.
 // The ragged tail (T not a multiple of the tile) is masked in the kernels:
-// out-of-range rows load as zeros and are masked out of p (lse = -inf in
-// the FMA kernels), so they add nothing, and are never written.
+// out-of-range rows load as zeros and are masked out of p (lse = -inf for
+// query rows past the end), so they add nothing, and are never written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,22 +110,13 @@
 
 namespace {
 
-// The FMA kernels (dq pass, float32 dk/dv pass).
+// The float32 FMA kernels.  With float32 inputs the TPU kernel's roundings
+// (ds to k's and q's dtype, p to do's) change nothing.
 constexpr int kBlockQ = 64;  // q rows per tile
 constexpr int kBlockK = 64;  // k rows per tile (the causal loop bounds rely on kBlockQ == kBlockK)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 64 / kWarps;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// x.astype(dtype of the pointer) before a product: a no-op for float32, a
-// rounding for bf16.
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // p = exp(s * scale - lse) where kept; 0 where masked or where the row saw
 // no key (lse = -inf, where exp would overflow).
@@ -121,12 +138,12 @@ constexpr size_t dkv_smem_bytes() {
          (2 * kBlockK * D + 2 * kBlockQ * (D + 1) + 2 * kBlockK * kBlockQ + 2 * kBlockQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int tq, int tk, int causal, float sm_scale) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int tq, int tk, int causal, float sm_scale) {
   extern __shared__ float smem[];
   float* qs = smem;                       // [BQ][D]
   float* dos = qs + kBlockQ * D;          // [BQ][D]
@@ -142,13 +159,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int lane = threadIdx.x % 32;
   const int row0 = warp * kRowsPerWarp;  // this warp's first row in the q tile
   const size_t qoff = ((size_t)bh * tq + q0) * D;
-  const T* kb = k + (size_t)bh * tk * D;
-  const T* vb = v + (size_t)bh * tk * D;
+  const float* kb = k + (size_t)bh * tk * D;
+  const float* vb = v + (size_t)bh * tk * D;
 
   for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
     const bool in = q0 + i / D < tq;
-    qs[i] = in ? to_float(q[qoff + i]) : 0.f;
-    dos[i] = in ? to_float(dout[qoff + i]) : 0.f;
+    qs[i] = in ? q[qoff + i] : 0.f;
+    dos[i] = in ? dout[qoff + i] : 0.f;
   }
   for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
     const bool in = q0 + i < tq;
@@ -170,8 +187,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < tk;
-      ks[r * (D + 1) + c] = in ? to_float(kb[(size_t)k0 * D + i]) : 0.f;
-      vs[r * (D + 1) + c] = in ? to_float(vb[(size_t)k0 * D + i]) : 0.f;
+      ks[r * (D + 1) + c] = in ? kb[(size_t)k0 * D + i] : 0.f;
+      vs[r * (D + 1) + c] = in ? vb[(size_t)k0 * D + i] : 0.f;
     }
     __syncthreads();
 
@@ -206,8 +223,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const int col = k0 + lane + 32 * j;
         const bool keep = col < tk && (!causal || row >= col);
         const float p = prob(s[r][j], row_lse, keep, sm_scale);
-        const float ds = p * (dp[r][j] - row_delta) * sm_scale;
-        dss[(row0 + r) * kBlockK + lane + 32 * j] = round_as(ds, k);
+        dss[(row0 + r) * kBlockK + lane + 32 * j] = p * (dp[r][j] - row_delta) * sm_scale;
       }
     }
     __syncwarp();  // a warp reads back only the ds rows it wrote
@@ -235,12 +251,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int tq, int tk, int causal, float sm_scale) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int tq, int tk, int causal,
+                     float sm_scale) {
   extern __shared__ float smem[];
   float* ks = smem;                       // [BK][D]
   float* vs = ks + kBlockK * D;           // [BK][D]
@@ -257,13 +274,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int lane = threadIdx.x % 32;
   const int row0 = warp * kRowsPerWarp;  // this warp's first row in the k tile
   const size_t koff = ((size_t)bh * tk + k0) * D;
-  const T* qb = q + (size_t)bh * tq * D;
-  const T* dob = dout + (size_t)bh * tq * D;
+  const float* qb = q + (size_t)bh * tq * D;
+  const float* dob = dout + (size_t)bh * tq * D;
 
   for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
     const bool in = k0 + i / D < tk;
-    ks[i] = in ? to_float(k[koff + i]) : 0.f;
-    vs[i] = in ? to_float(v[koff + i]) : 0.f;
+    ks[i] = in ? k[koff + i] : 0.f;
+    vs[i] = in ? v[koff + i] : 0.f;
   }
 
   constexpr int kCols = D / 32;  // dk / dv columns per lane
@@ -281,8 +298,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
       const int r = i / D, c = i % D;
       const bool in = q0 + r < tq;
-      qs[r * (D + 1) + c] = in ? to_float(qb[(size_t)q0 * D + i]) : 0.f;
-      dos[r * (D + 1) + c] = in ? to_float(dob[(size_t)q0 * D + i]) : 0.f;
+      qs[r * (D + 1) + c] = in ? qb[(size_t)q0 * D + i] : 0.f;
+      dos[r * (D + 1) + c] = in ? dob[(size_t)q0 * D + i] : 0.f;
     }
     for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
       const bool in = q0 + i < tq;
@@ -321,9 +338,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const int row = q0 + qj;  // the query index
         const bool keep = col < tk && row < tq && (!causal || row >= col);
         const float p = prob(s[r][j], lses[qj], keep, sm_scale);
-        const float ds = p * (dp[r][j] - deltas[qj]) * sm_scale;
-        ps[(row0 + r) * kBlockQ + qj] = round_as(p, dout);
-        dss[(row0 + r) * kBlockQ + qj] = round_as(ds, q);
+        ps[(row0 + r) * kBlockQ + qj] = p;
+        dss[(row0 + r) * kBlockQ + qj] = p * (dp[r][j] - deltas[qj]) * sm_scale;
       }
     }
     __syncwarp();  // a warp reads back only the p / ds rows it wrote
@@ -363,15 +379,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dk/dv pass: tensor-core kernel.  Its own tile constants: the dq pass
-// keeps kBlockQ / kBlockK above.
+// The bf16 tensor-core kernels: the dk/dv pass, then the dq pass with its own
+// tile constants.
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kTcBlockK = 64;  // key rows per block, 16 per warp
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = kTcWarps * 32;
-
 // q rows per tile: 64 at d = 64; 32 at d = 128, where the dK and dV
 // accumulators take 128 registers a lane.
 template <int D>
@@ -389,16 +404,16 @@ constexpr size_t dkv_bf16_smem_bytes() {
 // and dp add the same exact bf16 products as the plain version's float32
 // sums, in another order, so the two differ by a few float32 ulps of the
 // partial sums; a p or ds that lies that close to a bf16 rounding boundary
-// could round the other way, and a flipped ds near 0.5 moves dk by 2^-9 |q|.
-// Such pairs are summed again in the plain version's order, float32 FMAs
-// over d from 0, which gives its p and ds bit for bit.  The screen bounds
-// the two sums' difference by kSumErr (|x| + 16) for a sum x of s or dp,
-// 3e-5 or more: several times what the two orders differ by on sums of 64
-// to 128 unit-scale products.  Values below kTieFloor are not screened: a
-// flip there moves dk or dv by at most 2^-15 |q| or |do|.  Each screened
-// pair costs a 64- to 128-step FMA chain, so the floor sets the kernel's
-// price: at 2^-9 about one warp tile in 1.5 has a pair to sum again, at
-// 2^-7 one in 6.
+// could round the other way, and a flipped ds near 0.5 moves dk by 2^-9 |q|
+// (dq by 2^-9 |k|).  Such pairs are summed again in the plain version's
+// order, float32 FMAs over d from 0, which gives its p and ds bit for bit.
+// The screen bounds the two sums' difference by kSumErr (|x| + 16) for a
+// sum x of s or dp, 3e-5 or more: several times what the two orders differ
+// by on sums of 64 to 128 unit-scale products.  Values below kTieFloor are
+// not screened: a flip there moves dq, dk or dv by at most 2^-15 |k|, |q|
+// or |do|.  Each screened pair costs a 64- to 128-step FMA chain, so the
+// floor sets the kernels' price: in the dk/dv pass at 2^-9 about one warp
+// tile in 1.5 has a pair to sum again, at 2^-7 one in 6.
 constexpr float kSumErr = 0x1p-19f;
 constexpr float kTieFloor = 0x1p-7f;
 
@@ -406,6 +421,20 @@ constexpr float kTieFloor = 0x1p-7f;
 // (the rounding boundary; exact, both lie in one binade).
 __device__ __forceinline__ float tie_gap(float x) {
   return fabsf(x - __uint_as_float((__float_as_uint(x) & 0xffff0000u) | 0x8000u));
+}
+
+// kSumErr (|x| + 16) scale for a sum x of s or dp, as one FMA (tie_scale =
+// kSumErr scale): for s the relative change of p, for dp the change of
+// dp scale, that the order of the sums can make.
+__device__ __forceinline__ float sum_err(float x, float tie_scale) {
+  return fmaf(fabsf(x), tie_scale, 16.f * tie_scale);
+}
+
+// Whether ds = p (dp - delta) scale could round to another bf16 value than
+// in the plain version, with es = sum_err(s), edp = sum_err(dp).  Bitwise,
+// not short-circuit: no branch per pair.
+__device__ __forceinline__ bool near_ds(float ds, float p, float es, float edp) {
+  return (fabsf(ds) >= kTieFloor) & (tie_gap(ds) <= fabsf(ds) * es + p * edp);
 }
 
 // p and ds of one (query, key) pair in the plain version's order: s and dp
@@ -439,17 +468,22 @@ __device__ __forceinline__ float2 pair_in_plain_order(const bf16* qrow, const bf
   return make_float2(p, p * (dp - delta) * sm_scale);
 }
 
-// Replace the screened pairs (bit j * 4 + e of `near`: element [j][e] of
-// this lane's p^T and ds^T fragments) by their plain-order values.  The
-// warp lists its pairs in shared memory and each lane sums one, 32 a round.
-template <int D, int BQ>
-__device__ __forceinline__ void resum_near_ties(float (&p)[BQ / 8][4], float (&ds)[BQ / 8][4],
-                                                uint32_t near, const bf16* qst, const bf16* dost,
-                                                const bf16* kw, const bf16* vw, const float* lst,
-                                                const float* dlt, uint32_t* items, float2* vals,
-                                                int lane, float sm_scale) {
+// Replace the screened pairs by their plain-order values.  Bit i of `near`
+// flags element i (of N) of this lane's score fragments; pair(i) gives that
+// element's query, a row of the q and do tiles qst, dost and an index of
+// lst, dlt, and its key, a row of the k and v tiles kst, vst, as
+// query | key << 8; set(i, hit, v) puts v = (p, ds) in place of element i
+// where hit.  The warp lists its pairs in shared memory and each lane sums
+// one, 32 a round.
+template <int D, int N, typename Pair, typename Set>
+__device__ __forceinline__ void resum_near_ties(uint32_t near, Pair pair, Set set,
+                                                const bf16* qst, const bf16* dost,
+                                                const bf16* kst, const bf16* vst,
+                                                const float* lst, const float* dlt,
+                                                uint32_t* items, float2* vals, int lane,
+                                                float sm_scale) {
+  static_assert(N <= 32, "one bit of `near` per element");
   constexpr int kS = D + 8;
-  const int g = lane / 4, t = lane % 4;
   const int n = __popc(near);
   int incl = n;  // inclusive prefix sum over the warp's lanes
 #pragma unroll
@@ -466,23 +500,19 @@ __device__ __forceinline__ void resum_near_ties(float (&p)[BQ / 8][4], float (&d
     for (uint32_t m = near; m; m &= m - 1) {
       const int i = __ffs(m) - 1;
       const int slot = first + __popc(near & ((1u << i) - 1));
-      if (static_cast<unsigned>(slot) < 32)  // query in the tile | key row in the warp's 16 << 8
-        items[slot] = ((i / 4) * 8 + 2 * t + (i & 1)) | (g + (i & 2) * 4) << 8;
+      if (static_cast<unsigned>(slot) < 32) items[slot] = pair(i);
     }
     __syncwarp();
     if (lane < total - r0) {
       const int qi = items[lane] & 0xff, kr = items[lane] >> 8;
-      vals[lane] = pair_in_plain_order<D>(qst + qi * kS, kw + kr * kS, dost + qi * kS,
-                                          vw + kr * kS, lst[qi], dlt[qi], sm_scale);
+      vals[lane] = pair_in_plain_order<D>(qst + qi * kS, kst + kr * kS, dost + qi * kS,
+                                          vst + kr * kS, lst[qi], dlt[qi], sm_scale);
     }
     __syncwarp();
 #pragma unroll
-    for (int i = 0; i < BQ / 2; ++i) {
+    for (int i = 0; i < N; ++i) {
       const int slot = first + __popc(near & ((1u << i) - 1));
-      const bool hit = (near >> i & 1) & (static_cast<unsigned>(slot) < 32);
-      const float2 v = vals[slot & 31];
-      p[i / 4][i % 4] = hit ? v.x : p[i / 4][i % 4];
-      ds[i / 4][i % 4] = hit ? v.y : ds[i / 4][i % 4];
+      set(i, (near >> i & 1) & (static_cast<unsigned>(slot) < 32), vals[slot & 31]);
     }
     __syncwarp();  // the next round rewrites items and vals
   }
@@ -600,19 +630,26 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         const bool keep = !masked || (key < tk && row < tq && (!causal || row >= key));
         const float p = prob(s[j][e], lst[qi], keep, sm_scale);
         const float ds = p * (dp[j][e] - dlt[qi]) * sm_scale;
-        // kSumErr (|x| + 16) scale, as one FMA: |change of p| / p, and of dp * scale
-        const float es = fmaf(fabsf(s[j][e]), tie_scale, 16.f * tie_scale);
-        const float edp = fmaf(fabsf(dp[j][e]), tie_scale, 16.f * tie_scale);
+        const float es = sum_err(s[j][e], tie_scale);
         // bitwise, not short-circuit: no branch per pair
         const bool near_p = (p >= kTieFloor) & (tie_gap(p) <= p * es);
-        const bool near_ds = (fabsf(ds) >= kTieFloor) & (tie_gap(ds) <= fabsf(ds) * es + p * edp);
-        near |= static_cast<uint32_t>(near_p | near_ds) << (j * 4 + e);
+        near |= static_cast<uint32_t>(near_p | near_ds(ds, p, es, sum_err(dp[j][e], tie_scale)))
+                << (j * 4 + e);
         dp[j][e] = ds;
         s[j][e] = p;
       }
+    // Element i = j * 4 + e of s and dp: query (i / 4) * 8 + 2t + (i & 1) of
+    // the tile, key row g + (i & 2) * 4 of the warp's 16.
     if (__any_sync(0xffffffffu, near))
-      resum_near_ties<D, BQ>(s, dp, near, qst, dost, ks + warp * 16 * kS, vs + warp * 16 * kS,
-                             lst, dlt, items + warp * 32, vals + warp * 32, lane, sm_scale);
+      resum_near_ties<D, BQ / 2>(
+          near,
+          [&](int i) { return ((i / 4) * 8 + 2 * t + (i & 1)) | (g + (i & 2) * 4) << 8; },
+          [&](int i, bool hit, float2 x) {
+            s[i / 4][i % 4] = hit ? x.x : s[i / 4][i % 4];
+            dp[i / 4][i % 4] = hit ? x.y : dp[i / 4][i % 4];
+          },
+          qst, dost, ks + warp * 16 * kS, vs + warp * 16 * kS, lst, dlt, items + warp * 32,
+          vals + warp * 32, lane, sm_scale);
 
     // dv += p^T do and dk += ds^T q: p^T and ds^T rounded to bf16 in the A
     // fragments, do and q through ldmatrix.trans.
@@ -649,96 +686,299 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const float* lse, const float* delta, float* dq, int bh, int tq, int tk,
-                      int causal, float sm_scale, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, dq, tq, tk, causal, sm_scale);
-  return cudaGetLastError();
+// dq pass.
+constexpr int kDqBlockK = 64;  // key rows per tile
+
+// 16-row m tiles a warp owns: two at d = 64, so that each K and V fragment
+// read from shared memory feeds two products; one at d = 128, where dq alone
+// takes 64 registers a lane per m tile.
+template <int D>
+constexpr int kDqMTiles = D == 64 ? 2 : 1;
+template <int D>
+constexpr int kDqBlockQ = kTcWarps * 16 * kDqMTiles<D>;  // query rows per block
+// Keys per score chunk: s and dp of a chunk take 32 registers a lane each,
+// one bit of the screen's mask per score.
+template <int D>
+constexpr int kDqChunk = 64 / kDqMTiles<D>;
+
+template <int D>
+constexpr size_t dq_bf16_smem_bytes() {
+  // q, do tiles [BQ][D+8]; K and V rings [2][BK][D+8]; per warp, 32
+  // re-summed pairs: results (float2) and (query, key) items; lse, delta [BQ] f32
+  return sizeof(bf16) * (2 * kDqBlockQ<D> + 4 * kDqBlockK) * (D + 8) +
+         kTcWarps * 32 * (sizeof(float2) + sizeof(uint32_t)) + sizeof(float) * 2 * kDqBlockQ<D>;
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* delta, float* dk, float* dv, int bh,
-                       int tq, int tk, int causal, float sm_scale, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  constexpr size_t smem = dkv_smem_bytes<D>();
+// Two blocks an SM, as the forward kernel: the q and dq fragments stay in
+// registers for the whole key loop.  The do fragments are read again from
+// shared memory for each chunk: kept in registers too (`tools/tie_variants.py
+// dq:do_regs`), they made it no faster.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, int tq, int tk, int causal, float sm_scale) {
+  using namespace mma_bf16;
+  constexpr int kS = D + 8;  // shared row stride, elements
+  constexpr int MT = kDqMTiles<D>;
+  constexpr int BQ = kDqBlockQ<D>;
+  constexpr int BK = kDqBlockK;
+  constexpr int KC = kDqChunk<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);                // [BQ][kS]
+  bf16* dos = qs + BQ * kS;                                    // [BQ][kS]
+  bf16* ks = dos + BQ * kS;                                    // [2][BK][kS]
+  bf16* vs = ks + 2 * BK * kS;                                 // [2][BK][kS]
+  float2* vals = reinterpret_cast<float2*>(vs + 2 * BK * kS);  // [warps][32]
+  uint32_t* items = reinterpret_cast<uint32_t*>(vals + kTcWarps * 32);  // [warps][32]
+  float* lses = reinterpret_cast<float*>(items + kTcWarps * 32);  // [BQ], for the re-summing
+  float* deltas = lses + BQ;                                      // [BQ]
+
+  const int bh = blockIdx.x;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;  // longest first
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wrow = warp * 16 * MT;  // this warp's first row in the tile
+  // This lane's rows: q0 + wrow + 16 mt + g + 8 h, for m tile mt and half h.
+  const bf16* kb = k + (size_t)bh * tk * D;
+  const bf16* vb = v + (size_t)bh * tk * D;
+  const float* lb = lse + (size_t)bh * tq + q0;  // lse and delta of the tile's rows
+  const float* db = delta + (size_t)bh * tq + q0;
+
+  // Causal: key tiles that start past this q tile's last row are all masked.
+  const int k_end = causal ? min(tk, q0 + BQ) : tk;
+  const int n_tiles = (k_end + BK - 1) / BK;  // 0 only when tk == 0
+
+  // lse and delta of this lane's rows; a row past tq sees no key (p = 0).
+  float lse_r[MT][2], delta_r[MT][2];
+  float acc[MT][D / 8][4];      // dq, 8 columns per block
+  uint32_t qf[MT][D / 16][4];  // the warp's q rows as A fragments
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wrow + 16 * mt + g + 8 * h;
+      const bool in = q0 + r < tq;
+      lse_r[mt][h] = in ? lb[r] : -CUDART_INF_F;
+      delta_r[mt][h] = in ? db[r] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+  }
+
+  if (n_tiles > 0) {
+    load_rows<BQ, D, kTcThreads>(qs, q + (size_t)bh * tq * D, q0, tq);
+    load_rows<BQ, D, kTcThreads>(dos, dout + (size_t)bh * tq * D, q0, tq);
+    load_rows<BK, D, kTcThreads>(ks, kb, 0, tk);
+    load_rows<BK, D, kTcThreads>(vs, vb, 0, tk);
+    for (int i = threadIdx.x; i < 2 * BQ; i += kTcThreads) {
+      const int r = i % BQ;
+      const bool in = q0 + r < tq;
+      const float* src = i < BQ ? lb : db;
+      cp_async4((i < BQ ? lses : deltas) + r, in ? src + r : src, in ? 4 : 0);
+    }
+    cp_async_commit();
+  }
+  const float tie_scale = kSumErr * sm_scale;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {  // the stage read in iteration it - 1, released by its last barrier
+      load_rows<BK, D, kTcThreads>(ks + (st ^ 1) * BK * kS, kb, k0 + BK, tk);
+      load_rows<BK, D, kTcThreads>(vs + (st ^ 1) * BK * kS, vb, k0 + BK, tk);
+    }
+    cp_async_commit();  // possibly empty, so that one group always stays in flight
+    cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          ldmatrix_x4(qf[mt][kk], a_frag(qs, kS, wrow + 16 * mt, kk * 16, lane));
+    }
+    const bf16* kst = ks + st * BK * kS;
+    const bf16* vst = vs + st * BK * kS;
+
+    // Not unrolled: with two copies of the body, and so of the re-summing
+    // code, which runs rarely, the kernel is much slower
+    // (`tools/tie_variants.py dq:unrolled`).
+#pragma unroll 1
+    for (int kc = 0; kc < BK; kc += KC) {
+      // s = q k^T and dp = do v^T over keys kc.. of the tile: 16 MT rows x
+      // KC keys a warp, 8 keys per block.
+      float s[MT][KC / 8][4], dp[MT][KC / 8][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][j][e] = dp[mt][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t dof[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_x4(dof[mt], a_frag(dos, kS, wrow + 16 * mt, kk * 16, lane));
+#pragma unroll
+        for (int j = 0; j < KC / 16; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4(b, b_pair(kst, kS, kc + j * 16, kk * 16, lane));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(s[mt][2 * j], qf[mt][kk], b[0], b[1]);
+            mma(s[mt][2 * j + 1], qf[mt][kk], b[2], b[3]);
+          }
+          ldmatrix_x4(b, b_pair(vst, kS, kc + j * 16, kk * 16, lane));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(dp[mt][2 * j], dof[mt], b[0], b[1]);
+            mma(dp[mt][2 * j + 1], dof[mt], b[2], b[3]);
+          }
+        }
+      }
+
+      // ds = p (dp - delta) scale in place of dp; the mask only where the
+      // chunk crosses the diagonal or the ragged end.
+      const int c0 = k0 + kc;  // the chunk's first key
+      const bool masked = c0 + KC > tk || (causal && c0 + KC - 1 > q0);
+      uint32_t near = 0;  // pairs whose bf16 rounding of ds the order of the sums could flip
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = q0 + wrow + 16 * mt + g + (e >> 1) * 8;
+            const int key = c0 + j * 8 + 2 * t + (e & 1);
+            const bool keep = !masked || (key < tk && (!causal || row >= key));
+            const float p = prob(s[mt][j][e], lse_r[mt][e >> 1], keep, sm_scale);
+            const float ds = p * (dp[mt][j][e] - delta_r[mt][e >> 1]) * sm_scale;
+            near |= static_cast<uint32_t>(near_ds(ds, p, sum_err(s[mt][j][e], tie_scale),
+                                                  sum_err(dp[mt][j][e], tie_scale)))
+                    << ((mt * (KC / 8) + j) * 4 + e);
+            dp[mt][j][e] = ds;
+          }
+      // Element i = (mt * KC / 8 + j) * 4 + e of dp: query row
+      // wrow + 16 mt + g + (i & 2) * 4 of the tile, key kc + 8 j + 2t + (i & 1).
+      if (__any_sync(0xffffffffu, near))
+        resum_near_ties<D, MT * KC / 2>(
+            near,
+            [&](int i) {
+              return (wrow + 16 * (i / (KC / 2)) + g + (i & 2) * 4) |
+                     (kc + (i / 4) % (KC / 8) * 8 + 2 * t + (i & 1)) << 8;
+            },
+            [&](int i, bool hit, float2 x) {
+              float& d = dp[i / (KC / 2)][(i / 4) % (KC / 8)][i % 4];
+              d = hit ? x.y : d;
+            },
+            qs, dos, kst, vst, lses, deltas, items + warp * 32, vals + warp * 32, lane, sm_scale);
+
+      // dq += ds k: ds rounded to bf16 (k's dtype) in the A fragments, K
+      // through ldmatrix.trans.
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) a_from_acc(a[mt], dp[mt][2 * kk], dp[mt][2 * kk + 1]);
+#pragma unroll
+        for (int j = 0; j < D / 16; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, bt_pair(kst, kS, kc + kk * 16, j * 16, lane));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(acc[mt][2 * j], a[mt], b[0], b[1]);
+            mma(acc[mt][2 * j + 1], a[mt], b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed: the next iteration's prefetch may refill it
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + wrow + 16 * mt + g + 8 * h;
+      if (row >= tq) continue;
+      float* dqrow = dq + ((size_t)bh * tq + row) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(dqrow + j * 8) = make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+    }
+}
+
+// One launch of a kernel of either pass: its dynamic shared memory raised to
+// smem, the inputs cast to T, then the outputs.
+template <typename T, typename Kernel, typename... Out>
+cudaError_t launch(Kernel kernel, size_t smem, int threads, dim3 grid, const void* q,
+                   const void* k, const void* v, const void* dout, const float* lse,
+                   const float* delta, int tq, int tk, int causal, float sm_scale,
+                   cudaStream_t stream, Out*... out) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tk + kBlockK - 1) / kBlockK);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, dk, dv, tq, tk, causal, sm_scale);
+      static_cast<const T*>(dout), lse, delta, out..., tq, tk, causal, sm_scale);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                            const float* lse, const float* delta, float* dk, float* dv, int bh,
-                            int tq, int tk, int causal, float sm_scale, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_bf16_kernel<D>;
-  constexpr size_t smem = dkv_bf16_smem_bytes<D>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tk + kTcBlockK - 1) / kTcBlockK);
-  kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, dk, dv, tq, tk, causal, sm_scale);
-  return cudaGetLastError();
+cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, float* dq, int bh, int tq, int tk,
+                      int causal, float sm_scale, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch<float>(flash_bwd_dq_kernel<D>, dq_smem_bytes<D>(), kThreads,
+                         dim3(bh, (tq + kBlockQ - 1) / kBlockQ), q, k, v, dout, lse, delta, tq,
+                         tk, causal, sm_scale, stream, dq);
+  return launch<bf16>(flash_bwd_dq_bf16_kernel<D>, dq_bf16_smem_bytes<D>(), kTcThreads,
+                      dim3(bh, (tq + kDqBlockQ<D> - 1) / kDqBlockQ<D>), q, k, v, dout, lse,
+                      delta, tq, tk, causal, sm_scale, stream, dq);
+}
+
+template <int D>
+cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, float* dk, float* dv, int bh,
+                       int tq, int tk, int causal, float sm_scale, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch<float>(flash_bwd_dkv_kernel<D>, dkv_smem_bytes<D>(), kThreads,
+                         dim3(bh, (tk + kBlockK - 1) / kBlockK), q, k, v, dout, lse, delta, tq,
+                         tk, causal, sm_scale, stream, dk, dv);
+  return launch<bf16>(flash_bwd_dkv_bf16_kernel<D>, dkv_bf16_smem_bytes<D>(), kTcThreads,
+                      dim3(bh, (tk + kTcBlockK - 1) / kTcBlockK), q, k, v, dout, lse, delta,
+                      tq, tk, causal, sm_scale, stream, dk, dv);
 }
 
 }  // namespace
 
-// C entry points, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16
-// (the dk/dv pass runs its tensor-core kernel for bf16).  The caller has
-// checked shapes, types, contiguity and 16-byte alignment, launches the dq pass
+// C entry points, loaded with ctypes.  dtype: 0 = float32 (the FMA
+// kernels), 1 = bfloat16 (the tensor-core kernels).  The caller has checked
+// shapes, types, contiguity and 16-byte alignment, launches the dq pass
 // only when bh > 0 and tq > 0 and the dk/dv pass only when bh > 0 and
 // tk > 0.  Each returns its launch's CUDA error code (0 = none).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int bh, int tq,
                             int tk, int d, int dtype, int causal, float sm_scale,
                             void* stream) {
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  float* o = static_cast<float*>(dq);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return launch_dq<float, 64>(q, k, v, dout, l, dl, o, bh, tq, tk, causal, sm_scale, s);
-  if (dtype == 0 && d == 128)
-    return launch_dq<float, 128>(q, k, v, dout, l, dl, o, bh, tq, tk, causal, sm_scale, s);
-  if (dtype == 1 && d == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, l, dl, o, bh, tq, tk, causal, sm_scale, s);
-  if (dtype == 1 && d == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, l, dl, o, bh, tq, tk, causal, sm_scale, s);
-  return cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 128)) return cudaErrorInvalidValue;
+  const auto run = d == 64 ? launch_dq<64> : launch_dq<128>;
+  return run(dtype, q, k, v, dout, static_cast<const float*>(lse),
+             static_cast<const float*>(delta), static_cast<float*>(dq), bh, tq, tk, causal,
+             sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int bh,
                              int tq, int tk, int d, int dtype, int causal, float sm_scale,
                              void* stream) {
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  float* gk = static_cast<float*>(dk);
-  float* gv = static_cast<float*>(dv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return launch_dkv<float, 64>(q, k, v, dout, l, dl, gk, gv, bh, tq, tk, causal, sm_scale, s);
-  if (dtype == 0 && d == 128)
-    return launch_dkv<float, 128>(q, k, v, dout, l, dl, gk, gv, bh, tq, tk, causal, sm_scale, s);
-  if (dtype == 1 && d == 64)
-    return launch_dkv_bf16<64>(q, k, v, dout, l, dl, gk, gv, bh, tq, tk, causal, sm_scale, s);
-  if (dtype == 1 && d == 128)
-    return launch_dkv_bf16<128>(q, k, v, dout, l, dl, gk, gv, bh, tq, tk, causal, sm_scale, s);
-  return cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 128)) return cudaErrorInvalidValue;
+  const auto run = d == 64 ? launch_dkv<64> : launch_dkv<128>;
+  return run(dtype, q, k, v, dout, static_cast<const float*>(lse),
+             static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
+             bh, tq, tk, causal, sm_scale, static_cast<cudaStream_t>(stream));
 }

@@ -5,9 +5,8 @@ Counterpart of ``polyaxon_tpu/parallel/flash.py`` (``flash_block_fwd``,
 custom VJP).  The kernels are hand-written CUDA C++ for ``sm_90a``, built at
 first use and bound through ``ctypes``: ``csrc/flash_fwd.cu`` replaces the
 TPU's ``_fwd_kernel``, ``csrc/flash_bwd.cu`` its ``_dq_kernel`` and
-``_dkv_kernel``.  With bf16 inputs the forward and the dk/dv pass run on
-the tensor cores (``mma.sync``); float32 inputs and the dq pass use float32
-FMAs.
+``_dkv_kernel``.  With bf16 inputs all three run on the tensor cores
+(``mma.sync``); with float32 inputs they use float32 FMAs.
 
 Each wrapper dispatches on where its tensors lie, and on nothing else: a CPU
 tensor goes to the plain version, a CUDA tensor to the kernel, which either

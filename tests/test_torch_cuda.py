@@ -1,16 +1,18 @@
 """The port's CUDA kernels against their plain versions, on a card.
 
-Marked ``cuda``: they skip without one.  With bf16 inputs the forward and
-the dk/dv pass run their tensor-core kernels, with float32 inputs the FMA
-kernels, so each edge case appears in both types.  This file imports neither JAX nor
-the JAX package, so it also runs on a machine that has only PyTorch:
+Marked ``cuda``: they skip without one.  With bf16 inputs the forward, the
+dq pass and the dk/dv pass run their tensor-core kernels, with float32
+inputs the FMA kernels, so each edge case appears in both types.  This
+file imports neither JAX nor the JAX package, so it also runs on a machine
+that has only PyTorch:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerances: o atol 2e-2 (p is rounded to bf16 against the kernel's running
 max, not the final one), lse atol 1e-3; float32 inputs 1e-5.  Backward
 kernels: dq/dk/dv atol 2e-3 with bf16 inputs (the kernels and the plain
-version round ds and p to bf16 at the same places, but a float32 difference
-in summation order can flip one rounding), 1e-4 with float32 inputs
-(summation order over up to 1000 terms).
+version round ds and p to bf16 at the same places; the kernels sum again,
+in the plain order, each value of 2^-7 or more that a float32 difference in
+summation order could round the other way, so only smaller ones may flip),
+1e-4 with float32 inputs (summation order over up to 1000 terms).
 """
 
 import math
@@ -81,6 +83,8 @@ def test_flash_kernels_refuse_unaligned_pointers(cuda, dtype):
     with pytest.raises(ValueError, match="aligned"):
         flash.flash_block_fwd(q, _unaligned(k), v, causal=True, sm_scale=0.125)
     with pytest.raises(ValueError, match="aligned"):
+        flash.flash_block_dq(_unaligned(q), k, v, do, lse, lse, causal=True, sm_scale=0.125)
+    with pytest.raises(ValueError, match="aligned"):
         flash.flash_block_dkv(q, k, v, _unaligned(do), lse, lse, causal=True, sm_scale=0.125)
     assert (flash.flash_block_fwd.launches, flash.flash_block_dq.launches,
             flash.flash_block_dkv.launches) == before
@@ -127,11 +131,15 @@ def _bwd_inputs(device, BH, Tq, Tk, d, dtype, causal, seed):
         (8, 300, 200, 128, torch.float32, False),  # non-causal, Tq != Tk, d = 128, f32
         (8, 200, 300, 128, torch.bfloat16, True),  # causal, Tq < Tk
         (4, 70, 0, 64, torch.float32, False),  # empty key block
-        # bf16 runs the tensor-core dk/dv kernel: its edges
+        # bf16 runs the tensor-core dq and dk/dv kernels: their edges
         *((8, T, T, 64, torch.bfloat16, True) for T in (1, 63, 65, 127, 129)),  # tile edges
         (8, 300, 200, 128, torch.bfloat16, True),  # causal, Tq > Tk
         (8, 129, 129, 128, torch.bfloat16, False),  # d = 128 tile edge, non-causal
         (4, 70, 0, 64, torch.bfloat16, False),  # empty key block
+        # Large enough that, without the kernels' rounding screen, some ds
+        # would certainly round to another bf16 value than in the plain version.
+        (64, 1024, 1024, 128, torch.bfloat16, True),
+        (64, 1024, 1024, 64, torch.bfloat16, False),
     ],
 )
 def test_flash_bwd_kernels_match_plain(cuda, BH, Tq, Tk, d, dtype, causal):
