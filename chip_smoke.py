@@ -4,10 +4,12 @@
 Run from the repository root, on a machine with one NVIDIA Hopper card and
 the CUDA toolkit: ``python3 chip_smoke.py``.  It builds the port's kernels
 from ``polyaxon_tpu_torch/csrc``, holds each against its plain PyTorch
-version, and drives the port's two paths at the full width of the 671M
-bench model: serving (``lm_generate``: prefill through the flash forward
-kernel, then KV-cache decode) and training (``lm_train``: the flash forward
-and the two backward kernels in every layer).  Phases:
+version, and drives the port's paths at the full width of the 671M bench
+model: generation (``lm_generate``: prefill through the flash forward
+kernel, then KV-cache decode), training (``lm_train``: the flash forward
+and the two backward kernels in every layer) and serving (``lm_server``:
+the continuous-batching engine over a paged KV pool, whose steps use plain
+attention and no kernel of the port).  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -36,11 +38,32 @@ and the two backward kernels in every layer).  Phases:
    whose first step must give the same loss and grad norm;
 8. where the time goes: device time by kernel over one prefill, over
    decode steps and over one train step (torch.profiler), and the device's
-   idle share.
+   idle share;
+9. the paged serving engine on small float32 models (MHA and GQA): its
+   greedy tokens equal the static ``generate`` on the card with prefix
+   reuse, copy-on-write, ``prefill_chunk=8``, speculative decoding and the
+   warmup on; with an int8 KV pool, tokens with speculation and prefix reuse
+   on equal those with both off;
+10. the paged steps at the 671M width in bf16: ``paged_prefill_chunk``'s
+    last logits against ``prefill`` with dense attention, and one
+    ``paged_decode_step`` against the static ``decode_step`` (min cosine
+    and argmax);
+11. the serving entry point ``lm_server`` at the 671M width (seq 1024,
+    8 slots, 16-token blocks, 256-token prefill chunks, prefix cache on),
+    in a thread on a free local port: 16 concurrent ``POST /generate`` of
+    64 tokens, 8 of them sharing a 256-token prefix, 2 sampled; then
+    ``/v1/stats``, ``/metrics``, no leaked block, and a ``/v1/cancel`` that
+    frees its slot; TTFT, queue wait, decode step, tokens/s and peak
+    memory; the flash kernels' launch counts over it must stay 0 (the
+    paged steps use plain attention, as the reference's do);
+12. where the serving time goes: one paged decode step with 8 live slots
+    and one 256-token prefill chunk under torch.profiler.
 
 Any failed check raises, and the script exits non-zero.  On success its
-last lines are the card's name and power limit, the kernels' JSON record
-and ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 at once.
+last lines are the serving figures as JSON (``lm_generate``'s decode rate,
+``lm_server``'s, and the paged profile), the card's name and power limit,
+the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Without
+CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -48,10 +71,14 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -99,6 +126,13 @@ DKV_DESIGN = ("mma.sync m16n8k16 bf16, transposed scores, cp.async two-stage q/d
 # (bytes moved and FLOPs): attention_bound must reproduce them.
 TRAIN_SHAPE_BOUNDS = {"fwd": (422.1e6, None), "dq": (508.6e6, 129.0e9),
                       "dkv": (676.3e6, 172.0e9)}
+# lm_server at the 671M width: per-request context, batch slots, KV block
+# size, prefill chunk, and tokens generated per request.
+SERVE_SEQ, SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK, SERVE_NEW = 1024, 8, 16, 256, 64
+# Small float32 engine models (head_dim 64, so the static path's prefill
+# could take the kernel; both sides run dense attention here).
+SMALL_SERVE = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=4, head_dim=64, d_ff=512,
+                   max_seq=128)
 
 
 def log(*args) -> None:
@@ -494,9 +528,9 @@ def phase_small_model_grads_bf16():
 
 
 def phase_main_path():
-    """lm_generate at the 671M width; returns (launches, cfg)."""
+    """lm_generate at the 671M width; returns the launch counts of the run
+    (fwd, dq, dkv) and its metrics."""
     from polyaxon_tpu_torch.builtins.trainers import lm_generate
-    from polyaxon_tpu_torch.parallel import flash
     from polyaxon_tpu_torch.tracking.context import Context
 
     records = []
@@ -506,10 +540,10 @@ def phase_main_path():
         seed=SEED, records=records,
     )
     torch.cuda.reset_peak_memory_stats()
-    flash.flash_block_fwd.launches = 0
+    _reset_counts()
     out = lm_generate(ctx)
     torch.cuda.synchronize()
-    launches = flash.flash_block_fwd.launches
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     metrics = next(r["values"] for r in records if r["kind"] == "metric")
     for r in records:
@@ -517,14 +551,16 @@ def phase_main_path():
             log(r["line"])
     log(f"lm_generate 671M: prefill_s {metrics['prefill_s']} decode_tokens_per_s "
         f"{metrics['decode_tokens_per_s']} generated {metrics['generated']} "
-        f"peak_memory_allocated {peak} B; flash_fwd launches {launches}")
-    # lm_generate runs four prefills (two generate calls, two timed prefills).
-    if launches != 4 * BENCH_MODEL["n_layers"]:
-        raise AssertionError(f"expected {4 * BENCH_MODEL['n_layers']} flash launches, got {launches}")
+        f"peak_memory_allocated {peak} B; launches fwd/dq/dkv {launches}")
+    # lm_generate runs four prefills (two generate calls, two timed prefills)
+    # and no backward.
+    want = (4 * BENCH_MODEL["n_layers"], 0, 0)
+    if launches != want:
+        raise AssertionError(f"expected launches fwd/dq/dkv {want}, got {launches}")
     if tuple(out.shape) != (BATCH, NEW_TOKENS) or int(out.min()) < 0 or \
             int(out.max()) >= BENCH_MODEL["vocab_size"]:
         raise AssertionError(f"bad generated tokens: shape {tuple(out.shape)}")
-    return launches
+    return launches, {k: metrics[k] for k in ("prefill_s", "decode_tokens_per_s")}
 
 
 def phase_prefill_parity():
@@ -562,8 +598,9 @@ def phase_prefill_parity():
 
 def _profile(label, fn, calls, top=8):
     """Device time by kernel over one call of ``fn`` (torch.profiler), beside
-    the same call's wall time taken without the profiler; returns the
-    device's idle share, or None where the trace holds no device time."""
+    the same call's wall time taken without the profiler; returns the wall
+    time, the device time, the idle share and the device ops per call, or
+    None where the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -592,7 +629,8 @@ def _profile(label, fn, calls, top=8):
     for i, (name, ms) in enumerate(ranked):  # the largest, and the port's own kernels
         if i < top or "flash_" in name:
             log(f"    {ms:9.3f} ms {ms / busy_ms:6.1%}  {name[:120]}")
-    return idle
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": idle,
+            "device_ops_per_call": launches / calls}
 
 
 def phase_profile(params, cfg, prompt, steps: int = 8):
@@ -723,6 +761,366 @@ def phase_profile_train():
     _profile("train step", lambda: ts.step(params, opt_state, batch), 1, top=12)
 
 
+def _small_serving_traffic(rng):
+    """(concurrent, sequential) lists of (prompt, max_new): mixed lengths and
+    two templated prompts the n-gram drafter can match, submitted together;
+    then two prompts sharing two 8-token blocks and diverging inside the
+    third, and the bare prefix twice (a block-aligned full hit: copy-on-write),
+    one after another so each finds the last one's blocks cached."""
+    mixed = [(rng.integers(0, 256, t).tolist(), n) for t, n in ((3, 12), (17, 9), (40, 16),
+                                                                (25, 5), (9, 20))]
+    loop = [5, 9, 13, 2, 40, 7]
+    templated = [(loop * 4, 24), (rng.integers(0, 256, 5).tolist() + loop * 3, 20)]
+    pre, a, b = (rng.integers(0, 256, t).tolist() for t in (16, 5, 4))
+    shared = [(pre + a, 10), (pre + a[:2] + b, 12), (pre, 8), (pre, 6)]
+    return mixed + templated, shared
+
+
+def _serve_small(engine, together, sequential):
+    engine.start()
+    try:
+        reqs = [engine.submit(p, n) for p, n in together]
+        outs = [r.wait(timeout=300) for r in reqs]
+        outs += [engine.submit(p, n).wait(timeout=300) for p, n in sequential]
+        return outs, engine.stats()
+    finally:
+        engine.stop()
+
+
+def phase_engine_small():
+    """The paged engine on small float32 models on the card, MHA and GQA:
+    greedy tokens equal the static generate's (dense attention, so the two
+    differ only in the KV layout and the scheduling) with prefix reuse,
+    copy-on-write, prefill_chunk=8, speculative decoding and the warmup on;
+    and on an int8 pool, tokens with speculation and prefix reuse on equal
+    those with both off (an int8 pool is near the float one, not equal)."""
+    from polyaxon_tpu_torch.models import decode
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params
+    from polyaxon_tpu_torch.serving import ServingEngine
+
+    for variant, extra in (("mha", {}), ("gqa", {"n_kv_heads": 2})):
+        cfg = TransformerConfig(dtype=torch.float32, **SMALL_SERVE, **extra)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+        together, sequential = _small_serving_traffic(np.random.default_rng(8))
+        kw = dict(slots=3, max_len=cfg.max_seq, block_size=8, prefill_chunk=8, spec_k=4,
+                  device="cuda")
+        t0 = time.perf_counter()
+        outs, stats = _serve_small(
+            ServingEngine(params, cfg, spec_decode=True, warmup=True, **kw), together, sequential)
+        wall = time.perf_counter() - t0
+        dense = cfg.scaled(attention_impl="dense")
+        want = [decode.generate(params, torch.tensor([p], device="cuda"), dense, max_new_tokens=n,
+                                device="cuda")[0].tolist() for p, n in together + sequential]
+        equal = sum(a == b for a, b in zip(outs, want))
+        leaked = stats["blocks_total"] - stats["blocks_free"] - stats["prefix_cache_blocks"]
+        log(f"small f32 engine {variant}: {equal}/{len(want)} requests equal to static generate; "
+            f"cow_copies {stats['cow_copies']} prefix_cache_hits {stats['prefix_cache_hits']} "
+            f"spec proposed/accepted {stats['spec_proposed_total']}/"
+            f"{stats['spec_accepted_total']} warmup {stats['warmup']} leaked blocks {leaked}; "
+            f"{wall:.2f} s")
+        if equal != len(want) or stats["cow_copies"] < 1 or stats["prefix_cache_hits"] < 4 or \
+                stats["spec_accepted_total"] < 1 or leaked or \
+                stats["warmup"]["done"] != stats["warmup"]["total"]:
+            raise AssertionError(f"the {variant} engine disagrees with static generate")
+        int8 = {}
+        for on in (True, False):
+            int8[on], s = _serve_small(
+                ServingEngine(params, cfg, kv_quantize="int8", spec_decode=on, prefix_cache=on,
+                              warmup=False, **kw), [], together + sequential)
+        log(f"small f32 engine {variant}, int8 pool: spec and prefix reuse on vs off: "
+            f"{sum(a == b for a, b in zip(int8[True], int8[False]))}/{len(want)} requests equal; "
+            f"{sum(a == b for a, b in zip(int8[True], want))}/{len(want)} equal to the float32 "
+            f"static generate (not required)")
+        if int8[True] != int8[False]:
+            raise AssertionError(f"the {variant} int8 pool gives other tokens with spec and prefix "
+                                 "reuse on")
+
+
+def _agree(label, a, b):
+    """Min cosine >= 0.999 and the same argmax per row, as phase 6 holds the
+    static path."""
+    cos = torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1).min().item()
+    same = torch.equal(a.argmax(-1), b.argmax(-1))
+    finite = bool(torch.isfinite(a).all())
+    log(f"{label}: min cosine {cos:.6f} (>= 0.999), max abs diff {(a - b).abs().max().item():.4f}, "
+        f"argmax equal: {same}; finite: {finite}")
+    if cos < 0.999 or not same or not finite:
+        raise AssertionError(f"{label} disagree")
+
+
+def phase_paged_parity():
+    """The paged steps at the 671M width in bf16, on lm_server's weights (the
+    same seed): a 500-token prompt through two prefill chunks (256, then 244
+    padded to 256) into blocks in a shuffled order, against prefill with
+    dense attention; then one decode step at position 500 against the static
+    decode_step.  Returns (params, cfg) for the profile."""
+    from polyaxon_tpu_torch.models import decode
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params
+    from polyaxon_tpu_torch.parallel import flash
+
+    cfg = TransformerConfig(max_seq=SERVE_SEQ, **BENCH_MODEL)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 1)
+    T, W = 500, SERVE_SEQ // SERVE_BLOCK
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, T), device="cuda")
+    pool = decode.init_block_pool(cfg, 1 + W, SERVE_BLOCK, device="cuda")
+    table = torch.as_tensor(1 + rng.permutation(W), device="cuda")
+    _reset_counts()
+    for start in range(0, T, SERVE_CHUNK):
+        n = min(SERVE_CHUNK, T - start)
+        chunk = torch.zeros(SERVE_CHUNK, dtype=torch.long, device="cuda")
+        chunk[:n] = prompt[start:start + n]
+        paged, pool = decode.paged_prefill_chunk(params, pool, table, chunk, start, n, cfg)
+    cache = decode.init_cache(cfg, 1, T + 1, "cuda")
+    static, cache = decode.prefill(params, prompt[None], cache, cfg.scaled(attention_impl="dense"),
+                                   device="cuda")
+    _agree("671M paged_prefill_chunk last logits vs prefill (dense)", paged[None], static)
+    token = static.argmax(-1)
+    one = torch.ones(1, dtype=torch.bool, device="cuda")
+    paged, pool = decode.paged_decode_step(params, pool, table[None], token,
+                                           torch.full((1,), T, device="cuda"), one, cfg)
+    static, cache = decode.decode_step(params, cache, token, T, cfg)
+    _agree("671M paged_decode_step vs decode_step at position 500", paged, static)
+    torch.cuda.synchronize()
+    if _counts() != (0, 0, 0):
+        raise AssertionError(f"the paged steps launched flash kernels: {_counts()}")
+    del pool, cache
+    return params, cfg
+
+
+def phase_profile_paged(params, cfg):
+    """Where the serving time goes: one paged decode step of 8 live slots at
+    position 512 (host state to the card, the step, the argmax and its host
+    read, as the engine's step runs it), and one 256-token prefill chunk at
+    position 256; with the step's least time (its weights and the live KV
+    rows read once at the HBM rate)."""
+    from polyaxon_tpu_torch.models import decode
+
+    W = SERVE_SEQ // SERVE_BLOCK
+    pool = decode.init_block_pool(cfg, 1 + SERVE_SLOTS * W, SERVE_BLOCK, device="cuda")
+    rng = np.random.default_rng(SEED + 2)
+    tables = np.arange(1, 1 + SERVE_SLOTS * W).reshape(SERVE_SLOTS, W)
+    pos = np.full(SERVE_SLOTS, 512)
+    tok = rng.integers(0, cfg.vocab_size, SERVE_SLOTS)
+    active = np.ones(SERVE_SLOTS, bool)
+
+    def step():
+        dev = [torch.as_tensor(x, device="cuda") for x in (tables, tok, pos, active)]
+        logits, _ = decode.paged_decode_step(params, pool, dev[0], dev[1], dev[2], dev[3], cfg)
+        logits.argmax(-1).cpu()
+
+    chunk = torch.as_tensor(rng.integers(0, cfg.vocab_size, SERVE_CHUNK), device="cuda")
+    table0 = torch.as_tensor(tables[0], device="cuda")
+
+    def prefill_chunk():
+        decode.paged_prefill_chunk(params, pool, table0, chunk, 256, SERVE_CHUNK, cfg)[0].cpu()
+
+    weights = sum(t.numel() * t.element_size()
+                  for t in [*params["block"].values(), params["unembed"]])
+    kv = 2 * cfg.n_layers * SERVE_SLOTS * 513 * cfg.kv_heads * cfg.head_dim * \
+        pool["k"].element_size()
+    bound_ms = (weights + kv) / H100_BYTES_PER_S * 1e3
+    log(f"paged decode step bound: {weights / 1e6:.1f} MB of weights + {kv / 1e6:.1f} MB of live "
+        f"KV rows at the HBM rate -> {bound_ms:.4f} ms (bytes)")
+    return {
+        "paged_decode_step_bound_ms": bound_ms,
+        "paged_decode_step": _profile(f"paged decode step ({SERVE_SLOTS} live slots, position 512)",
+                                      step, 1, top=10),
+        "paged_prefill_chunk": _profile(f"paged prefill chunk ({SERVE_CHUNK} tokens at 256)",
+                                        prefill_chunk, 1, top=10),
+    }
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(base, path, payload=None, timeout=600):
+    """(status, body) of a GET (payload None) or a JSON POST; /metrics as text."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, body = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, (body.decode() if path == "/metrics" else json.loads(body))
+
+
+def _await_stats(base, cond, what, timeout=120):
+    deadline = time.time() + timeout
+    while True:
+        stats = _http(base, "/v1/stats")[1]
+        if cond(stats):
+            return stats
+        if time.time() > deadline:
+            raise AssertionError(f"lm_server: {what} did not happen in {timeout} s: {stats}")
+        time.sleep(0.05)
+
+
+def phase_lm_server():
+    """The serving entry point at the 671M width: lm_server in a thread, 16
+    concurrent /generate requests of 64 tokens (8 sharing a 256-token prefix
+    with suffixes of 64-448 tokens, 8 independent prompts of 128-512 tokens;
+    2 of the 16 sampled at temperature 0.8), then the stats, the metrics,
+    the block count and a cancel.  Returns the flash kernels' launch counts
+    over the run and the run's figures."""
+    from polyaxon_tpu_torch.builtins.services import lm_server
+    from polyaxon_tpu_torch.tracking.context import Context
+
+    V = BENCH_MODEL["vocab_size"]
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    records = []
+    ctx = Context(params=dict(BENCH_MODEL, seq=SERVE_SEQ, slots=SERVE_SLOTS,
+                              block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK, prefix_cache=1,
+                              max_new_tokens=SERVE_NEW, service_port=port, host="127.0.0.1",
+                              device="cuda"), seed=SEED, records=records)
+    errors = []
+
+    def serve():
+        try:
+            lm_server(ctx)
+        except Exception as e:  # re-raised by the main thread below
+            errors.append(e)
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    server = threading.Thread(target=serve, name="lm_server", daemon=True)
+    server.start()
+    try:
+        deadline = time.time() + 300
+        while True:
+            if errors:
+                raise errors[0]
+            try:
+                health = _http(base, "/healthz", timeout=30)[1]
+                if health["state"] == "ready":
+                    break
+            except OSError:
+                pass
+            if time.time() > deadline:
+                raise AssertionError("lm_server did not become ready in 300 s")
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        warmup = health["engine"]["warmup"]
+        log(f"lm_server ready in {ready_s:.2f} s: warmup {warmup}, "
+            f"{health['model']['n_params']} params")
+        if not warmup["total"] or warmup["done"] != warmup["total"]:
+            raise AssertionError(f"lm_server's warmup did not run every step: {warmup}")
+
+        rng = np.random.default_rng(SEED + 3)
+        prefix = rng.integers(0, V, 256).tolist()
+        shared = [prefix + rng.integers(0, V, int(n)).tolist() for n in np.linspace(64, 448, 8)]
+        alone = [rng.integers(0, V, int(n)).tolist() for n in np.linspace(128, 512, 8)]
+        # Interleaved, so the first 8 admitted hold about half the shared
+        # prompts and the rest, admitted as slots free, find the prefix
+        # cached (a block is published when its prompt's prefill ends).
+        prompts = [p for pair in zip(shared, alone) for p in pair]
+        temps = [0.8 if i in (6, 11) else 0.0 for i in range(len(prompts))]
+        results = [None] * len(prompts)
+
+        def client(i):
+            results[i] = _http(base, "/generate", {"prompts": [prompts[i]],
+                                                   "max_new_tokens": SERVE_NEW,
+                                                   "temperature": temps[i]})
+
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        t1 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t1
+        if any(c.is_alive() for c in clients) or errors:
+            raise AssertionError(f"lm_server requests did not finish: {errors}")
+        for i, (status, body) in enumerate(results):
+            toks = body.get("tokens", [[]])[0] if status == 200 else []
+            if status != 200 or len(toks) != SERVE_NEW or not all(0 <= t < V for t in toks):
+                raise AssertionError(f"request {i}: status {status}, {str(body)[:300]}")
+        ttft = [body["ttft_s"][0] for _, body in results]
+        stats = _http(base, "/v1/stats")[1]
+        lat = stats["latency"]
+        n_tok = len(prompts) * SERVE_NEW
+        # One window of 16 requests: a smoke-level reading.  Its TTFT tail
+        # is reported as the maximum (a p99 of 16 samples is the maximum).
+        summary = {
+            "requests": len(prompts), "new_tokens": SERVE_NEW,
+            "prompt_tokens": sum(map(len, prompts)), "wall_s": wall,
+            "aggregate_tokens_per_s": n_tok / wall, "ttft_s_p50": float(np.median(ttft)),
+            "ttft_s_max": max(ttft), "queue_wait_s_p50": lat["queue_wait_s"]["p50"],
+            "decode_step_s_p50": lat["decode_step_s"]["p50"],
+            "decode_steps": stats["decode_steps"],
+            "prefix_cache_hit_rate": stats["prefix_cache_hit_rate"],
+        }
+        log(f"lm_server 671M, {len(prompts)} concurrent requests x {SERVE_NEW} tokens "
+            f"({summary['prompt_tokens']} prompt tokens): wall {wall:.3f} s, aggregate "
+            f"tokens_per_s {summary['aggregate_tokens_per_s']:.1f}; client ttft_s p50 "
+            f"{summary['ttft_s_p50']:.4f} max {summary['ttft_s_max']:.4f}; engine histograms: "
+            f"ttft_s {lat['ttft_s']}, queue_wait_s {lat['queue_wait_s']}, decode_step_s "
+            f"{lat['decode_step_s']}, batch_occupancy {lat['batch_occupancy']}")
+        log(f"lm_server stats: decode_steps {stats['decode_steps']} tokens_generated "
+            f"{stats['tokens_generated']} prefix_cache_hit_rate {stats['prefix_cache_hit_rate']} "
+            f"hits {stats['prefix_cache_hits']} cow_copies {stats['cow_copies']} "
+            f"prefix_cache_blocks {stats['prefix_cache_blocks']} blocks_free "
+            f"{stats['blocks_free']}/{stats['blocks_total']} block_parks {stats['block_parks']} "
+            f"decode_busy_frac {stats['decode_busy_frac']} slot_occupancy "
+            f"{stats['slot_occupancy']} kv_pool_bytes {stats['kv_pool_bytes']}")
+        if not stats["prefix_cache_hit_rate"] > 0:
+            raise AssertionError("lm_server: no prefix-cache hit on the shared prefix")
+        used = stats["blocks_total"] - stats["blocks_free"]
+        if used != stats["prefix_cache_blocks"] or stats["slots_active"]:
+            raise AssertionError(f"lm_server: {used} blocks in use after the traffic, "
+                                 f"{stats['prefix_cache_blocks']} held by the prefix cache")
+        status, metrics = _http(base, "/metrics")
+        if status != 200 or "# TYPE polyaxon_tpu_serving_ttft_s histogram" not in metrics:
+            raise AssertionError("lm_server: /metrics carries no TTFT histogram")
+
+        # Cancel a long request mid-decode, by the id /v1/stats shows in its
+        # slot.
+        long_result = []
+        long_client = threading.Thread(target=lambda: long_result.append(_http(
+            base, "/generate", {"prompts": [alone[0][:64]], "max_new_tokens": 900})))
+        long_client.start()
+        before = stats["tokens_generated"]
+        busy = _await_stats(base, lambda s: s["slots_active"] == 1 and
+                            s["tokens_generated"] > before + 8, "the long request's decode")
+        (rid,) = [i for i in busy["slot_request_ids"] if i is not None]
+        cancelled = _http(base, "/v1/cancel", {"request_id": rid})
+        long_client.join(timeout=120)
+        after = _await_stats(base, lambda s: s["slots_active"] == 0, "the cancel")
+        used = after["blocks_total"] - after["blocks_free"]
+        log(f"lm_server cancel of request {rid}: {cancelled}; its /generate answered "
+            f"{long_result[0] if long_result else None}; slots_active {after['slots_active']} "
+            f"blocks in use {used} (prefix cache {after['prefix_cache_blocks']}) "
+            f"requests_cancelled {after['requests_cancelled']}")
+        if cancelled != (200, {"cancelled": True}) or not long_result or \
+                long_result[0][0] != 503 or long_result[0][1]["error"]["kind"] != "cancelled" or \
+                used != after["prefix_cache_blocks"]:
+            raise AssertionError("lm_server: the cancel did not free the request's slot and blocks")
+    finally:
+        ctx.stop.set()
+        server.join(timeout=120)
+    if server.is_alive() or errors:
+        raise AssertionError(f"lm_server did not stop cleanly: {errors}")
+    torch.cuda.synchronize()
+    launches = _counts()
+    summary["peak_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"lm_server peak_memory_allocated {summary['peak_memory_allocated_bytes']} B; flash "
+        f"launches fwd/dq/dkv {launches} (expected (0, 0, 0))")
+    for r in records:  # the server's own lines, less its HTTP access log
+        if r["kind"] == "log" and not r["line"].startswith('lm_server: "'):
+            log(r["line"])
+    if launches != (0, 0, 0):
+        raise AssertionError(f"lm_server launched flash kernels: {launches}")
+    return launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card", file=sys.stderr)
@@ -738,7 +1136,7 @@ def main() -> int:
     phase_small_model()
     phase_small_model_grads()
     phase_small_model_grads_bf16()
-    serve_launches = phase_main_path()
+    gen_launches, gen_metrics = phase_main_path()
     phase_profile(*phase_prefill_parity())
     _free()
     train_launches, first = phase_train()
@@ -746,11 +1144,23 @@ def main() -> int:
     phase_bench_config(first)
     _free()
     phase_profile_train()
-    fwd["launches"] = serve_launches + train_launches[0]
-    fwd["launches_by_path"] = {"lm_generate": serve_launches, "lm_train": train_launches[0]}
+    _free()
+    phase_engine_small()
+    _free()
+    paged_profile = phase_profile_paged(*phase_paged_parity())
+    _free()
+    server_launches, server = phase_lm_server()
     fwd["train_shape"] = bwd["fwd"]
-    bwd["dq"]["launches"], bwd["dkv"]["launches"] = train_launches[1:]
+    by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
+               "lm_server": server_launches}
+    for i, record in enumerate((fwd, bwd["dq"], bwd["dkv"])):
+        record["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
+        record["launches"] = sum(record["launches_by_path"].values())
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    # The serving figures of this run, on a line of their own so that they
+    # stand in the output's tail beside the kernels' record.
+    print(json.dumps({"serving": {"lm_generate": gen_metrics, "lm_server": server,
+                                  **paged_profile}}))
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd["dq"], bwd["dkv"]]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,4 +10,5 @@ PyTorch versions run.
 
 from polyaxon_tpu_torch._device import kernels_available, resolve_device
 
+__version__ = "0.1.0"
 __all__ = ["kernels_available", "resolve_device"]

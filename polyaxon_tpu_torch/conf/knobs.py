@@ -1,0 +1,61 @@
+"""The environment knobs the port reads, with the reference's names and defaults.
+
+The port's own copy of the part of ``polyaxon_tpu/conf/knobs.py`` its
+serving engine uses: the same ``POLYAXON_TPU_*`` variables,
+the same defaults, the same parsing (a bool is false for ``0``, ``false``,
+``off``, ``no`` and the empty string; an unparsable number keeps the
+default).  Reading a knob that is not in :data:`KNOBS` raises ``KeyError``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+_FALSY = ("0", "false", "off", "no", "")
+
+#: name -> default (its type is the default's).
+KNOBS: Dict[str, Any] = {
+    "POLYAXON_TPU_SERVING_WARMUP": True,
+    "POLYAXON_TPU_SERVING_SPEC_DECODE": False,
+    "POLYAXON_TPU_SERVING_SPEC_K": 4,
+    "POLYAXON_TPU_SERVING_SPEC_MIN_NGRAM": 2,
+    "POLYAXON_TPU_SERVING_STATS_WINDOW_S": 60.0,
+}
+
+
+def _default(name: str) -> Any:
+    try:
+        return KNOBS[name]
+    except KeyError:
+        raise KeyError(f"Unknown knob {name!r}: declare it in polyaxon_tpu_torch/conf/knobs.py") from None
+
+
+def knob_bool(name: str) -> bool:
+    default = _default(name)
+    raw = os.environ.get(name)
+    if raw is None:
+        return bool(default)
+    return raw.strip().lower() not in _FALSY
+
+
+def knob_int(name: str) -> int:
+    default = _default(name)
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return int(float(raw))
+    except ValueError:
+        return default
+
+
+def knob_float(name: str) -> float:
+    default = _default(name)
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        return default

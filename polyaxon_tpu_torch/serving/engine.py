@@ -1,0 +1,1157 @@
+"""Continuous-batching generation engine over a paged KV cache.
+
+Counterpart of ``polyaxon_tpu/serving/engine.py``: iteration-level
+scheduling over block-table KV management with chunked prefill.  The engine
+owns one ``[L, num_blocks, block_size, Hkv, d]`` block pool on its device,
+and one scheduler thread that owns the pool.  Each scheduler iteration:
+
+1. **admit**: move queued requests into free slots and enqueue a prefill
+   job each; the shared-prefix cache maps any cached block-prefix of the
+   prompt straight into the request's table (a block-aligned full hit
+   copies the last block private first, copy-on-write, and recomputes only
+   the final prompt token);
+2. **prefill tick**: run one chunk (``prefill_chunk`` tokens) of the
+   shortest pending prefill through
+   :func:`~polyaxon_tpu_torch.models.decode.paged_prefill_chunk`,
+   allocating table blocks lazily from the ref-counted allocator;
+3. **step**: one batched decode step (or, with speculative decoding, one
+   verify step over self-drafted runs) advances every active slot; a slot
+   that faults a new block on an exhausted pool parks (state and blocks
+   kept) and resumes when references drop;
+4. **retire**: finished slots free their blocks (shared blocks drop one
+   reference) and publish their prompt blocks to the prefix cache.
+
+Greedy outputs are token-identical to sequential
+:func:`~polyaxon_tpu_torch.models.decode.generate` and to the JAX engine
+(``tests/test_torch_serving.py``).  The engine runs eagerly: there is nothing
+to compile, so the reference's compile bookkeeping has no counterpart and no
+shape buckets: a prefill chunk runs exactly its prompt rows and a verify step
+exactly its longest draft plus one.  Warmup runs one chunk, one decode step
+and one verify step so the first request pays no first-call costs.
+
+Not ported yet (ROADMAP Queue 1 item 4, each raising or absent): meshes and
+sharded weights, the host KV tier (``kv_offload*``), the persistent prefix
+store (``kv_persist*``), request tracing, the utilization ledger and the
+progress beat, the capture agent, and CUDA-graph capture of the decode step.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
+from polyaxon_tpu_torch.conf.knobs import knob_bool, knob_float, knob_int
+from polyaxon_tpu_torch.models import decode
+from polyaxon_tpu_torch.serving.paging import BlockAllocator, PrefixCache, truncate_table
+from polyaxon_tpu_torch.stats import MemoryStats, RatioWindow
+
+logger = logging.getLogger(__name__)
+
+
+class EngineDrainingError(RuntimeError):
+    """Raised by :meth:`ServingEngine.submit` once :meth:`drain` has been
+    called: the engine finishes in-flight work but admits nothing new."""
+
+
+class NgramDrafter:
+    """Per-request prompt-lookup drafter (self-drafting, no draft model).
+
+    Keeps the request's context (prompt and every accepted token) and an
+    index from each ``n``-gram to the end positions of its two most recent
+    occurrences.  ``draft(k)`` matches the context's last ``n`` tokens and
+    proposes what followed the previous occurrence.  O(1) per appended token
+    and per lookup.
+    """
+
+    __slots__ = ("n", "tokens", "_index")
+
+    def __init__(self, n: int) -> None:
+        if n < 1:
+            raise ValueError(f"ngram length must be positive, got {n}")
+        self.n = int(n)
+        self.tokens: List[int] = []
+        # ngram -> (second-latest end, latest end): the context's own suffix
+        # is always the latest occurrence of itself; drafting wants the one
+        # before it.
+        self._index: Dict[tuple, tuple] = {}
+
+    def extend(self, toks) -> None:
+        for t in toks:
+            self.append(int(t))
+
+    def append(self, tok: int) -> None:
+        self.tokens.append(int(tok))
+        if len(self.tokens) >= self.n:
+            key = tuple(self.tokens[-self.n :])
+            prev = self._index.get(key)
+            self._index[key] = (prev[1] if prev else None, len(self.tokens))
+
+    def draft(self, k: int) -> List[int]:
+        """Up to ``k`` proposed continuation tokens ([] = no match)."""
+        t = self.tokens
+        if k < 1 or len(t) < self.n:
+            return []
+        ends = self._index.get(tuple(t[-self.n :]))
+        if ends is None:
+            return []
+        end = ends[1] if ends[1] < len(t) else ends[0]
+        if end is None:
+            return []
+        return t[end : end + k]
+
+
+class GenerationRequest:
+    """One queued generation: its prompt, its budget, and its results.
+
+    ``stream`` yields token ids as they are generated (a ``None`` sentinel
+    marks completion); ``done`` is set when the request has finished or
+    failed (``error``; ``error_kind`` is ``shed``, ``cancelled`` or
+    ``stopped``).  ``tokens`` accumulates the generated ids in order.
+    """
+
+    _ids = itertools.count()
+
+    def __init__(self, prompt: List[int], max_new_tokens: int, temperature: float = 0.0) -> None:
+        self.id = next(self._ids)
+        self.prompt = list(prompt)
+        self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.tokens: List[int] = []
+        self.stream: "queue.Queue[Optional[int]]" = queue.Queue()
+        self.done = threading.Event()
+        self.error: Optional[str] = None
+        self.error_kind: Optional[str] = None
+        self.submitted_at = time.time()
+        self.started_at: Optional[float] = None
+        self.first_token_at: Optional[float] = None
+        self.finished_at: Optional[float] = None
+
+    def wait(self, timeout: Optional[float] = None) -> List[int]:
+        """Block until done; raise on engine-side failure."""
+        if not self.done.wait(timeout):
+            raise TimeoutError(f"request {self.id} still running")
+        if self.error:
+            raise RuntimeError(self.error)
+        return self.tokens
+
+
+class SlotAllocator:
+    """FIFO free-list over ``n`` batch slots: freed slots go to the back, so
+    reuse order is release order."""
+
+    def __init__(self, n: int) -> None:
+        if n < 1:
+            raise ValueError(f"need at least one slot, got {n}")
+        self.n = n
+        self._free: deque = deque(range(n))
+        self._held: set = set()
+
+    def alloc(self) -> Optional[int]:
+        if not self._free:
+            return None
+        slot = self._free.popleft()
+        self._held.add(slot)
+        return slot
+
+    def free(self, slot: int) -> None:
+        if slot not in self._held:
+            raise ValueError(f"slot {slot} is not allocated")
+        self._held.discard(slot)
+        self._free.append(slot)
+
+    @property
+    def n_active(self) -> int:
+        return len(self._held)
+
+
+class _PrefillJob:
+    """One admitted request's remaining prompt insertion, advanced one chunk
+    per scheduler iteration."""
+
+    __slots__ = ("req", "slot", "next_pos", "cow_pending")
+
+    def __init__(self, req: GenerationRequest, slot: int) -> None:
+        self.req = req
+        self.slot = slot
+        self.next_pos = 0  # first prompt position not yet inserted
+        self.cow_pending = False  # full prefix hit: copy the last block first
+
+
+def _not_ported(name: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"ServingEngine {name} is not ported yet (ROADMAP: {item})")
+
+
+class ServingEngine:
+    """The continuous-batching scheduler: one thread owns the device.
+
+    Parameters match the reference's (see its docstring for each): ``slots``,
+    ``max_len`` (default ``cfg.max_seq``), ``block_size``, ``num_blocks``
+    (default ``1 + slots * ceil(max_len / block_size)``, the trash block
+    included), ``prefill_chunk`` (``None`` = whole prompts), ``prefix_cache``,
+    ``qweights`` (from ``decode.quantize_weights``), ``kv_quantize``
+    (``"int8"`` pool), ``eos_id``, ``seed``, ``stats`` (a ``MemoryStats``;
+    default a private one), ``warmup`` (default the
+    ``POLYAXON_TPU_SERVING_WARMUP`` knob), ``spec_decode`` / ``spec_k`` /
+    ``spec_min_ngram`` (default the ``POLYAXON_TPU_SERVING_SPEC_*`` knobs).
+    ``device`` (default ``cuda``; raises without a card) is where the pool
+    lives; ``params`` and ``qweights`` must already lie there.
+
+    Sampling (temperature > 0) draws Gumbel noise from one
+    ``torch.Generator`` seeded from ``seed``, a row per slot, so a slot's
+    draw does not depend on its neighbours' logits.  ``mesh``,
+    ``param_shardings``, ``qweights_shardings``, ``kv_offload*`` and
+    ``kv_persist*`` raise ``NotImplementedError`` unless left at their
+    defaults.
+    """
+
+    def __init__(
+        self,
+        params: Any,
+        cfg: Any,
+        *,
+        slots: int = 4,
+        max_len: Optional[int] = None,
+        block_size: int = 16,
+        num_blocks: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        prefix_cache: bool = True,
+        qweights: Optional[Any] = None,
+        kv_quantize: Optional[str] = None,
+        mesh: Any = None,
+        param_shardings: Optional[Any] = None,
+        qweights_shardings: Optional[Any] = None,
+        eos_id: Optional[int] = None,
+        seed: int = 0,
+        stats: Optional[Any] = None,
+        warmup: Optional[bool] = None,
+        spec_decode: Optional[bool] = None,
+        spec_k: Optional[int] = None,
+        spec_min_ngram: Optional[int] = None,
+        kv_offload: Optional[bool] = None,
+        kv_offload_blocks: Optional[int] = None,
+        kv_persist_dir: Optional[str] = None,
+        kv_persist_blocks: Optional[int] = None,
+        kv_persist_sig: str = "",
+        device: DeviceLike = "cuda",
+    ) -> None:
+        for name, value in (("mesh", mesh), ("param_shardings", param_shardings),
+                            ("qweights_shardings", qweights_shardings)):
+            if value is not None:
+                raise _not_ported(name, "Queue 1 item 7, multi-process and parallelism")
+        if kv_offload or kv_offload_blocks is not None:
+            raise _not_ported("kv_offload", "Queue 1 item 4, the host KV tier")
+        if kv_persist_dir or kv_persist_blocks is not None or kv_persist_sig:
+            raise _not_ported("kv_persist", "Queue 1 item 4, the persistent prefix store")
+        self.device = resolve_device(device)
+        require_on(self.device, embed=params["embed"])
+        if qweights is not None:
+            require_on(self.device, qweights=qweights["unembed"][0])
+        if max_len is None:
+            max_len = cfg.max_seq
+        if max_len > cfg.max_seq:
+            raise ValueError(
+                f"max_len ({max_len}) exceeds the model's max_seq ({cfg.max_seq})"
+            )
+        if block_size < 1:
+            raise ValueError(f"block_size must be positive, got {block_size}")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be positive or None, got {prefill_chunk}")
+        self.cfg = cfg
+        self.slots = int(slots)
+        self.max_len = int(max_len)
+        self.block_size = int(block_size)
+        self.prefill_chunk = prefill_chunk
+        self.eos_id = eos_id
+        self._params = params
+        self._qweights = qweights
+
+        # Table width: logical blocks a max_len sequence spans.  The default
+        # pool lets every slot reach max_len unshared, plus the trash block.
+        self._table_width = -(-self.max_len // self.block_size)
+        if num_blocks is None:
+            num_blocks = 1 + self.slots * self._table_width
+        self.block_allocator = BlockAllocator(num_blocks)
+        self.prefix_cache = (
+            PrefixCache(self.block_allocator, self.block_size) if prefix_cache else None
+        )
+        kvq = "" if kv_quantize in (None, False) else str(kv_quantize).lower()
+        if kvq in ("", "0", "false", "no", "off", "none"):
+            self.kv_quantize: Optional[str] = None
+        elif kvq in ("1", "true", "yes", "on", "int8"):
+            self.kv_quantize = "int8"
+        else:
+            raise ValueError(f"unsupported kv_quantize {kv_quantize!r} (int8 or off)")
+        self._pool = decode.init_block_pool(
+            cfg, num_blocks, self.block_size, kv_dtype=self.kv_quantize, device=self.device
+        )
+        #: What the pool leaves store ("int8" or the compute dtype's name) and
+        #: their device bytes, on ``/v1/stats`` and the kv_pool_bytes gauge.
+        self.kv_dtype = self.kv_quantize or str(cfg.dtype).replace("torch.", "")
+        self.kv_pool_bytes = int(
+            sum(t.numel() * t.element_size() for t in self._pool.values())
+        )
+        # Per-slot block tables (host truth): -1 = unset, sent to the device
+        # as the trash block.
+        self._tables = np.full((self.slots, self._table_width), -1, np.int32)
+
+        # Host-side per-slot state: the next token to feed, its absolute
+        # position, the active mask, and each slot's sampling temperature.
+        self._tok = np.zeros(self.slots, np.int32)
+        self._pos = np.zeros(self.slots, np.int32)
+        self._active = np.zeros(self.slots, bool)
+        self._temps = np.zeros(self.slots, np.float32)
+        self._slot_req: List[Optional[GenerationRequest]] = [None] * self.slots
+
+        self.allocator = SlotAllocator(self.slots)
+        self._queue: "deque[GenerationRequest]" = deque()
+        self._prefill: "deque[_PrefillJob]" = deque()
+        self._parked: List[int] = []
+        self._cancels: set = set()
+        self._cv = threading.Condition()
+        self._stop = threading.Event()
+        self._draining = False
+        self._thread: Optional[threading.Thread] = None
+
+        # Warmup / readiness gate: the scheduler thread runs each shape once
+        # before its first iteration; requests submitted meanwhile queue.
+        if warmup is None:
+            warmup = knob_bool("POLYAXON_TPU_SERVING_WARMUP")
+        self._warmup = bool(warmup)
+        self._ready = threading.Event()
+        self._warmup_total = 0
+        self._warmup_done = 0
+        self._warmup_s = 0.0
+
+        # Speculative decoding: self-drafted multi-token steps.
+        if spec_decode is None:
+            spec_decode = knob_bool("POLYAXON_TPU_SERVING_SPEC_DECODE")
+        self.spec_decode = bool(spec_decode)
+        self.spec_k = int(spec_k if spec_k is not None else knob_int("POLYAXON_TPU_SERVING_SPEC_K"))
+        self.spec_min_ngram = int(
+            spec_min_ngram if spec_min_ngram is not None
+            else knob_int("POLYAXON_TPU_SERVING_SPEC_MIN_NGRAM")
+        )
+        if self.spec_decode and self.spec_k < 1:
+            raise ValueError(f"spec_k must be positive, got {self.spec_k}")
+        if self.spec_decode and self.spec_min_ngram < 1:
+            raise ValueError(f"spec_min_ngram must be positive, got {self.spec_min_ngram}")
+        #: Per-slot drafter (None: slot empty, spec off, or a sampled request).
+        self._drafters: List[Optional[NgramDrafter]] = [None] * self.slots
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_fallbacks = 0
+        self._spec_steps = 0
+
+        self._generator = torch.Generator(device=self.device).manual_seed(int(seed))
+
+        # Stats: lifetime counters plus a sliding window for tokens/s; latency
+        # distributions go to the (possibly shared) histogram registry.
+        self.stats_registry = stats if stats is not None else MemoryStats()
+        self._stats_lock = threading.Lock()
+        self._n_submitted = 0
+        self._n_finished = 0
+        self._n_cancelled = 0
+        self._n_shed = 0
+        self._n_tokens = 0
+        self._n_steps = 0
+        self._n_parks = 0
+        self._n_cow = 0
+        self._backlog_chunks = 0
+        self._prefill_jobs = 0
+        self._window: "deque[tuple]" = deque()  # (t, n_tokens)
+        # Windowed variants of the lifetime ratios; horizon 2x so the
+        # baseline sample at or before the window start survives.
+        self._stats_window_s = knob_float("POLYAXON_TPU_SERVING_STATS_WINDOW_S")
+        self._pc_window = RatioWindow(self._stats_window_s * 2.0)
+        self._spec_window = RatioWindow(self._stats_window_s * 2.0)
+        # Device-busy seconds (prefill chunks and steps, host sync included)
+        # and their occupancy-weighted sum, since start().
+        self._started_at: Optional[float] = None
+        self._busy_s = 0.0
+        self._occ_weighted_s = 0.0
+
+    # -- device calls ----------------------------------------------------------
+
+    def _dev(self, arr: np.ndarray, dtype=np.int64) -> torch.Tensor:
+        """A host array as a tensor on the engine's device."""
+        return torch.as_tensor(np.asarray(arr, dtype), device=self.device)
+
+    def _device_tables(self) -> torch.Tensor:
+        return self._dev(np.where(self._tables >= 0, self._tables, 0))
+
+    def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> torch.Tensor:
+        """Per row: argmax where ``temps <= 0``, else a draw from
+        ``softmax(logits / temp)`` by the Gumbel-max rule, each row from its
+        own row of noise."""
+        greedy = logits.argmax(dim=-1)
+        if not (temps > 0).any():
+            return greedy
+        t = self._dev(temps, np.float32)
+        safe = torch.where(t > 0, t, torch.ones_like(t))
+        u = torch.rand(logits.shape, generator=self._generator, device=self.device)
+        sampled = (logits / safe[:, None] - torch.log(-torch.log(u))).argmax(dim=-1)
+        return torch.where(t > 0, sampled, greedy)
+
+    @torch.inference_mode()
+    def _decode(self, tables: torch.Tensor) -> torch.Tensor:
+        """One paged decode step over every slot → next tokens [S] (0 for
+        inactive lanes), still on the device."""
+        active = self._dev(self._active, bool)
+        logits, self._pool = decode.paged_decode_step(
+            self._params, self._pool, tables, self._dev(self._tok),
+            self._dev(self._pos), active, self.cfg, qweights=self._qweights,
+        )
+        return torch.where(active, self._sample(logits, self._temps), 0)
+
+    @torch.inference_mode()
+    def _verify(self, tables: torch.Tensor, tok_in: np.ndarray, n_tok: np.ndarray):
+        """One verify step plus the accept rule → (tokens [S, T], emit counts
+        [S]) as one host array [S, T + 1] (the loop's one device read)."""
+        active = self._dev(self._active, bool)
+        tokens = self._dev(tok_in)
+        n = self._dev(n_tok)
+        logits, self._pool = decode.paged_verify_step(
+            self._params, self._pool, tables, tokens, self._dev(self._pos),
+            n, active, self.cfg, qweights=self._qweights,
+        )
+        greedy = logits.argmax(dim=-1)
+        # Row 0 is always emitted; sampled lanes (which never draft) sample it
+        # exactly like the single-token step.
+        first = self._sample(logits[:, 0], self._temps)
+        out = torch.cat([first[:, None], greedy[:, 1:]], dim=1)
+        # Draft j+1 survives iff it equals the model's pick after row j and
+        # every draft before it survived (cumprod): the greedy accept rule.
+        temps = self._dev(self._temps, np.float32)
+        drafts_ok = (torch.arange(1, tokens.shape[1], device=self.device)[None, :]
+                     < n[:, None]) & (temps[:, None] <= 0)
+        match = (tokens[:, 1:] == greedy[:, :-1]) & drafts_ok
+        n_emit = 1 + torch.cumprod(match.long(), dim=1).sum(dim=1)
+        out = torch.where(active[:, None], out, 0)
+        n_emit = torch.where(active, n_emit, 0)
+        return torch.cat([out, n_emit[:, None]], dim=1).cpu().numpy()
+
+    def _chunk(self, table: np.ndarray, chunk: np.ndarray, start: int, n: int) -> torch.Tensor:
+        logits, self._pool = decode.paged_prefill_chunk(
+            self._params, self._pool, self._dev(table),
+            self._dev(chunk), start, n, self.cfg,
+        )
+        return logits
+
+    def _run_warmup(self) -> None:
+        """Run each step once before serving (scheduler thread, before its
+        first iteration), with all writes landing in trash block 0: the
+        decode step with no active lane, one chunk of ``prefill_chunk`` rows
+        (``max_len`` when unchunked) with ``length=0``, the widest verify
+        step all-inactive, and the COW copy as a trash self-copy.  A failure
+        is logged and the gate opens regardless: the first request then
+        meets the same error."""
+        t0 = time.perf_counter()
+        if self._warmup:
+            self._warmup_total = 3 + int(self.spec_decode)
+        gauge = self.stats_registry.gauge
+
+        def _tick() -> None:
+            self._warmup_done += 1
+            gauge("serving.warmup_progress", self._warmup_done / self._warmup_total)
+
+        try:
+            if self._warmup:
+                tables = self._device_tables()
+                self._decode(tables).cpu()
+                _tick()
+                rows = min(self.prefill_chunk or self.max_len, self.max_len)
+                self._chunk(np.zeros(self._table_width, np.int64), np.zeros(rows, np.int64),
+                            0, 0).cpu()
+                _tick()
+                if self.spec_decode:
+                    self._verify(tables, np.zeros((self.slots, self.spec_k + 1), np.int64),
+                                 np.ones(self.slots, np.int64))
+                    _tick()
+                self._pool = decode.copy_block(self._pool, 0, 0)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                _tick()
+        except Exception:
+            logger.exception("serving engine warmup failed")
+        finally:
+            self._warmup_s = time.perf_counter() - t0
+            self._ready.set()
+            gauge("serving.warmup_progress", 1.0)
+
+    # -- public API ------------------------------------------------------------
+
+    def wait_ready(self, timeout: Optional[float] = None) -> bool:
+        """Block until the warmup pass has run (or was skipped or failed)."""
+        return self._ready.wait(timeout)
+
+    def start(self) -> "ServingEngine":
+        if self._thread is None:
+            self._started_at = time.time()
+            self._thread = threading.Thread(target=self._loop, name="serving-engine", daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop the scheduler; every request still pending gets its error
+        and exactly one ``None`` stream sentinel (queued, mid-prefill,
+        parked or decoding alike)."""
+        self._stop.set()
+        with self._cv:
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+        with self._cv:
+            pending = list(self._queue)
+            self._queue.clear()
+        drain: Dict[int, GenerationRequest] = {r.id: r for r in pending}
+        for job in self._prefill:
+            drain.setdefault(job.req.id, job.req)
+        self._prefill.clear()
+        for req in self._slot_req:
+            if req is not None:
+                drain.setdefault(req.id, req)
+        for req in drain.values():
+            if not req.done.is_set():
+                req.error = "engine stopped"
+                req.error_kind = "stopped"
+                req.stream.put(None)
+                req.done.set()
+
+    def drain(self) -> None:
+        """Stop admitting new requests; in-flight work runs to completion.
+        ``stats()['state']`` becomes ``draining`` and :meth:`submit` raises
+        :class:`EngineDrainingError`."""
+        with self._cv:
+            self._draining = True
+            self._cv.notify_all()
+
+    def submit(self, prompt: List[int], max_new_tokens: int, temperature: float = 0.0) -> GenerationRequest:
+        """Validate and enqueue; returns immediately with the request."""
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("prompt must be non-empty")
+        if any(t < 0 or t >= self.cfg.vocab_size for t in prompt):
+            raise ValueError("token id out of vocabulary range")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be positive")
+        if len(prompt) + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds the engine's max_len ({self.max_len})"
+            )
+        needed = -(-(len(prompt) + max_new_tokens) // self.block_size)
+        usable = self.block_allocator.num_blocks - 1
+        if needed > usable:
+            raise ValueError(
+                f"request spans {needed} KV blocks but the pool only has "
+                f"{usable}; raise num_blocks or shorten the request"
+            )
+        req = GenerationRequest(prompt, max_new_tokens, temperature)
+        with self._cv:
+            if self._stop.is_set():
+                raise RuntimeError("engine is stopped")
+            if self._draining:
+                raise EngineDrainingError("engine is draining (no new admissions)")
+            self._queue.append(req)
+            self._n_submitted += 1
+            self._cv.notify_all()
+        return req
+
+    def cancel(self, request_id: int) -> bool:
+        """Best-effort immediate release of one request: a queued one fails in
+        place, an in-flight one is failed by the scheduler on its next
+        iteration (slot, blocks and prefix references released).  False for
+        unknown or finished ids."""
+        with self._cv:
+            for req in list(self._queue):
+                if req.id == request_id:
+                    self._queue.remove(req)
+                    with self._stats_lock:
+                        self._n_cancelled += 1
+                    req.error = "request cancelled"
+                    req.error_kind = "cancelled"
+                    req.stream.put(None)
+                    req.done.set()
+                    return True
+            for req in self._slot_req:
+                if req is not None and req.id == request_id and not req.done.is_set():
+                    self._cancels.add(request_id)
+                    self._cv.notify_all()
+                    return True
+        return False
+
+    def generate(self, prompt: List[int], max_new_tokens: int, temperature: float = 0.0,
+                 timeout: Optional[float] = None) -> List[int]:
+        """Blocking convenience: submit and wait."""
+        return self.submit(prompt, max_new_tokens, temperature).wait(timeout)
+
+    def _utilization_snapshot(self) -> Dict[str, float]:
+        """Busy fraction of wall time since start(), mean slot occupancy while
+        busy, and their product."""
+        with self._stats_lock:
+            busy = self._busy_s
+            occw = self._occ_weighted_s
+        elapsed = time.time() - self._started_at if self._started_at else 0.0
+        busy_frac = busy / elapsed if elapsed > 0 else 0.0
+        occ = occw / busy if busy > 0 else 0.0
+        return {
+            "decode_busy_frac": round(busy_frac, 6),
+            "slot_occupancy": round(occ, 6),
+            "decode_utilization": round(busy_frac * occ, 6),
+        }
+
+    def _paging_snapshot(self) -> Dict[str, Any]:
+        """Block-pool, prefix-cache and prefill-backlog state."""
+        alloc = self.block_allocator
+        total = alloc.num_blocks - 1
+        pc = self.prefix_cache
+        with self._stats_lock:
+            now = time.time()
+            pc_rate_window = 0.0
+            if pc is not None:
+                self._pc_window.observe(pc.hits, pc.hits + pc.misses, now)
+                windowed = self._pc_window.ratio(self._stats_window_s, now)
+                # One sample: fall back to the lifetime ratio, not a false 0.
+                pc_rate_window = round(windowed if windowed is not None else pc.hit_rate, 6)
+            return {
+                "block_size": self.block_size,
+                "kv_dtype": self.kv_dtype,
+                "kv_pool_bytes": self.kv_pool_bytes,
+                "blocks_total": total,
+                "blocks_free": alloc.n_free,
+                "block_occupancy": round(alloc.n_used / total, 6) if total else 0.0,
+                "prefix_cache_blocks": len(pc) if pc is not None else 0,
+                "prefix_cache_hit_rate": round(pc.hit_rate, 6) if pc is not None else 0.0,
+                "prefix_cache_hit_rate_window": pc_rate_window,
+                "prefix_cache_hits": pc.hits if pc is not None else 0,
+                "prefix_cache_misses": pc.misses if pc is not None else 0,
+                "prefix_cache_evictions": pc.evictions if pc is not None else 0,
+                "parked_sequences": len(self._parked),
+                "requests_shed": self._n_shed,
+                "prefill_backlog_chunks": self._backlog_chunks,
+                "prefill_jobs": self._prefill_jobs,
+                "block_parks": self._n_parks,
+                "cow_copies": self._n_cow,
+                "requests_cancelled": self._n_cancelled,
+            }
+
+    def _spec_snapshot(self) -> Dict[str, Any]:
+        """Speculative-decoding acceptance state."""
+        with self._stats_lock:
+            proposed = self._spec_proposed
+            accepted = self._spec_accepted
+            now = time.time()
+            self._spec_window.observe(accepted, proposed, now)
+            windowed = self._spec_window.ratio(self._stats_window_s, now)
+            fallbacks, steps = self._spec_fallbacks, self._spec_steps
+        lifetime_rate = round(accepted / proposed, 6) if proposed else 0.0
+        return {
+            "spec_decode": self.spec_decode,
+            "spec_k": self.spec_k,
+            "spec_steps": steps,
+            "spec_proposed_total": proposed,
+            "spec_accepted_total": accepted,
+            "spec_fallback_total": fallbacks,
+            "spec_accept_rate": lifetime_rate,
+            "spec_accept_rate_window": (
+                round(windowed, 6) if windowed is not None else lifetime_rate
+            ),
+        }
+
+    def _account(self, dt: float, occ_frac: float) -> None:
+        with self._stats_lock:
+            self._busy_s += dt
+            self._occ_weighted_s += dt * occ_frac
+
+    def stats(self) -> Dict[str, Any]:
+        util = self._utilization_snapshot()
+        paging = self._paging_snapshot()
+        spec = self._spec_snapshot()
+        with self._stats_lock:
+            now = time.time()
+            while self._window and now - self._window[0][0] > 10.0:
+                self._window.popleft()
+            window_tokens = sum(n for _, n in self._window)
+            window_span = now - self._window[0][0] if len(self._window) > 1 else 0.0
+            tps = window_tokens / window_span if window_span > 0 else 0.0
+            return {
+                "state": (
+                    "draining" if self._draining
+                    else "ready" if self._ready.is_set() else "warming"
+                ),
+                "warmup": {
+                    "done": self._warmup_done,
+                    "total": self._warmup_total,
+                    "ready_s": round(self._warmup_s, 6),
+                },
+                "device": str(self.device),
+                "slots": self.slots,
+                "slots_active": self.allocator.n_active,
+                # Per slot, the id of the request it holds (None when free):
+                # what an HTTP client passes to /v1/cancel.
+                "slot_request_ids": [r.id if r is not None else None for r in self._slot_req],
+                "queue_depth": len(self._queue),
+                "requests_submitted": self._n_submitted,
+                "requests_finished": self._n_finished,
+                "tokens_generated": self._n_tokens,
+                "decode_steps": self._n_steps,
+                "tokens_per_s": round(tps, 1),
+                "max_len": self.max_len,
+                **paging,
+                **spec,
+                **util,
+            }
+
+    def latency_summaries(self) -> Dict[str, Dict[str, float]]:
+        """Histogram summaries (count/mean/p50/p95/p99) per latency key."""
+        wanted = {
+            "serving.queue_wait_s": "queue_wait_s",
+            "serving.ttft_s": "ttft_s",
+            "serving.decode_step_s": "decode_step_s",
+            "serving.batch_occupancy": "batch_occupancy",
+        }
+        out: Dict[str, Dict[str, float]] = {}
+        for key, summary in self.stats_registry.summaries().items():
+            if key in wanted:
+                out[wanted[key]] = {k: round(v, 6) for k, v in summary.items()}
+        return out
+
+    # -- scheduler loop --------------------------------------------------------
+
+    def _loop(self) -> None:
+        self._run_warmup()
+        while not self._stop.is_set():
+            self._process_cancels()
+            self._admit()
+            progressed = self._resume_parked()
+            # Prefill under a per-iteration token budget of one chunk: one
+            # chunk of a long prompt, or several whole short prompts.  Jobs go
+            # shortest-remaining-work first (min() is stable: ties stay FIFO),
+            # so a short prompt overtakes a half-done long one.
+            budget = self.prefill_chunk or 0
+            spent = 0
+            while self._prefill:
+                job = min(self._prefill, key=lambda j: len(j.req.prompt) - j.next_pos)
+                if job is not self._prefill[0]:
+                    self._prefill.remove(job)
+                    self._prefill.appendleft(job)
+                remaining = len(job.req.prompt) - job.next_pos
+                spent += min(remaining, budget) if budget else remaining
+                try:
+                    did = self._prefill_tick()
+                except Exception as e:
+                    logger.exception("prefill failed")
+                    if self._prefill and self._prefill[0] is job:
+                        self._prefill.popleft()
+                    self._fail_slot(job.slot, f"prefill failed: {e!r}")
+                    progressed = True
+                    break
+                if not did:
+                    break  # blocked on the block pool; retry next iteration
+                progressed = True
+                if not budget or spent >= budget:
+                    break
+            if self._active.any():
+                try:
+                    self._step_once()
+                except Exception as e:  # fail in-flight, keep serving
+                    logger.exception("decode step failed")
+                    for slot in np.nonzero(self._active)[0]:
+                        self._fail_slot(int(slot), f"decode step failed: {e!r}")
+                continue
+            if progressed:
+                continue
+            if self._parked or self._prefill:
+                # Nothing active, nothing moved, eviction already tried: the
+                # requests waiting on blocks are deadlocked; shed one.
+                self._resolve_block_deadlock()
+                continue
+            with self._cv:
+                if not self._queue and not self._stop.is_set():
+                    self._cv.wait(timeout=0.2)
+
+    def _admit(self) -> None:
+        """Move queued requests into free slots (queue order) and enqueue
+        their prefill jobs; the prefix cache shortens a job to its first
+        uncached block."""
+        while True:
+            with self._cv:
+                if not self._queue:
+                    return
+                slot = self.allocator.alloc()
+                if slot is None:
+                    return
+                req = self._queue.popleft()
+            req.started_at = time.time()
+            self.stats_registry.timing("serving.queue_wait_s", req.started_at - req.submitted_at)
+            self._slot_req[slot] = req
+            # Greedy requests get a drafter, seeded from the whole prompt (the
+            # prefix cache may skip recomputing matched tokens, but the
+            # drafter must see them); sampled ones ride single-token rows.
+            if self.spec_decode:
+                if req.temperature > 0:
+                    with self._stats_lock:
+                        self._spec_fallbacks += 1
+                    self.stats_registry.incr("serving.spec_fallback_total", 1)
+                else:
+                    drafter = NgramDrafter(self.spec_min_ngram)
+                    drafter.extend(req.prompt)
+                    self._drafters[slot] = drafter
+            job = _PrefillJob(req, slot)
+            if self.prefix_cache is not None:
+                matched = self.prefix_cache.match(req.prompt)
+                for i, block in enumerate(matched):
+                    self._tables[slot, i] = block
+                m = len(matched) * self.block_size
+                if m and m == len(req.prompt):
+                    # Every prompt block hit.  The last token's logits must
+                    # still be computed, and its KV row lands in the final
+                    # shared block: copy it private first, then rerun it.
+                    job.cow_pending = True
+                    job.next_pos = m - 1
+                else:
+                    job.next_pos = m
+            self._prefill.append(job)
+            self._record_gauges()
+
+    def _alloc_block(self) -> Optional[int]:
+        """Allocate one pool block, evicting a cold cached prefix if the free
+        list is empty."""
+        block = self.block_allocator.alloc()
+        if block is None and self.prefix_cache is not None:
+            if self.prefix_cache.evict(1):
+                block = self.block_allocator.alloc()
+        return block
+
+    def _prefill_tick(self) -> bool:
+        """Run one chunk of the head prefill job.  True if the device did
+        work; False when the job is blocked on the block pool (it stays at
+        the head and retries next iteration)."""
+        job = self._prefill[0]
+        req, slot = job.req, job.slot
+        bs = self.block_size
+        t = len(req.prompt)
+        t0 = time.perf_counter()
+        if job.cow_pending:
+            fresh = self._alloc_block()
+            if fresh is None:
+                return False
+            bi = (t - 1) // bs
+            shared = int(self._tables[slot, bi])
+            self._pool = decode.copy_block(self._pool, shared, fresh)
+            self.block_allocator.decref(shared)
+            self._tables[slot, bi] = fresh
+            job.cow_pending = False
+            with self._stats_lock:
+                self._n_cow += 1
+        n = t - job.next_pos
+        if self.prefill_chunk:
+            n = min(n, self.prefill_chunk)
+        # Lazy block faults for the chunk's span; partial allocations are kept
+        # on exhaustion (the retry only fills what is still unset).
+        for bi in range(job.next_pos // bs, (job.next_pos + n - 1) // bs + 1):
+            if self._tables[slot, bi] < 0:
+                fresh = self._alloc_block()
+                if fresh is None:
+                    return False
+                self._tables[slot, bi] = fresh
+        chunk = np.asarray(req.prompt[job.next_pos : job.next_pos + n], np.int64)
+        table = np.where(self._tables[slot] >= 0, self._tables[slot], 0)
+        logits = self._chunk(table, chunk, job.next_pos, n)
+        job.next_pos += n
+        if job.next_pos >= t:
+            self._prefill.popleft()
+            self._finalize_prefill(job, logits)
+        self._account(time.perf_counter() - t0, 1.0 / self.slots)
+        self._record_gauges()
+        return True
+
+    def _finalize_prefill(self, job: _PrefillJob, logits: torch.Tensor) -> None:
+        """Prompt fully inserted: publish its blocks, pick the first token
+        from the last chunk's logits, activate the slot."""
+        req, slot = job.req, job.slot
+        t = len(req.prompt)
+        if self.prefix_cache is not None:
+            full = t // self.block_size
+            self.prefix_cache.offer(req.prompt, [int(self._tables[slot, i]) for i in range(full)])
+        first = self._pick_first(logits, req.temperature)
+        self.stats_registry.timing("serving.ttft_s", time.time() - req.submitted_at)
+        self._emit(slot, req, first)
+        if not req.done.is_set():
+            self._tok[slot] = first
+            self._pos[slot] = t
+            self._temps[slot] = req.temperature
+            self._active[slot] = True
+
+    def _pick_first(self, logits: torch.Tensor, temperature: float) -> int:
+        """The first generated token, from the prefill logits [vocab] (a host
+        read), picked as every later token is."""
+        with torch.inference_mode():
+            return int(self._sample(logits[None], np.array([temperature], np.float32))[0])
+
+    def _park(self, slot: int) -> None:
+        """Pool exhausted at a block boundary: deactivate the slot with its
+        state and blocks intact until it can resume."""
+        self._active[slot] = False
+        self._parked.append(slot)
+        with self._stats_lock:
+            self._n_parks += 1
+
+    def _resume_parked(self) -> bool:
+        """Give parked slots another shot at their faulted block, oldest
+        first."""
+        progressed = False
+        for slot in list(self._parked):
+            bi = int(self._pos[slot]) // self.block_size
+            if self._tables[slot, bi] < 0:
+                fresh = self._alloc_block()
+                if fresh is None:
+                    continue
+                self._tables[slot, bi] = fresh
+            self._unpark(slot)
+            self._active[slot] = True
+            progressed = True
+        return progressed
+
+    def _unpark(self, slot: int) -> None:
+        """The one place a slot leaves the parked list (resume, retire, fail)."""
+        if slot in self._parked:
+            self._parked.remove(slot)
+
+    def _resolve_block_deadlock(self) -> None:
+        """Nobody active, nobody progressing, eviction exhausted: shed the
+        newest parked request (it holds blocks, so shedding frees some; the
+        newest has the least work invested), else the head prefill job."""
+        msg = "KV block pool exhausted (request shed)"
+        holding = [s for s in self._parked if bool((self._tables[s] >= 0).any())]
+        if holding:
+            self._fail_slot(holding[-1], msg, kind="shed")
+        elif self._prefill:
+            self._fail_slot(self._prefill.popleft().slot, msg, kind="shed")
+        elif self._parked:
+            self._fail_slot(self._parked[-1], msg, kind="shed")
+
+    def _process_cancels(self) -> None:
+        """Apply cancellations to in-flight requests (scheduler thread: it
+        owns the tables and allocators)."""
+        with self._cv:
+            if not self._cancels:
+                return
+            ids, self._cancels = self._cancels, set()
+        for rid in ids:
+            for job in list(self._prefill):
+                if job.req.id == rid:
+                    self._prefill.remove(job)
+            for slot, req in enumerate(self._slot_req):
+                if req is not None and req.id == rid:
+                    self._fail_slot(slot, "request cancelled", kind="cancelled")
+                    with self._stats_lock:
+                        self._n_cancelled += 1
+        self._record_gauges()
+
+    def _step_once(self) -> None:
+        bs = self.block_size
+        # Block-boundary faults: a slot whose next write crosses into an
+        # unallocated block needs one now, or parks until the pool has one.
+        for slot in np.nonzero(self._active)[0]:
+            slot = int(slot)
+            bi = int(self._pos[slot]) // bs
+            if self._tables[slot, bi] < 0:
+                fresh = self._alloc_block()
+                if fresh is None:
+                    self._park(slot)
+                else:
+                    self._tables[slot, bi] = fresh
+        if not self._active.any():
+            return
+        drafts = self._collect_drafts() if self.spec_decode else {}
+        t0 = time.perf_counter()
+        tables = self._device_tables()
+        n_live = int(self._active.sum())
+        emitted = 0
+        if drafts:
+            emitted = self._verify_once(drafts, tables)
+        else:
+            toks = self._decode(tables).cpu().numpy()  # the loop's one device read
+            for slot in np.nonzero(self._active)[0]:
+                slot = int(slot)
+                tok = int(toks[slot])
+                self._pos[slot] += 1
+                self._tok[slot] = tok
+                self._emit(slot, self._slot_req[slot], tok)
+                emitted += 1
+        with self._stats_lock:
+            self._n_steps += 1
+            self._window.append((time.time(), emitted))
+        # The step advances every live slot at least one token, so its wall
+        # time is the per-token latency each of them saw.
+        step_dt = time.perf_counter() - t0
+        self.stats_registry.timing("serving.decode_step_s", step_dt)
+        self.stats_registry.observe("serving.batch_occupancy", float(n_live))
+        self._account(step_dt, n_live / self.slots)
+        self._record_gauges()
+
+    def _collect_drafts(self) -> Dict[int, List[int]]:
+        """Each active greedy lane's proposal, clipped to the request's
+        remaining budget and to the KV blocks the pool can cover (pool
+        pressure shortens a draft instead of parking)."""
+        drafts: Dict[int, List[int]] = {}
+        bs = self.block_size
+        for slot in np.nonzero(self._active)[0]:
+            slot = int(slot)
+            drafter = self._drafters[slot]
+            if drafter is None:
+                continue
+            req = self._slot_req[slot]
+            k = min(self.spec_k, req.max_new_tokens - len(req.tokens) - 1)
+            if k < 1:
+                continue
+            prop = drafter.draft(k)
+            # Block faults for the draft span (row j writes pos + j; the pos
+            # block was faulted by the caller).
+            pos = int(self._pos[slot])
+            for j in range(1, len(prop) + 1):
+                bi = (pos + j) // bs
+                if self._tables[slot, bi] < 0:
+                    fresh = self._alloc_block()
+                    if fresh is None:
+                        prop = prop[: j - 1]
+                        break
+                    self._tables[slot, bi] = fresh
+            if prop:
+                drafts[slot] = prop
+        return drafts
+
+    def _verify_once(self, drafts: Dict[int, List[int]], tables: torch.Tensor) -> int:
+        """One draft → verify → rollback iteration; returns tokens emitted."""
+        width = 1 + max(len(p) for p in drafts.values())
+        tok_in = np.zeros((self.slots, width), np.int64)
+        tok_in[:, 0] = self._tok
+        n_tok = np.ones(self.slots, np.int64)
+        for slot, prop in drafts.items():
+            tok_in[slot, 1 : 1 + len(prop)] = prop
+            n_tok[slot] = 1 + len(prop)
+        res = self._verify(tables, tok_in, n_tok)
+        out, n_emit = res[:, :-1], res[:, -1]
+        emitted = n_proposed = n_accepted = 0
+        for slot in np.nonzero(self._active)[0]:
+            slot = int(slot)
+            req = self._slot_req[slot]
+            e = int(n_emit[slot])
+            prop = drafts.get(slot)
+            if prop is not None:
+                n_proposed += len(prop)
+                n_accepted += e - 1
+                self.stats_registry.observe("serving.spec_accept_len", float(e - 1))
+            self._pos[slot] += e
+            self._tok[slot] = int(out[slot, e - 1])
+            # Rollback: blocks wholly past the next write position go back.
+            truncate_table(self._tables[slot], self.block_allocator,
+                           int(self._pos[slot]), self.block_size)
+            for j in range(e):
+                self._emit(slot, req, int(out[slot, j]))
+                emitted += 1
+                if req.done.is_set():
+                    break  # eos or budget retired the slot mid-run
+        with self._stats_lock:
+            self._spec_steps += 1
+            self._spec_proposed += n_proposed
+            self._spec_accepted += n_accepted
+        if n_proposed:
+            self.stats_registry.incr("serving.spec_proposed_total", n_proposed)
+        if n_accepted:
+            self.stats_registry.incr("serving.spec_accepted_total", n_accepted)
+        return emitted
+
+    def _record_gauges(self) -> None:
+        """Refresh the paging gauges and backlog counters (scheduler thread)."""
+        backlog = 0
+        for job in self._prefill:
+            remaining = len(job.req.prompt) - job.next_pos
+            step = self.prefill_chunk or max(remaining, 1)
+            backlog += max(1, -(-remaining // step))
+        with self._stats_lock:
+            self._backlog_chunks = backlog
+            self._prefill_jobs = len(self._prefill)
+        gauge = self.stats_registry.gauge
+        alloc = self.block_allocator
+        total = alloc.num_blocks - 1
+        gauge("serving.block_occupancy", round(alloc.n_used / total, 6) if total else 0.0)
+        gauge("serving.blocks_free", float(alloc.n_free))
+        gauge("serving.kv_pool_bytes", float(self.kv_pool_bytes))
+        pc = self.prefix_cache
+        gauge("serving.prefix_cache_hit_rate", round(pc.hit_rate, 6) if pc is not None else 0.0)
+        gauge("serving.prefill_backlog_chunks", float(backlog))
+        gauge("serving.parked_sequences", float(len(self._parked)))
+        if pc is not None:
+            gauge("serving.prefix_cache_evictions", float(pc.evictions))
+        if self.spec_decode:
+            with self._stats_lock:
+                proposed, accepted = self._spec_proposed, self._spec_accepted
+            gauge("serving.spec_accept_rate", round(accepted / proposed, 6) if proposed else 0.0)
+
+    def _emit(self, slot: int, req: GenerationRequest, tok: int) -> None:
+        """Record one generated token; retire the slot when done."""
+        if req.first_token_at is None:
+            req.first_token_at = time.time()
+        drafter = self._drafters[slot]
+        if drafter is not None:
+            drafter.append(tok)  # accepted tokens extend the suffix index
+        req.tokens.append(tok)
+        req.stream.put(tok)
+        with self._stats_lock:
+            self._n_tokens += 1
+        hit_eos = self.eos_id is not None and tok == self.eos_id
+        if len(req.tokens) >= req.max_new_tokens or hit_eos:
+            self._retire(slot, req)
+
+    def _release_slot_blocks(self, slot: int) -> None:
+        """Drop the slot's reference on every block in its table; blocks a
+        neighbour or the prefix cache still holds stay allocated."""
+        for bi in range(self._table_width):
+            block = int(self._tables[slot, bi])
+            if block >= 0:
+                self.block_allocator.decref(block)
+        self._tables[slot, :] = -1
+
+    def _free_slot(self, slot: int) -> None:
+        self._active[slot] = False
+        self._unpark(slot)
+        self._release_slot_blocks(slot)
+        self._slot_req[slot] = None
+        self._drafters[slot] = None
+        self.allocator.free(slot)
+
+    def _retire(self, slot: int, req: GenerationRequest) -> None:
+        req.finished_at = time.time()
+        self._free_slot(slot)
+        req.stream.put(None)
+        req.done.set()
+        with self._stats_lock:
+            self._n_finished += 1
+        # Waiters take freed slots on the next admit: immediately.
+        with self._cv:
+            self._cv.notify_all()
+
+    def _fail_slot(self, slot: int, msg: str, kind: Optional[str] = None) -> None:
+        req = self._slot_req[slot]
+        self._free_slot(slot)
+        if kind == "shed":
+            with self._stats_lock:
+                self._n_shed += 1
+        if req is not None and not req.done.is_set():
+            req.error = msg
+            req.error_kind = kind
+            req.finished_at = time.time()
+            req.stream.put(None)
+            req.done.set()

@@ -3,13 +3,16 @@
 A minimal counterpart of ``polyaxon_tpu/tracking/context.py``: params,
 seed, leadership, and metric / text logging.  Records go to a list the
 caller passes, or to stdout as JSON lines; there is no reporter or
-registry yet.
+registry yet.  ``stop`` is how an in-process caller ends a service
+entrypoint (``lm_server``) that otherwise serves until its process is
+killed.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import threading
 from typing import Any, Dict, List, Optional
 
 
@@ -29,6 +32,8 @@ class Context:
         self.seed = seed
         #: Where log_metrics / log_text append; None = stdout.
         self.records = records
+        #: Set to ask a service entrypoint to shut down and return.
+        self.stop = threading.Event()
 
     @property
     def is_leader(self) -> bool:
