@@ -9,7 +9,8 @@ model: generation (``lm_generate``: prefill through the flash forward
 kernel, then KV-cache decode), training (``lm_train``: the flash forward
 and the two backward kernels in every layer) and serving (``lm_server``:
 the continuous-batching engine over a paged KV pool, whose steps use plain
-attention and no kernel of the port).  Phases:
+attention and no kernel of the port), then long context: ``lm_train`` at
+T = 8192 and through the ``sp_ring`` strategy at T = 16384.  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -57,13 +58,31 @@ attention and no kernel of the port).  Phases:
     memory; the flash kernels' launch counts over it must stay 0 (the
     paged steps use plain attention, as the reference's do);
 12. where the serving time goes: one paged decode step with 8 live slots
-    and one 256-token prefill chunk under torch.profiler.
+    and one 256-token prefill chunk under torch.profiler;
+13. the three kernels at the long-context shapes of phases 14 and 15 (d 64,
+    bf16, causal): BH 2 x 32 at T 8192 with the first 8 heads against the
+    plain version, BH 1 x 32 at T 16384 with the first and the last head
+    against it; each kernel's time beside SDPA's and its bound (by
+    operations there);
+14. ``lm_train`` at T = 8192, batch 2, through the kernels, then bench.py's
+    long-context arm through ``build_train_step`` with the ``ddp``
+    template (remat ``save_attn``, float32 mu, 2 warm and 6 timed steps):
+    tokens/s, MFU, launches per step, peak memory, a falling loss; and one
+    of its steps under torch.profiler;
+15. ``lm_train`` with ``strategy="sp_ring"`` on a ``{"sequence": 1}`` mesh
+    at T = 16384, batch 1: its first step against the plain path's, its
+    forward launches through ``ring_flash_attention``; then bench.py's
+    T = 16384 arm (remat ``save_attn``, bf16 mu);
+16. the ring's hop functions for 4 ranks as threads of one process on the
+    card (bf16; GQA and MHA; d 64 and 128): against the same hops with the
+    plain versions swapped in, against whole-sequence plain attention, and
+    a control with dk x 1.01 in one hop that must fail.
 
 Any failed check raises, and the script exits non-zero.  On success its
 last lines are the serving figures as JSON (``lm_generate``'s decode rate,
-``lm_server``'s, and the paged profile), the card's name and power limit,
-the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Without
-CUDA it exits 1 at once.
+``lm_server``'s, and the paged profile), the long-context figures as JSON,
+the card's name and power limit, the kernels' JSON record and ``{"ok":
+true, "device": {...}}``.  Without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -133,6 +152,25 @@ SERVE_SEQ, SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK, SERVE_NEW = 1024, 8, 16, 256, 
 # could take the kernel; both sides run dense attention here).
 SMALL_SERVE = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=4, head_dim=64, d_ff=512,
                    max_seq=128)
+# Long context, bench.py's long-context arm (bench.py:190-267): lm_train at
+# T = 8192, batch 2, then the arm itself (remat save_attn, float32 mu, 2
+# warm and 6 timed steps); sp_ring on a one-rank sequence mesh at T = 16384,
+# batch 1 (bf16 mu, 2 warm and 4 timed steps).
+LONG_SEQ, LONG_BATCH, LONG_STEPS, LONG_WARM, LONG_TIMED = 8192, 2, 4, 2, 6
+RING_SEQ, RING_BATCH, RING_STEPS, RING_WARM, RING_TIMED = 16384, 1, 3, 2, 4
+# The plain version of a whole [64, 8192, 8192] block needs about 17 GB per
+# float32 score tensor, and it keeps several: at the long shapes the kernels
+# run on every head and a few heads are held against the plain version on
+# those heads (at T 8192 the first LONG_REF_HEADS, 2 GiB a score tensor; at
+# T 16384 the first and the last, 2 GiB too).
+LONG_REF_HEADS = 8
+# The products at the long shape (causal pairs T(T+1)/2, BH 64, d 64):
+# attention_bound must give these FLOPs, bound by operations there.
+LONG_SHAPE_OPS = {"fwd": 549.8e9, "dq": 824.7e9, "dkv": 1099.6e9}
+# The ring's hops for n = 4 ranks as threads of one process on the card:
+# (B, T per rank) and (H, Hkv, d) per case, bf16.
+RING_RANKS, RING_B, RING_TL = 4, 2, 512
+RING_CASES = ((8, 2, 64), (8, 8, 64), (8, 2, 128), (8, 8, 128))
 
 
 def log(*args) -> None:
@@ -165,11 +203,14 @@ def _counts():
 
 
 def _reset_counts() -> None:
+    """Set the kernels' launch counts, and the ring's count of forward
+    blocks, to 0."""
     from polyaxon_tpu_torch.parallel import flash
 
     flash.flash_block_fwd.launches = 0
     flash.flash_block_dq.launches = 0
     flash.flash_block_dkv.launches = 0
+    flash.ring_flash_fwd.blocks = 0
 
 
 def _free() -> None:
@@ -613,11 +654,14 @@ def _profile(label, fn, calls, top=8):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name, launches = {}, 0
+    by_name, launches, runtime = {}, 0, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
             launches += 1
+        elif e.name.startswith("cuda"):  # CUDA runtime calls, on the host
+            ms, count = runtime.get(e.name, (0.0, 0))
+            runtime[e.name] = (ms + e.cpu_time_total / 1e3, count + 1)
     busy_ms = sum(by_name.values())
     if busy_ms == 0:
         log(f"profile {label}: the trace holds no device time (not measured)")
@@ -629,6 +673,9 @@ def _profile(label, fn, calls, top=8):
     for i, (name, ms) in enumerate(ranked):  # the largest, and the port's own kernels
         if i < top or "flash_" in name:
             log(f"    {ms:9.3f} ms {ms / busy_ms:6.1%}  {name[:120]}")
+    calls_by_time = sorted(runtime.items(), key=lambda kv: -kv[1][0])[:4]
+    log("    host, CUDA runtime calls: " + "; ".join(
+        f"{name} {ms:.3f} ms x{count}" for name, (ms, count) in calls_by_time))
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": idle,
             "device_ops_per_call": launches / calls}
 
@@ -653,32 +700,45 @@ def phase_profile(params, cfg, prompt, steps: int = 8):
     _profile(f"decode x{steps}", run_decode, steps)
 
 
-def _train_setup(cfg, optimizer):
+def _train_setup(cfg, optimizer, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ, template=None,
+                 mesh=None):
     """A train step for ``cfg`` on lm_train's weights (seeded init on the
-    card) and lm_train's batch."""
+    card) and lm_train's batch, under ``template`` over ``mesh`` if given."""
     from polyaxon_tpu_torch.models.transformer import init_params, loss_fn
     from polyaxon_tpu_torch.runtime.train import build_train_step
 
-    ts = build_train_step(loss_fn=lambda p, b: loss_fn(p, b, cfg, device="cuda"),
-                          init_fn=lambda g: init_params(cfg, g), optimizer=optimizer)
+    ts = build_train_step(
+        loss_fn=lambda p, b: loss_fn(p, b, cfg, template=template, mesh=mesh, device="cuda"),
+        init_fn=lambda g: init_params(cfg, g), optimizer=optimizer, mesh=mesh, template=template)
     params, opt_state = ts.init(torch.Generator(device="cuda").manual_seed(SEED))
     rng = np.random.default_rng(SEED)
-    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
-                          device="cuda")
-    return ts, params, opt_state, {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch_size, seq + 1)), device="cuda")
+    return ts, params, opt_state, ts.place_batch({"tokens": tok[:, :-1], "targets": tok[:, 1:]})
 
 
-def phase_train():
-    """The training path: lm_train at the 671M width.  Returns the launch
-    counts of the run and the first step's metrics."""
-    from polyaxon_tpu_torch.builtins.trainers import lm_train
+def _mfu(tokens_per_s, seq):
+    """bench.py's MFU: tokens/s x (6N + 12·L·H·hd·T) over the bf16 peak."""
     from polyaxon_tpu_torch.models.transformer import TransformerConfig
-    from polyaxon_tpu_torch.tracking.context import Context
     from polyaxon_tpu_torch.tracking.ledger import transformer_flops_per_token
 
+    cfg = TransformerConfig(max_seq=seq, **BENCH_MODEL)
+    fpt = transformer_flops_per_token(cfg.n_params, cfg.n_layers, cfg.n_heads, cfg.head_dim, seq)
+    return tokens_per_s * fpt / H100_PEAK_FLOPS[torch.bfloat16]
+
+
+def _lm_train(label, seq, batch, steps, strategy="ddp", mesh=None, **params):
+    """lm_train at the 671M width, the kernels' counts set to 0 just before
+    it and read just after: its loss must be finite (and fall, over more
+    than one step) and each kernel must launch once per layer and step.
+    Returns the launch counts, the first step's and the final metrics."""
+    from polyaxon_tpu_torch.builtins.trainers import lm_train
+    from polyaxon_tpu_torch.tracking.context import Context
+
     records = []
-    ctx = Context(params=dict(BENCH_MODEL, seq=TRAIN_SEQ, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
-                              lr=LR, device="cuda"), seed=SEED, records=records)
+    ctx = Context(params=dict(BENCH_MODEL, seq=seq, batch=batch, steps=steps, lr=LR,
+                              device="cuda", **params),
+                  strategy=strategy, mesh=mesh, seed=SEED, records=records)
+    _free()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     lm_train(ctx)
@@ -688,16 +748,11 @@ def phase_train():
     for r in records:
         if r["kind"] == "log":
             log(r["line"])
-    steps = {r["step"]: r["values"] for r in records if r["kind"] == "metric"}
-    final = steps[TRAIN_STEPS]
-    cfg = TransformerConfig(max_seq=TRAIN_SEQ, **BENCH_MODEL)
-    fpt = transformer_flops_per_token(cfg.n_params, cfg.n_layers, cfg.n_heads, cfg.head_dim,
-                                      TRAIN_SEQ)
-    mfu = final["tokens_per_s"] * fpt / H100_PEAK_FLOPS[torch.bfloat16]
-    first, last = steps[0], steps[TRAIN_STEPS - 1]
-    per_step = tuple(n / TRAIN_STEPS for n in launches)
-    log(f"lm_train 671M (batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, {TRAIN_STEPS} steps): "
-        f"tokens_per_s {final['tokens_per_s']} mfu {mfu:.4f} first_step_s "
+    by_step = {r["step"]: r["values"] for r in records if r["kind"] == "metric"}
+    final, first, last = by_step[steps], by_step[0], by_step[steps - 1]
+    per_step = tuple(n / steps for n in launches)
+    log(f"{label} (batch {batch}, seq {seq}, {steps} steps): tokens_per_s "
+        f"{final['tokens_per_s']} mfu {_mfu(final['tokens_per_s'], seq):.4f} first_step_s "
         f"{final['first_step_s']} step_wall_s {final['step_wall_s']} "
         f"peak_memory_allocated {peak} B; loss {first['loss']} -> {last['loss']}, "
         f"grad_norm {first['grad_norm']} -> {last['grad_norm']}; launches fwd/dq/dkv "
@@ -705,9 +760,16 @@ def phase_train():
     n = BENCH_MODEL["n_layers"]
     if per_step != (n, n, n):
         raise AssertionError(f"expected {n} launches of each flash kernel per step, got {per_step}")
-    if not (np.isfinite(first["loss"]) and np.isfinite(last["loss"]) and
-            last["loss"] < first["loss"]):
-        raise AssertionError("lm_train's loss is not finite and falling")
+    falls = steps == 1 or last["loss"] < first["loss"]
+    if not (np.isfinite(first["loss"]) and np.isfinite(last["loss"]) and falls):
+        raise AssertionError(f"{label}: the loss is not finite and falling")
+    return launches, first, final
+
+
+def phase_train():
+    """The training path: lm_train at the 671M width.  Returns the launch
+    counts of the run and the first step's metrics."""
+    launches, first, _ = _lm_train("lm_train 671M", TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS)
     return launches, first
 
 
@@ -1121,6 +1183,307 @@ def phase_lm_server():
     return launches, summary
 
 
+def _long_shape(batch, T, heads, want_ops=None):
+    """The three kernels at one long causal shape (B ``batch`` x H 32, T,
+    d 64, bf16): the kernels on every head, the heads ``heads`` held
+    against the plain version on those heads (the kernels' limits), and
+    each kernel's time beside SDPA's on every head and its bound, which must
+    be set by operations at this length (and give ``want_ops`` FLOP, where
+    given).  Returns each kernel's figures, keyed fwd, dq, dkv."""
+    from polyaxon_tpu_torch.parallel import flash
+
+    H, d = BENCH_MODEL["n_heads"], BENCH_MODEL["head_dim"]
+    BH, dtype = batch * H, torch.bfloat16
+    idx = torch.tensor(heads, device="cuda")
+    named = f"{heads[0]}-{heads[-1]}" if list(heads) == list(range(heads[0], heads[-1] + 1)) \
+        else ", ".join(map(str, heads))
+    g = torch.Generator(device="cuda").manual_seed(T + d)
+    q, k, v, do = (torch.randn(BH, T, d, generator=g, device="cuda").to(dtype) for _ in range(4))
+    kw = dict(causal=True, sm_scale=d**-0.5)
+    o, lse = flash.flash_block_fwd(q, k, v, **kw)
+    delta = (do.float() * o.to(dtype).float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    grads = (flash.flash_block_dq(*args, **kw), *flash.flash_block_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(x).all()) for x in (o, lse, *grads))
+
+    def head(*xs):
+        return tuple(x.index_select(0, idx) for x in xs)
+
+    ro, rlse = flash.flash_block_fwd_reference(*head(q, k, v), **kw)
+    errs = {"o": (head(o)[0] - ro).abs().max().item(),
+            "lse": (head(lse)[0] - rlse).abs().max().item()}
+    del ro, rlse
+    ref = flash.flash_block_bwd_reference(*head(*args), **kw)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        errs[name] = (head(got)[0] - want).abs().max().item()
+    del ref, grads, o
+    _free()
+    lim = BWD_ATOL[dtype]
+    log(f"long shape BH={BH} T={T} d={d} {dtype} causal, heads {named} against the plain "
+        f"version: o max abs err {errs['o']:.3e} (<= {O_ATOL}), lse {errs['lse']:.3e} "
+        f"(<= {LSE_ATOL}), dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
+        f"(<= {lim}); all {BH} heads finite {finite}")
+    if errs["o"] > O_ATOL or errs["lse"] > LSE_ATOL or max(errs[x] for x in ("dq", "dk", "dv")) \
+            > lim or not finite:
+        raise AssertionError(f"a kernel disagrees with its plain version at T {T}")
+    ms = {"fwd": time_ms(lambda: flash.flash_block_fwd(q, k, v, **kw), reps=20),
+          "dq": time_ms(lambda: flash.flash_block_dq(*args, **kw), reps=20),
+          "dkv": time_ms(lambda: flash.flash_block_dkv(*args, **kw), reps=20)}
+    plain = {"fwd": time_ms(lambda: flash.flash_block_fwd_reference(*head(q, k, v), **kw),
+                            reps=5, warmup=1),
+             "bwd": time_ms(lambda: flash.flash_block_bwd_reference(*head(*args), **kw),
+                            reps=5, warmup=1)}
+    _free()
+    q4, k4, v4 = (x.view(batch, H, T, d) for x in (q, k, v))
+    sdpa_fwd = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=kw["sm_scale"]), reps=20)
+    sdpa_bwd = _sdpa_bwd_ms(q, k, v, do, batch, True, kw["sm_scale"])
+    out = {}
+    for kind in ("fwd", "dq", "dkv"):
+        bound_ms, bound_by, moved, ops = attention_bound(BH, T, T, d, dtype, True, kind)
+        if bound_by != "operations" or (want_ops and abs(ops - want_ops[kind]) > 0.1e9):
+            raise AssertionError(f"attention_bound({kind}) at T {T} gives {ops} FLOP "
+                                 f"({bound_by}); expected {want_ops and want_ops[kind]} "
+                                 "(operations)")
+        out[kind] = {
+            "shape": f"BH {BH} T {T} d {d} bf16 causal", "ms": ms[kind], "ref_heads": named,
+            "plain_ms_ref_heads": plain["fwd" if kind == "fwd" else "bwd"],
+            "library_ms": sdpa_fwd if kind == "fwd" else sdpa_bwd,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err_ref_heads": errs["o"] if kind == "fwd" else
+            (errs["dq"] if kind == "dq" else max(errs["dk"], errs["dv"])),
+        }
+        log(f"  {kind}: {moved / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP -> bound_ms {bound_ms:.4f} "
+            f"({bound_by}); kernel_ms {ms[kind]:.4f} ({ms[kind] / bound_ms:.2f}x the bound)")
+    log(f"  plain_ms on heads {named} of {BH}: fwd {plain['fwd']:.4f} bwd {plain['bwd']:.4f}; "
+        f"library_ms (sdpa, all heads): fwd {sdpa_fwd:.4f} bwd {sdpa_bwd:.4f}")
+    return out
+
+
+def phase_long_kernels():
+    """The three kernels at the long-context shapes of phases 14 and 15:
+    lm_train's BH 64 x T 8192 (the first LONG_REF_HEADS heads against the
+    plain version) and sp_ring's BH 32 x T 16384 (its first and last heads,
+    so that both the longest grid and the largest offsets are held).
+    Returns the figures of each, keyed t8192 and t16384, then by kernel."""
+    long = _long_shape(LONG_BATCH, LONG_SEQ, tuple(range(LONG_REF_HEADS)), LONG_SHAPE_OPS)
+    _free()
+    ring = _long_shape(RING_BATCH, RING_SEQ, (0, RING_BATCH * BENCH_MODEL["n_heads"] - 1))
+    return {"t8192": long, "t16384": ring}
+
+
+def _bench_arm(label, ts, params, opt_state, batch, seq, warm, timed, first):
+    """bench.py's long-context measurement: ``warm`` steps, then ``timed``
+    steps ended by a host read of the loss.  The first step must give the
+    first step of ``first`` (lm_train's metrics on the same weights and
+    batch; the recompute repeats the same ops, so only reduction order may
+    differ: loss rtol 1e-4, grad norm rtol 1e-3), each kernel must launch
+    once per layer and step (save_attn keeps the forward's output), and the
+    loss must be finite and fall."""
+    batch_size = batch["tokens"].shape[0]
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    for i in range(warm + timed):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        params, opt_state, m = ts.step(params, opt_state, batch)
+        if i == 0:
+            loss0, gn0 = m["loss"].item(), m["grad_norm"].item()
+    last = m["loss"].item()  # a host read ends the timed steps
+    dt = time.perf_counter() - t0
+    launches, peak = _counts(), torch.cuda.max_memory_allocated()
+    tps = timed * batch_size * seq / dt
+    loss_rel = abs(loss0 - first["loss"]) / abs(first["loss"])
+    gn_rel = abs(gn0 - first["grad_norm"]) / abs(first["grad_norm"])
+    per_step = tuple(c / (warm + timed) for c in launches)
+    log(f"{label}: {warm} warm + {timed} timed steps, tokens_per_s {tps} mfu "
+        f"{_mfu(tps, seq):.4f}; loss {loss0} -> {last}, grad_norm {gn0}; first step vs "
+        f"lm_train: loss rel diff {loss_rel:.3e} (<= 1e-4), grad_norm {gn_rel:.3e} (<= 1e-3); "
+        f"peak_memory_allocated {peak} B; launches fwd/dq/dkv per step {per_step}")
+    n = BENCH_MODEL["n_layers"]
+    if per_step != (n, n, n):
+        raise AssertionError(f"{label}: expected {n} launches of each kernel per step, got "
+                             f"{per_step}")
+    if loss_rel > 1e-4 or gn_rel > 1e-3:
+        raise AssertionError(f"{label}: the first step disagrees with lm_train's")
+    if not (np.isfinite(last) and last < loss0):
+        raise AssertionError(f"{label}: the loss is not finite and falling")
+    return {"tokens_per_s": tps, "mfu": _mfu(tps, seq), "peak_memory_allocated": peak}
+
+
+def phase_long_train():
+    """lm_train at T = 8192, batch 2, attention_impl "flash" (671M, full
+    width and depth), then bench.py's long-context arm through
+    build_train_step with the ddp template on a {"data": 1} mesh: remat
+    save_attn, AdamW(3e-4) with a float32 mu, 2 warm and 6 timed steps;
+    then where one of its steps spends the time (torch.profiler).  Returns
+    lm_train's launch counts and the figures."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig
+    from polyaxon_tpu_torch.parallel.templates import template_for
+    from polyaxon_tpu_torch.runtime.mesh import build_mesh
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+
+    launches, first, final = _lm_train("lm_train 671M long context", LONG_SEQ, LONG_BATCH,
+                                       LONG_STEPS, attention_impl="flash")
+    mesh = build_mesh({"data": 1})
+    template = template_for("ddp", dict(mesh.shape))
+    cfg = TransformerConfig(max_seq=LONG_SEQ, remat=True, remat_policy="save_attn",
+                            attention_impl="flash", **BENCH_MODEL)
+    ts, params, opt_state, batch = _train_setup(cfg, AdamW(LR), LONG_BATCH, LONG_SEQ, template,
+                                                mesh)
+    arm = _bench_arm("bench long-context arm (T 8192, ddp, save_attn, f32 mu)", ts, params,
+                     opt_state, batch, LONG_SEQ, LONG_WARM, LONG_TIMED, first)
+    profile = _profile("train step T=8192 (save_attn)",
+                       lambda: ts.step(params, opt_state, batch), 1, top=12)
+    del ts, params, opt_state, batch
+    return launches, {"lm_train_tokens_per_s": final["tokens_per_s"],
+                      "lm_train_mfu": _mfu(final["tokens_per_s"], LONG_SEQ),
+                      "bench_arm": arm, "profile": profile}
+
+
+def phase_ring_train():
+    """sp_ring on a one-rank {"sequence": 1} mesh at T = 16384, batch 1, as
+    bench.py:233-267 runs it: lm_train with strategy sp_ring, whose first
+    step must equal the plain path's (lm_train with ddp, one step) on the
+    same weights and batch (a one-rank ring is one causal block: loss rtol
+    1e-4, grad norm rtol 1e-3) and whose forward launches go through
+    ring_flash_attention (one ring block per layer and step); then the
+    same through build_train_step with remat save_attn and a bf16 mu.
+    Returns the sp_ring lm_train's launch counts and the figures."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig
+    from polyaxon_tpu_torch.parallel import flash
+    from polyaxon_tpu_torch.parallel.templates import template_for
+    from polyaxon_tpu_torch.runtime.mesh import build_mesh
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+
+    _, plain, _ = _lm_train("lm_train 671M T 16384, ddp (the plain path)", RING_SEQ, RING_BATCH,
+                            1, attention_impl="flash")
+    plain_blocks = flash.ring_flash_fwd.blocks
+    mesh = build_mesh({"sequence": 1})
+    launches, first, final = _lm_train("lm_train 671M T 16384, sp_ring", RING_SEQ, RING_BATCH,
+                                       RING_STEPS, strategy="sp_ring", mesh=mesh,
+                                       attention_impl="flash")
+    blocks = flash.ring_flash_fwd.blocks
+    loss_rel = abs(first["loss"] - plain["loss"]) / abs(plain["loss"])
+    gn_rel = abs(first["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"])
+    n = BENCH_MODEL["n_layers"]
+    log(f"sp_ring vs the plain path, first step: loss {first['loss']} vs {plain['loss']} "
+        f"(rel diff {loss_rel:.3e} <= 1e-4), grad_norm {first['grad_norm']} vs "
+        f"{plain['grad_norm']} ({gn_rel:.3e} <= 1e-3); ring blocks {blocks} (expected "
+        f"{n * RING_STEPS}), the plain path's {plain_blocks} (expected 0)")
+    if loss_rel > 1e-4 or gn_rel > 1e-3:
+        raise AssertionError("sp_ring's first step disagrees with the plain path's")
+    if blocks != n * RING_STEPS or plain_blocks != 0:
+        raise AssertionError("the forward launches did not go through ring_flash_attention")
+    template = template_for("sp_ring", dict(mesh.shape))
+    cfg = TransformerConfig(max_seq=RING_SEQ, remat=True, remat_policy="save_attn",
+                            attention_impl="flash", **BENCH_MODEL)
+    ts, params, opt_state, batch = _train_setup(
+        cfg, AdamW(LR, mu_dtype=torch.bfloat16), RING_BATCH, RING_SEQ, template, mesh)
+    arm = _bench_arm("bench T 16384 arm (sp_ring on {sequence: 1}, save_attn, bf16 mu)", ts,
+                     params, opt_state, batch, RING_SEQ, RING_WARM, RING_TIMED, first)
+    del ts, params, opt_state, batch
+    return launches, {"lm_train_tokens_per_s": final["tokens_per_s"],
+                      "lm_train_mfu": _mfu(final["tokens_per_s"], RING_SEQ), "bench_arm": arm}
+
+
+def phase_ring_threads():
+    """The ring's hop functions for n = 4 ranks on one card, the ranks as
+    threads over an in-process ring (LocalRing), called directly (an
+    exchange inside backward() would stall the autograd engine's one
+    thread for the card).  bf16, B 2, T 4 x 512, H 8, Hkv 2 and 8, d 64
+    and 128.  The kernels' hops against the same hops with the plain
+    forward swapped in (o, lse) and with the plain backward swapped in after
+    the same forward (dq, dk, dv), at the kernels' limits; against plain
+    attention over the whole sequence on the card (o and lse; the grads
+    given the ring's softmax statistics); and a control run with dk x 1.01
+    in one hop (rank 0's diagonal block), which must fail the limit."""
+    import threading
+
+    from polyaxon_tpu_torch.parallel import flash
+    from polyaxon_tpu_torch.parallel.ring import LocalRing
+
+    n, B, Tl, dtype = RING_RANKS, RING_B, RING_TL, torch.bfloat16
+    lim = BWD_ATOL[dtype]
+    real_bwd = flash.flash_block_bwd
+    for H, Hkv, d in RING_CASES:
+        g = torch.Generator(device="cuda").manual_seed(H + Hkv + d)
+        q, do = (torch.randn(B, n * Tl, H, d, generator=g, device="cuda").to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(B, n * Tl, Hkv, d, generator=g, device="cuda").to(dtype)
+                for _ in range(2))
+        scale, group = d**-0.5, H // Hkv
+
+        def shard(x, r):
+            return x[:, r * Tl:(r + 1) * Tl]
+
+        def fwd(ring):
+            r = ring.rank
+            return flash.ring_flash_fwd(shard(q, r), shard(k, r), shard(v, r), scale, ring)
+
+        def bwd(stats):
+            def run(ring):
+                r = ring.rank
+                o, lse = stats[r]
+                return flash.ring_flash_bwd(shard(q, r), shard(k, r), shard(v, r), o.to(dtype),
+                                            lse, shard(do, r), scale, ring)
+            return run
+
+        def cat(results, i):
+            return torch.cat([res[i] for res in results], dim=1)
+
+        def err(a, b, i):
+            return (cat(a, i) - cat(b, i)).abs().max().item()
+
+        kernel_fwd = LocalRing.run(n, fwd)
+        kernel_bwd = LocalRing.run(n, bwd(kernel_fwd))
+        torch.cuda.synchronize()
+        with _swapped(flash_block_fwd=flash.flash_block_fwd_reference):
+            plain_fwd = LocalRing.run(n, fwd)
+        with _swapped(flash_block_bwd=flash.flash_block_bwd_reference):
+            plain_bwd = LocalRing.run(n, bwd(kernel_fwd))
+        hit = []
+
+        def one_hop_dk_off(*args, **kw):  # rank 0's one hop: its causal diagonal block
+            dq, dk, dv = real_bwd(*args, **kw)
+            if threading.current_thread().name == "ring-rank-0":
+                hit.append(kw["causal"])
+                dk = dk * 1.01
+            return dq, dk, dv
+
+        with _swapped(flash_block_bwd=one_hop_dk_off):
+            fault_bwd = LocalRing.run(n, bwd(kernel_fwd))
+        hops = (err(kernel_fwd, plain_fwd, 0), err(kernel_fwd, plain_fwd, 1),
+                max(err(kernel_bwd, plain_bwd, i) for i in range(3)),
+                max(err(fault_bwd, plain_bwd, i) for i in range(3)))
+        # Whole-sequence plain attention, the KV heads broadcast to the query heads.
+        qf, dof = flash._bhd(q), flash._bhd(do)
+        kf, vf = (flash._gqa_expand(flash._bhd(x), B, group) for x in (k, v))
+        wo, wlse = flash.flash_block_fwd_reference(qf, kf, vf, causal=True, sm_scale=scale)
+        ring_o, ring_lse = flash._bhd(cat(kernel_fwd, 0)), cat(kernel_fwd, 1)
+        delta = (dof.float() * ring_o.to(dtype).float()).sum(-1)
+        wdq, wdk, wdv = flash.flash_block_bwd_reference(qf, kf, vf, dof, ring_lse, delta,
+                                                        causal=True, sm_scale=scale)
+        whole = ((ring_o - wo).abs().max().item(), (ring_lse - wlse).abs().max().item(),
+                 max((flash._bhd(cat(kernel_bwd, i)) - w).abs().max().item()
+                     for i, w in enumerate((wdq, flash._gqa_reduce(wdk, B, group),
+                                            flash._gqa_reduce(wdv, B, group)))))
+        log(f"ring n={n} on threads, B={B} T={n}x{Tl} H={H} Hkv={Hkv} d={d} {dtype}: kernels vs "
+            f"plain hops: o {hops[0]:.3e} (<= {O_ATOL}), lse {hops[1]:.3e} (<= {LSE_ATOL}), "
+            f"dq/dk/dv {hops[2]:.3e} (<= {lim}); vs whole-sequence plain attention: o "
+            f"{whole[0]:.3e}, lse {whole[1]:.3e}, dq/dk/dv {whole[2]:.3e}; control with dk x "
+            f"1.01 in rank 0's hop: {hops[3]:.3e} (> {lim})")
+        if hops[0] > O_ATOL or hops[1] > LSE_ATOL or hops[2] > lim or whole[0] > O_ATOL or \
+                whole[1] > LSE_ATOL or whole[2] > lim:
+            raise AssertionError("the ring's hops through the kernels disagree with the plain "
+                                 "versions")
+        if hops[3] <= lim or hit != [True]:
+            raise AssertionError("the ring check does not see dk scaled by 1.01 in one hop")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card", file=sys.stderr)
@@ -1150,17 +1513,31 @@ def main() -> int:
     paged_profile = phase_profile_paged(*phase_paged_parity())
     _free()
     server_launches, server = phase_lm_server()
+    _free()
+    long_kernels = phase_long_kernels()
+    _free()
+    long_launches, long_train = phase_long_train()
+    _free()
+    ring_launches, ring_train = phase_ring_train()
+    _free()
+    phase_ring_threads()
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
-               "lm_server": server_launches}
-    for i, record in enumerate((fwd, bwd["dq"], bwd["dkv"])):
+               "lm_server": server_launches, "lm_train_t8192": long_launches,
+               "lm_train_sp_ring_t16384": ring_launches}
+    for i, (kind, record) in enumerate((("fwd", fwd), ("dq", bwd["dq"]), ("dkv", bwd["dkv"]))):
         record["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())
+        record["t8192"] = dict(long_kernels["t8192"][kind],
+                               launches_per_step=long_launches[i] / LONG_STEPS)
+        record["t16384"] = dict(long_kernels["t16384"][kind],
+                                launches_per_step=ring_launches[i] / RING_STEPS)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    # The serving figures of this run, on a line of their own so that they
-    # stand in the output's tail beside the kernels' record.
+    # The serving and long-context figures of this run, on lines of their
+    # own so that they stand in the output's tail beside the kernels' record.
     print(json.dumps({"serving": {"lm_generate": gen_metrics, "lm_server": server,
                                   **paged_profile}}))
+    print(json.dumps({"long_context": {"t8192": long_train, "sp_ring_t16384": ring_train}}))
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd["dq"], bwd["dkv"]]}))
     print(json.dumps({"ok": True, "device": {

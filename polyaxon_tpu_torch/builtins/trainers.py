@@ -1,7 +1,7 @@
 """Built-in entrypoints of the port.
 
 Counterpart of ``polyaxon_tpu/builtins/trainers.py``; so far ``lm_generate``
-and ``lm_train``.
+and ``lm_train`` (``ddp`` and ``sp_ring`` on one rank).
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import torch
 from polyaxon_tpu_torch._device import resolve_device
 from polyaxon_tpu_torch.models import decode
 from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
+from polyaxon_tpu_torch.parallel.templates import template_for
+from polyaxon_tpu_torch.runtime.mesh import build_mesh
 from polyaxon_tpu_torch.runtime.optim import AdamW
 from polyaxon_tpu_torch.runtime.train import build_train_step
 from polyaxon_tpu_torch.tracking.context import Context
@@ -108,18 +110,23 @@ def lm_generate(ctx: Context) -> torch.Tensor:
 
 
 def lm_train(ctx: Context) -> None:
-    """Train the flagship transformer LM on one device.
+    """Train the flagship transformer LM under the context's strategy.
 
     Counterpart of the JAX ``lm_train``: the same params (``steps``,
     ``batch``, ``seq``, ``lr``, ``attention_impl`` and the
     ``TransformerConfig`` fields ``vocab_size``, ``d_model``, ``n_layers``,
     ``n_heads``, ``head_dim``, ``d_ff``, ``n_experts``, ``n_kv_heads``,
     ``ce_chunk``), plus ``device`` (default ``cuda``; ``cpu`` only when
-    asked).  Data is the same synthetic next-token batch, drawn once from
+    asked).  The template comes from ``ctx.strategy`` over ``ctx.mesh``
+    (default ``build_mesh({"data": 1})``): ``ddp``, or ``sp_ring`` (ring
+    attention; on a ``{"sequence": 1}`` mesh one causal block over the whole
+    sequence, as bench.py runs T = 16384), on a mesh whose axes are all 1.
+    Data is the same synthetic next-token batch, drawn once from
     ``np.random.default_rng(seed)`` and fed every step; the optimizer is
     ``AdamW(lr)``.  Logs ``loss`` and ``grad_norm`` at every tenth step and
     the last, then ``tokens_per_s``, ``first_step_s`` (the first step's wall,
-    synchronized, kernel loading included) and the ``StepClock`` means.
+    synchronized, kernel loading included) and the ``StepClock`` means, and
+    names the strategy in its last line.
 
     Not ported yet, each named in ROADMAP: ``save_every`` checkpointing
     (raises when > 0), the profiler and capture hooks, fault injection, the
@@ -145,15 +152,19 @@ def lm_train(ctx: Context) -> None:
     cfg = TransformerConfig(max_seq=seq, **cfg_fields)
     seed = ctx.seed or 0
 
+    mesh = ctx.mesh if ctx.mesh is not None else build_mesh({"data": 1})
+    template = template_for(ctx.strategy, dict(mesh.shape), ctx.strategy_options)
     ts = build_train_step(
-        loss_fn=lambda p, b: loss_fn(p, b, cfg, device=device),
+        loss_fn=lambda p, b: loss_fn(p, b, cfg, template=template, mesh=mesh, device=device),
         init_fn=lambda g: init_params(cfg, g),
         optimizer=AdamW(lr),
+        mesh=mesh,
+        template=template,
     )
     params, opt_state = ts.init(torch.Generator(device=device).manual_seed(seed))
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch_size, seq + 1)), device=device)
-    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    batch = ts.place_batch({"tokens": tokens[:, :-1], "targets": tokens[:, 1:]})
 
     clock = StepClock()
     t0 = time.perf_counter()
@@ -175,6 +186,7 @@ def lm_train(ctx: Context) -> None:
     tps = steps * batch_size * seq / dt
     ctx.log_metrics(step=steps, tokens_per_s=tps, first_step_s=first_step_s, **clock.summary())
     ctx.log_text(
-        f"lm_train done: {steps} steps, final loss {float(metrics['loss']):.4f}, "
+        f"lm_train done: {steps} steps, strategy={template.name}, "
+        f"final loss {float(metrics['loss']):.4f}, "
         f"{tps:.0f} tokens/s (first step {first_step_s:.2f}s)"
     )

@@ -8,10 +8,11 @@ block arithmetic, so a JAX parameter tree carries over leaf by leaf
 
 Ported: the plain single-device forward, dense MLP, GQA, flash or dense
 attention, the remat policies (per-layer ``torch.utils.checkpoint``,
-selective for the named policies), and the training loss with its
-blockwise cross-entropy.  Parallelism templates and meshes, MoE and
-ring/Ulysses attention raise ``NotImplementedError`` naming their ROADMAP
-item.
+selective for the named policies), the training loss with its blockwise
+cross-entropy, and two strategy templates: ``ddp`` on a mesh whose axes are
+all 1 (the plain path) and ``sp_ring`` (ring attention over the sequence
+axis, each rank on its shard).  Other strategies, meshes with another axis
+above 1, and MoE raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ from torch.utils.checkpoint import (
 )
 
 from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
-from polyaxon_tpu_torch.parallel.flash import flash_attention
+from polyaxon_tpu_torch.parallel.flash import flash_attention, kernel_takes
+from polyaxon_tpu_torch.parallel.ring import ring_attention_sharded
+from polyaxon_tpu_torch.parallel.templates import check_ported
 
 _ATTENTION_IMPLS = ("auto", "dense", "flash")
 _REMAT_POLICIES = (
@@ -68,9 +71,11 @@ class TransformerConfig:
     flash_block: int = 1024
     #: Grouped-query attention: number of K/V heads (None = n_heads).
     n_kv_heads: Optional[int] = None
-    #: "auto" = the flash kernel on CUDA and dense attention on the CPU;
+    #: "auto" = the flash kernels on CUDA where they take head_dim and dtype
+    #: (``flash.kernel_takes``), dense attention elsewhere and on the CPU;
     #: "flash" = the flash wrapper (its plain version on a CPU tensor);
-    #: "dense" = :func:`_dense_attention`.
+    #: "dense" = :func:`_dense_attention`.  Under ``sp_ring`` the ring reads
+    #: it the same way (:func:`~polyaxon_tpu_torch.parallel.ring.ring_attention_sharded`).
     attention_impl: str = "auto"
     #: Blockwise cross-entropy chunk of :func:`loss_fn` (0 = whole logits).
     ce_chunk: int = 0
@@ -123,7 +128,9 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator) -> Dict[str,
     """
     c = cfg
     if c.n_experts:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP: MoE / expert parallelism)")
+        raise NotImplementedError(
+            "MoE is not ported yet (ROADMAP item 7: MoE / expert parallelism)"
+        )
     dev, dt = generator.device, c.param_dtype
 
     def norm(*shape, scale):
@@ -178,9 +185,34 @@ def _dense_attention(q, k, v, q_pos, k_pos):
 
 
 def _use_flash(cfg: TransformerConfig, x: torch.Tensor) -> bool:
+    """Whether the unsharded attention takes the flash path; x: [B, T, D]."""
     if cfg.attention_impl == "auto":
-        return x.device.type == "cuda"
+        B, T, _ = x.shape
+        return x.device.type == "cuda" and kernel_takes((B, T, cfg.n_heads, cfg.head_dim), x.dtype)
     return cfg.attention_impl == "flash"
+
+
+def _check_strategy(template, mesh) -> Optional[str]:
+    """The ring axis the forward runs over (None: the plain path), or raise
+    on what the port does not run yet."""
+    if template is None:
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"a mesh {mesh.shape} without a strategy template is not ported "
+                "(ROADMAP item 7: multi-process and parallelism)"
+            )
+        return None
+    if mesh is None:
+        raise ValueError(f"strategy template {template.name!r} needs a mesh")
+    check_ported(template)
+    wide = {a: n for a, n in mesh.shape.items() if n > 1 and a != template.ring_axis}
+    if wide:
+        raise NotImplementedError(
+            f"strategy {template.name!r} on mesh axes {wide} is not ported yet: only a "
+            "sp_ring sequence axis may span ranks (ROADMAP item 7: multi-process and "
+            "parallelism)"
+        )
+    return template.ring_axis
 
 
 class _SavePolicy:
@@ -233,7 +265,7 @@ class _SavePolicy:
 
 
 def _layer(x, positions, layer, cfg: TransformerConfig, use_flash: bool,
-           policy: _SavePolicy, want_kv: bool):
+           policy: _SavePolicy, want_kv: bool, mesh=None, ring_axis: Optional[str] = None):
     """One decoder block (JAX ``forward.block``): ``(x, (k, v) or None)``."""
     c = cfg
     h = _rmsnorm(x, layer["attn_norm"])
@@ -245,12 +277,16 @@ def _layer(x, positions, layer, cfg: TransformerConfig, use_flash: bool,
     with policy.scope("v_proj"):
         v = torch.einsum("btd,dhk->bthk", h, wv)
     kv = (k, v) if want_kv else None  # post-rope, pre-broadcast (GQA)
+    # GQA: the ring carries the unexpanded KV (and broadcasts at each
+    # kernel call); every other path broadcasts the KV heads here.
     group = c.n_heads // c.kv_heads
-    if group > 1:
+    if group > 1 and ring_axis is None:
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
     with policy.scope("attn_out"):
-        if use_flash:
+        if ring_axis is not None:
+            attn = ring_attention_sharded(q, k, v, mesh, ring_axis, impl=c.attention_impl)
+        elif use_flash:
             attn = flash_attention(q, k, v, q.shape[-1] ** -0.5, device=x.device)
         else:
             attn = _dense_attention(q, k, v, positions, positions)
@@ -282,22 +318,32 @@ def forward(
 
     ``return_kv`` also returns the per-layer post-rope, unexpanded (GQA)
     key/value stacks ``(k, v)``, each ``[L,B,T,Hkv,d]`` — the decode
-    prefill fills its cache from them.  ``return_hidden`` returns the
-    final-norm hidden states [B,T,D] in the compute dtype instead of the
-    logits, for :func:`loss_fn`'s blockwise cross-entropy.  With
-    ``cfg.remat`` each layer is checkpointed while grads are being
-    recorded.  ``params`` must already lie on ``device``; ``tokens`` is
-    moved there.
+    prefill fills its cache from them (plain path only: no template).
+    ``return_hidden`` returns the final-norm hidden states [B,T,D] in the
+    compute dtype instead of the logits, for :func:`loss_fn`'s blockwise
+    cross-entropy.  With ``cfg.remat`` each layer is checkpointed while
+    grads are being recorded.  ``params`` must already lie on ``device``;
+    ``tokens`` is moved there.
+
+    ``template`` (a :class:`~polyaxon_tpu_torch.parallel.templates.
+    StrategyTemplate`) with ``mesh`` (:func:`~polyaxon_tpu_torch.runtime.
+    mesh.build_mesh`) selects the strategy: ``ddp`` on a mesh whose axes are
+    all 1 is the plain path; ``sp_ring`` runs attention over the ring of its
+    sequence axis, ``tokens`` being this rank's sequence shard and
+    ``positions`` its global positions (``runtime.train.shard_batch`` cuts
+    both; ``positions`` defaults to ``arange(T)``, a shard at offset 0).
     """
     c = cfg
     dev = resolve_device(device)
-    if template is not None or mesh is not None:
+    ring_axis = _check_strategy(template, mesh)
+    if return_kv and template is not None:
         raise NotImplementedError(
-            "parallelism templates and meshes are not ported yet "
-            "(ROADMAP: multi-process and parallelism)"
+            "return_kv supports the plain-scan dense path only (no parallelism template)"
         )
     if c.n_experts:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP: MoE / expert parallelism)")
+        raise NotImplementedError(
+            "MoE is not ported yet (ROADMAP item 7: MoE / expert parallelism)"
+        )
     require_on(dev, embed=params["embed"])
     tokens = tokens.to(dev)
     B, T = tokens.shape
@@ -315,7 +361,7 @@ def forward(
     ks, vs = [], []
     for i in range(c.n_layers):
         layer = {name: ws[i] for name, ws in per_layer.items()}
-        args = (x, positions, layer, c, use_flash, policy, return_kv)
+        args = (x, positions, layer, c, use_flash, policy, return_kv, mesh, ring_axis)
         if remat:
             x, kv = checkpoint(_layer, *args, use_reentrant=False, **policy.checkpoint_kwargs())
         else:
@@ -383,7 +429,9 @@ def loss_fn(
 
     With ``cfg.ce_chunk`` dividing the sequence it goes through
     :func:`_blockwise_ce`.  Dense MLP only: MoE (and its balance loss)
-    raises in :func:`forward`.
+    raises in :func:`forward`.  Under ``sp_ring`` the batch is this rank's
+    sequence shard and the loss its mean; the whole sequence's loss is the
+    mean over the ring's ranks (equal shards, no mask).
     """
     dev = resolve_device(device)
     targets = batch["targets"].to(dev).long()

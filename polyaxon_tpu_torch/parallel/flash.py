@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+import weakref
+from typing import Any, Sequence, Tuple
 
 import torch
 
@@ -78,6 +79,17 @@ def _check_aligned(**tensors: torch.Tensor) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"kernel takes 16-byte aligned tensors; {name}.data_ptr() is "
                              f"{t.data_ptr()}")
+
+
+def kernel_takes(q_shape: Sequence[int], dtype: torch.dtype) -> bool:
+    """Whether the kernels take q of this shape (head_dim last) and dtype.
+
+    ``attention_impl="auto"`` picks the kernels on a CUDA tensor only where
+    this holds, from the shape and dtype alone, before any launch; the rest
+    of :func:`check_kernel_inputs` (layout, alignment) is the wrappers' own
+    business and holds for every tensor they make.
+    """
+    return dtype in _KERNEL_DTYPES and q_shape[-1] in _KERNEL_HEAD_DIMS
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -290,8 +302,10 @@ def flash_block_bwd(
 
 
 def _bhd(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, d] → [B*H, T, d], contiguous as the kernels take it (with
+    B = 1 a reshape alone would return a strided view)."""
     B, T, H, d = x.shape
-    return x.transpose(1, 2).reshape(B * H, T, d)
+    return x.transpose(1, 2).contiguous().view(B * H, T, d)
 
 
 def _unbhd(x: torch.Tensor, B: int, H: int) -> torch.Tensor:
@@ -353,4 +367,184 @@ def flash_attention(
     dev = resolve_device(device)
     require_on(dev, q=q, k=k, v=v)
     out, _ = _flash_attention_op(q, k, v, float(sm_scale))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The ring over the kernels: causal attention with the sequence split over
+# the ranks of a ring (JAX: ``ring_flash_attention`` with ``_ring_flash_fwd``
+# and ``_ring_flash_bwd``).  The hop arithmetic is plain functions of
+# ``(q, k, v, ..., comm)``; ``comm`` gives ``rank``, ``size`` and
+# ``rotate(tensors, reverse=False)`` (send to rank + 1, receive from
+# rank - 1; reversed, the other way): a process group's
+# (:class:`~polyaxon_tpu_torch.parallel.ring.GroupRing`) or threads' of one
+# process (:class:`~polyaxon_tpu_torch.parallel.ring.LocalRing`).
+# ---------------------------------------------------------------------------
+
+_DIAGONAL, _FULL, _SKIP = 0, 1, 2
+
+
+def _merge(o, lse, o_b, lse_b):
+    """Log-sum-exp combine of two normalized partial attentions.  An empty
+    block (lse −inf, o 0) is its identity; a row empty in both stays so."""
+    lse_new = torch.logaddexp(lse, lse_b)
+    dead = torch.isneginf(lse_new)
+    w_old = torch.where(dead, 0.0, torch.exp(lse - lse_new))
+    w_new = torch.where(dead, 0.0, torch.exp(lse_b - lse_new))
+    return o * w_old[..., None] + o_b * w_new[..., None], lse_new
+
+
+def _hop_case(i: int, idx: int) -> int:
+    """At hop ``i`` rank ``idx`` holds the K/V block of rank ``idx - i``:
+    0 = its own block (causal diagonal), 1 = an earlier block (full),
+    2 = a later block (future keys: skipped)."""
+    return _DIAGONAL if i == 0 else (_FULL if i <= idx else _SKIP)
+
+
+def _gqa_expand(x: torch.Tensor, B: int, group: int) -> torch.Tensor:
+    """[B*Hkv, T, d] → [B*H, T, d], each KV head repeated ``group`` times
+    (query head h reads KV head h // group, as ``repeat_interleave``)."""
+    if group == 1:
+        return x
+    BHkv, T, d = x.shape
+    return x.reshape(B, BHkv // B, T, d).repeat_interleave(group, dim=1).reshape(-1, T, d)
+
+
+def _gqa_reduce(dx: torch.Tensor, B: int, group: int) -> torch.Tensor:
+    """Transpose of :func:`_gqa_expand`: sum the query heads' grads per KV head."""
+    if group == 1:
+        return dx
+    BH, T, d = dx.shape
+    return dx.reshape(B, BH // B // group, group, T, d).sum(dim=2).reshape(-1, T, d)
+
+
+def ring_flash_fwd(q, k, v, sm_scale: float, comm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's causal attention over the ring: ``(o, lse)``, both float32.
+
+    q: [B, Tl, H, d], this rank's contiguous sequence shard; k, v:
+    [B, Tl, Hkv, d] with Hkv dividing H (GQA).  The K/V blocks rotate
+    unexpanded and are repeated to the query heads only at each kernel call
+    (``check_kernel_inputs`` wants q and k with one batch of heads).  Hop 0
+    is the causal diagonal block, earlier blocks are full, later ones are
+    skipped; the partial results merge by log-sum-exp.  o is [B, Tl, H, d]
+    (the custom op casts it to q's dtype), lse [B*H, Tl].  Adds one to
+    ``ring_flash_fwd.blocks`` per block it computes.
+    """
+    n, idx = comm.size, comm.rank
+    B, Tl, H, d = q.shape
+    group = H // k.shape[2]
+    qf, kc, vc = _bhd(q), _bhd(k), _bhd(v)
+    o = torch.zeros((B * H, Tl, d), dtype=torch.float32, device=q.device)
+    lse = torch.full((B * H, Tl), float("-inf"), dtype=torch.float32, device=q.device)
+    for i in range(n):
+        case = _hop_case(i, idx)
+        if case != _SKIP:
+            o_b, lse_b = flash_block_fwd(qf, _gqa_expand(kc, B, group), _gqa_expand(vc, B, group),
+                                         causal=case == _DIAGONAL, sm_scale=sm_scale)
+            o, lse = _merge(o, lse, o_b, lse_b)
+            ring_flash_fwd.blocks += 1
+        if i < n - 1:  # a last rotation would only bring the blocks home
+            kc, vc = comm.rotate((kc, vc))
+    return _unbhd(o, B, H), lse
+
+
+ring_flash_fwd.blocks = 0
+
+
+def ring_flash_bwd(q, k, v, out, lse, do, sm_scale: float, comm):
+    """Grads of :func:`ring_flash_fwd`: ``(dq, dk, dv)`` float32 (the custom
+    op casts them to the inputs' dtypes), dk and dv [B, Tl, Hkv, d].  out is
+    the forward's output in q's dtype.
+
+    Every hop uses the final merged ``lse`` and delta = rowsum(do ⊙ out) in
+    float32, as JAX's ``_ring_flash_bwd`` does.  The dk/dv accumulators
+    (Hkv-sized, float32) travel with their K/V block; the n-th rotation,
+    which carries only them, is what brings each block's grads home.
+    """
+    n, idx = comm.size, comm.rank
+    B, Tl, H, d = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    qf, kc, vc = _bhd(q), _bhd(k), _bhd(v)
+    dof = _bhd(do.to(q.dtype))
+    delta = (dof.float() * _bhd(out).float()).sum(dim=-1)
+    dq = torch.zeros((B * H, Tl, d), dtype=torch.float32, device=q.device)
+    dkc = torch.zeros((B * Hkv, Tl, d), dtype=torch.float32, device=q.device)
+    dvc = torch.zeros_like(dkc)
+    for i in range(n):
+        case = _hop_case(i, idx)
+        if case != _SKIP:
+            dq_i, dk_i, dv_i = flash_block_bwd(
+                qf, _gqa_expand(kc, B, group), _gqa_expand(vc, B, group), dof, lse, delta,
+                causal=case == _DIAGONAL, sm_scale=sm_scale)
+            dq = dq + dq_i
+            dkc = dkc + _gqa_reduce(dk_i, B, group)
+            dvc = dvc + _gqa_reduce(dv_i, B, group)
+        if i < n - 1:
+            kc, vc, dkc, dvc = comm.rotate((kc, vc, dkc, dvc))
+        else:
+            dkc, dvc = comm.rotate((dkc, dvc))
+    return _unbhd(dq, B, H), _unbhd(dkc, B, Hkv), _unbhd(dvc, B, Hkv)
+
+
+#: The rings the custom op below can name, by key.  A custom op takes no
+#: process group, so it takes the key :func:`ring_key` gives its ring; the
+#: entry lives as long as the ring object (its mesh holds it).
+_RINGS: "weakref.WeakValueDictionary[str, Any]" = weakref.WeakValueDictionary()
+
+
+def ring_key(comm) -> str:
+    """The key under which :func:`ring_flash_attention` finds ``comm``."""
+    key = f"ring-{id(comm)}"
+    _RINGS[key] = comm
+    return key
+
+
+def _ring(key: str):
+    comm = _RINGS.get(key)
+    if comm is None:
+        raise RuntimeError(f"ring {key!r} is gone (its mesh was released)")
+    return comm
+
+
+@torch.library.custom_op("polyaxon_tpu_torch::ring_flash_attention", mutates_args=())
+def _ring_flash_attention_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, ring: str
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ring_flash_fwd` over the ring named ``ring``: ``(out, lse)``,
+    out in q's dtype."""
+    o, lse = ring_flash_fwd(q, k, v, sm_scale, _ring(ring))
+    return o.to(q.dtype), lse
+
+
+def _ring_setup_context(ctx, inputs, output) -> None:
+    q, k, v, sm_scale, ring = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)  # JAX's residuals (q, k, v, out, lse)
+    ctx.sm_scale, ctx.ring = sm_scale, ring
+    ctx.mark_non_differentiable(lse)
+
+
+def _ring_backward(ctx, dout: torch.Tensor, _dlse: torch.Tensor):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = ring_flash_bwd(q, k, v, out, lse, dout, ctx.sm_scale, _ring(ctx.ring))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+torch.library.register_autograd(
+    "polyaxon_tpu_torch::ring_flash_attention", _ring_backward, setup_context=_ring_setup_context
+)
+
+
+def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, comm,
+                         sm_scale: float) -> torch.Tensor:
+    """Causal ring attention of this rank's shard through the kernels:
+    q [B, Tl, H, d], k/v [B, Tl, Hkv, d] → [B, Tl, H, d] in q's dtype.
+
+    The custom operator ``polyaxon_tpu_torch::ring_flash_attention`` with a
+    registered autograd formula, so a ``save_attn`` checkpoint keeps its
+    output and the backward's recompute runs neither an exchange nor a
+    forward kernel.  On CPU tensors the kernels' plain versions run.
+    """
+    out, _ = _ring_flash_attention_op(q, k, v, float(sm_scale), ring_key(comm))
     return out

@@ -1,7 +1,8 @@
 """The run context handed to the port's entrypoints.
 
 A minimal counterpart of ``polyaxon_tpu/tracking/context.py``: params,
-seed, leadership, and metric / text logging.  Records go to a list the
+seed, leadership, the mesh and parallelism strategy, and metric / text
+logging.  Records go to a list the
 caller passes, or to stdout as JSON lines; there is no reporter or
 registry yet.  ``stop`` is how an in-process caller ends a service
 entrypoint (``lm_server``) that otherwise serves until its process is
@@ -24,11 +25,20 @@ class Context:
         *,
         params: Dict[str, Any],
         process_id: int = 0,
+        mesh: Any = None,
+        strategy: str = "ddp",
+        strategy_options: Optional[Dict[str, Any]] = None,
         seed: Optional[int] = None,
         records: Optional[List[Dict[str, Any]]] = None,
     ) -> None:
         self.params = params
         self.process_id = process_id
+        #: The port's mesh (``runtime.mesh.build_mesh``); None lets an
+        #: entrypoint build its own one-rank mesh.
+        self.mesh = mesh
+        #: The parallelism strategy's name and options (``parallel.templates``).
+        self.strategy = strategy
+        self.strategy_options = strategy_options or {}
         self.seed = seed
         #: Where log_metrics / log_text append; None = stdout.
         self.records = records

@@ -244,10 +244,91 @@ def test_paged_engine_matches_static_generate(cuda):
         stats = engine.stats()
     finally:
         engine.stop()
-    dense = cfg.scaled(attention_impl="dense")
-    assert outs == [decode.generate(params, torch.tensor([p], device=cuda), dense,
+    assert outs == [decode.generate(params, torch.tensor([p], device=cuda), cfg,
                                     max_new_tokens=n, device=cuda)[0].tolist() for p, n in traffic]
     assert stats["cow_copies"] >= 1 and stats["prefix_cache_hits"] >= 4
     assert stats["spec_steps"] > 0 and stats["spec_proposed_total"] > 0
     assert stats["blocks_total"] - stats["blocks_free"] == stats["prefix_cache_blocks"]
     assert flash.flash_block_fwd.launches == before
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_attention_op_matches_plain_on_the_cpu(cuda, B):
+    """The attention op through the three kernels (float32 FMA kernels) at a
+    batch of one and of two: out and the q/k/v grads against the same op on
+    the CPU, where it runs the plain versions (atol 1e-5 and 1e-4: summation
+    order).  A batch of one once handed the kernels a strided view."""
+    g = torch.Generator().manual_seed(B)
+    q, k, v, do = (torch.randn(B, 200, 4, 64, generator=g) for _ in range(4))
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [x.to(dev).requires_grad_(True) for x in (q, k, v)]
+        out = flash.flash_attention(*leaves, 64**-0.5, device=dev)
+        grads[str(dev)] = (out, *torch.autograd.grad(out, leaves, do.to(dev)))
+    for i, (got, want) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5 if i == 0 else 1e-4, rtol=0)
+
+
+def test_auto_attention_at_head_dim_8_gives_the_jax_logits(cuda):
+    """``attention_impl="auto"`` at head_dim 8, the reference tests' width:
+    the kernels take head_dim 64 and 128 only, so ``forward`` and greedy
+    ``generate`` take dense attention on the card and give the JAX
+    package's logits (atol 1e-4, float32) and tokens, stored beside
+    ``tests/torch_head_dim8.py``; no kernel launches.  ``"flash"`` still
+    raises there."""
+    from polyaxon_tpu_torch.models.transformer import forward
+    from polyaxon_tpu_torch.models.weights import params_from_jax
+    from tests import torch_head_dim8 as hd8
+
+    stored = np.load(hd8.JAX_OUTPUTS)
+    cfg = TransformerConfig(dtype=torch.float32, **hd8.CFG)
+    assert cfg.attention_impl == "auto"
+    params = params_from_jax(hd8.numpy_params(), cuda)
+    prompt = torch.from_numpy(hd8.prompt()).to(cuda)
+    before = flash.flash_block_fwd.launches
+    with torch.inference_mode():
+        logits = forward(params, prompt, cfg, device=cuda)
+    tokens = decode.generate(params, prompt, cfg, max_new_tokens=hd8.NEW_TOKENS, device=cuda)
+    assert flash.flash_block_fwd.launches == before
+    np.testing.assert_allclose(logits.cpu().numpy(), stored["logits"], atol=1e-4)
+    np.testing.assert_array_equal(tokens.cpu().numpy(), stored["tokens"])
+    with pytest.raises(ValueError, match="head_dim"), torch.inference_mode():
+        forward(params, prompt, cfg.scaled(attention_impl="flash"), device=cuda)
+
+
+@pytest.mark.parametrize("Hkv, d", [(2, 64), (4, 128)])
+def test_ring_hops_on_threads_match_the_plain_hops(cuda, monkeypatch, Hkv, d):
+    """The flash ring's hop functions for 4 ranks as threads of one process
+    on the card (bf16, B 1, T 4 x 128, H 4): the kernels' o/lse against the
+    same hops with the plain forward swapped in, and their dq/dk/dv against
+    the plain backward after the same forward, at the kernels' limits."""
+    from polyaxon_tpu_torch.parallel.ring import LocalRing
+
+    B, n, Tl, H = 1, 4, 128, 4
+    g = torch.Generator(device=cuda).manual_seed(Hkv + d)
+    q, do = (torch.randn(B, n * Tl, H, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, n * Tl, Hkv, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+
+    def hops(ring, out_lse=None):
+        sl = slice(ring.rank * Tl, (ring.rank + 1) * Tl)
+        o, lse = out_lse[ring.rank] if out_lse else flash.ring_flash_fwd(
+            q[:, sl], k[:, sl], v[:, sl], d**-0.5, ring)
+        grads = flash.ring_flash_bwd(q[:, sl], k[:, sl], v[:, sl], o.bfloat16(), lse, do[:, sl],
+                                     d**-0.5, ring)
+        return o, lse, *grads
+
+    before = flash.flash_block_fwd.launches, flash.flash_block_dkv.launches
+    kernel = LocalRing.run(n, hops)
+    torch.cuda.synchronize()
+    # 10 visible blocks over 4 ranks (diagonal and earlier blocks)
+    assert flash.flash_block_fwd.launches - before[0] == 10
+    assert flash.flash_block_dkv.launches - before[1] == 10
+    monkeypatch.setattr(flash, "flash_block_fwd", flash.flash_block_fwd_reference)
+    plain_fwd = LocalRing.run(n, hops)
+    monkeypatch.setattr(flash, "flash_block_bwd", flash.flash_block_bwd_reference)
+    plain_bwd = LocalRing.run(n, lambda ring: hops(ring, [r[:2] for r in kernel]))
+    for r in range(n):
+        assert (kernel[r][0] - plain_fwd[r][0]).abs().max().item() <= 2e-2
+        assert (kernel[r][1] - plain_fwd[r][1]).abs().max().item() <= 1e-3
+        for got, want in zip(kernel[r][2:], plain_bwd[r][2:]):
+            assert got.shape == want.shape and (got - want).abs().max().item() <= 2e-3

@@ -21,6 +21,8 @@ order:
   1e-6 relative difference in it moves the update by up to about 1e-6).
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,7 +40,9 @@ from polyaxon_tpu_torch.builtins.trainers import lm_train
 from polyaxon_tpu_torch.models import transformer as ttr
 from polyaxon_tpu_torch.models.weights import params_from_jax
 from polyaxon_tpu_torch.parallel import flash as tflash
+from polyaxon_tpu_torch.parallel.templates import template_for as port_template_for
 from polyaxon_tpu_torch.runtime import optim
+from polyaxon_tpu_torch.runtime.mesh import build_mesh as build_port_mesh
 from polyaxon_tpu_torch.runtime.train import build_train_step
 from polyaxon_tpu_torch.tracking.context import Context
 from polyaxon_tpu_torch.tracking.ledger import transformer_flops_per_token
@@ -231,7 +235,11 @@ def test_train_step_init_and_unported_parallelism():
     assert all(p.requires_grad for p in leaves) and state.count == 0
     assert [m.dtype for m in state.mu] == [torch.bfloat16] * len(leaves)
     assert [tuple(n.shape) for n in state.nu] == [tuple(p.shape) for p in leaves]
-    for kw in ({"mesh": object()}, {"template": object()}):
+    two_ranks = SimpleNamespace(size=lambda: 2, rank=lambda: 0)  # a group's stand-in
+    for kw in ({"mesh": build_port_mesh({"data": 2}, groups={"data": two_ranks})},
+               {"template": port_template_for("fsdp", {"data": 1})},
+               {"template": port_template_for("sp_ring", {"sequence": 2}),
+                "mesh": build_port_mesh({"sequence": 2}, groups={"sequence": two_ranks})}):
         with pytest.raises(NotImplementedError, match="multi-process and parallelism"):
             build_train_step(loss_fn=None, init_fn=None, optimizer=None, **kw)
 

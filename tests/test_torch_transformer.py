@@ -16,6 +16,8 @@ import torch
 from polyaxon_tpu.models import transformer as jtr
 from polyaxon_tpu_torch.models import transformer as ttr
 from polyaxon_tpu_torch.models.weights import params_from_jax
+from polyaxon_tpu_torch.parallel.templates import template_for
+from polyaxon_tpu_torch.runtime.mesh import build_mesh
 
 SMALL = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, head_dim=16, d_ff=128, max_seq=64)
 VARIANTS = {"mha": {}, "gqa": {"n_kv_heads": 2}}
@@ -118,11 +120,34 @@ def test_bf16_leaves_cross_through_int16():
     assert params_from_jax(tree, "cpu", torch.float32)["b"][0].dtype == torch.float32
 
 
+class _TwoRankGroup:
+    """Stands in for a two-rank process group: what ``build_mesh`` reads."""
+
+    def size(self):
+        return 2
+
+    def rank(self):
+        return 0
+
+
+def _mesh(**axes):
+    return build_mesh(axes, groups={a: _TwoRankGroup() for a, n in axes.items() if n > 1})
+
+
 @pytest.mark.parametrize(
     "kwargs, match",
     [
-        (dict(template=object()), "multi-process and parallelism"),
-        (dict(mesh=object()), "multi-process and parallelism"),
+        (dict(template=template_for("ulysses", {"sequence": 1}), mesh=_mesh(sequence=1)),
+         "multi-process and parallelism"),
+        (dict(mesh=_mesh(data=2)), "multi-process and parallelism"),
+        (dict(template=template_for("ddp", {"data": 2}), mesh=_mesh(data=2)),
+         "multi-process and parallelism"),
+        (dict(template=template_for("sp_ring", {"data": 2, "sequence": 2}),
+              mesh=_mesh(data=2, sequence=2)), "multi-process and parallelism"),
+        (dict(template=template_for("pp", {"pipeline": 1}), mesh=_mesh(pipeline=1)),
+         "multi-process and parallelism"),
+        (dict(template=template_for("fsdp", {"data": 1}), mesh=_mesh(data=1)),
+         "multi-process and parallelism"),
     ],
 )
 def test_unported_paths_raise(kwargs, match):

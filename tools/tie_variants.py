@@ -3,14 +3,16 @@
 and what two of the dq kernel's design choices are worth.
 
 Run from the repository root on a machine with one H100 and the CUDA
-toolkit: ``python3 tools/tie_variants.py [variant ...]`` (all variants by
-default).  A variant is ``<pass>:<edit>``, the pass ``dq`` or ``dkv``.  Each
+toolkit: ``python3 tools/tie_variants.py [--shape BH,T] [variant ...]`` (all
+variants by default).  A variant is ``<pass>:<edit>``, the pass ``dq`` or ``dkv``.  Each
 is a copy of ``polyaxon_tpu_torch`` under the git-ignored ``_checkout/v/``
 with that pass's kernel in ``csrc/flash_bwd.cu`` edited as listed below; a
 fresh process builds it and times the pass (``flash_block_dq`` or
 ``flash_block_dkv``) at the 671M training shape (BH 640, T 1024, d 64,
-bf16, causal; CUDA-event median of 20 calls after 5), and reports its
-largest distance from the plain version.  The ``count`` edits also count,
+bf16, causal; CUDA-event median of 20 calls after 5), or at ``--shape``
+(``64,8192``: the long-context shape), and reports its largest distance
+from the plain version (over the first 8 heads where a plain version of
+all of them would not fit on the card: T above 2048).  The ``count`` edits also count,
 over one call, the warp tiles, the pairs screened in and the rounds of
 re-summing (atomics: their times are not comparable).
 
@@ -103,7 +105,7 @@ EDITS = ("none", "screen", "committed", "count", "floor9", "count_floor9", "err2
 VARIANTS = [f"{p}:{e}" for p in PASSES for e in EDITS] + ["dq:unrolled", "dq:do_regs"]
 
 
-def measure(variant: str) -> str:
+def measure(variant: str, BH: int = 640, T: int = 1024) -> str:
     """In a variant's copy: build, run once (reading the counters), time."""
     import ctypes
 
@@ -117,7 +119,7 @@ def measure(variant: str) -> str:
     report = _build.build(["flash_bwd"])["flash_bwd"]
     spills = [line.strip() for line in report.splitlines()
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    BH, T, d = 640, 1024, 64
+    d = 64
     g = torch.Generator(device="cuda").manual_seed(BH + 2 * T + d)
     q, do = (torch.randn(BH, T, d, generator=g, device="cuda").bfloat16() for _ in range(2))
     k, v = (torch.randn(BH, T, d, generator=g, device="cuda").bfloat16() for _ in range(2))
@@ -139,9 +141,10 @@ def measure(variant: str) -> str:
                   f"{h[1] / (h[0] * PASSES[pass_][1])}")
     out = fn(*args, **kw)
     out = (out,) if pass_ == "dq" else out
-    ref = flash.flash_block_bwd_reference(*args, **kw)
+    heads = BH if T <= 2048 else 8
+    ref = flash.flash_block_bwd_reference(*(x[:heads] for x in args), **kw)
     ref = ref[:1] if pass_ == "dq" else ref[1:]
-    errs = " ".join(f"{name}_err {(a - b).abs().max().item():.3e}"
+    errs = " ".join(f"{name}_err {(a[:heads] - b).abs().max().item():.3e}"
                     for name, a, b in zip(("dq",) if pass_ == "dq" else ("dk", "dv"), out, ref))
     del ref
     times = []
@@ -156,15 +159,20 @@ def measure(variant: str) -> str:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--measure":
-        print(measure(sys.argv[2]), flush=True)
+    if len(sys.argv) == 5 and sys.argv[1] == "--measure":
+        print(measure(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])), flush=True)
         return 0
+    args = sys.argv[1:]
+    BH, T = 640, 1024
+    if args[:1] == ["--shape"]:
+        BH, T = (int(x) for x in args[1].split(","))
+        args = args[2:]
     src = open(os.path.join(ROOT, SRC_PATH)).read()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
+    print(smi, f"shape BH {BH} T {T}", flush=True)
     failed = 0
-    for variant in sys.argv[1:] or VARIANTS:
+    for variant in args or VARIANTS:
         d = os.path.join(ROOT, "_checkout", "v", variant.replace(":", "_"))
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "polyaxon_tpu_torch"),
@@ -179,7 +187,8 @@ def main() -> int:
             text += READ_COUNTERS
         with open(os.path.join(d, SRC_PATH), "w") as f:
             f.write(text)
-        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", variant],
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", variant,
+                              str(BH), str(T)],
                              cwd=d, capture_output=True, text=True, timeout=600)
         failed += run.returncode != 0
         print(variant, run.stdout.strip(), run.stderr.strip()[-2000:] if run.returncode else "",
