@@ -10,7 +10,8 @@ kernel, then KV-cache decode), training (``lm_train``: the flash forward
 and the two backward kernels in every layer) and serving (``lm_server``:
 the continuous-batching engine over a paged KV pool, whose steps use plain
 attention and no kernel of the port), then long context: ``lm_train`` at
-T = 8192 and through the ``sp_ring`` strategy at T = 16384.  Phases:
+T = 8192 and through the ``sp_ring`` strategy at T = 16384; then
+checkpoint, preemption and restore.  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -76,13 +77,30 @@ T = 8192 and through the ``sp_ring`` strategy at T = 16384.  Phases:
 16. the ring's hop functions for 4 ranks as threads of one process on the
     card (bf16; GQA and MHA; d 64 and 128): against the same hops with the
     plain versions swapped in, against whole-sequence plain attention, and
-    a control with dk x 1.01 in one hop that must fail.
+    a control with dk x 1.01 in one hop that must fail;
+17. checkpoint, preemption and restore at bench.py's 671M configuration
+    (seq 1024, batch 8, float32 params, bf16 compute, ``AdamW(lr)``; a save
+    is params, mu and nu, 8.05 GB): 5 steps through ``build_train_step`` in
+    process as the reference; ``lm_train`` with ``save_every=2`` in a child
+    process, SIGKILLed by its ``preempt_step=3`` (rc -9), with the step dirs
+    and markers it left against ``latest_complete_step``; ``lm_train``
+    resumed in process from the newest complete step, its launch counts set
+    to 0 before it and read after, its final loss against the reference's
+    (rtol 1e-6; bitwise equality reported) and a profiler window on its
+    last step whose trace must name each kernel once per layer; the save
+    blocks, write rates and the weights-only and full restore times;
+    ``lm_generate`` and ``lm_server`` with the run as ``target`` (the
+    static ``generate``'s and an engine's tokens on the reference's last
+    params); a ``profile`` and a ``drain`` command through the capture
+    agent's mailbox (a manifest over 4 decode steps, then ``draining`` and a
+    typed 503).
 
 Any failed check raises, and the script exits non-zero.  On success its
 last lines are the serving figures as JSON (``lm_generate``'s decode rate,
-``lm_server``'s, and the paged profile), the long-context figures as JSON,
-the card's name and power limit, the kernels' JSON record and ``{"ok":
-true, "device": {...}}``.  Without CUDA it exits 1 at once.
+``lm_server``'s, and the paged profile), the long-context and the
+checkpoint figures as JSON, the card's name and power limit, the kernels'
+JSON record and ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
+at once.
 """
 
 from __future__ import annotations
@@ -90,10 +108,13 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import shutil
+import signal
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -171,6 +192,13 @@ LONG_SHAPE_OPS = {"fwd": 549.8e9, "dq": 824.7e9, "dkv": 1099.6e9}
 # (B, T per rank) and (H, Hkv, d) per case, bf16.
 RING_RANKS, RING_B, RING_TL = 4, 2, 512
 RING_CASES = ((8, 2, 64), (8, 8, 64), (8, 2, 128), (8, 8, 128))
+# Checkpoint, preemption and restore (phase 17), at bench.py's 671M
+# configuration (seq 1024, batch 8): 5 steps, a save every 2, a SIGKILL
+# before step 3; lm_generate (batch 2, prompt 128, 16 new tokens) and
+# lm_server (4 slots, 16 new tokens, a 4-step capture window) from the run.
+CKPT_RUN, CKPT_BATCH, CKPT_STEPS, CKPT_EVERY, CKPT_PREEMPT = "ckpt-run", 8, 5, 2, 3
+CKPT_GEN_BATCH, CKPT_PROMPT, CKPT_NEW, CKPT_SLOTS, CKPT_WINDOW = 2, 128, 16, 4, 4
+KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
 
 
 def log(*args) -> None:
@@ -1023,6 +1051,22 @@ def _await_stats(base, cond, what, timeout=120):
         time.sleep(0.05)
 
 
+def _await_ready(base, errors, what, timeout=300):
+    deadline = time.time() + timeout
+    while True:
+        if errors:
+            raise errors[0]
+        try:
+            health = _http(base, "/healthz", timeout=30)[1]
+            if health["state"] == "ready":
+                return health
+        except OSError:
+            pass
+        if time.time() > deadline:
+            raise AssertionError(f"{what} did not become ready in {timeout} s")
+        time.sleep(0.1)
+
+
 def phase_lm_server():
     """The serving entry point at the 671M width: lm_server in a thread, 16
     concurrent /generate requests of 64 tokens (8 sharing a 256-token prefix
@@ -1056,19 +1100,7 @@ def phase_lm_server():
     server = threading.Thread(target=serve, name="lm_server", daemon=True)
     server.start()
     try:
-        deadline = time.time() + 300
-        while True:
-            if errors:
-                raise errors[0]
-            try:
-                health = _http(base, "/healthz", timeout=30)[1]
-                if health["state"] == "ready":
-                    break
-            except OSError:
-                pass
-            if time.time() > deadline:
-                raise AssertionError("lm_server did not become ready in 300 s")
-            time.sleep(0.1)
+        health = _await_ready(base, errors, "lm_server")
         ready_s = time.perf_counter() - t0
         warmup = health["engine"]["warmup"]
         log(f"lm_server ready in {ready_s:.2f} s: warmup {warmup}, "
@@ -1483,6 +1515,318 @@ def phase_ring_threads():
         if hops[3] <= lim or hit != [True]:
             raise AssertionError("the ring check does not see dk scaled by 1.01 in one hop")
 
+def _filesystem(path: Path) -> str:
+    """The mount that holds ``path``: type, mount point and device, from
+    /proc/mounts, and the free bytes there."""
+    path = path.resolve()
+    best = ("?", "?", "?")
+    with open("/proc/mounts") as mounts:
+        for line in mounts:
+            device, mount, fstype = line.split()[:3]
+            if path.is_relative_to(mount) and len(mount) >= len(best[1]):
+                best = (fstype, mount, device)
+    free = shutil.disk_usage(path).free
+    return f"{best[0]} at {best[1]} ({best[2]}), {free} bytes free"
+
+
+def kernel_launches_in_trace(trace: Path) -> dict:
+    """Kernel events of a Chrome trace (torch.profiler's) by the port's
+    kernel names."""
+    names = [e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"]
+    return {k: sum(k in n for n in names) for k in KERNEL_NAMES}
+
+
+class _Reporter:
+    """The capture agent's reporter: records capture and command events."""
+
+    def __init__(self):
+        self.captures, self.commands = [], []
+
+    def capture(self, record):
+        self.captures.append(dict(record))
+
+    def command_event(self, uuid, state, message=None, **attrs):
+        self.commands.append((uuid, state, message))
+
+
+def phase_checkpoint():
+    """Checkpoint, preemption and restore at bench.py's 671M configuration
+    (full width and depth; batch 8, seq 1024, AdamW(lr), f32 mu): an
+    uninterrupted 5-step reference in process; lm_train with save_every 2 in
+    a child process that a preemption at step 3 SIGKILLs; lm_train resumed in
+    process from the newest complete step, with a profiler window on its
+    last step; lm_generate and lm_server restoring the run as their target;
+    a profile and a drain command through the capture agent's mailbox.
+    Returns the resumed run's launch counts and the phase's figures."""
+    from polyaxon_tpu_torch.builtins.services import lm_server
+    from polyaxon_tpu_torch.builtins.trainers import lm_generate, lm_train
+    from polyaxon_tpu_torch.models import decode
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params
+    from polyaxon_tpu_torch.parallel.templates import template_for
+    from polyaxon_tpu_torch.runtime.checkpoint import CheckpointManager, latest_complete_step
+    from polyaxon_tpu_torch.runtime.mesh import build_mesh
+    from polyaxon_tpu_torch.runtime.optim import AdamW, tree_leaves
+    from polyaxon_tpu_torch.serving import ServingEngine
+    from polyaxon_tpu_torch.tracking.capture import configure
+    from polyaxon_tpu_torch.tracking.context import Context
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    figures = {"filesystem": _filesystem(tmp)}
+    log(f"checkpoint phase: {tmp} on {figures['filesystem']}")
+    try:
+        run = tmp / "runs" / CKPT_RUN
+        ckpt_dir = run / "checkpoints"
+        (run / "outputs").mkdir(parents=True)
+        dirs = {"outputs_path": str(run / "outputs"), "checkpoints_path": str(ckpt_dir)}
+        train = dict(BENCH_MODEL, seq=TRAIN_SEQ, batch=CKPT_BATCH, steps=CKPT_STEPS, lr=LR,
+                     device="cuda", save_every=CKPT_EVERY, preempt_step=CKPT_PREEMPT)
+        cfg = TransformerConfig(max_seq=TRAIN_SEQ, **BENCH_MODEL)
+        V = cfg.vocab_size
+
+        # 1. The uninterrupted reference: lm_train's weights, batch and template.
+        mesh = build_mesh({"data": 1})
+        ts, params, opt_state, batch = _train_setup(
+            cfg, AdamW(LR), CKPT_BATCH, TRAIN_SEQ, template_for("ddp", dict(mesh.shape)), mesh)
+        ref_losses, ref_params = [], []
+        for _ in range(CKPT_STEPS):
+            params, opt_state, m = ts.step(params, opt_state, batch)
+            ref_losses.append(m["loss"].item())
+            ref_params.append([p.detach().cpu() for p in tree_leaves(params)])
+        log(f"uninterrupted reference: losses {ref_losses}")
+        del ts, params, opt_state, batch, m
+        _free()
+
+        # 2. The preempted run, in a child process that has the card to itself.
+        code = ("from polyaxon_tpu_torch.builtins.trainers import lm_train\n"
+                "from polyaxon_tpu_torch.tracking.context import Context\n"
+                f"lm_train(Context(params={train!r}, seed={SEED}, **{dirs!r}))\n")
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
+                               capture_output=True, text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        for line in child.stdout.splitlines():
+            log(f"  child: {line}")
+        left_dirs = sorted(p.name for p in ckpt_dir.iterdir())
+        left_marks = sorted(p.name for p in (ckpt_dir / ".complete").iterdir())
+        left = latest_complete_step(ckpt_dir)
+        marked = {int(n) for n in left_marks if n.isdigit()} & \
+            {int(n) for n in left_dirs if n.isdigit()}
+        log(f"preempted child: rc {child.returncode} in {child_s:.2f} s; left {left_dirs}, "
+            f"markers {left_marks}; latest_complete_step {left}")
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(f"the preempted child ended with rc {child.returncode}, not "
+                                 f"-9: {child.stderr[-2000:]}")
+        if left is None or left != max(marked):
+            raise AssertionError(f"latest_complete_step {left} is not the newest marked step "
+                                 f"dir of {left_dirs} / {left_marks}")
+
+        # 3. The resumed run, with a profiler window on its last step.
+        records = []
+        ctx = Context(params=dict(train, profile_start=CKPT_STEPS - 1, profile_steps=1),
+                      seed=SEED, records=records, **dirs)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        lm_train(ctx)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        launches = _counts()
+        logs = [r["line"] for r in records if r["kind"] == "log"]
+        by_step = {}
+        for r in records:
+            if r["kind"] == "metric":
+                by_step.setdefault(r["step"], {}).update(r["values"])
+        for line in logs:
+            log(f"  {line}")
+        if f"restored checkpoint at step {left}" not in logs:
+            raise AssertionError(f"the resumed run did not restore step {left}: {logs}")
+        loss, want = by_step[CKPT_STEPS - 1]["loss"], ref_losses[-1]
+        rel = abs(loss - want) / abs(want)
+        saves = [{"step": s, "block_s": v["ckpt_save_block_s"], "write_s": v["ckpt_write_s"],
+                  "bytes": v["ckpt_bytes"], "write_GBps": v["ckpt_bytes"] / v["ckpt_write_s"] / 1e9}
+                 for s, v in sorted(by_step.items()) if "ckpt_bytes" in v]
+        steps_run = CKPT_STEPS - (left + 1)
+        (trace,) = (run / "outputs" / "profile").glob("*.pt.trace.json")
+        in_trace = kernel_launches_in_trace(trace)
+        n = BENCH_MODEL["n_layers"]
+        log(f"resumed lm_train: {steps_run} steps in {resume_s:.2f} s, final loss {loss!r} vs the "
+            f"uninterrupted {want!r} (rel diff {rel:.3e} <= 1e-6; bitwise equal {loss == want}); "
+            f"launches fwd/dq/dkv {launches}; the profiled step's trace {in_trace}; "
+            f"ckpt_block_s {by_step[CKPT_STEPS]['ckpt_block_s']} per step; saves {saves}; peak "
+            f"memory allocated {torch.cuda.max_memory_allocated()} B")
+        if rel > 1e-6:
+            raise AssertionError("the resumed run's final loss is not the uninterrupted run's")
+        if launches != (n * steps_run,) * 3:
+            raise AssertionError(f"expected {n * steps_run} launches of each kernel, got {launches}")
+        if set(in_trace.values()) != {n}:
+            raise AssertionError(f"the profiled step's trace holds {in_trace}, not {n} of each")
+        if [s["step"] for s in saves] != [s for s in range(left + 1, CKPT_STEPS)
+                                           if s % CKPT_EVERY == 0]:
+            raise AssertionError(f"the resumed run saved {saves}")
+        _free()
+        figures.update(preempted_child={"rc": child.returncode, "seconds": child_s,
+                                        "left": left_dirs, "markers": left_marks,
+                                        "latest_complete_step": left},
+                       resumed={"restored_step": left, "final_loss": loss,
+                                "uninterrupted_loss": want, "bitwise_equal": loss == want,
+                                "launches": launches, "trace_launches": in_trace,
+                                "seconds": resume_s}, saves=saves)
+        newest = latest_complete_step(ckpt_dir)
+
+        # 4. lm_generate with the run as its target, against the static
+        # generate on the reference's last params.
+        gen_records = []
+        out = lm_generate(Context(params=dict(BENCH_MODEL, seq=TRAIN_SEQ, batch=CKPT_GEN_BATCH,
+                                              prompt_len=CKPT_PROMPT, max_new_tokens=CKPT_NEW,
+                                              device="cuda", target=CKPT_RUN),
+                                  seed=SEED, runs_root=str(tmp / "runs"), records=gen_records))
+        template = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 1))
+        for leaf, ref in zip(tree_leaves(template), ref_params[-1]):
+            leaf.copy_(ref)
+        prompt = torch.as_tensor(np.random.default_rng(SEED).integers(0, V, (CKPT_GEN_BATCH,
+                                                                             CKPT_PROMPT)),
+                                 device="cuda")
+        want_tokens = decode.generate(template, prompt, cfg, max_new_tokens=CKPT_NEW,
+                                      device="cuda")
+        restore_line = [r["line"] for r in gen_records if r["kind"] == "log"][0]
+        log(f"lm_generate target: {restore_line}; tokens equal the static generate's on the "
+            f"reference's step {CKPT_STEPS - 1} params: {torch.equal(out, want_tokens)}")
+        if restore_line != f"restored weights from run {CKPT_RUN} step {newest}" or \
+                not torch.equal(out, want_tokens):
+            raise AssertionError("lm_generate's target tokens are not the step's")
+
+        # The restores, timed: weights only, then weights and optimizer state.
+        mgr = CheckpointManager(ckpt_dir)
+        fresh = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = mgr.restore_params(fresh)
+        torch.cuda.synchronize()
+        params_s = time.perf_counter() - t0
+        diff = max((leaf.cpu() - ref).abs().max().item()
+                   for leaf, ref in zip(tree_leaves(restored["params"]), ref_params[-1]))
+        opt_template = AdamW(LR).init(fresh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.restore(fresh, opt_template)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        mgr.close()
+        del fresh, opt_template, restored
+        sizes = {p.name: p.stat().st_size for p in (ckpt_dir / str(newest)).iterdir()}
+        log(f"restore of step {newest}: weights only {params_s:.3f} s ({sizes['params.pt']} B), "
+            f"weights and optimizer {full_s:.3f} s ({sum(sizes.values())} B); restored leaves "
+            f"against the reference's: max abs diff {diff}")
+        if diff != 0:
+            raise AssertionError("the restored weights are not the reference's")
+        figures.update(restore_s={"params": params_s, "full": full_s}, files=sizes,
+                       restored_max_abs_diff=diff)
+
+        # 5. lm_server with the same target: its tokens against an engine on
+        # the reference's params; a profile and a drain command.
+        prompts = [np.random.default_rng(SEED + 5 + i).integers(0, V, CKPT_PROMPT >> i).tolist()
+                   for i in range(2)]
+        engine = ServingEngine(template, cfg, slots=CKPT_SLOTS, max_len=TRAIN_SEQ,
+                               device="cuda").start()
+        try:
+            engine_tokens = [engine.submit(p, CKPT_NEW).wait(timeout=300) for p in prompts]
+        finally:
+            engine.stop()
+        static = [decode.generate(template, torch.tensor([p], device="cuda"), cfg,
+                                  max_new_tokens=CKPT_NEW, device="cuda")[0].tolist()
+                  for p in prompts]
+        del template, engine
+        _free()
+        mailbox = tmp / "commands" / "proc0"
+        mailbox.mkdir(parents=True)
+        reporter = _Reporter()
+        agent = configure(reporter=reporter, mailbox=mailbox, profiles_root=tmp / "profiles")
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        server_records, errors = [], []
+        sctx = Context(params=dict(BENCH_MODEL, seq=TRAIN_SEQ, slots=CKPT_SLOTS,
+                                   max_new_tokens=CKPT_NEW, service_port=port, host="127.0.0.1",
+                                   device="cuda", target=CKPT_RUN),
+                       seed=SEED, runs_root=str(tmp / "runs"), records=server_records)
+
+        def serve():
+            try:
+                lm_server(sctx)
+            except Exception as e:  # re-raised by the main thread
+                errors.append(e)
+
+        server = threading.Thread(target=serve, name="lm_server", daemon=True)
+        server.start()
+        try:
+            health = _await_ready(base, errors, "lm_server with a target")
+            answers = [_http(base, "/generate", {"prompts": [p], "max_new_tokens": CKPT_NEW})
+                       for p in prompts]
+            served = [body["tokens"][0] if status == 200 else body for status, body in answers]
+            agree = [sum(a == b for a, b in zip(s, t)) for s, t in zip(served, static)]
+            restored_line = f"lm_server: restored run {CKPT_RUN} step {newest}"
+            logged = restored_line in [r["line"] for r in server_records if r["kind"] == "log"]
+            log(f"lm_server target: /healthz target {health['target']} checkpoint_step "
+                f"{health['checkpoint_step']}; logged {restored_line!r}: {logged}; two requests "
+                f"equal the engine's tokens on the reference's params: "
+                f"{served == engine_tokens}; tokens equal to the static generate's {agree} of "
+                f"{CKPT_NEW}")
+            if health["checkpoint_step"] != newest or health["target"] != CKPT_RUN or \
+                    not logged or served != engine_tokens:
+                raise AssertionError(f"lm_server's target: {health}, {served}, {engine_tokens}")
+
+            (mailbox / "cap1.json").write_text(json.dumps({
+                "uuid": "cap1", "kind": "profile",
+                "payload": {"capture_id": "cap1", "num_steps": CKPT_WINDOW}}))
+            agent.poll()
+            status, _ = _http(base, "/generate", {"prompts": [prompts[0]],
+                                                  "max_new_tokens": CKPT_NEW})
+            manifest_path = tmp / "profiles" / "cap1" / "proc0" / "manifest.json"
+            deadline = time.time() + 60
+            while not manifest_path.exists() and time.time() < deadline:
+                time.sleep(0.05)
+            manifest = json.loads(manifest_path.read_text())
+            traces = sorted((manifest_path.parent / "trace").glob("*.pt.trace.json"))
+            kernels = sum(e.get("cat") == "kernel" for e in
+                          json.loads(traces[0].read_text())["traceEvents"]) if traces else 0
+            log(f"profile command: /generate {status}; manifest num_steps "
+                f"{manifest['num_steps']} start_step {manifest['start_step']} attrs "
+                f"{manifest['attrs']} artifacts {manifest['artifacts']}; {kernels} kernel "
+                f"events in the trace")
+            if status != 200 or manifest["num_steps"] != CKPT_WINDOW or \
+                    not manifest["attrs"]["trace"] or not kernels or \
+                    not any(a.endswith("memory.json") for a in manifest["artifacts"]):
+                raise AssertionError("the profile command gave no trace of the decode steps")
+
+            (mailbox / "drain1.json").write_text(json.dumps({"uuid": "drain1", "kind": "drain"}))
+            agent.poll()
+            state = _http(base, "/healthz")[1]["state"]
+            status, body = _http(base, "/generate", {"prompts": [prompts[1]],
+                                                     "max_new_tokens": 4})
+            log(f"drain command: state {state}; a new /generate {status} {body}; commands "
+                f"{reporter.commands}")
+            if state != "draining" or status != 503 or body["error"]["kind"] != "draining" or \
+                    ("drain1", "complete", "engine draining") not in reporter.commands or \
+                    ("cap1", "complete", None) not in reporter.commands:
+                raise AssertionError("the drain command did not drain lm_server")
+        finally:
+            sctx.stop.set()
+            server.join(timeout=120)
+            configure(reporter=None, mailbox=None, profiles_root=None)
+        if server.is_alive() or errors:
+            raise AssertionError(f"lm_server did not stop cleanly: {errors}")
+        figures.update(lm_server={"checkpoint_step": health["checkpoint_step"],
+                                  "tokens_equal_engine": True,
+                                  "tokens_equal_static_generate": agree,
+                                  "capture_steps": manifest["num_steps"],
+                                  "trace_kernel_events": kernels})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    figures["seconds"] = time.perf_counter() - t_phase
+    log(f"checkpoint phase: {figures['seconds']:.1f} s")
+    return launches, figures
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1521,10 +1865,12 @@ def main() -> int:
     ring_launches, ring_train = phase_ring_train()
     _free()
     phase_ring_threads()
+    _free()
+    ckpt_launches, ckpt = phase_checkpoint()
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
-               "lm_train_sp_ring_t16384": ring_launches}
+               "lm_train_sp_ring_t16384": ring_launches, "lm_train_resumed": ckpt_launches}
     for i, (kind, record) in enumerate((("fwd", fwd), ("dq", bwd["dq"]), ("dkv", bwd["dkv"]))):
         record["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -1538,6 +1884,7 @@ def main() -> int:
     print(json.dumps({"serving": {"lm_generate": gen_metrics, "lm_server": server,
                                   **paged_profile}}))
     print(json.dumps({"long_context": {"t8192": long_train, "sp_ring_t16384": ring_train}}))
+    print(json.dumps({"checkpoint": ckpt}))
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd["dq"], bwd["dkv"]]}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import torch
 
 from polyaxon_tpu_torch._device import resolve_device
-from polyaxon_tpu_torch.builtins.trainers import _int_params
+from polyaxon_tpu_torch.builtins.trainers import _int_params, restore_target
 from polyaxon_tpu_torch.models import decode
 from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params
 from polyaxon_tpu_torch.serving import EngineDrainingError, ServingEngine
@@ -27,6 +27,7 @@ from polyaxon_tpu_torch.stats.metrics import (
     render_prometheus,
     render_standard_gauges,
 )
+from polyaxon_tpu_torch.tracking.capture import get_capture_agent
 from polyaxon_tpu_torch.tracking.context import Context
 
 _FALSY = ("", "0", "false", "no")
@@ -191,17 +192,14 @@ def lm_server(ctx: Context) -> None:
     ``prefix_cache`` (default on), ``request_timeout_s``,
     ``max_new_tokens``, ``eos_id``, ``host``, ``service_port`` (or
     ``port``), ``quantize`` (``int8`` weights), ``spec_decode``,
-    ``spec_k``, ``spec_min_ngram``; plus ``device`` (default ``cuda``; raises
-    without a card).  Weights are random from ``ctx.seed``, made on the
-    device.  ``target`` (checkpoint restore), ``kv_offload*`` and
-    ``kv_persist*`` raise ``NotImplementedError``; the capture bus's
-    ``drain`` command is not ported (``engine.drain()`` is).
+    ``spec_k``, ``spec_min_ngram``, ``target`` (the uuid of a run whose
+    newest complete checkpoint gives the weights; omitted = random weights
+    from ``ctx.seed``, made on the device); plus ``device`` (default
+    ``cuda``; raises without a card).  ``kv_offload*`` and ``kv_persist*``
+    raise ``NotImplementedError``.  A ``drain`` command on the capture
+    agent's bus stops admissions (new ``/generate`` calls get a typed 503)
+    while in-flight requests finish.
     """
-    if ctx.get_param("target") is not None:
-        raise NotImplementedError(
-            "lm_server target (checkpoint restore) is not ported yet "
-            "(ROADMAP: checkpoint restore for lm_generate)"
-        )
     for name in ("kv_offload", "kv_offload_blocks", "kv_persist", "kv_persist_dir"):
         if str(ctx.get_param(name, "") or "").lower() not in _FALSY:
             raise NotImplementedError(
@@ -215,6 +213,11 @@ def lm_server(ctx: Context) -> None:
     )))
     seed = ctx.seed or 0
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
+    step = None
+    target = ctx.get_param("target")
+    if target is not None:
+        step = restore_target(ctx, target, params)
+        ctx.log_text(f"lm_server: restored run {target} step {step}")
     qweights = None
     if str(ctx.get_param("quantize", "") or "") == "int8":
         qweights = decode.quantize_weights(params)
@@ -257,9 +260,22 @@ def lm_server(ctx: Context) -> None:
         device=device,
     ).start()
 
+    # Control-plane drain: the fleet layer (or an operator) sends a `drain`
+    # bus command before replacing this replica.  The handler only flips the
+    # engine's admission flag: new /generate calls get a typed 503
+    # "draining" while in-flight requests run to completion.
+    capture = get_capture_agent()
+
+    def _on_drain(cmd):
+        engine.drain()
+        ctx.log_text("lm_server: drain command — no new admissions")
+        capture.command_event(str(cmd.get("uuid") or ""), "complete", message="engine draining")
+
+    capture.register_handler("drain", _on_drain)
+
     meta = {
-        "checkpoint_step": None,
-        "target": None,
+        "checkpoint_step": step,
+        "target": target,
         "default_max_new": int(ctx.get_param("max_new_tokens", 64)),
         "request_timeout_s": float(ctx.get_param("request_timeout_s", 600)),
     }
@@ -270,7 +286,8 @@ def lm_server(ctx: Context) -> None:
         engine.stop()
         raise
     ctx.log_text(f"lm_server: {cfg.n_params/1e6:.0f}M params, {engine.slots} slots "
-                 f"on {host}:{port} ({device}, random init)")
+                 f"on {host}:{port} ({device}, "
+                 + (f"checkpoint step {step})" if step is not None else "random init)"))
     http = threading.Thread(target=server.serve_forever, name="lm-server-http", daemon=True)
     http.start()
     try:

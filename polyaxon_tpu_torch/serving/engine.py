@@ -29,10 +29,14 @@ shape buckets: a prefill chunk runs exactly its prompt rows and a verify step
 exactly its longest draft plus one.  Warmup runs one chunk, one decode step
 and one verify step so the first request pays no first-call costs.
 
+After the ready gate, each decode iteration calls the capture agent's
+``on_step``, so a ``profile`` command on the bus traces a window of decode
+steps.
+
 Not ported yet (ROADMAP Queue 1 item 4, each raising or absent): meshes and
 sharded weights, the host KV tier (``kv_offload*``), the persistent prefix
 store (``kv_persist*``), request tracing, the utilization ledger and the
-progress beat, the capture agent, and CUDA-graph capture of the decode step.
+progress beat, and CUDA-graph capture of the decode step.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from polyaxon_tpu_torch.conf.knobs import knob_bool, knob_float, knob_int
 from polyaxon_tpu_torch.models import decode
 from polyaxon_tpu_torch.serving.paging import BlockAllocator, PrefixCache, truncate_table
 from polyaxon_tpu_torch.stats import MemoryStats, RatioWindow
+from polyaxon_tpu_torch.tracking.capture import get_capture_agent
 
 logger = logging.getLogger(__name__)
 
@@ -363,6 +368,9 @@ class ServingEngine:
         self._n_shed = 0
         self._n_tokens = 0
         self._n_steps = 0
+        # On-demand capture (`profile` commands): a window of decode steps,
+        # gated on the ready event so warmup steps never open one.
+        self._capture = get_capture_agent()
         self._n_parks = 0
         self._n_cow = 0
         self._backlog_chunks = 0
@@ -1000,6 +1008,8 @@ class ServingEngine:
         self.stats_registry.observe("serving.batch_occupancy", float(n_live))
         self._account(step_dt, n_live / self.slots)
         self._record_gauges()
+        if self._ready.is_set():
+            self._capture.on_step(self._n_steps)
 
     def _collect_drafts(self) -> Dict[int, List[int]]:
         """Each active greedy lane's proposal, clipped to the request's

@@ -1,0 +1,388 @@
+"""On-demand device profiling: the worker side of the run command bus.
+
+The port's copy of ``polyaxon_tpu/tracking/capture.py``.  The control plane
+drops ``<uuid>.json`` command files into this process's mailbox
+(``commands/proc<N>/`` next to the report dir); :meth:`CaptureAgent.poll`
+drains it (idle cost: one listdir of an empty dir).  The JAX package polls
+from its reporter's heartbeat; the port has no reporter yet, so its callers
+poll.  On a ``profile`` command the agent arms a windowed capture that the
+workload's step loop drives through :meth:`CaptureAgent.on_step` — the
+same hook trainers give :class:`~polyaxon_tpu_torch.tracking.profiling.
+StepProfiler`, and the serving engine gives its decode iterations:
+
+- a ``torch.profiler`` trace (:data:`~polyaxon_tpu_torch.tracking.profiling.
+  profiler`) over the requested step window, with the card's kernels;
+- the card's allocator state (``torch.cuda.memory_snapshot()``) as JSON;
+- the text of any executables the workload registered (the port runs
+  eagerly and registers none).
+
+Everything lands under ``profiles/<capture_id>/proc<N>/`` in the run dir,
+and the lifecycle is reported as typed ``capture``/``command`` records to
+the configured reporter (anything with ``.capture(record)`` and
+``.command_event(uuid, state, message=None, **attrs)``).
+
+Failure policy mirrors StepProfiler: profiling is diagnostics — any
+profiler failure degrades the capture (trace skipped, noted in attrs)
+rather than crashing the workload; a capture that never sees a step
+(idle serving engine) finalizes at its deadline with whatever it could
+collect instead of hanging the command forever.
+
+The command bus itself is generic: :meth:`CaptureAgent.register_handler`
+routes other command kinds (``checkpoint-now``, ``drain``) through the same
+mailbox.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional
+
+from polyaxon_tpu_torch.tracking import profiling
+
+logger = logging.getLogger(__name__)
+
+_UNSET = object()
+
+#: Capture window length when the command doesn't say (steps).
+DEFAULT_NUM_STEPS = 5
+#: Wall-clock budget for a capture whose step window never fills (an idle
+#: serving engine, a cmd-path worker with no step loop): at the deadline
+#: the poll thread finalizes with whatever was collected.
+DEFAULT_DURATION_S = 30.0
+
+
+class CaptureAgent:
+    """Per-process command-mailbox poller + windowed profiling driver."""
+
+    def __init__(self) -> None:
+        self.reporter: Optional[Any] = None
+        self.mailbox: Optional[Path] = None
+        self.profiles_root: Optional[Path] = None
+        self.process_id = 0
+        self._lock = threading.RLock()
+        self._executables: Dict[str, Any] = {}
+        self._job: Optional[Dict[str, Any]] = None
+        self._handlers: Dict[str, Callable[[Dict[str, Any]], None]] = {
+            "profile": self._handle_profile,
+        }
+        self._closed = False
+
+    def configure(
+        self,
+        *,
+        reporter: Any = _UNSET,
+        mailbox: Any = _UNSET,
+        profiles_root: Any = _UNSET,
+        process_id: Any = _UNSET,
+    ) -> "CaptureAgent":
+        with self._lock:
+            if reporter is not _UNSET:
+                self.reporter = reporter
+            if mailbox is not _UNSET:
+                self.mailbox = Path(mailbox) if mailbox is not None else None
+            if profiles_root is not _UNSET:
+                self.profiles_root = (
+                    Path(profiles_root) if profiles_root is not None else None
+                )
+            if process_id is not _UNSET:
+                self.process_id = int(process_id)
+            self._closed = False
+        return self
+
+    # -- workload-facing registration -----------------------------------------
+    def register_executable(self, name: str, compiled: Any) -> None:
+        """Remember a compiled executable so captures can dump its text
+        (``hlo.txt``).  Anything without ``as_text()`` is ignored at dump
+        time; the port runs eagerly and registers none."""
+        if compiled is None:
+            return
+        with self._lock:
+            self._executables[str(name)] = compiled
+
+    def register_handler(
+        self, kind: str, handler: Callable[[Dict[str, Any]], None]
+    ) -> None:
+        """Route a new command kind through the mailbox (bus extension
+        point for checkpoint-now/evict/restart style commands)."""
+        with self._lock:
+            self._handlers[str(kind)] = handler
+
+    # -- poll-thread side -----------------------------------------------------
+    def poll(self) -> None:
+        """Drain the mailbox and advance any deadline-stale capture.
+
+        The caller's poll thread runs it: the idle cost is a single scandir
+        of a usually-empty directory.
+        """
+        mailbox = self.mailbox
+        if mailbox is None or self._closed:
+            return
+        try:
+            entries = sorted(p for p in mailbox.iterdir() if p.suffix == ".json")
+        except OSError:
+            return
+        for path in entries:
+            try:
+                cmd = json.loads(path.read_text())
+            except (OSError, ValueError) as e:
+                logger.warning("Unreadable command file %s: %s", path, e)
+                try:
+                    path.unlink()
+                except OSError:
+                    pass
+                continue
+            try:
+                path.unlink()
+            except OSError:
+                # Another poll raced us to it; whoever unlinked dispatches.
+                continue
+            if isinstance(cmd, dict):
+                self._dispatch(cmd)
+            else:
+                logger.warning("Non-object command file %s; dropped", path)
+        self._reap_stale()
+
+    def _dispatch(self, cmd: Dict[str, Any]) -> None:
+        kind = str(cmd.get("kind") or "")
+        uuid = str(cmd.get("uuid") or "")
+        handler = self._handlers.get(kind)
+        if handler is None:
+            logger.warning("Unknown command kind %r (uuid %s); failing it", kind, uuid)
+            self._command_event(uuid, "failed", message=f"unknown command kind {kind!r}")
+            return
+        self._command_event(uuid, "acked")
+        try:
+            handler(cmd)
+        except Exception as e:
+            logger.warning("Command %s (%s) handler failed", uuid, kind, exc_info=True)
+            self._command_event(uuid, "failed", message=f"{type(e).__name__}: {e}")
+
+    def _handle_profile(self, cmd: Dict[str, Any]) -> None:
+        payload = cmd.get("payload") or {}
+        capture_id = str(payload.get("capture_id") or cmd.get("uuid") or "capture")
+        num_steps = int(payload.get("num_steps") or DEFAULT_NUM_STEPS)
+        duration_s = float(payload.get("duration_s") or DEFAULT_DURATION_S)
+        with self._lock:
+            if self._job is not None:
+                raise RuntimeError(
+                    f"capture {self._job['capture_id']} already in flight"
+                )
+            if self.profiles_root is None:
+                raise RuntimeError("capture agent has no profiles dir configured")
+            out_dir = self.profiles_root / capture_id / f"proc{self.process_id}"
+            out_dir.mkdir(parents=True, exist_ok=True)
+            self._job = {
+                "capture_id": capture_id,
+                "command_uuid": str(cmd.get("uuid") or ""),
+                "num_steps": max(1, num_steps),
+                "deadline": time.time() + max(1.0, duration_s),
+                "out_dir": out_dir,
+                "state": "armed",  # armed → tracing → (finalized)
+                "start_step": None,
+                "steps_seen": 0,
+                "started_at": None,
+                "trace": False,
+                "notes": {},
+            }
+        self._emit_capture(
+            capture_id,
+            status="started",
+            num_steps=num_steps,
+            attrs={"duration_s": duration_s},
+        )
+
+    def _reap_stale(self) -> None:
+        """Finalize a capture whose step window never filled by its
+        deadline — a command must always resolve, even on a workload that
+        stopped (or never started) stepping."""
+        with self._lock:
+            job = self._job
+            if job is None or time.time() < job["deadline"]:
+                return
+            if job["state"] == "tracing":
+                self._stop_trace(job)
+                job["notes"]["window_truncated"] = True
+            else:
+                job["notes"]["no_step_window"] = True
+            self._finalize(job)
+
+    # -- workload-thread side -------------------------------------------------
+    def on_step(self, step: int) -> None:
+        """Call once per step/decode iteration; near-free while no capture
+        is armed (one attribute read)."""
+        if self._job is None:
+            return
+        with self._lock:
+            job = self._job
+            if job is None:
+                return
+            if job["state"] == "armed":
+                job["state"] = "tracing"
+                job["start_step"] = step
+                job["started_at"] = time.time()
+                try:
+                    profiling.profiler.start_trace(job["out_dir"] / "trace")
+                    job["trace"] = True
+                except Exception as e:
+                    # A launch-time StepProfiler window owns the process's
+                    # one trace — degrade, don't die.
+                    logger.warning(
+                        "Capture %s: start_trace failed (%s); continuing "
+                        "without a trace",
+                        job["capture_id"],
+                        e,
+                    )
+                    job["notes"]["trace_error"] = f"{type(e).__name__}: {e}"
+            job["steps_seen"] += 1
+            if job["steps_seen"] >= job["num_steps"]:
+                self._stop_trace(job)
+                self._finalize(job)
+
+    # -- finalization ---------------------------------------------------------
+    def _stop_trace(self, job: Dict[str, Any]) -> None:
+        if not job.get("trace"):
+            return
+        try:
+            profiling.profiler.stop_trace()
+        except Exception as e:
+            logger.warning(
+                "Capture %s: stop_trace failed: %s", job["capture_id"], e
+            )
+            job["trace"] = False
+            job["notes"]["trace_error"] = f"{type(e).__name__}: {e}"
+
+    def _finalize(self, job: Dict[str, Any]) -> None:
+        """Write memory/HLO/manifest artifacts and report the outcome.
+        Best-effort per section — one failed collector costs its artifact,
+        not the capture."""
+        out_dir: Path = job["out_dir"]
+        artifacts: List[str] = []
+
+        def _rel(p: Path) -> str:
+            # Keys are run-root relative (profiles/<cid>/proc<N>/...), the
+            # shape the artifacts API serves.
+            root = self.profiles_root.parent if self.profiles_root else out_dir
+            try:
+                return p.relative_to(root).as_posix()
+            except ValueError:
+                return p.as_posix()
+
+        if job.get("trace"):
+            tdir = out_dir / "trace"
+            artifacts.extend(
+                _rel(p) for p in sorted(tdir.rglob("*")) if p.is_file()
+            )
+        try:
+            prof = profiling.profiler.device_memory_profile()
+            if prof:
+                mem = out_dir / "memory.json"
+                mem.write_bytes(prof)
+                artifacts.append(_rel(mem))
+        except Exception as e:
+            job["notes"]["memory_error"] = f"{type(e).__name__}: {e}"
+        hlo_texts = []
+        with self._lock:
+            executables = dict(self._executables)
+        for name, compiled in executables.items():
+            try:
+                text = compiled.as_text()
+            except Exception:
+                continue
+            if text:
+                hlo_texts.append(f"// executable: {name}\n{text}")
+        if hlo_texts:
+            try:
+                hlo = out_dir / "hlo.txt"
+                hlo.write_text("\n\n".join(hlo_texts))
+                artifacts.append(_rel(hlo))
+            except OSError as e:
+                job["notes"]["hlo_error"] = f"{type(e).__name__}: {e}"
+        finished_at = time.time()
+        record = {
+            "capture_id": job["capture_id"],
+            "command_uuid": job["command_uuid"],
+            "status": "complete",
+            "start_step": job["start_step"],
+            "num_steps": job["steps_seen"] or None,
+            "started_at": job["started_at"],
+            "finished_at": finished_at,
+            "artifacts": artifacts,
+            "attrs": {"trace": bool(job.get("trace")), **job["notes"]},
+        }
+        try:
+            manifest = out_dir / "manifest.json"
+            manifest.write_text(json.dumps(record, indent=2, default=str))
+            artifacts.append(_rel(manifest))
+        except OSError as e:
+            job["notes"]["manifest_error"] = f"{type(e).__name__}: {e}"
+        self._job = None
+        self._emit_capture_record(record)
+        self._command_event(job["command_uuid"], "complete")
+
+    def _abort(self, message: str) -> None:
+        with self._lock:
+            job = self._job
+            if job is None:
+                return
+            self._stop_trace(job)
+            self._job = None
+        self._emit_capture(
+            job["capture_id"],
+            status="failed",
+            message=message,
+            attrs=job["notes"],
+        )
+        self._command_event(job["command_uuid"], "failed", message=message)
+
+    def close(self) -> None:
+        """Resolve any in-flight capture before the worker exits — a
+        half-done capture reports failed, never silence."""
+        self._closed = True
+        self._abort("worker exited mid-capture")
+
+    # -- reporting ------------------------------------------------------------
+    def _emit_capture(self, capture_id: str, **fields: Any) -> None:
+        record = {"capture_id": capture_id, **fields}
+        self._emit_capture_record(record)
+
+    def _emit_capture_record(self, record: Dict[str, Any]) -> None:
+        if self.reporter is None:
+            return
+        try:
+            self.reporter.capture(record)
+        except Exception:
+            logger.warning("Failed to report capture record", exc_info=True)
+
+    def command_event(
+        self, uuid: str, state: str, message: Optional[str] = None, **attrs: Any
+    ) -> None:
+        """Report a per-process command state — the public surface for
+        registered handlers that resolve a command later, off the dispatch
+        thread (checkpoint-now completes from the train loop this way).
+        Extra kwargs ride the report line into the command's ack attrs."""
+        self._command_event(uuid, state, message=message, **attrs)
+
+    def _command_event(
+        self, uuid: str, state: str, message: Optional[str] = None, **attrs: Any
+    ) -> None:
+        if self.reporter is None or not uuid:
+            return
+        try:
+            self.reporter.command_event(uuid, state, message=message, **attrs)
+        except Exception:
+            logger.warning("Failed to report command state", exc_info=True)
+
+
+_agent = CaptureAgent()
+
+
+def get_capture_agent() -> CaptureAgent:
+    return _agent
+
+
+def configure(**kwargs: Any) -> CaptureAgent:
+    return _agent.configure(**kwargs)

@@ -1,12 +1,12 @@
 """The run context handed to the port's entrypoints.
 
-A minimal counterpart of ``polyaxon_tpu/tracking/context.py``: params,
-seed, leadership, the mesh and parallelism strategy, and metric / text
-logging.  Records go to a list the
-caller passes, or to stdout as JSON lines; there is no reporter or
-registry yet.  ``stop`` is how an in-process caller ends a service
-entrypoint (``lm_server``) that otherwise serves until its process is
-killed.
+A counterpart of ``polyaxon_tpu/tracking/context.py``: params, seed,
+leadership, the mesh and parallelism strategy, the run layout's paths
+(outputs, checkpoints, data, the runs root) and metric / text logging.
+Records go to a list the caller passes, or to stdout as JSON lines; there
+is no reporter or registry yet.  ``stop`` is how an in-process caller ends
+a service entrypoint (``lm_server``) that otherwise serves until its
+process is killed.
 """
 
 from __future__ import annotations
@@ -14,7 +14,12 @@ from __future__ import annotations
 import json
 import sys
 import threading
+from pathlib import Path
 from typing import Any, Dict, List, Optional
+
+
+def _path(p: Optional[str]) -> Optional[Path]:
+    return Path(p) if p else None
 
 
 class Context:
@@ -25,21 +30,35 @@ class Context:
         *,
         params: Dict[str, Any],
         process_id: int = 0,
+        num_processes: int = 1,
         mesh: Any = None,
         strategy: str = "ddp",
         strategy_options: Optional[Dict[str, Any]] = None,
+        outputs_path: Optional[str] = None,
+        checkpoints_path: Optional[str] = None,
+        data_path: Optional[str] = None,
+        runs_root: Optional[str] = None,
         seed: Optional[int] = None,
+        run_uuid: Optional[str] = None,
         records: Optional[List[Dict[str, Any]]] = None,
     ) -> None:
         self.params = params
         self.process_id = process_id
+        self.num_processes = num_processes
         #: The port's mesh (``runtime.mesh.build_mesh``); None lets an
         #: entrypoint build its own one-rank mesh.
         self.mesh = mesh
         #: The parallelism strategy's name and options (``parallel.templates``).
         self.strategy = strategy
         self.strategy_options = strategy_options or {}
+        self.outputs_path = _path(outputs_path)
+        self.checkpoints_path = _path(checkpoints_path)
+        #: The store layout's shared data/ dir (registered datasets).
+        self.data_path = _path(data_path)
+        #: The layout's runs/ dir (entrypoints resolving a target run's files).
+        self.runs_root = _path(runs_root)
         self.seed = seed
+        self.run_uuid = run_uuid
         #: Where log_metrics / log_text append; None = stdout.
         self.records = records
         #: Set to ask a service entrypoint to shut down and return.

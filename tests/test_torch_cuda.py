@@ -332,3 +332,106 @@ def test_ring_hops_on_threads_match_the_plain_hops(cuda, monkeypatch, Hkv, d):
         assert (kernel[r][1] - plain_fwd[r][1]).abs().max().item() <= 1e-3
         for got, want in zip(kernel[r][2:], plain_bwd[r][2:]):
             assert got.shape == want.shape and (got - want).abs().max().item() <= 2e-3
+
+
+def _small_train(cuda, mu_dtype=torch.bfloat16):
+    """A small bf16-compute model at head_dim 64 (so the kernels run), its
+    train step, state and batch on the card."""
+    from polyaxon_tpu_torch.models.transformer import loss_fn
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+    from polyaxon_tpu_torch.runtime.train import build_train_step
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=2, head_dim=64,
+                            d_ff=256, max_seq=128)
+    ts = build_train_step(loss_fn=lambda p, b: loss_fn(p, b, cfg, device=cuda),
+                          init_fn=lambda g: init_params(cfg, g),
+                          optimizer=AdamW(1e-3, mu_dtype=mu_dtype))
+    params, opt = ts.init(torch.Generator(device=cuda).manual_seed(0))
+    tok = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (2, 129)), device=cuda)
+    return cfg, ts, params, opt, {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+
+
+def _host_copy(tree):
+    from polyaxon_tpu_torch.runtime.checkpoint import _flatten
+
+    return {k: v.detach().cpu().clone() for k, v in _flatten(tree).items()}
+
+
+def test_checkpoint_round_trip_on_the_card_is_bitwise(cuda, tmp_path):
+    """Params (float32) and AdamW state (bf16 mu) saved from the card and
+    restored into card templates: the same bits, on the card, in their dtypes."""
+    from polyaxon_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    _, ts, params, opt, batch = _small_train(cuda)
+    for _ in range(2):
+        params, opt, _ = ts.step(params, opt, batch)
+    want = (_host_copy(params), _host_copy(opt))
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    assert mgr.save(1, params, opt)
+    fresh_params, fresh_opt = ts.init(torch.Generator(device=cuda).manual_seed(9))
+    restored = mgr.restore(fresh_params, fresh_opt)
+    mgr.close()
+    assert restored["step"] == 1 and restored["opt_state"].count == 2
+    assert all(m.dtype == torch.bfloat16 and m.is_cuda for m in restored["opt_state"].mu)
+    for tree, ref in zip((restored["params"], restored["opt_state"]), want):
+        got = _host_copy(tree)
+        assert got.keys() == ref.keys()
+        for path in ref:
+            assert got[path].dtype == ref[path].dtype and torch.equal(got[path], ref[path]), path
+
+
+def test_a_save_on_the_card_is_the_step_it_was_given(cuda, tmp_path, monkeypatch):
+    """The staging hazard on the card: the write is held back until the next
+    (in-place) step has run; the checkpoint still holds the saved step."""
+    import threading
+
+    from polyaxon_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    release = threading.Event()
+    write = CheckpointManager._write
+    monkeypatch.setattr(CheckpointManager, "_write",
+                        lambda self, *a: (release.wait(60), write(self, *a))[1])
+    _, ts, params, opt, batch = _small_train(cuda)
+    params, opt, _ = ts.step(params, opt, batch)
+    want = (_host_copy(params), _host_copy(opt))
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    assert mgr.save(0, params, opt)
+    params, opt, _ = ts.step(params, opt, batch)
+    torch.cuda.synchronize()
+    release.set()
+    restored = mgr.restore(*ts.init(torch.Generator(device=cuda).manual_seed(9)))
+    mgr.close()
+    assert restored["opt_state"].count == 1
+    for tree, ref in zip((restored["params"], restored["opt_state"]), want):
+        got = _host_copy(tree)
+        for path in ref:
+            assert torch.equal(got[path], ref[path]), path
+
+
+def kernel_launches_in_trace(path):
+    """Kernel events of a Chrome trace by the port's kernel names."""
+    import json
+
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(k in n for n in names)
+            for k in ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                      "flash_bwd_dkv_bf16_kernel")}
+
+
+def test_step_profiler_trace_names_the_three_kernels(cuda, tmp_path):
+    """A StepProfiler window over one train step: its trace holds each of
+    the three bf16 kernels once per layer."""
+    from polyaxon_tpu_torch.tracking.profiling import StepProfiler
+
+    cfg, ts, params, opt, batch = _small_train(cuda)
+    prof = StepProfiler(tmp_path, start_step=1, num_steps=1)
+    for step in range(3):
+        prof.on_step(step)
+        params, opt, _ = ts.step(params, opt, batch)
+    torch.cuda.synchronize()
+    prof.close()
+    (trace,) = (tmp_path / "profile").glob("*.pt.trace.json")
+    assert kernel_launches_in_trace(trace) == dict.fromkeys(
+        ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"),
+        cfg.n_layers)

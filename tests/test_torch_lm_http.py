@@ -6,7 +6,8 @@ port's engine on an ephemeral ``ThreadingHTTPServer``, as
 ``/generate`` answer must equal the JAX package's greedy ``generate`` on the
 same weights (the reference tests' small float32 model), also when many
 client threads overlap.  Then ``lm_server`` itself, started and stopped
-in-process on the CPU.
+in-process on the CPU, with random weights and with a ``target`` run's
+checkpoint, and its ``drain`` command through the capture agent's mailbox.
 """
 
 import json
@@ -26,9 +27,12 @@ import torch
 from polyaxon_tpu.models import decode as jdec
 from polyaxon_tpu.models import transformer as jtr
 from polyaxon_tpu_torch.builtins.services import _make_lm_handler, lm_server
+from polyaxon_tpu_torch.builtins.trainers import lm_train
 from polyaxon_tpu_torch.models import transformer as ttr
 from polyaxon_tpu_torch.models.weights import params_from_jax
+from polyaxon_tpu_torch.runtime.checkpoint import CheckpointManager
 from polyaxon_tpu_torch.serving import ServingEngine
+from polyaxon_tpu_torch.tracking.capture import configure
 from polyaxon_tpu_torch.tracking.context import Context
 
 SMALL = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, head_dim=8, d_ff=64, max_seq=48)
@@ -248,11 +252,105 @@ def test_lm_server_serves_on_the_cpu_and_stops():
 
 def test_lm_server_refuses_what_is_not_ported():
     base = dict(SMALL, seq=48, service_port=1, device="cpu")
-    for extra, match in (({"target": "run"}, "checkpoint restore"),
-                         ({"kv_offload": "true"}, "kv_offload"),
+    for extra, match in (({"kv_offload": "true"}, "kv_offload"),
                          ({"kv_persist_dir": "/tmp/x"}, "kv_persist_dir")):
         with pytest.raises(NotImplementedError, match=match):
             lm_server(Context(params=dict(base, **extra), records=[]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             lm_server(Context(params=dict(SMALL, seq=48, service_port=1), records=[]))
+
+
+class _Reporter:
+    def __init__(self):
+        self.captures, self.commands = [], []
+
+    def capture(self, record):
+        self.captures.append(dict(record))
+
+    def command_event(self, uuid, state, message=None, **attrs):
+        self.commands.append((uuid, state, message))
+
+
+def _drop(mailbox, uuid, kind, payload=None):
+    (mailbox / f"{uuid}.json").write_text(json.dumps({"uuid": uuid, "kind": kind,
+                                                      "payload": payload or {}}))
+
+
+def test_lm_server_target_serves_the_checkpoint_and_drains_on_command(tmp_path):
+    """lm_server with a ``target`` run serves its newest checkpoint (the JAX
+    ``generate``'s tokens on the restored weights) and reports the step; a
+    ``profile`` command through the mailbox traces two decode steps and a
+    ``drain`` command turns new requests into a typed 503."""
+    train = dict(SMALL, seq=16, batch=2, steps=2, save_every=1, device="cpu")
+    del train["max_seq"]
+    run = tmp_path / "runs" / "trained"
+    lm_train(Context(params=train, seed=5, outputs_path=str(run / "outputs"),
+                     checkpoints_path=str(run / "checkpoints"), records=[]))
+    params = ttr.init_params(TCFG, torch.Generator().manual_seed(0))
+    mgr = CheckpointManager(run / "checkpoints")
+    assert mgr.restore_params(params)["step"] == 1
+    mgr.close()
+    jp = jax.tree.map(lambda t: jnp.asarray(t.detach().numpy()), params)
+
+    mailbox, reporter = tmp_path / "commands" / "proc0", _Reporter()
+    mailbox.mkdir(parents=True)
+    agent = configure(reporter=reporter, mailbox=mailbox, profiles_root=tmp_path / "profiles")
+    records = []
+    ctx = Context(params=dict(SMALL, seq=48, slots=2, block_size=8, max_new_tokens=8,
+                              service_port=_free_port(), host="127.0.0.1", device="cpu",
+                              target="trained"),
+                  seed=3, outputs_path=str(tmp_path / "runs" / "server" / "outputs"),
+                  records=records)
+    thread = threading.Thread(target=lm_server, args=(ctx,), daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{ctx.params['service_port']}"
+    try:
+        deadline = time.time() + 60
+        while True:
+            try:
+                health = _get(base, "/healthz")[2]
+                if health["state"] == "ready":
+                    break
+            except OSError:
+                pass
+            assert time.time() < deadline and thread.is_alive(), records
+            time.sleep(0.05)
+        assert health["target"] == "trained" and health["checkpoint_step"] == 1
+        lines = [r["line"] for r in records if r["kind"] == "log"]
+        assert "lm_server: restored run trained step 1" in lines
+        assert any("(cpu, checkpoint step 1)" in line for line in lines)
+        prompts = [[1, 2, 3], [4] * 20]
+        status, body = _post(base, "/generate", {"prompts": prompts})
+        assert status == 200 and body["tokens"] == [_ref(jp, p, 8) for p in prompts]
+
+        _drop(mailbox, "cap1", "profile", {"num_steps": 2})
+        agent.poll()
+        assert _post(base, "/generate", {"prompts": [[5, 6]], "max_new_tokens": 6})[0] == 200
+        manifest = json.loads((tmp_path / "profiles" / "cap1" / "proc0" /
+                               "manifest.json").read_text())
+        assert manifest["num_steps"] == 2 and manifest["attrs"]["trace"] is True
+        assert any(a.endswith(".pt.trace.json") for a in manifest["artifacts"])
+
+        _drop(mailbox, "drain1", "drain")
+        agent.poll()
+        assert _get(base, "/healthz")[2]["state"] == "draining"
+        status, body = _post(base, "/generate", {"prompts": [[1, 2]], "max_new_tokens": 2})
+        assert status == 503 and body["error"]["kind"] == "draining"
+        assert reporter.commands[-2:] == [("drain1", "acked", None),
+                                          ("drain1", "complete", "engine draining")]
+        assert ("cap1", "complete", None) in reporter.commands
+        assert "lm_server: drain command — no new admissions" in [
+            r["line"] for r in records if r["kind"] == "log"]
+    finally:
+        ctx.stop.set()
+        thread.join(timeout=60)
+        configure(reporter=None, mailbox=None, profiles_root=None)
+    assert not thread.is_alive()
+
+
+def test_lm_server_target_without_a_checkpoint_raises(tmp_path):
+    ctx = Context(params=dict(SMALL, seq=48, service_port=1, device="cpu", target="none"),
+                  runs_root=str(tmp_path), records=[])
+    with pytest.raises(RuntimeError, match="No checkpoint under"):
+        lm_server(ctx)

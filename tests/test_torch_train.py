@@ -21,6 +21,11 @@ order:
   1e-6 relative difference in it moves the update by up to about 1e-6).
 """
 
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -32,6 +37,7 @@ import torch
 
 from polyaxon_tpu.models import transformer as jtr
 from polyaxon_tpu.parallel import template_for
+from polyaxon_tpu.runtime import checkpoint as jckpt
 from polyaxon_tpu.runtime import train as jtrain
 from polyaxon_tpu.runtime.mesh import build_mesh
 from polyaxon_tpu.tracking import ledger as jledger
@@ -42,12 +48,14 @@ from polyaxon_tpu_torch.models.weights import params_from_jax
 from polyaxon_tpu_torch.parallel import flash as tflash
 from polyaxon_tpu_torch.parallel.templates import template_for as port_template_for
 from polyaxon_tpu_torch.runtime import optim
+from polyaxon_tpu_torch.runtime.checkpoint import latest_complete_step
 from polyaxon_tpu_torch.runtime.mesh import build_mesh as build_port_mesh
 from polyaxon_tpu_torch.runtime.train import build_train_step
 from polyaxon_tpu_torch.tracking.context import Context
 from polyaxon_tpu_torch.tracking.ledger import transformer_flops_per_token
 from polyaxon_tpu_torch.tracking.profiling import StepClock
 
+REPO = Path(__file__).resolve().parents[1]
 SMOKE = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, head_dim=16, d_ff=128, max_seq=64)
 BATCH, SEQ = 4, 64
 
@@ -262,13 +270,167 @@ def test_lm_train_logs_loss_then_throughput():
     assert any("lm_train done: 12 steps" in r["line"] for r in records if r["kind"] == "log")
 
 
-def test_lm_train_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="save_every"):
-        lm_train(Context(params=dict(SMALL_TRAIN, save_every=5, device="cpu"), records=[]))
+def test_lm_train_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the CUDA-absent path; a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         lm_train(Context(params=dict(SMALL_TRAIN), records=[]))
+
+
+def _run_dirs(tmp_path, uuid="run1"):
+    run = tmp_path / "runs" / uuid
+    (run / "outputs").mkdir(parents=True)
+    return dict(outputs_path=str(run / "outputs"), checkpoints_path=str(run / "checkpoints"))
+
+
+def _in_subprocess(params, dirs, seed=1, before=""):
+    """lm_train in a child process (stdout as JSON lines); returns it done."""
+    code = (
+        "import signal\n"
+        f"{before}\n"
+        "from polyaxon_tpu_torch.builtins.trainers import lm_train\n"
+        "from polyaxon_tpu_torch.tracking.context import Context\n"
+        f"lm_train(Context(params={params!r}, seed={seed}, **{dirs!r}))\n"
+    )
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=240)
+
+
+def _metrics(records):
+    """Metric values by step, the records of one step merged."""
+    by_step = {}
+    for r in records:
+        if r["kind"] == "metric":
+            by_step.setdefault(r["step"], {}).update(r["values"])
+    return by_step
+
+
+def _logs(records):
+    return [r["line"] for r in records if r["kind"] == "log"]
+
+
+def test_preempted_lm_train_resumes_to_the_uninterrupted_loss(tmp_path):
+    """Killed by SIGKILL before step 3 (saves at 0 and 2, step 2's write and
+    marker not yet final), resumed in process: the final loss is the
+    uninterrupted run's, bit for bit; a second resume has nothing to do."""
+    params = dict(SMALL_TRAIN, steps=5, device="cpu")
+    whole = []
+    lm_train(Context(params=params, seed=1, records=whole))
+    dirs = _run_dirs(tmp_path)
+    child = _in_subprocess(dict(params, save_every=2, preempt_step=3), dirs)
+    assert child.returncode == -signal.SIGKILL, child.stderr
+    assert "injecting preemption at step 3 (signal=kill)" in child.stdout
+    ckpt_dir = Path(dirs["checkpoints_path"])
+    left = latest_complete_step(ckpt_dir)
+    assert left == jckpt.latest_complete_step(ckpt_dir) == 0
+    assert (Path(dirs["outputs_path"]) / "preempted_p0").read_text() == "3"
+
+    resumed = []
+    lm_train(Context(params=dict(params, save_every=2, preempt_step=3), seed=1,
+                     records=resumed, **dirs))
+    assert f"restored checkpoint at step {left}" in _logs(resumed)
+    got, want = _metrics(resumed), _metrics(whole)
+    assert got[4]["loss"] == want[4]["loss"] and got[4]["grad_norm"] == want[4]["grad_norm"]
+    assert {s for s, v in got.items() if "ckpt_bytes" in v} == {2, 4}
+    assert got[5]["ckpt_block_s"] > 0 and latest_complete_step(ckpt_dir) == 4
+
+    again = []
+    lm_train(Context(params=dict(params, save_every=2), seed=1, records=again, **dirs))
+    assert _logs(again) == ["restored checkpoint at step 4",
+                            "lm_train: nothing to do (checkpoint already at end)"]
+
+
+@pytest.mark.parametrize("handler, rc", [("", -signal.SIGTERM),
+                                         ("signal.signal(signal.SIGTERM, lambda *a: None)",
+                                          -signal.SIGKILL)],
+                         ids=["term", "term-ignored-then-kill"])
+def test_preempt_signal_term_then_kill_after_the_grace(tmp_path, handler, rc):
+    dirs = _run_dirs(tmp_path)
+    params = dict(SMALL_TRAIN, steps=4, device="cpu", preempt_step=1, preempt_signal="term",
+                  preempt_grace_s=0.2)
+    child = _in_subprocess(params, dirs, before=handler)
+    assert child.returncode == rc, child.stderr
+    assert "injecting preemption at step 1 (signal=term)" in child.stdout
+
+
+def test_stall_and_an_earlier_preemption_train_through(tmp_path):
+    """With the preemption marker already in outputs/, a resumed attempt
+    trains through its preempt_step; the stall sleeps at its step."""
+    dirs = _run_dirs(tmp_path)
+    (Path(dirs["outputs_path"]) / "preempted_p0").write_text("1")
+    records = []
+    t0 = time.perf_counter()
+    lm_train(Context(params=dict(SMALL_TRAIN, steps=3, device="cpu", preempt_step=1,
+                                 stall_at_step=2, stall_s=0.3), seed=1, records=records, **dirs))
+    assert time.perf_counter() - t0 >= 0.3
+    assert "injecting 0.3s stall at step 2" in _logs(records)
+    assert sorted(_metrics(records)) == [0, 2, 3]
+
+
+@pytest.mark.parametrize("params", [
+    {}, {"preempt_step": 0}, {"stall_at_step": 1}, {"stall_at_step": 1, "stall_s": 0.5},
+    {"stall_s": 0.5}, {"preempt_step": -1, "stall_at_step": 0, "stall_s": 1},
+])
+def test_fault_injection_arms_as_the_reference_does(params):
+    from polyaxon_tpu.builtins import trainers as jtrainers
+    from polyaxon_tpu.tracking import Context as JaxContext
+    from polyaxon_tpu_torch.builtins import trainers as ttrainers
+
+    port = ttrainers._fault_injection(Context(params=params, records=[]))
+    ref = jtrainers._fault_injection(JaxContext(params=params))
+    assert (port is None) == (ref is None)
+
+
+def test_logged_losses_are_the_loop_losses_in_step_order():
+    """lm_train's losses leave the loop through the MetricsDrain: each logged
+    value equals the train step's own at that step, and the records come in
+    step order before the run's summary."""
+    records = []
+    lm_train(Context(params=dict(SMALL_TRAIN, steps=12, lr=1e-3, device="cpu"), seed=2,
+                     records=records))
+    cfg = ttr.TransformerConfig(max_seq=32, **{k: v for k, v in SMALL_TRAIN.items()
+                                               if k not in ("seq", "batch")})
+    ts = build_train_step(loss_fn=lambda p, b: ttr.loss_fn(p, b, cfg, device="cpu"),
+                          init_fn=lambda g: ttr.init_params(cfg, g), optimizer=optim.AdamW(1e-3))
+    params, opt = ts.init(torch.Generator().manual_seed(2))
+    tok = torch.as_tensor(np.random.default_rng(2).integers(0, 256, (2, 33)))
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    losses = []
+    for _ in range(12):
+        params, opt, m = ts.step(params, opt, batch)
+        losses.append((m["loss"].item(), m["grad_norm"].item()))
+    logged = [(r["step"], r["values"]) for r in records if r["kind"] == "metric"]
+    assert [s for s, _ in logged] == [0, 10, 11, 12]
+    for step, values in logged[:3]:
+        assert (values["loss"], values["grad_norm"]) == losses[step]
+
+
+def test_metrics_drain_matches_the_jax_drain():
+    """Both drains emit the pushed values as floats in push order and
+    surface an emit error at close."""
+    from polyaxon_tpu.runtime.pipeline import MetricsDrain as JaxDrain
+    from polyaxon_tpu_torch.runtime.pipeline import MetricsDrain
+
+    pushes = [(i, {"loss": np.float32(1.0 / (i + 1)), "n": np.int32(i)}) for i in range(20)]
+    seen = {}
+    for name, cls, conv in (("jax", JaxDrain, jnp.asarray), ("port", MetricsDrain,
+                                                            torch.as_tensor)):
+        out = seen[name] = []
+        drain = cls(lambda step, vals: out.append((step, vals)), depth=2)
+        for step, vals in pushes:
+            drain.push(step, {k: conv(v) for k, v in vals.items()})
+        drain.close()
+        assert drain.last_step == 19 and drain.close_wait_s >= 0
+
+        def boom(step, vals):
+            raise KeyError("emit failed")
+
+        broken = cls(boom)
+        broken.push(0, {"loss": conv(np.float32(1))})
+        with pytest.raises(KeyError, match="emit failed"):
+            broken.close()
+    assert seen["port"] == seen["jax"]
+    assert [s for s, _ in seen["port"]] == list(range(20))
 
 
 def test_copies_of_step_clock_and_flops_match_the_jax_package():

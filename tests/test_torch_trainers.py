@@ -1,15 +1,25 @@
-"""The port's ``lm_generate`` entrypoint on the CPU, and the port's isolation
-from JAX and from the JAX package."""
+"""The port's ``lm_generate`` entrypoint on the CPU (random weights, and a
+``target`` run's checkpoint against the port's and the JAX package's
+``generate`` on the restored weights), and the port's isolation from JAX and
+from the JAX package."""
 
 import ast
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
-from polyaxon_tpu_torch.builtins.trainers import lm_generate
+from polyaxon_tpu.models import decode as jdec
+from polyaxon_tpu.models import transformer as jtr
+from polyaxon_tpu_torch.builtins.trainers import lm_generate, lm_train
+from polyaxon_tpu_torch.models import decode
+from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params
+from polyaxon_tpu_torch.runtime.checkpoint import CheckpointManager
 from polyaxon_tpu_torch.tracking.context import Context
 
 REPO = Path(__file__).resolve().parents[1]
@@ -36,10 +46,56 @@ def test_lm_generate_is_seeded():
     assert torch.equal(run(), run())
 
 
-def test_lm_generate_target_is_not_ported():
-    ctx = Context(params=dict(SMALL, device="cpu", target="some-run"), records=[])
-    with pytest.raises(NotImplementedError, match="checkpoint restore"):
-        lm_generate(ctx)
+def _trained_run(tmp_path, uuid="trained", steps=3):
+    """An lm_train run with checkpoints under <tmp>/runs/<uuid>; returns the
+    runs root."""
+    run = tmp_path / "runs" / uuid
+    train = {k: v for k, v in SMALL.items() if k not in ("prompt_len", "max_new_tokens")}
+    lm_train(Context(params=dict(train, steps=steps, save_every=1, device="cpu"), seed=4,
+                     outputs_path=str(run / "outputs"), checkpoints_path=str(run / "checkpoints"),
+                     records=[]))
+    return tmp_path / "runs"
+
+
+def test_lm_generate_target_gives_the_tokens_of_the_restored_weights(tmp_path):
+    runs = _trained_run(tmp_path)
+    records = []
+    out = lm_generate(Context(params=dict(SMALL, device="cpu", target="trained"), seed=3,
+                              runs_root=str(runs), records=records))
+    assert "restored weights from run trained step 2" in [
+        r["line"] for r in records if r["kind"] == "log"]
+    cfg = TransformerConfig(max_seq=64, **{k: SMALL[k] for k in (
+        "vocab_size", "d_model", "n_layers", "n_heads", "head_dim", "d_ff")})
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    mgr = CheckpointManager(runs / "trained" / "checkpoints")
+    assert mgr.restore_params(params)["step"] == 2
+    mgr.close()
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (2, 8)))
+    want = decode.generate(params, prompt, cfg, max_new_tokens=6, device="cpu")
+    assert torch.equal(out, want)
+    # The JAX package's generate on the same weights gives the same tokens.
+    jcfg = jtr.TransformerConfig(dtype=jnp.float32, max_seq=64, **{
+        k: SMALL[k] for k in ("vocab_size", "d_model", "n_layers", "n_heads", "head_dim", "d_ff")})
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.detach().numpy()), params)
+    jout = jdec.generate(jparams, jnp.asarray(prompt.numpy()), jcfg, max_new_tokens=6)
+    np.testing.assert_array_equal(np.asarray(jout), out.numpy())
+    # Random weights give other tokens.
+    assert not torch.equal(lm_generate(Context(params=dict(SMALL, device="cpu"), seed=3,
+                                               records=[])), out)
+
+
+def test_lm_generate_target_without_a_checkpoint_raises(tmp_path):
+    (tmp_path / "runs" / "empty" / "outputs").mkdir(parents=True)
+    with pytest.raises(RuntimeError, match="No checkpoint under .*empty/checkpoints"):
+        lm_generate(Context(params=dict(SMALL, device="cpu", target="empty"),
+                            runs_root=str(tmp_path / "runs"), records=[]))
+    # The runs root defaults to two above the run's outputs, as lm_server's does.
+    here = tmp_path / "runs" / "me" / "outputs"
+    with pytest.raises(RuntimeError, match="No checkpoint under .*runs/empty/checkpoints"):
+        lm_generate(Context(params=dict(SMALL, device="cpu", target="empty"),
+                            outputs_path=str(here), records=[]))
+    with pytest.raises(ValueError, match="runs_root or outputs_path"):
+        lm_generate(Context(params=dict(SMALL, device="cpu", target="empty"), records=[]))
 
 
 def test_lm_generate_defaults_to_cuda():
