@@ -6,12 +6,14 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It builds the port's kernels
 from ``polyaxon_tpu_torch/csrc``, holds each against its plain PyTorch
 version, and drives the port's paths at the full width of the 671M bench
 model: generation (``lm_generate``: prefill through the flash forward
-kernel, then KV-cache decode), training (``lm_train``: the flash forward
-and the two backward kernels in every layer) and serving (``lm_server``:
-the continuous-batching engine over a paged KV pool, whose steps use plain
-attention and no kernel of the port), then long context: ``lm_train`` at
-T = 8192 and through the ``sp_ring`` strategy at T = 16384; then
-checkpoint, preemption and restore.  Phases:
+kernel, then KV-cache decode as one captured CUDA graph replayed once a
+token), training (``lm_train``: the flash forward and the two backward
+kernels in every layer) and serving (``lm_server``: the continuous-batching
+engine over a paged KV pool, whose steps use plain attention and no kernel
+of the port, each step shape captured once as a CUDA graph), then long
+context: ``lm_train`` at T = 8192 and through the ``sp_ring`` strategy at
+T = 16384; then checkpoint, preemption and restore; then the compiled
+decode paths against their eager runs.  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -39,8 +41,8 @@ checkpoint, preemption and restore.  Phases:
    (remat ``save_attn``, bf16 mu) through ``build_train_step`` for 3 steps,
    whose first step must give the same loss and grad norm;
 8. where the time goes: device time by kernel over one prefill, over
-   decode steps and over one train step (torch.profiler), and the device's
-   idle share;
+   decode steps (eager, and one captured step replayed) and over one train
+   step (torch.profiler), and the device's idle share;
 9. the paged serving engine on small float32 models (MHA and GQA): its
    greedy tokens equal the static ``generate`` on the card with prefix
    reuse, copy-on-write, ``prefill_chunk=8``, speculative decoding and the
@@ -93,12 +95,31 @@ checkpoint, preemption and restore.  Phases:
     static ``generate``'s and an engine's tokens on the reference's last
     params); a ``profile`` and a ``drain`` command through the capture
     agent's mailbox (a manifest over 4 decode steps, then ``draining`` and a
-    typed 503).
+    typed 503);
+18. the serving engine's step family at the 671M width (8 slots, seq 1024,
+    256-token chunks, spec_k 4; bf16 and int8 pools), each captured entry
+    (the decode step, every chunk bucket, every verify width) against the
+    eager step function on a clone of the same pool and inputs: the same
+    argmax, logits within 1e-3 of the largest, the pool equal but for the
+    trash block; bitwise equality reported;
+19. ``generate`` at the 671M width (batch 4, prompt 512, 64 new tokens,
+    greedy), captured, against a loop of eager one-token steps: equal
+    tokens, and each one's time;
+20. one engine decode step of 8 live slots, eager and captured, each under
+    torch.profiler: device busy, wall, idle share and host-launched ops (the
+    captured step launches one graph);
+21. bench.py's loaded arm (24 Poisson arrivals through ``poisson_load``,
+    every third a 768-token prompt, 32 new tokens, 8 slots, 128-token
+    chunks, prefix cache off, seed 17) at 60% of the capacity the eager
+    engine's sequential service time gives, offered to an eager and a
+    captured engine: short-request TTFT p50 and p99, the long requests'
+    mean TTFT, tokens/s, completions, equal greedy tokens, and no entry
+    built after ready.
 
 Any failed check raises, and the script exits non-zero.  On success its
 last lines are the serving figures as JSON (``lm_generate``'s decode rate,
-``lm_server``'s, and the paged profile), the long-context and the
-checkpoint figures as JSON, the card's name and power limit, the kernels'
+``lm_server``'s, and the paged profile), the long-context, the
+checkpoint and the compiled decode figures as JSON, the card's name and power limit, the kernels'
 JSON record and ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
 at once.
 """
@@ -198,6 +219,17 @@ RING_CASES = ((8, 2, 64), (8, 8, 64), (8, 2, 128), (8, 8, 128))
 # lm_server (4 slots, 16 new tokens, a 4-step capture window) from the run.
 CKPT_RUN, CKPT_BATCH, CKPT_STEPS, CKPT_EVERY, CKPT_PREEMPT = "ckpt-run", 8, 5, 2, 3
 CKPT_GEN_BATCH, CKPT_PROMPT, CKPT_NEW, CKPT_SLOTS, CKPT_WINDOW = 2, 128, 16, 4, 4
+# The compiled decode paths (phases 18-21): the serving engine's step family
+# at lm_server's shapes with speculation at spec_k 4; the graph against the
+# eager step: the same argmax and logits within GRAPH_ATOL of the largest
+# absolute logit (the same kernels on the same inputs; bitwise equality is
+# reported).  bench.py's loaded arm (bench.py:1022-1094, its TPU-side sizes):
+# 24 requests, every third a 768-token prompt and the rest 16 tokens, 32 new
+# tokens each, 8 slots, 128-token chunks, prefix cache off, seed 17, offered
+# at 60% of the capacity the eager engine's sequential service time gives.
+SPEC_K, GRAPH_ATOL = 4, 1e-3
+LOADED_N, LOADED_LONG, LOADED_SHORT, LOADED_NEW, LOADED_CHUNK, LOADED_SEED = 24, 768, 16, 32, 128, 17
+LOADED_LOAD = 0.6
 KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
 
 
@@ -704,28 +736,50 @@ def _profile(label, fn, calls, top=8):
     calls_by_time = sorted(runtime.items(), key=lambda kv: -kv[1][0])[:4]
     log("    host, CUDA runtime calls: " + "; ".join(
         f"{name} {ms:.3f} ms x{count}" for name, (ms, count) in calls_by_time))
+    # What the host launched onto the card: kernels, graphs, copies, fills.
+    host_ops = {name: count for name, (_, count) in runtime.items()
+                if name.startswith(("cudaLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset"))}
+    syncs = runtime.get("cudaStreamSynchronize", (0.0, 0))[1]
+    log(f"    host: {sum(host_ops.values()) / calls:.0f} launched ops and {syncs / calls:g} "
+        f"stream syncs a call")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": idle,
-            "device_ops_per_call": launches / calls}
+            "device_ops_per_call": launches / calls,
+            "host_launched_ops_per_call": sum(host_ops.values()) / calls,
+            "host_launches": host_ops, "stream_syncs_per_call": syncs / calls}
 
 
 def phase_profile(params, cfg, prompt, steps: int = 8):
     """Where the serving time goes: one prefill and ``steps`` decode steps
-    at the serving path's shapes."""
+    at the serving path's shapes, as ``generate`` runs them (weights cast
+    once, the position a device tensor): eager, then one captured step
+    replayed ``steps`` times."""
     from polyaxon_tpu_torch.models import decode
 
+    params = decode.cast_weights(params, cfg)
     cache = decode.init_cache(cfg, BATCH, PROMPT + NEW_TOKENS, "cuda")
     logits, _ = decode.prefill(params, prompt, cache, cfg, device="cuda")
     token = logits.argmax(-1)
+    pos = torch.full((), PROMPT, dtype=torch.long, device="cuda")
 
     def run_prefill():
         decode.prefill(params, prompt, cache, cfg, device="cuda")
 
+    def step():
+        return decode.decode_step(params, cache, token, pos, cfg)[0]
+
     def run_decode():
-        for i in range(steps):
-            decode.decode_step(params, cache, token, PROMPT + i, cfg)
+        for _ in range(steps):
+            step()
+
+    graph, _ = decode.capture_step(step)
+
+    def run_captured():
+        for _ in range(steps):
+            graph.replay()
 
     _profile("prefill", run_prefill, 1)
-    _profile(f"decode x{steps}", run_decode, steps)
+    return {"eager": _profile(f"decode x{steps}", run_decode, steps),
+            "captured": _profile(f"decode x{steps}, captured", run_captured, steps)}
 
 
 def _train_setup(cfg, optimizer, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ, template=None,
@@ -983,9 +1037,11 @@ def phase_profile_paged(params, cfg):
     position 512 (host state to the card, the step, the argmax and its host
     read, as the engine's step runs it), and one 256-token prefill chunk at
     position 256; with the step's least time (its weights and the live KV
-    rows read once at the HBM rate)."""
+    rows read once at the HBM rate).  The weights are the engine's: cast to
+    bf16 once."""
     from polyaxon_tpu_torch.models import decode
 
+    params = decode.cast_weights(params, cfg)
     W = SERVE_SEQ // SERVE_BLOCK
     pool = decode.init_block_pool(cfg, 1 + SERVE_SLOTS * W, SERVE_BLOCK, device="cuda")
     rng = np.random.default_rng(SEED + 2)
@@ -1107,6 +1163,8 @@ def phase_lm_server():
             f"{health['model']['n_params']} params")
         if not warmup["total"] or warmup["done"] != warmup["total"]:
             raise AssertionError(f"lm_server's warmup did not run every step: {warmup}")
+        if health["engine"]["steady_state_compiles"]:
+            raise AssertionError(f"lm_server captured after ready: {health['engine']}")
 
         rng = np.random.default_rng(SEED + 3)
         prefix = rng.integers(0, V, 256).tolist()
@@ -1151,6 +1209,7 @@ def phase_lm_server():
             "decode_step_s_p50": lat["decode_step_s"]["p50"],
             "decode_steps": stats["decode_steps"],
             "prefix_cache_hit_rate": stats["prefix_cache_hit_rate"],
+            "steady_state_compiles": stats["steady_state_compiles"],
         }
         log(f"lm_server 671M, {len(prompts)} concurrent requests x {SERVE_NEW} tokens "
             f"({summary['prompt_tokens']} prompt tokens): wall {wall:.3f} s, aggregate "
@@ -1167,6 +1226,9 @@ def phase_lm_server():
             f"{stats['slot_occupancy']} kv_pool_bytes {stats['kv_pool_bytes']}")
         if not stats["prefix_cache_hit_rate"] > 0:
             raise AssertionError("lm_server: no prefix-cache hit on the shared prefix")
+        if stats["steady_state_compiles"]:
+            raise AssertionError(f"lm_server: {stats['steady_state_compiles']} step entries "
+                                 "built after ready (the warmup missed a shape)")
         used = stats["blocks_total"] - stats["blocks_free"]
         if used != stats["prefix_cache_blocks"] or stats["slots_active"]:
             raise AssertionError(f"lm_server: {used} blocks in use after the traffic, "
@@ -1828,6 +1890,268 @@ def phase_checkpoint():
     return launches, figures
 
 
+def _serving_model():
+    """The 671M model at lm_server's length, weights from the seed, as
+    phases 10-12 make them."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    cfg = TransformerConfig(max_seq=SERVE_SEQ, **BENCH_MODEL)
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED)), cfg
+
+
+def _family_engine(params, cfg, kv, eager=False, **kw):
+    from polyaxon_tpu_torch.serving import ServingEngine
+
+    return ServingEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_SEQ,
+                         block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK, spec_decode=True,
+                         spec_k=SPEC_K, kv_quantize=kv, warmup=False, device="cuda",
+                         _eager=eager, **kw)
+
+
+def _fill_slots(engine, rng, length=512):
+    """Every slot of an engine that has not started: a prompt of ``length``
+    tokens through the eager chunk step into its own blocks, and the slot's
+    host state at the next position (as the engine leaves a slot after its
+    prefill)."""
+    from polyaxon_tpu_torch.models import decode
+
+    W = engine._table_width
+    engine._tables[:] = 1 + rng.permutation(engine.slots * W).reshape(engine.slots, W)
+    for slot in range(engine.slots):
+        table = torch.as_tensor(engine._tables[slot], device="cuda")
+        prompt = rng.integers(0, engine.cfg.vocab_size, length)
+        for start in range(0, length, SERVE_CHUNK):
+            chunk = torch.as_tensor(prompt[start:start + SERVE_CHUNK], device="cuda")
+            decode.paged_prefill_chunk(engine._params, engine._pool, table, chunk, start,
+                                       len(chunk), engine.cfg)
+    engine._tok[:] = rng.integers(0, engine.cfg.vocab_size, engine.slots)
+    engine._pos[:] = length
+    engine._active[:] = True
+
+
+def phase_graph_family():
+    """(a) Each member of the serving engine's step family at the 671M width,
+    captured, against the eager step function on a clone of the same pool
+    and the same inputs: the decode step at 8 live slots, every chunk bucket
+    up to 256 (real rows 3 fewer than the bucket where it has room, at
+    position 512 of slot 0), every verify width at spec_k 4 (each lane
+    drafting the full width), on a bf16 and an int8 pool.  The same argmax
+    on every row, logits within GRAPH_ATOL of the largest absolute logit, and
+    every pool block but the trash block equal after the step (rows that
+    land in block 0 do so in an order the card does not fix)."""
+    from polyaxon_tpu_torch.models import decode
+
+    params, cfg = _serving_model()
+    rows = []
+    for kv in (None, "int8"):
+        engine = _family_engine(params, cfg, kv)
+        rng = np.random.default_rng(SEED + 4)
+        _fill_slots(engine, rng)
+        host = dict(tables=engine._table_array(), pos=engine._pos.copy(),
+                    active=engine._active.copy())
+        S = engine.slots
+
+        def eager_decode(pool, inputs):
+            return decode.paged_decode_step(engine._params, pool, inputs["tables"],
+                                            inputs["tokens"], inputs["pos"], inputs["active"],
+                                            cfg)[0]
+
+        def eager_chunk(pool, inputs):
+            return decode.paged_prefill_chunk(engine._params, pool, inputs["table"],
+                                              inputs["tokens"], inputs["start"],
+                                              inputs["length"], cfg)[0]
+
+        def eager_verify(pool, inputs):
+            return decode.paged_verify_step(engine._params, pool, inputs["tables"],
+                                            inputs["tokens"], inputs["pos"], inputs["n_tok"],
+                                            inputs["active"], cfg)[0]
+
+        cases = [("decode", engine._get_step(), dict(host, tokens=engine._tok.copy()),
+                  eager_decode)]
+        for c_pad in engine._warmup_buckets():
+            n = c_pad - 3 if c_pad > 8 else c_pad
+            tokens = np.zeros(c_pad, np.int64)
+            tokens[:n] = rng.integers(0, cfg.vocab_size, n)
+            cases.append((f"chunk {c_pad}", engine._get_chunk(c_pad),
+                          dict(table=host["tables"][0], tokens=tokens, start=512, length=n),
+                          eager_chunk))
+        for width in engine._spec_widths():
+            cases.append((f"verify {width}", engine._get_verify(width),
+                          dict(host, tokens=rng.integers(0, cfg.vocab_size, (S, width)),
+                               n_tok=np.full(S, width)), eager_verify))
+        for label, entry, inputs, eager in cases:
+            if entry.graph is None:
+                raise AssertionError(f"{label}: the engine did not capture a CUDA graph")
+            before = {name: leaf.clone() for name, leaf in engine._pool.items()}
+            got = entry(**inputs).clone()
+            want = eager(before, entry.inputs)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            argmax = torch.equal(got.argmax(-1), want.argmax(-1))
+            pools = all(torch.equal(engine._pool[name][:, 1:], before[name][:, 1:])
+                        for name in before)
+            row = {"pool": kv or "bf16", "entry": label, "max_abs_err": err,
+                   "largest_logit": scale, "argmax_equal": argmax, "pool_equal": pools,
+                   "bitwise": torch.equal(got, want)}
+            rows.append(row)
+            log(f"graph vs eager, {row['pool']} pool, {label}: max abs err {err:.3e} of largest "
+                f"|logit| {scale:.3f} (limit {GRAPH_ATOL:g} of it), argmax equal {argmax}, pool "
+                f"equal {pools}, bitwise {row['bitwise']}")
+            if not (argmax and pools and err <= GRAPH_ATOL * scale and
+                    bool(torch.isfinite(got).all())):
+                raise AssertionError(f"{label} on the {row['pool']} pool: the graph disagrees "
+                                     "with the eager step")
+            del before
+        log(f"graph family, {kv or 'bf16'} pool: {engine._compiled_count()} entries captured")
+        del engine
+        _free()
+    return {"entries": len(rows), "bitwise": sum(r["bitwise"] for r in rows),
+            "max_rel_err": max(r["max_abs_err"] / r["largest_logit"] for r in rows)}
+
+
+def phase_generate_graph():
+    """(b) generate at the 671M width (batch 4, prompt 512, 64 new tokens,
+    greedy): one captured decode step replayed, against a loop of eager
+    one-token steps at int positions; the tokens must be equal.  Host clock
+    around each, ended by a synchronize (the captured call includes its
+    capture)."""
+    from polyaxon_tpu_torch.models import decode
+
+    params, cfg = _serving_model()
+    params = decode.cast_weights(params, cfg)
+    rng = np.random.default_rng(SEED)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)), device="cuda")
+
+    def eager_loop():
+        cache = decode.init_cache(cfg, BATCH, PROMPT + NEW_TOKENS, "cuda")
+        logits, cache = decode.prefill(params, prompt, cache, cfg, device="cuda")
+        out = []
+        for i in range(NEW_TOKENS):
+            out.append(logits.argmax(-1))
+            if i < NEW_TOKENS - 1:
+                logits, cache = decode.decode_step(params, cache, out[-1], PROMPT + i, cfg)
+        return torch.stack(out, dim=1)
+
+    def captured():
+        return decode.generate(params, prompt, cfg, max_new_tokens=NEW_TOKENS, device="cuda")
+
+    figures = {}
+    outs = {}
+    for label, fn in (("eager", eager_loop), ("captured", captured)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[label] = fn()
+        torch.cuda.synchronize()
+        figures[f"{label}_s"] = time.perf_counter() - t0  # the second run of each stays
+    equal = torch.equal(outs["eager"], outs["captured"])
+    log(f"generate 671M ({BATCH} x {PROMPT} prompt, {NEW_TOKENS} new, greedy): captured "
+        f"{figures['captured_s']:.4f} s (capture included) vs eager loop "
+        f"{figures['eager_s']:.4f} s; tokens equal: {equal}")
+    if not equal:
+        raise AssertionError("the captured generate gives other tokens than the eager loop")
+    figures["tokens_equal"] = equal
+    return figures
+
+
+def phase_profile_graph_step():
+    """(c) One paged decode step of the engine at 8 live slots, position 512,
+    eager and captured in the same run (host state to the card, the step,
+    the sampling and its host read, as the engine's step runs it), each under
+    torch.profiler: device busy, wall, idle share, host-launched ops; the
+    captured step must launch one graph."""
+    params, cfg = _serving_model()
+    out = {}
+    for label, eager in (("eager", True), ("captured", False)):
+        engine = _family_engine(params, cfg, None, eager=eager)
+        _fill_slots(engine, np.random.default_rng(SEED + 5))
+        prof = _profile(f"engine decode step, {label} ({SERVE_SLOTS} live slots, position 512)",
+                        lambda: engine._decode().cpu(), 1, top=6)
+        if prof is None:
+            raise AssertionError(f"the {label} step's trace holds no device time")
+        log(f"  host launches a step, {label}: {prof['host_launches']}")
+        out[label] = prof
+        del engine
+        _free()
+    graphs = out["captured"]["host_launches"].get("cudaGraphLaunch", 0)
+    if graphs != 1 or out["eager"]["host_launches"].get("cudaGraphLaunch", 0):
+        raise AssertionError(f"the captured step launched {graphs} graphs, not 1")
+    return out
+
+
+class _Recorder:
+    """An engine whose submitted requests are kept in submission order."""
+
+    def __init__(self, engine):
+        self.engine, self.requests = engine, []
+
+    def submit(self, *args):
+        req = self.engine.submit(*args)
+        self.requests.append(req)
+        return req
+
+
+def phase_loaded_arm():
+    """(d) bench.py's loaded arm at the 671M width through poisson_load: the
+    eager engine calibrates the rate (60% of the capacity its sequential
+    service time of the first three prompts gives) and takes the load; the
+    captured engine takes the same schedule.  Short-request TTFT p50/p99, the
+    long requests' mean TTFT, tokens/s; every request completes on both with
+    the same greedy tokens, and no entry is built after ready."""
+    from polyaxon_tpu_torch.serving import ServingEngine
+    from polyaxon_tpu_torch.serving.loadgen import _pct, poisson_load
+
+    params, cfg = _serving_model()
+    rng = np.random.default_rng(LOADED_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, LOADED_LONG if i % 3 == 0 else LOADED_SHORT).tolist()
+               for i in range(LOADED_N)]
+    rate, out, tokens = None, {}, {}
+    for label, eager in (("eager", True), ("captured", False)):
+        engine = ServingEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_SEQ,
+                               block_size=SERVE_BLOCK, prefill_chunk=LOADED_CHUNK,
+                               prefix_cache=False, seed=LOADED_SEED, device="cuda",
+                               _eager=eager).start()
+        try:
+            if not engine.wait_ready(timeout=300):
+                raise AssertionError(f"the {label} engine did not become ready")
+            ready = engine.stats()
+            for t in (LOADED_LONG, LOADED_SHORT):  # as bench.py: one of each first
+                engine.submit([1] * t, 2).wait(timeout=300)
+            if rate is None:
+                t0 = time.perf_counter()
+                for p in prompts[:3]:
+                    engine.submit(p, LOADED_NEW).wait(timeout=300)
+                svc = (time.perf_counter() - t0) / 3
+                rate = LOADED_LOAD / svc
+                log(f"loaded arm: sequential service time {svc:.4f} s -> offered {rate:.4f} rps")
+            rec = _Recorder(engine)
+            res = poisson_load(rec, prompts, LOADED_NEW, rate_rps=rate, seed=LOADED_SEED)
+            tokens[label] = [r.tokens for r in rec.requests]
+            stats = engine.stats()
+        finally:
+            engine.stop()
+        short = sorted(t for i, t in enumerate(res["ttft_s"]) if i % 3 and t is not None)
+        longs = [t for i, t in enumerate(res["ttft_s"]) if i % 3 == 0 and t is not None]
+        out[label] = {
+            "offered_rps": rate, "completed": res["completed"], "errors": res["errors"],
+            "sheds": res["sheds"], "wall_s": res["wall_s"], "tokens_per_s": res["tokens_per_s"],
+            "short_ttft_p50_s": _pct(short, 50), "short_ttft_p99_s": _pct(short, 99),
+            "long_ttft_mean_s": float(np.mean(longs)) if longs else None,
+            "decode_step_s_p50": engine.latency_summaries()["decode_step_s"]["p50"],
+            "warmup": ready["warmup"], "steady_state_compiles": stats["steady_state_compiles"],
+        }
+        log(f"loaded arm, {label} engine: {out[label]}")
+        if res["completed"] != LOADED_N or res["errors"] or stats["steady_state_compiles"]:
+            raise AssertionError(f"the {label} engine under load: {out[label]}")
+        del engine
+        _free()
+    same = sum(a == b for a, b in zip(tokens["eager"], tokens["captured"]))
+    log(f"loaded arm: {same}/{LOADED_N} requests with equal greedy tokens on both engines")
+    if same != LOADED_N:
+        raise AssertionError("the captured engine gives other tokens than the eager one")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card", file=sys.stderr)
@@ -1844,7 +2168,7 @@ def main() -> int:
     phase_small_model_grads()
     phase_small_model_grads_bf16()
     gen_launches, gen_metrics = phase_main_path()
-    phase_profile(*phase_prefill_parity())
+    static_decode = phase_profile(*phase_prefill_parity())
     _free()
     train_launches, first = phase_train()
     _free()
@@ -1867,6 +2191,18 @@ def main() -> int:
     phase_ring_threads()
     _free()
     ckpt_launches, ckpt = phase_checkpoint()
+    _free()
+    _reset_counts()
+    compiled = {"graph_family": phase_graph_family()}
+    _free()
+    compiled["generate"] = phase_generate_graph()
+    _free()
+    compiled["paged_decode_step"] = phase_profile_graph_step()
+    _free()
+    compiled["loaded_arm"] = phase_loaded_arm()
+    torch.cuda.synchronize()
+    if _counts() != (4 * BENCH_MODEL["n_layers"], 0, 0):  # the two generate prefills, twice
+        raise AssertionError(f"the compiled decode paths launched flash kernels {_counts()}")
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
@@ -1882,9 +2218,10 @@ def main() -> int:
     # The serving and long-context figures of this run, on lines of their
     # own so that they stand in the output's tail beside the kernels' record.
     print(json.dumps({"serving": {"lm_generate": gen_metrics, "lm_server": server,
-                                  **paged_profile}}))
+                                  "static_decode_step": static_decode, **paged_profile}}))
     print(json.dumps({"long_context": {"t8192": long_train, "sp_ring_t16384": ring_train}}))
     print(json.dumps({"checkpoint": ckpt}))
+    print(json.dumps({"compiled_decode": compiled}))
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd["dq"], bwd["dkv"]]}))
     print(json.dumps({"ok": True, "device": {

@@ -105,6 +105,9 @@ def _make_lm_handler(engine, cfg, meta: dict, log=lambda line: None):
                     "slots_active": stats["slots_active"],
                     "queue_depth": stats["queue_depth"],
                     "warmup": stats["warmup"],
+                    # Step-family entries built after ready (each a capture
+                    # that stalled a batch); 0 when the warmup covered all.
+                    "steady_state_compiles": stats["steady_state_compiles"],
                 },
                 **meta,
             })
@@ -183,8 +186,10 @@ def lm_server(ctx: Context) -> None:
     (each prompt its own engine request; a request that times out
     server-side is cancelled before the 503 goes out); ``POST /v1/cancel``
     ``{"request_id": N}``; ``GET /healthz`` (model, occupancy, ``state``
-    ``warming``/``ready``/``draining``); ``GET /v1/stats`` (engine stats and
-    latency percentiles); ``GET /metrics`` (Prometheus text).
+    ``warming``/``ready``/``draining``, warming while the engine builds its
+    step family, and the ``steady_state_compiles`` count); ``GET /v1/stats``
+    (engine stats and latency percentiles); ``GET /metrics`` (Prometheus
+    text).
 
     Params as the reference's: the model shape of ``lm_train``, ``seq`` (per
     request prompt + generation, default 512), ``slots``, ``block_size``,

@@ -137,6 +137,9 @@ def lm_generate(ctx: Context) -> torch.Tensor:
     if str(ctx.get_param("quantize", "") or "") == "int8":
         qweights = decode.quantize_weights(params)
         ctx.log_text("lm_generate: int8 weight-only decode enabled")
+    # The compute-dtype weights once, not in every call (after quantizing,
+    # which scales the float32 weights).
+    params = decode.cast_weights(params, cfg)
 
     rng = np.random.default_rng(seed)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)), device=device)

@@ -7,7 +7,10 @@ Counterpart of the static-cache path of ``polyaxon_tpu/models/decode.py``:
   attention contraction);
 - prefill through the training forward (``return_kv=True``), whose
   attention is the flash kernel on CUDA;
-- one-token decode steps with masked einsum attention over the cache;
+- one-token decode steps with masked einsum attention over the cache,
+  whose position is a tensor on the cache's device: :func:`generate` runs
+  them as one CUDA graph replayed once a token (the counterpart of the
+  reference's ``lax.scan``), and eagerly on the CPU;
 
 and of its paged (block-table) path, which the serving engine runs: a pool
 of fixed-size KV blocks ``[L, num_blocks, block_size, Hkv, d]`` (compute
@@ -19,14 +22,20 @@ hides every read of it.  The paged steps use plain PyTorch attention, as the
 reference uses XLA's: no kernel of the port runs on this path.
 
 Where JAX returns a new cache or pool, the port writes it in place
-(``copy_``, ``index_put_``) and returns the same dict, so calls read like the
-reference's: the cache is the largest buffer of the loop and a copy per step
-would double its traffic.
+(``copy_``, ``index_copy_``, ``index_put_``) and returns the same dict, so
+calls read like the reference's: the cache is the largest buffer of the loop
+and a copy per step would double its traffic.
+
+No step reads a host value: positions, chunk bounds, tables and masks are
+tensors on the device, so a step can be captured into a CUDA graph (a
+host-to-device copy inside a capture is an error).  :func:`cast_weights`
+makes the compute-dtype copies of the weights once, where each step would
+otherwise cast every float32 weight again.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -38,6 +47,36 @@ from polyaxon_tpu_torch.models.transformer import (
     _rope,
     forward,
 )
+
+
+def _on(x: Union[int, torch.Tensor], device: torch.device) -> torch.Tensor:
+    """An int position or bound as a 0-d tensor on ``device``; a tensor as it is."""
+    return x if torch.is_tensor(x) else torch.tensor(int(x), device=device)
+
+
+def capture_step(fn: Callable[[], Any], pool=None, warmup: int = 2):
+    """Capture one call of ``fn`` into a CUDA graph → (graph, its output).
+
+    ``fn`` reads only tensors whose addresses stay fixed (its static inputs,
+    the weights, the cache or pool), and ``graph.replay()`` then runs it
+    again on whatever those tensors hold.  It first runs ``warmup`` times on
+    a side stream, as capture requires (lazy initialisation, allocator
+    warm-up); those runs execute, so ``fn``'s inputs must already hold
+    values whose writes are harmless.  ``pool`` (from
+    ``torch.cuda.graph_pool_handle()``) lets graphs replayed one at a time
+    share their memory.  Only the calling thread's CUDA calls are checked
+    during the capture.
+    """
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        out = fn()
+    return graph, out
 
 
 def init_cache(
@@ -90,8 +129,29 @@ def quantize_weights(params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def cast_weights(params: Dict[str, Any], cfg: TransformerConfig) -> Dict[str, Any]:
+    """``params`` with the leaves the decode steps read in the compute dtype
+    (the block matmul weights, ``unembed`` and ``embed``) cast to it once.
+
+    The steps' own casts (:func:`_wdq`, the embedding lookups) then return
+    these tensors as they are, so every logit is bit for bit what the
+    uncast tree gives.  The norms stay as they are (they are read in their
+    own dtype).  Quantize from the uncast tree: :func:`quantize_weights` of
+    a cast tree would scale the rounded weights.
+    """
+    dt = cfg.dtype
+    blk = params["block"]
+    return {
+        **params,
+        "embed": params["embed"].to(dt),
+        "unembed": params["unembed"].to(dt),
+        "block": {**blk, **{name: blk[name].to(dt) for name in QUANTIZED_BLOCK_WEIGHTS}},
+    }
+
+
 def _wdq(w, dtype: torch.dtype) -> torch.Tensor:
-    """Weight in the compute dtype: dequantize an ``(int8, scale)`` pair or cast."""
+    """Weight in the compute dtype: dequantize an ``(int8, scale)`` pair or cast
+    (a weight already in ``dtype`` is returned as it is)."""
     if isinstance(w, tuple):
         qi, scale = w
         return qi.to(dtype) * scale.to(dtype)
@@ -120,11 +180,11 @@ def _layer_at(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
     }
 
 
-def _attend_cached(q, ck, cv, pos: int, group: int):
+def _attend_cached(q, ck, cv, pos: torch.Tensor, group: int):
     """One-token attention against the cache.
 
-    q: [B, 1, H, d]; ck/cv: [B, max_len, Hkv, d]; entries past ``pos`` are
-    future or empty slots and are masked with -1e30.
+    q: [B, 1, H, d]; ck/cv: [B, max_len, Hkv, d]; entries past ``pos`` (a
+    0-d tensor) are future or empty slots and are masked with -1e30.
     """
     B, L, Hkv, d = ck.shape
     scale = d**-0.5
@@ -137,8 +197,9 @@ def _attend_cached(q, ck, cv, pos: int, group: int):
     return out.reshape(B, 1, Hkv * group, d)
 
 
-def _block_step(x, pos: int, layer, ck, cv, cfg: TransformerConfig):
-    """One transformer block for one new token, writing its KV row at ``pos``.
+def _block_step(x, pos: torch.Tensor, layer, ck, cv, cfg: TransformerConfig):
+    """One transformer block for one new token, writing its KV row at ``pos``
+    (a 0-d tensor).
 
     x: [B, 1, D]; ck/cv: [B, max_len, Hkv, d], this layer's cache (updated
     in place).
@@ -148,11 +209,12 @@ def _block_step(x, pos: int, layer, ck, cv, cfg: TransformerConfig):
     q = torch.einsum("btd,dhk->bthk", h, _wdq(layer["wq"], h.dtype))
     k = torch.einsum("btd,dhk->bthk", h, _wdq(layer["wk"], h.dtype))
     v = torch.einsum("btd,dhk->bthk", h, _wdq(layer["wv"], h.dtype))
-    positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    positions = pos.expand(x.shape[0], 1)
     q = _rope(q, positions, c.rope_theta)
     k = _rope(k, positions, c.rope_theta)
-    ck[:, pos : pos + 1] = k
-    cv[:, pos : pos + 1] = v
+    row = pos.reshape(1)
+    ck.index_copy_(1, row, k)
+    cv.index_copy_(1, row, v)
     attn = _attend_cached(q, ck, cv, pos, c.n_heads // c.kv_heads)
     x = x + torch.einsum("bthk,hkd->btd", attn, _wdq(layer["wo"], h.dtype))
 
@@ -168,13 +230,15 @@ def decode_step(
     params: Dict[str, Any],
     cache: Dict[str, torch.Tensor],
     token: torch.Tensor,
-    pos: int,
+    pos: Union[int, torch.Tensor],
     cfg: TransformerConfig,
     qweights: Optional[Dict[str, Any]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """token [B] at absolute ``pos`` → (logits [B, vocab] float32, the cache
-    with this token's rows written)."""
+    with this token's rows written).  ``pos`` is a 0-d integer tensor on the
+    cache's device (an int is copied there first)."""
     c = cfg
+    pos = _on(pos, token.device)
     x = params["embed"].to(c.dtype)[token][:, None, :]  # [B,1,D]
     layers, unembed = _decode_weights(params, qweights)
     for i in range(c.n_layers):
@@ -220,6 +284,14 @@ def generate(
     ``generator`` (one on ``device``; seed 0 when omitted).  ``qweights``
     (from :func:`quantize_weights`) switches the per-token steps to int8
     weights; prefill stays full precision.
+
+    The ``max_new_tokens - 1`` one-token steps are the reference's scan: on
+    CUDA one :func:`decode_step`, captured once into a CUDA graph and
+    replayed once a token, reads the token and the position from two static
+    device buffers, which the loop advances on the device; each token is
+    picked outside the graph from its logits, on the device, so sampling
+    draws from ``generator`` as an eager loop would, and no token reaches
+    the host before the end.  On the CPU the same steps run eagerly.
     """
     if cfg.n_experts:
         raise NotImplementedError("MoE decoding is not supported yet")
@@ -234,6 +306,7 @@ def generate(
     greedy = float(temperature) <= 0.0
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    params = cast_weights(params, cfg)
     prompt = prompt.to(dev)
     cache = init_cache(cfg, B, max_len, dev)
     logits, cache = prefill(params, prompt, cache, cfg, device=dev)
@@ -244,21 +317,40 @@ def generate(
         probs = torch.softmax(logits / float(temperature), dim=-1)
         return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
+    # The step's inputs: the token to feed and its position.
+    token = pick(logits)
+    pos = torch.full((), T, dtype=torch.long, device=dev)
+
+    def step():
+        return decode_step(params, cache, token, pos, cfg, qweights=qweights)[0]
+
+    graph = None
+    if dev.type == "cuda" and max_new_tokens > 1:
+        # The capture's warm-up runs write row T from this very token, as
+        # the first replay does again.
+        graph, captured = capture_step(step)
+
     # N-1 steps; the final token needs only a pick, not another full step.
     tokens = []
-    for i in range(max_new_tokens - 1):
-        token = pick(logits)
-        tokens.append(token)
-        logits, cache = decode_step(params, cache, token, T + i, cfg, qweights=qweights)
-    tokens.append(pick(logits))
+    for _ in range(max_new_tokens - 1):
+        tokens.append(token.clone())
+        if graph is None:
+            logits = step()
+        else:
+            graph.replay()
+            logits = captured
+        pos += 1
+        token.copy_(pick(logits))
+    tokens.append(token)
     return torch.stack(tokens, dim=1)
 
 
 # -- paged (block-table) cache ops -----------------------------------------
 # Counterpart of decode.py:343-831 of the JAX package.  The pool is a dict of
 # tensors the serving engine owns; every function below writes it in place
-# and returns it.  Tables, positions and the active mask are tensors on the
-# pool's device; ``start`` and ``length`` of a prefill chunk are ints.
+# and returns it.  Tables, positions, the active mask and a prefill chunk's
+# ``start`` and ``length`` are tensors on the pool's device, so no step reads
+# a host value and the serving engine can capture each step once per shape.
 
 
 def _check_kv_dtype(kv_dtype: Optional[str]) -> None:
@@ -419,14 +511,14 @@ def _paged_block(x, positions, layer, pool_l, tables, write_blk, write_off, atte
 def _paged_forward(params, pool, x, positions, tables, write_blk, write_off, attend,
                    cfg: TransformerConfig, qweights, last=None):
     """The layer loop of the three paged steps → float32 logits [B, T, vocab]
-    (of row ``last`` only, [B, 1, vocab], when given)."""
+    (of row ``last`` only, [B, 1, vocab], when given: a [1] index tensor)."""
     layers, unembed = _decode_weights(params, qweights)
     for i in range(cfg.n_layers):
         pool_l = {name: leaf[i] for name, leaf in pool.items()}
         x = _paged_block(x, positions, _layer_at(layers, i), pool_l, tables,
                          write_blk, write_off, attend, cfg)
     if last is not None:
-        x = x[:, [last]]
+        x = x.index_select(1, last)
     x = _rmsnorm(x, params["final_norm"])
     return torch.einsum("btd,dv->btv", x, _wdq(unembed, x.dtype)).float()
 
@@ -437,15 +529,17 @@ def paged_prefill_chunk(
     pool: Dict[str, torch.Tensor],
     table: torch.Tensor,
     tokens: torch.Tensor,
-    start: int,
-    length: int,
+    start: Union[int, torch.Tensor],
+    length: Union[int, torch.Tensor],
     cfg: TransformerConfig,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Insert one prompt chunk into the pool; returns (float32 logits [vocab]
     of its last real token, pool).
 
     tokens [C] (right-padded to a bucket) start at absolute position
-    ``start``; the first ``length`` are real.  ``table`` [W] maps the
+    ``start``; the first ``length`` are real (``start`` and ``length`` are
+    0-d integer tensors on the pool's device; ints are copied there first).
+    With ``length`` 0 every row is a pad row and the logits are row 0's.  ``table`` [W] maps the
     sequence's logical blocks to pool blocks; those covering [start,
     start + length) must be allocated and private.  Pad rows write to trash
     block 0.  Numerics are the training forward's block (GQA heads broadcast,
@@ -456,6 +550,7 @@ def paged_prefill_chunk(
     C, W = tokens.shape[0], table.shape[0]
     bs, _, _ = pool_geometry(pool)
     group = c.n_heads // c.kv_heads
+    start, length = _on(start, tokens.device), _on(length, tokens.device)
     ar = torch.arange(C, device=tokens.device)
     qpos = start + ar  # [C] absolute positions
     valid = ar < length
@@ -473,8 +568,9 @@ def paged_prefill_chunk(
         return _dense_attention(q, ck, cv, positions, kpos)
 
     x = params["embed"].to(c.dtype)[tokens][None]  # [1, C, D]
+    last = torch.clamp(length - 1, min=0).reshape(1)
     logits = _paged_forward(params, pool, x, positions, table, write_blk, write_off,
-                            attend, c, None, last=length - 1)
+                            attend, c, None, last=last)
     return logits[0, 0], pool
 
 

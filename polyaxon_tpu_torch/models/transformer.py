@@ -166,7 +166,9 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     """Rotary embedding over the last (head_dim) axis, split halves. x: [B,T,H,d]."""
     d = x.shape[-1]
     exponent = -torch.arange(0, d // 2, dtype=torch.float32, device=x.device) / (d // 2)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    # theta stays a Python scalar: a tensor made from it on the card would be
+    # a host-to-device copy, which drains the queue and cannot be captured.
+    freqs = torch.pow(float(theta), exponent)
     angles = positions[..., None].float() * freqs  # [B,T,d/2]
     cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)

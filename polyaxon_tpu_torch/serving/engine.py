@@ -23,11 +23,25 @@ and one scheduler thread that owns the pool.  Each scheduler iteration:
 
 Greedy outputs are token-identical to sequential
 :func:`~polyaxon_tpu_torch.models.decode.generate` and to the JAX engine
-(``tests/test_torch_serving.py``).  The engine runs eagerly: there is nothing
-to compile, so the reference's compile bookkeeping has no counterpart and no
-shape buckets: a prefill chunk runs exactly its prompt rows and a verify step
-exactly its longest draft plus one.  Warmup runs one chunk, one decode step
-and one verify step so the first request pays no first-call costs.
+(``tests/test_torch_serving.py``).
+
+The step family.  As the reference compiles a family of executables, the
+engine holds one entry per step shape: the decode step (``_step_fn``), one
+prefill chunk per power-of-two pad bucket (``_chunk_fns[c_pad]``: a chunk's
+tokens are right-padded to ``_bucket(n)``) and one verify step per
+draft-width bucket (``_verify_fns[width]``, the drafts padded to
+``_width_for``; ``n_tok`` is data).  An entry's inputs are static device
+buffers, filled each call by non-blocking copies from pinned host arrays.
+On CUDA each entry is a CUDA graph, captured once on the scheduler thread,
+all of them in one memory pool, and replayed with a single launch; on the
+CPU it is the eager step bound to its key.  Sampling and the accept rule
+run outside the graphs, on the device.  The COW copy is one eager op.
+``start()``'s warmup builds and runs the whole family before the ready gate
+opens, every write landing in trash block 0; an entry built after the gate
+(``warmup=False``, or a shape the warmup missed) counts on
+``serving.steady_state_compiles``.  There is no eager fallback: a capture
+that fails in warmup is logged, and the request that needs the entry then
+meets the error.
 
 After the ready gate, each decode iteration calls the capture agent's
 ``on_step``, so a ``profile`` command on the bus traces a window of decode
@@ -36,7 +50,7 @@ steps.
 Not ported yet (ROADMAP Queue 1 item 4, each raising or absent): meshes and
 sharded weights, the host KV tier (``kv_offload*``), the persistent prefix
 store (``kv_persist*``), request tracing, the utilization ledger and the
-progress beat, and CUDA-graph capture of the decode step.
+progress beat.
 """
 
 from __future__ import annotations
@@ -47,7 +61,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -195,6 +209,49 @@ def _not_ported(name: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"ServingEngine {name} is not ported yet (ROADMAP: {item})")
 
 
+_NP_DTYPES = {torch.int64: np.int64, torch.bool: np.bool_, torch.float32: np.float32}
+
+
+def _pinned(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A host array as a CPU tensor of ``dtype``, in pinned memory when it is
+    bound for the card (so the copy can be asynchronous)."""
+    t = torch.from_numpy(np.asarray(arr, dtype=_NP_DTYPES[dtype]))
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+class _StepEntry:
+    """One member of the engine's step family: a step bound to its key, its
+    static input buffers and, when captured, its CUDA graph.
+
+    ``fn(**inputs)`` returns float32 logits.  The buffers start as zeros,
+    which make every step write only trash block 0 (tables of block 0, no
+    active lane, chunk length 0), so the capture's warm-up runs are harmless.
+    A call copies its host arrays into the buffers and replays the graph (or
+    runs ``fn``) and returns the logits: with a graph, the one static output
+    buffer, which the caller reads before any other entry replays (entries
+    share one memory pool).
+    """
+
+    def __init__(self, fn: Callable[..., torch.Tensor], inputs: Dict[str, torch.Tensor],
+                 capture: bool, pool=None) -> None:
+        self.fn = fn
+        self.inputs = inputs
+        self.graph = None
+        self.out: Optional[torch.Tensor] = None
+        if capture:
+            self.graph, self.out = decode.capture_step(lambda: fn(**inputs), pool=pool)
+
+    @torch.inference_mode()
+    def __call__(self, **host) -> torch.Tensor:
+        for name, arr in host.items():
+            buf = self.inputs[name]
+            buf.copy_(_pinned(arr, buf.dtype, buf.device), non_blocking=True)
+        if self.graph is None:
+            return self.fn(**self.inputs)
+        self.graph.replay()
+        return self.out
+
+
 class ServingEngine:
     """The continuous-batching scheduler: one thread owns the device.
 
@@ -217,6 +274,15 @@ class ServingEngine:
     ``kv_persist*`` raise ``NotImplementedError`` unless left at their
     defaults.
     """
+
+    #: Padding buckets for prompt chunks: powers of two bound the number of
+    #: chunk entries at log2(max_len) whatever the traffic.
+    @staticmethod
+    def _bucket(t: int, max_len: int) -> int:
+        b = 8
+        while b < t:
+            b *= 2
+        return min(b, max_len)
 
     def __init__(
         self,
@@ -247,6 +313,7 @@ class ServingEngine:
         kv_persist_blocks: Optional[int] = None,
         kv_persist_sig: str = "",
         device: DeviceLike = "cuda",
+        _eager: bool = False,
     ) -> None:
         for name, value in (("mesh", mesh), ("param_shardings", param_shardings),
                             ("qweights_shardings", qweights_shardings)):
@@ -276,7 +343,8 @@ class ServingEngine:
         self.block_size = int(block_size)
         self.prefill_chunk = prefill_chunk
         self.eos_id = eos_id
-        self._params = params
+        # Compute-dtype weight copies, made once for every step of the family.
+        self._params = decode.cast_weights(params, cfg)
         self._qweights = qweights
 
         # Table width: logical blocks a max_len sequence spans.  The default
@@ -336,6 +404,17 @@ class ServingEngine:
         self._warmup_done = 0
         self._warmup_s = 0.0
 
+        # The step family (module docstring).  ``_eager`` runs the entries
+        # without capture on CUDA too: a private switch for the comparisons
+        # of graph against eager, not a mode of the reference.
+        self._graphs = self.device.type == "cuda" and not _eager
+        self._graph_pool = torch.cuda.graph_pool_handle() if self._graphs else None
+        self._step_fn: Optional[_StepEntry] = None
+        self._chunk_fns: Dict[int, _StepEntry] = {}
+        self._verify_fns: Dict[int, _StepEntry] = {}
+        self._n_steady_compiles = 0
+        self._compiled_baseline: Optional[int] = None
+
         # Speculative decoding: self-drafted multi-token steps.
         if spec_decode is None:
             spec_decode = knob_bool("POLYAXON_TPU_SERVING_SPEC_DECODE")
@@ -387,14 +466,108 @@ class ServingEngine:
         self._busy_s = 0.0
         self._occ_weighted_s = 0.0
 
+    # -- the step family ------------------------------------------------------
+
+    def _entry(self, fn: Callable[..., torch.Tensor], **shapes) -> _StepEntry:
+        """A new family member over zeroed static buffers: ``shapes`` maps each
+        input name to (shape, dtype)."""
+        with torch.inference_mode():
+            inputs = {name: torch.zeros(shape, dtype=dtype, device=self.device)
+                      for name, (shape, dtype) in shapes.items()}
+            return _StepEntry(fn, inputs, self._graphs, self._graph_pool)
+
+    def _get_step(self) -> _StepEntry:
+        if self._step_fn is None:
+            S, W = self.slots, self._table_width
+            self._step_fn = self._entry(
+                lambda tables, tokens, pos, active: decode.paged_decode_step(
+                    self._params, self._pool, tables, tokens, pos, active, self.cfg,
+                    qweights=self._qweights)[0],
+                tables=((S, W), torch.int64), tokens=((S,), torch.int64),
+                pos=((S,), torch.int64), active=((S,), torch.bool),
+            )
+        return self._step_fn
+
+    def _get_chunk(self, c_pad: int) -> _StepEntry:
+        if c_pad not in self._chunk_fns:
+            self._chunk_fns[c_pad] = self._entry(
+                lambda table, tokens, start, length: decode.paged_prefill_chunk(
+                    self._params, self._pool, table, tokens, start, length, self.cfg)[0],
+                table=((self._table_width,), torch.int64), tokens=((c_pad,), torch.int64),
+                start=((), torch.int64), length=((), torch.int64),
+            )
+        return self._chunk_fns[c_pad]
+
+    def _spec_widths(self) -> List[int]:
+        """The verify-step width family: draft-count buckets (powers of two
+        capped at ``spec_k``) plus one row for the current token; ``n_tok`` is
+        data inside each bucket."""
+        if not self.spec_decode:
+            return []
+        out = set()
+        k = 1
+        while k < self.spec_k:
+            out.add(k + 1)
+            k *= 2
+        out.add(self.spec_k + 1)
+        return sorted(out)
+
+    def _width_for(self, max_draft: int) -> int:
+        """Smallest verify width that fits ``max_draft`` drafts."""
+        for w in self._spec_widths():
+            if w >= max_draft + 1:
+                return w
+        return self.spec_k + 1
+
+    def _get_verify(self, width: int) -> _StepEntry:
+        if width not in self._verify_fns:
+            S, W = self.slots, self._table_width
+            self._verify_fns[width] = self._entry(
+                lambda tables, tokens, pos, n_tok, active: decode.paged_verify_step(
+                    self._params, self._pool, tables, tokens, pos, n_tok, active, self.cfg,
+                    qweights=self._qweights)[0],
+                tables=((S, W), torch.int64), tokens=((S, width), torch.int64),
+                pos=((S,), torch.int64), n_tok=((S,), torch.int64), active=((S,), torch.bool),
+            )
+        return self._verify_fns[width]
+
+    def _compiled_count(self) -> int:
+        """Entries of the step family built so far."""
+        return int(self._step_fn is not None) + len(self._chunk_fns) + len(self._verify_fns)
+
+    def _warmup_buckets(self) -> List[int]:
+        """The chunk buckets live traffic can need: every ``_bucket`` value for
+        chunk lengths up to ``prefill_chunk`` (the whole prompt when
+        unchunked), capped at ``max_len``."""
+        cap = min(self.prefill_chunk or self.max_len, self.max_len)
+        out = set()
+        b = 8
+        while True:
+            out.add(min(b, self.max_len))
+            if b >= cap:
+                break
+            b *= 2
+        return sorted(out)
+
+    def _check_steady_compiles(self) -> None:
+        """Entries built after the ready gate stalled a batch for their
+        capture: count them on ``serving.steady_state_compiles``."""
+        if self._compiled_baseline is None:
+            return
+        n = self._compiled_count()
+        grew = n - self._compiled_baseline
+        if grew <= 0:
+            return
+        self._compiled_baseline = n
+        with self._stats_lock:
+            self._n_steady_compiles += grew
+        self.stats_registry.incr("serving.steady_state_compiles", grew)
+
     # -- device calls ----------------------------------------------------------
 
-    def _dev(self, arr: np.ndarray, dtype=np.int64) -> torch.Tensor:
-        """A host array as a tensor on the engine's device."""
-        return torch.as_tensor(np.asarray(arr, dtype), device=self.device)
-
-    def _device_tables(self) -> torch.Tensor:
-        return self._dev(np.where(self._tables >= 0, self._tables, 0))
+    def _table_array(self) -> np.ndarray:
+        """The block tables with unset entries sent as the trash block."""
+        return np.where(self._tables >= 0, self._tables, 0)
 
     def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> torch.Tensor:
         """Per row: argmax where ``temps <= 0``, else a draw from
@@ -403,34 +576,33 @@ class ServingEngine:
         greedy = logits.argmax(dim=-1)
         if not (temps > 0).any():
             return greedy
-        t = self._dev(temps, np.float32)
+        t = self._temps_on_device(temps)
         safe = torch.where(t > 0, t, torch.ones_like(t))
         u = torch.rand(logits.shape, generator=self._generator, device=self.device)
         sampled = (logits / safe[:, None] - torch.log(-torch.log(u))).argmax(dim=-1)
         return torch.where(t > 0, sampled, greedy)
 
-    @torch.inference_mode()
-    def _decode(self, tables: torch.Tensor) -> torch.Tensor:
-        """One paged decode step over every slot → next tokens [S] (0 for
-        inactive lanes), still on the device."""
-        active = self._dev(self._active, bool)
-        logits, self._pool = decode.paged_decode_step(
-            self._params, self._pool, tables, self._dev(self._tok),
-            self._dev(self._pos), active, self.cfg, qweights=self._qweights,
-        )
-        return torch.where(active, self._sample(logits, self._temps), 0)
+    def _temps_on_device(self, temps: np.ndarray) -> torch.Tensor:
+        return _pinned(temps, torch.float32, self.device).to(self.device, non_blocking=True)
 
     @torch.inference_mode()
-    def _verify(self, tables: torch.Tensor, tok_in: np.ndarray, n_tok: np.ndarray):
-        """One verify step plus the accept rule → (tokens [S, T], emit counts
-        [S]) as one host array [S, T + 1] (the loop's one device read)."""
-        active = self._dev(self._active, bool)
-        tokens = self._dev(tok_in)
-        n = self._dev(n_tok)
-        logits, self._pool = decode.paged_verify_step(
-            self._params, self._pool, tables, tokens, self._dev(self._pos),
-            n, active, self.cfg, qweights=self._qweights,
-        )
+    def _decode(self) -> torch.Tensor:
+        """One paged decode step over every slot → next tokens [S] (0 for
+        inactive lanes), still on the device."""
+        step = self._get_step()
+        logits = step(tables=self._table_array(), tokens=self._tok, pos=self._pos,
+                      active=self._active)
+        return torch.where(step.inputs["active"], self._sample(logits, self._temps), 0)
+
+    @torch.inference_mode()
+    def _verify(self, tok_in: np.ndarray, n_tok: np.ndarray):
+        """One verify step (``tok_in`` [S, width], a width of the family) plus
+        the accept rule → (tokens [S, width], emit counts [S]) as one host
+        array [S, width + 1] (the loop's one device read)."""
+        step = self._get_verify(tok_in.shape[1])
+        logits = step(tables=self._table_array(), tokens=tok_in, pos=self._pos, n_tok=n_tok,
+                      active=self._active)
+        tokens, n, active = step.inputs["tokens"], step.inputs["n_tok"], step.inputs["active"]
         greedy = logits.argmax(dim=-1)
         # Row 0 is always emitted; sampled lanes (which never draft) sample it
         # exactly like the single-token step.
@@ -438,7 +610,7 @@ class ServingEngine:
         out = torch.cat([first[:, None], greedy[:, 1:]], dim=1)
         # Draft j+1 survives iff it equals the model's pick after row j and
         # every draft before it survived (cumprod): the greedy accept rule.
-        temps = self._dev(self._temps, np.float32)
+        temps = self._temps_on_device(self._temps)
         drafts_ok = (torch.arange(1, tokens.shape[1], device=self.device)[None, :]
                      < n[:, None]) & (temps[:, None] <= 0)
         match = (tokens[:, 1:] == greedy[:, :-1]) & drafts_ok
@@ -447,24 +619,26 @@ class ServingEngine:
         n_emit = torch.where(active, n_emit, 0)
         return torch.cat([out, n_emit[:, None]], dim=1).cpu().numpy()
 
-    def _chunk(self, table: np.ndarray, chunk: np.ndarray, start: int, n: int) -> torch.Tensor:
-        logits, self._pool = decode.paged_prefill_chunk(
-            self._params, self._pool, self._dev(table),
-            self._dev(chunk), start, n, self.cfg,
-        )
-        return logits
+    @torch.inference_mode()
+    def _chunk(self, table: np.ndarray, chunk: np.ndarray, start: int) -> torch.Tensor:
+        """One prompt chunk, right-padded to its bucket → logits of its last
+        real token [vocab]."""
+        n = len(chunk)
+        tokens = np.zeros(self._bucket(n, self.max_len), np.int64)
+        tokens[:n] = chunk
+        return self._get_chunk(len(tokens))(table=table, tokens=tokens, start=start, length=n)
 
     def _run_warmup(self) -> None:
-        """Run each step once before serving (scheduler thread, before its
-        first iteration), with all writes landing in trash block 0: the
-        decode step with no active lane, one chunk of ``prefill_chunk`` rows
-        (``max_len`` when unchunked) with ``length=0``, the widest verify
-        step all-inactive, and the COW copy as a trash self-copy.  A failure
-        is logged and the gate opens regardless: the first request then
-        meets the same error."""
+        """Build and run the whole step family before serving (scheduler
+        thread, before its first iteration), with all writes landing in trash
+        block 0: the decode step with no active lane, each chunk bucket with
+        ``length=0``, each verify width all-inactive, and the COW copy as a
+        trash self-copy.  A failure is logged and the gate opens regardless:
+        the first request that needs the entry then meets the error."""
         t0 = time.perf_counter()
-        if self._warmup:
-            self._warmup_total = 3 + int(self.spec_decode)
+        buckets = self._warmup_buckets() if self._warmup else []
+        widths = self._spec_widths() if self._warmup else []
+        self._warmup_total = len(buckets) + len(widths) + 2 if self._warmup else 0
         gauge = self.stats_registry.gauge
 
         def _tick() -> None:
@@ -473,15 +647,19 @@ class ServingEngine:
 
         try:
             if self._warmup:
-                tables = self._device_tables()
-                self._decode(tables).cpu()
+                self._decode().cpu()
                 _tick()
-                rows = min(self.prefill_chunk or self.max_len, self.max_len)
-                self._chunk(np.zeros(self._table_width, np.int64), np.zeros(rows, np.int64),
-                            0, 0).cpu()
-                _tick()
-                if self.spec_decode:
-                    self._verify(tables, np.zeros((self.slots, self.spec_k + 1), np.int64),
+                table0 = np.zeros(self._table_width, np.int64)
+                for c_pad in buckets:
+                    if self._stop.is_set():
+                        break
+                    self._get_chunk(c_pad)(table=table0, tokens=np.zeros(c_pad, np.int64),
+                                           start=0, length=0).cpu()
+                    _tick()
+                for width in widths:
+                    if self._stop.is_set():
+                        break
+                    self._verify(np.zeros((self.slots, width), np.int64),
                                  np.ones(self.slots, np.int64))
                     _tick()
                 self._pool = decode.copy_block(self._pool, 0, 0)
@@ -492,6 +670,7 @@ class ServingEngine:
             logger.exception("serving engine warmup failed")
         finally:
             self._warmup_s = time.perf_counter() - t0
+            self._compiled_baseline = self._compiled_count()
             self._ready.set()
             gauge("serving.warmup_progress", 1.0)
 
@@ -702,6 +881,7 @@ class ServingEngine:
                     "total": self._warmup_total,
                     "ready_s": round(self._warmup_s, 6),
                 },
+                "steady_state_compiles": self._n_steady_compiles,
                 "device": str(self.device),
                 "slots": self.slots,
                 "slots_active": self.allocator.n_active,
@@ -874,8 +1054,7 @@ class ServingEngine:
                     return False
                 self._tables[slot, bi] = fresh
         chunk = np.asarray(req.prompt[job.next_pos : job.next_pos + n], np.int64)
-        table = np.where(self._tables[slot] >= 0, self._tables[slot], 0)
-        logits = self._chunk(table, chunk, job.next_pos, n)
+        logits = self._chunk(self._table_array()[slot], chunk, job.next_pos)
         job.next_pos += n
         if job.next_pos >= t:
             self._prefill.popleft()
@@ -984,13 +1163,12 @@ class ServingEngine:
             return
         drafts = self._collect_drafts() if self.spec_decode else {}
         t0 = time.perf_counter()
-        tables = self._device_tables()
         n_live = int(self._active.sum())
         emitted = 0
         if drafts:
-            emitted = self._verify_once(drafts, tables)
+            emitted = self._verify_once(drafts)
         else:
-            toks = self._decode(tables).cpu().numpy()  # the loop's one device read
+            toks = self._decode().cpu().numpy()  # the loop's one device read
             for slot in np.nonzero(self._active)[0]:
                 slot = int(slot)
                 tok = int(toks[slot])
@@ -1042,16 +1220,16 @@ class ServingEngine:
                 drafts[slot] = prop
         return drafts
 
-    def _verify_once(self, drafts: Dict[int, List[int]], tables: torch.Tensor) -> int:
+    def _verify_once(self, drafts: Dict[int, List[int]]) -> int:
         """One draft → verify → rollback iteration; returns tokens emitted."""
-        width = 1 + max(len(p) for p in drafts.values())
+        width = self._width_for(max(len(p) for p in drafts.values()))
         tok_in = np.zeros((self.slots, width), np.int64)
         tok_in[:, 0] = self._tok
         n_tok = np.ones(self.slots, np.int64)
         for slot, prop in drafts.items():
             tok_in[slot, 1 : 1 + len(prop)] = prop
             n_tok[slot] = 1 + len(prop)
-        res = self._verify(tables, tok_in, n_tok)
+        res = self._verify(tok_in, n_tok)
         out, n_emit = res[:, :-1], res[:, -1]
         emitted = n_proposed = n_accepted = 0
         for slot in np.nonzero(self._active)[0]:
@@ -1085,6 +1263,7 @@ class ServingEngine:
 
     def _record_gauges(self) -> None:
         """Refresh the paging gauges and backlog counters (scheduler thread)."""
+        self._check_steady_compiles()
         backlog = 0
         for job in self._prefill:
             remaining = len(job.req.prompt) - job.next_pos

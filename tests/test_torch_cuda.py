@@ -435,3 +435,122 @@ def test_step_profiler_trace_names_the_three_kernels(cuda, tmp_path):
     assert kernel_launches_in_trace(trace) == dict.fromkeys(
         ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"),
         cfg.n_layers)
+
+
+def _family_engines(cuda, kv, **kw):
+    """A graphed engine and an eager one (the private ``_eager`` switch) over
+    the same bf16 weights, with the same random KV in both pools."""
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_layers=2, n_heads=4, head_dim=8, d_ff=64,
+                            max_seq=64, dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
+    kw = dict(slots=3, max_len=64, block_size=8, spec_decode=True, spec_k=4, kv_quantize=kv,
+              warmup=False, device=cuda, **kw)
+    graphed = ServingEngine(params, cfg, **kw)
+    eager = ServingEngine(params, cfg, _eager=True, **kw)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for name, leaf in graphed._pool.items():
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, device=cuda))
+        elif name.endswith("_scale"):
+            leaf.copy_(torch.rand(leaf.shape, generator=g, device=cuda) / 64)
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda))
+        eager._pool[name].copy_(leaf)
+    return graphed, eager
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_each_captured_entry_matches_its_eager_step(cuda, kv):
+    """Every member of the family (the decode step, each chunk bucket, each
+    verify width) replayed from its CUDA graph gives the eager step's logits
+    (same argmax, within 1e-3 of the largest logit) and leaves the same pool,
+    the trash block 0 aside (several rows land there in an order the card
+    does not fix)."""
+    graphed, eager = _family_engines(cuda, kv, prefill_chunk=32)
+    rng = np.random.default_rng(3)
+    W = graphed._table_width
+    tables = 1 + rng.permutation(3 * W).reshape(3, W)
+    pos = np.array([37, 5, 60])
+    active = np.array([True, True, False])
+    tok = rng.integers(0, 64, 3)
+    calls = [("decode", lambda e: e._get_step()(tables=tables, tokens=tok, pos=pos,
+                                                active=active))]
+    for c_pad in graphed._warmup_buckets():
+        n = max(1, c_pad - 3)
+        chunk = rng.integers(0, 64, n)
+        calls.append((f"chunk {c_pad}", lambda e, chunk=chunk: e._chunk(tables[1], chunk, 2)))
+    for width in graphed._spec_widths():
+        tok_in = rng.integers(0, 64, (3, width))
+        n_tok = np.array([width, 1, width])
+        calls.append((f"verify {width}", lambda e, t=tok_in, n=n_tok: e._get_verify(t.shape[1])(
+            tables=tables, tokens=t, pos=np.array([20, 3, 9]), n_tok=n, active=active)))
+    for label, call in calls:
+        a = call(graphed).clone()
+        b = call(eager)
+        torch.cuda.synchronize()
+        assert torch.equal(a.argmax(-1), b.argmax(-1)), label
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item(), label
+        for name, leaf in graphed._pool.items():
+            assert torch.equal(leaf[:, 1:], eager._pool[name][:, 1:]), (label, name)
+    assert graphed._step_fn.graph is not None and eager._step_fn.graph is None
+    assert graphed._compiled_count() == eager._compiled_count() == len(calls)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_captured_generate_matches_the_eager_loop(cuda, temperature):
+    """``generate`` on the card (one captured step, replayed) against a loop
+    of eager one-token steps at int positions that picks the same way from
+    a generator seeded the same: the same tokens, greedy and sampled."""
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_layers=2, n_heads=4, head_dim=8, d_ff=64,
+                            max_seq=64, dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(4))
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(0, 64, (3, 9)), device=cuda)
+    out = decode.generate(params, prompt, cfg, max_new_tokens=20, temperature=temperature,
+                          generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    cache = decode.init_cache(cfg, 3, 29, cuda)
+    logits, cache = decode.prefill(params, prompt, cache, cfg, device=cuda)
+    want = []
+    for i in range(20):
+        if temperature > 0:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            want.append(torch.multinomial(probs, 1, generator=gen)[:, 0])
+        else:
+            want.append(logits.argmax(-1))
+        if i < 19:
+            logits, cache = decode.decode_step(params, cache, want[-1], 9 + i, cfg)
+    assert torch.equal(out, torch.stack(want, dim=1))
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_no_capture_after_ready_under_mixed_traffic(cuda, kv):
+    """With the warmup on, the whole family is captured before the gate:
+    mixed prompt lengths (every chunk bucket), speculative runs of every
+    width and sampled requests build nothing more, ``steady_state_compiles``
+    stays 0, and the greedy requests give the eager engine's tokens."""
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_layers=2, n_heads=4, head_dim=8, d_ff=64,
+                            max_seq=96, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(7)
+    traffic = [(rng.integers(0, 64, t).tolist(), n, temp) for t, n, temp in
+               ((3, 8, 0.0), (17, 9, 0.0), (40, 6, 0.7), (70, 5, 0.0), (9, 12, 0.0))]
+    traffic.append((list(range(64)), 12, 0.0))  # the 1-gram drafter proposes at once
+    outs = []
+    for eager in (False, True):
+        engine = ServingEngine(params, cfg, slots=3, block_size=8, prefill_chunk=32,
+                               spec_decode=True, spec_k=4, spec_min_ngram=1, kv_quantize=kv,
+                               warmup=True, device=cuda, _eager=eager).start()
+        try:
+            assert engine.wait_ready(timeout=300)
+            built = engine._compiled_count()
+            reqs = [engine.submit(p, n, temp) for p, n, temp in traffic]
+            outs.append([r.wait(timeout=120) for r in reqs])
+            stats = engine.stats()
+        finally:
+            engine.stop()
+        assert built == 1 + len(engine._warmup_buckets()) + len(engine._spec_widths())
+        assert engine._compiled_count() == built and stats["steady_state_compiles"] == 0
+        assert stats["spec_steps"] > 0 and stats["warmup"]["done"] == stats["warmup"]["total"]
+        assert (engine._step_fn.graph is None) == eager
+    greedy = [i for i, (_, _, temp) in enumerate(traffic) if temp == 0]
+    assert [outs[0][i] for i in greedy] == [outs[1][i] for i in greedy]

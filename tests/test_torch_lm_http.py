@@ -244,6 +244,12 @@ def test_lm_server_serves_on_the_cpu_and_stops():
         time.sleep(0.05)
     status, body = _post(base, "/generate", {"prompts": [[1, 2, 3], [4] * 20]})
     assert status == 200 and [len(t) for t in body["tokens"]] == [8, 8]
+    engine_health = _get(base, "/healthz")[2]["engine"]
+    stats = _get(base, "/v1/stats")[2]
+    assert engine_health["steady_state_compiles"] == stats["steady_state_compiles"]
+    # without the warmup, the 8-token chunk and the decode step are built
+    # on first use
+    assert stats["steady_state_compiles"] == (0 if stats["warmup"]["total"] else 2)
     ctx.stop.set()
     thread.join(timeout=60)
     assert not thread.is_alive()

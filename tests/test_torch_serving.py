@@ -28,9 +28,9 @@ from polyaxon_tpu_torch.serving import EngineDrainingError, ServingEngine, SlotA
 SMALL = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, head_dim=8, d_ff=64, max_seq=48)
 VARIANTS = {"mha": {}, "gqa": {"n_kv_heads": 2}}
 #: Keys of the JAX engine's stats() that belong to parts not ported yet
-#: (compile bookkeeping, tracing, the host KV tier, the prefix store).
+#: (tracing, the host KV tier, the prefix store).
 NOT_PORTED_STATS = {
-    "steady_state_compiles", "trace_exemplars", "kv_offload", "host_tier_blocks",
+    "trace_exemplars", "kv_offload", "host_tier_blocks",
     "host_tier_bytes", "host_spilled_blocks_total", "host_restored_blocks_total",
     "kv_preloaded_blocks", "kv_persisted_blocks", "prefix_cache_demotions",
     "prefix_cache_restores",
@@ -260,17 +260,29 @@ def test_stats_keys_match_the_jax_engine(models):
         assert ts["kv_pool_bytes"] == sum(t.numel() * t.element_size() for t in te._pool.values())
 
 
+def jax_warmup_total(engine):
+    """The JAX engine's warmup total, from a run of its warmup."""
+    engine.start()
+    try:
+        assert engine.wait_ready(timeout=300)
+        return engine.stats()["warmup"]["total"]
+    finally:
+        engine.stop()
+
+
 def test_warmup_opens_the_ready_gate(models):
-    _, tcfg, _, tp = models["mha"]
-    eng = ServingEngine(tp, tcfg, slots=2, max_len=48, prefill_chunk=16, spec_decode=True,
-                        spec_k=4, warmup=True, device="cpu")
+    jcfg, tcfg, jp, tp = models["mha"]
+    kw = dict(slots=2, max_len=48, prefill_chunk=16, spec_decode=True, spec_k=4, warmup=True)
+    eng = ServingEngine(tp, tcfg, device="cpu", **kw)
     assert eng.stats()["state"] == "warming"
     eng.start()
     try:
         assert eng.wait_ready(timeout=60)
         s = eng.stats()
-        # the decode step, one 16-row chunk, the 5-row verify step, the COW copy
-        assert s["state"] == "ready" and s["warmup"]["done"] == s["warmup"]["total"] == 4
+        # the decode step, the chunk buckets 8 and 16, the verify widths 2, 3
+        # and 5, the COW copy: the JAX engine's family
+        assert s["state"] == "ready" and s["warmup"]["done"] == s["warmup"]["total"]
+        assert s["warmup"]["total"] == jax_warmup_total(JaxEngine(jp, jcfg, **kw)) == 7
         assert s["blocks_free"] == s["blocks_total"]  # warmup wrote only the trash block
         assert eng.generate([3, 4, 5], 4, timeout=60) == _static((tp, tcfg, None), [3, 4, 5], 4)
     finally:

@@ -90,6 +90,29 @@ def test_helpers_match_jax(helper):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-4)
 
 
+def _rope_with_a_tensor_base(x, positions, theta):
+    """The rotary embedding as the port computed it before theta became a
+    Python scalar: the base as a float32 tensor on x's device."""
+    d = x.shape[-1]
+    exponent = -torch.arange(0, d // 2, dtype=torch.float32, device=x.device) / (d // 2)
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    angles = positions[..., None].float() * freqs
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 64, 128])
+def test_rope_with_a_scalar_base_is_bitwise_the_tensor_base(d, dtype):
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((2, 7, 3, d)).astype(np.float32)).to(dtype)
+    pos = torch.from_numpy(rng.integers(0, 16384, (2, 7)))
+    for theta in (10000.0, 500000.0, 10000, 1e6):
+        assert torch.equal(ttr._rope(x, pos, theta), _rope_with_a_tensor_base(x, pos, theta))
+
+
 @pytest.mark.parametrize("variant", ["mha", "gqa"])
 def test_config_counts_and_init_layout_match_jax(variant):
     jcfg, tcfg = configs(variant, "auto")
