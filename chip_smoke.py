@@ -13,7 +13,9 @@ engine over a paged KV pool, whose steps use plain attention and no kernel
 of the port, each step shape captured once as a CUDA graph), then long
 context: ``lm_train`` at T = 8192 and through the ``sp_ring`` strategy at
 T = 16384; then checkpoint, preemption and restore; then the compiled
-decode paths against their eager runs.  Phases:
+decode paths against their eager runs; then the engine's KV tiers (the
+pinned host tier and the persistent prefix store) and request tracing.
+Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -114,13 +116,38 @@ decode paths against their eager runs.  Phases:
     engine's sequential service time gives, offered to an eager and a
     captured engine: short-request TTFT p50 and p99, the long requests'
     mean TTFT, tokens/s, completions, equal greedy tokens, and no entry
-    built after ready.
+    built after ready;
+22. bench.py's serving_kv_offload arm (the loaded arm's prompts at twice
+    its calibrated rate, seed 23, a pool of 52 16-token blocks: one long
+    span, the trash block and one more), offload off then on, on a bf16
+    and an int8 pool, each beside a pool that never fills: offload on
+    completes 24 of 24 with 0 sheds, spills and restores blocks, builds no
+    entry after ready and gives every request the ample pool's tokens;
+    sheds, TTFT p50/p99, tokens/s, parks, blocks moved, the copies' GB/s
+    over their events and the host time a spill and a restore hold the
+    scheduler; then, on each pool, 4 shared prefixes of 240 tokens served
+    in turn for 3 rounds against 41 blocks with the prefix cache on: cold
+    prefixes demote to the tier and later hits restore them, each request
+    gets the tokens of a pool that never fills;
+23. bench.py's serving_warm_boot arm (2 prefixes of 240 tokens, 12
+    prompts, 96 blocks, 48 persisted): an incumbent persists on stop, a
+    cold and a warm replacement take the same seeded schedule; the warm one
+    preloaded blocks, the probe's tokens are equal; TTFT, hit rate, the
+    save's and the preload's bytes and seconds;
+24. bench.py's trace-overhead arm (16 prompts of 24 tokens, 16 new, 4
+    slots, 16 interleaved runs a side on one engine, the garbage collector
+    on and its collections counted), in a child process of its own:
+    overhead under 3%, waterfalls within 10% of client latency; then
+    ``lm_server`` with a ``traceparent``: the
+    same trace id back, and ``/v1/trace/<id>`` with ``serving.generate``,
+    ``serving.request`` and ``serving.queue_wait``.
 
 Any failed check raises, and the script exits non-zero.  On success its
 last lines are the serving figures as JSON (``lm_generate``'s decode rate,
 ``lm_server``'s, and the paged profile), the long-context, the
-checkpoint and the compiled decode figures as JSON, the card's name and power limit, the kernels'
-JSON record and ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
+checkpoint, the compiled decode and the KV-tier and tracing figures as
+JSON, the card's name and power limit, the kernels' JSON record and
+``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
 at once.
 """
 
@@ -230,6 +257,30 @@ CKPT_GEN_BATCH, CKPT_PROMPT, CKPT_NEW, CKPT_SLOTS, CKPT_WINDOW = 2, 128, 16, 4, 
 SPEC_K, GRAPH_ATOL = 4, 1e-3
 LOADED_N, LOADED_LONG, LOADED_SHORT, LOADED_NEW, LOADED_CHUNK, LOADED_SEED = 24, 768, 16, 32, 128, 17
 LOADED_LOAD = 0.6
+# The KV tiers and tracing (phases 22-24), bench.py's arms at its TPU-side
+# sizes.  serving_kv_offload (bench.py:1331-1430): the loaded arm's 24
+# prompts at 2x its calibrated rate, seed 23, 16-token blocks, a pool of
+# one long span plus the trash block and one more.  serving_warm_boot
+# (bench.py:1432-1520): 2 prefixes of 240 tokens with 8-token tails, seed
+# 47, 12 prompts of 4 new tokens, 96 blocks, 48 persisted, a replacement
+# offered 0.6 / the incumbent's service time at seed 31.  The trace-overhead
+# arm (bench.py:1997-2090): 16 prompts of 24 tokens, 16 new, 4 slots, the
+# budget 3% and the waterfall within 10%; 16 interleaved runs a side where
+# bench.py takes 2: on one H100 the walls of these 0.25 s runs spread by
+# about 10% with the same work (the host's time to launch each captured
+# step varies), and the minimum of 2 a side read from 0 to 8.8% in 24
+# repetitions of one phase.
+OFFLOAD_BLOCK, OFFLOAD_RATE_X, OFFLOAD_SEED = 16, 2.0, 23
+WB_PREFIXES, WB_PREFIX, WB_TAIL, WB_N, WB_NEW, WB_BLOCKS, WB_PERSIST = 2, 240, 8, 12, 4, 96, 48
+WB_SEED, WB_LOAD, WB_LOAD_SEED = 47, 0.6, 31
+# Demotion under the captured family: 4 prefixes of 240 tokens with 8-token
+# tails served one after another for 3 rounds, 8 new tokens, against a pool
+# of the trash block and 40 more (each request holds 16, each prefix caches
+# 15), so cold prefixes demote to the host tier and later hits restore them.
+DM_PREFIXES, DM_PREFIX, DM_TAIL, DM_ROUNDS, DM_NEW, DM_BLOCKS, DM_SEED = 4, 240, 8, 3, 8, 41, 29
+TRACE_N, TRACE_PROMPT, TRACE_NEW, TRACE_SLOTS, TRACE_REPS = 16, 24, 16, 4, 16
+TRACING_ONLY = "--tracing-phase"
+TRACE_BUDGET_PCT, WATERFALL_PCT = 3.0, 10.0
 KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
 
 
@@ -1083,11 +1134,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _http(base, path, payload=None, timeout=600):
+def _http(base, path, payload=None, timeout=600, headers=None):
     """(status, body) of a GET (payload None) or a JSON POST; /metrics as text."""
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(base + path, data=data,
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
             status, body = resp.status, resp.read()
@@ -2091,6 +2142,12 @@ class _Recorder:
         return req
 
 
+def _loaded_prompts(vocab):
+    rng = np.random.default_rng(LOADED_SEED)
+    return [rng.integers(0, vocab, LOADED_LONG if i % 3 == 0 else LOADED_SHORT).tolist()
+            for i in range(LOADED_N)]
+
+
 def phase_loaded_arm():
     """(d) bench.py's loaded arm at the 671M width through poisson_load: the
     eager engine calibrates the rate (60% of the capacity its sequential
@@ -2102,9 +2159,7 @@ def phase_loaded_arm():
     from polyaxon_tpu_torch.serving.loadgen import _pct, poisson_load
 
     params, cfg = _serving_model()
-    rng = np.random.default_rng(LOADED_SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, LOADED_LONG if i % 3 == 0 else LOADED_SHORT).tolist()
-               for i in range(LOADED_N)]
+    prompts = _loaded_prompts(cfg.vocab_size)
     rate, out, tokens = None, {}, {}
     for label, eager in (("eager", True), ("captured", False)):
         engine = ServingEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_SEQ,
@@ -2152,6 +2207,402 @@ def phase_loaded_arm():
     return out
 
 
+def phase_kv_offload(rate):
+    """(e) bench.py's serving_kv_offload arm at the 671M width: the loaded
+    arm's prompts at twice its calibrated ``rate`` against a pool of one long
+    span plus two blocks, offload off and then on, on a bf16 and an int8
+    pool, each beside an engine whose pool never fills (every prompt at
+    once) for the tokens.  Offload on must complete 24 of 24 with 0 sheds
+    and 0 errors, spill and restore blocks, build no entry after ready, and
+    give every request the ample pool's greedy tokens."""
+    from polyaxon_tpu_torch.models import decode
+    from polyaxon_tpu_torch.serving import ServingEngine
+    from polyaxon_tpu_torch.serving.loadgen import _pct, poisson_load
+
+    params, cfg = _serving_model()
+    prompts = _loaded_prompts(cfg.vocab_size)
+    span = -(-(LOADED_LONG + LOADED_NEW) // OFFLOAD_BLOCK)
+    blocks = 1 + span + 1
+    orate = OFFLOAD_RATE_X * rate
+    out = {"kv_blocks": blocks, "long_span_blocks": span, "offered_rps": orate}
+
+    def engine(kv, **kw):
+        return ServingEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_SEQ,
+                             block_size=OFFLOAD_BLOCK, prefill_chunk=LOADED_CHUNK,
+                             prefix_cache=False, warmup=True, kv_quantize=kv, device="cuda",
+                             **kw).start()
+
+    for kv in (None, "int8"):
+        pool = kv or "bf16"
+        block_mib = decode.kv_block_bytes(cfg, OFFLOAD_BLOCK, kv) / 2**20
+        ample = engine(kv)
+        try:
+            if not ample.wait_ready(timeout=300):
+                raise AssertionError("the ample engine did not become ready")
+            reqs = [ample.submit(p, LOADED_NEW) for p in prompts]
+            want = [r.wait(timeout=300) for r in reqs]
+        finally:
+            ample.stop()
+        del ample
+        _free()
+        for offload in (False, True):
+            label = f"{pool} pool, offload {'on' if offload else 'off'}"
+            eng = engine(kv, num_blocks=blocks, kv_offload=offload)
+            try:
+                if not eng.wait_ready(timeout=300):
+                    raise AssertionError(f"{label}: the engine did not become ready")
+                rec = _Recorder(eng)
+                res = poisson_load(rec, prompts, LOADED_NEW, rate_rps=orate, seed=OFFLOAD_SEED)
+                got = [(r.tokens if r.error is None else None) for r in rec.requests]
+                stats = eng.stats()
+                copies = eng._copy_figures()
+            finally:
+                eng.stop()
+            short = sorted(t for i, t in enumerate(res["ttft_s"]) if i % 3 and t is not None)
+            row = {
+                "completed": res["completed"], "sheds": res["sheds"], "errors": res["errors"],
+                "ttft_p50_s": res["ttft_p50_s"], "ttft_p99_s": res["ttft_p99_s"],
+                "short_ttft_p50_s": _pct(short, 50), "short_ttft_p99_s": _pct(short, 99),
+                "tokens_per_s": res["tokens_per_s"], "wall_s": res["wall_s"],
+                "block_parks": stats["block_parks"],
+                "spilled_blocks": stats["host_spilled_blocks_total"],
+                "restored_blocks": stats["host_restored_blocks_total"],
+                "steady_state_compiles": stats["steady_state_compiles"],
+                "tokens_equal": sum(g == w for g, w in zip(got, want)),
+                "block_mib": block_mib,
+            }
+            for kind in ("spill", "restore"):
+                c = copies[kind]
+                row[f"{kind}_gb_per_s"] = c["bytes"] / c["copy_s"] / 1e9 if c["copy_s"] else None
+                row[f"{kind}_copy_s"] = c["copy_s"]
+                row[f"{kind}_bytes"] = c["bytes"]
+                row[f"{kind}_host_s"] = c["host_s"]
+            if offload:
+                row["spill_host_ms_per_park"] = (1e3 * copies["spill"]["host_s"] / stats["block_parks"]
+                                                 if stats["block_parks"] else None)
+                row["restore_host_ms_per_block"] = (
+                    1e3 * copies["restore"]["host_s"] / copies["restore"]["blocks"]
+                    if copies["restore"]["blocks"] else None)
+            out[f"{pool}_{'on' if offload else 'off'}"] = row
+            log(f"kv offload A/B, {label}: {row}")
+            del eng
+            _free()
+            if offload and not (row["completed"] == LOADED_N and row["sheds"] == 0
+                                and row["errors"] == 0 and row["spilled_blocks"] > 0
+                                and row["restored_blocks"] > 0
+                                and row["steady_state_compiles"] == 0
+                                and row["tokens_equal"] == LOADED_N):
+                raise AssertionError(f"{label}: {row}")
+            if not offload and row["steady_state_compiles"]:
+                raise AssertionError(f"{label}: an entry was built after ready: {row}")
+        out[f"{pool}_demotion"] = _kv_demotion(params, cfg, kv)
+    return out
+
+
+def _kv_demotion(params, cfg, kv):
+    """Prefix reuse that demotes: shared prefixes served one after another
+    against a pool that holds fewer of them than the traffic cycles
+    through, with the tier armed and the step family captured, beside an
+    engine whose pool never fills.  Demotions export single blocks between
+    replays and hits restore them in place inside admission; every request
+    must get the ample engine's tokens, with demotions and restores above 0
+    and no entry built after ready."""
+    from polyaxon_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(DM_SEED)
+    prefixes = [rng.integers(0, cfg.vocab_size, DM_PREFIX).tolist() for _ in range(DM_PREFIXES)]
+    prompts = [prefixes[i % DM_PREFIXES] + rng.integers(0, cfg.vocab_size, DM_TAIL).tolist()
+               for i in range(DM_PREFIXES * DM_ROUNDS)]
+    label = f"{kv or 'bf16'} pool, prefix demotion"
+    outs, stats = [], []
+    for kw in (dict(num_blocks=DM_BLOCKS, kv_offload=True), {}):
+        eng = ServingEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_SEQ,
+                            block_size=OFFLOAD_BLOCK, prefill_chunk=LOADED_CHUNK,
+                            prefix_cache=True, warmup=True, kv_quantize=kv, device="cuda",
+                            **kw).start()
+        try:
+            if not eng.wait_ready(timeout=300):
+                raise AssertionError(f"{label}: the engine did not become ready")
+            outs.append([eng.submit(p, DM_NEW).wait(timeout=300) for p in prompts])
+            stats.append(eng.stats())
+        finally:
+            eng.stop()
+        del eng
+        _free()
+    s = stats[0]
+    row = {key: s[key] for key in ("prefix_cache_hits", "prefix_cache_demotions",
+                                   "prefix_cache_restores", "host_spilled_blocks_total",
+                                   "host_restored_blocks_total", "requests_shed",
+                                   "steady_state_compiles")}
+    row["tokens_equal"] = sum(a == b for a, b in zip(*outs))
+    log(f"kv offload, {label}: {row}")
+    if not (row["tokens_equal"] == len(prompts) and row["prefix_cache_demotions"] > 0
+            and row["prefix_cache_restores"] > 0 and row["requests_shed"] == 0
+            and row["steady_state_compiles"] == 0):
+        raise AssertionError(f"{label}: {row}")
+    return row
+
+
+def phase_warm_boot():
+    """(f) bench.py's serving_warm_boot arm at the 671M width: an incumbent
+    serves the two prefixes and persists its hottest blocks on stop; a cold
+    and a warm replacement take the same seeded schedule.  The warm one must
+    have preloaded blocks (the cold one none), give the probe the cold one's
+    tokens, and build no entry after ready."""
+    from polyaxon_tpu_torch.models import decode
+    from polyaxon_tpu_torch.serving import ServingEngine, kvstore
+    from polyaxon_tpu_torch.serving.loadgen import poisson_load
+
+    params, cfg = _serving_model()
+    rng = np.random.default_rng(WB_SEED)
+    prefixes = [rng.integers(0, cfg.vocab_size, WB_PREFIX).tolist() for _ in range(WB_PREFIXES)]
+    prompts = [prefixes[i % WB_PREFIXES] + rng.integers(0, cfg.vocab_size, WB_TAIL).tolist()
+               for i in range(WB_N)]
+    probe = prefixes[0] + [3, 1, 4, 1, 5, 9, 2, 6]
+    block_bytes = decode.kv_block_bytes(cfg, OFFLOAD_BLOCK)
+
+    def engine(store):
+        return ServingEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_SEQ,
+                             block_size=OFFLOAD_BLOCK, num_blocks=WB_BLOCKS,
+                             prefill_chunk=LOADED_CHUNK, prefix_cache=True, warmup=True,
+                             kv_persist_dir=store, kv_persist_sig="bench",
+                             kv_persist_blocks=WB_PERSIST, device="cuda").start()
+
+    out = {}
+    store = tempfile.mkdtemp(prefix="chip_smoke_kv_")
+    try:
+        inc = engine(store)
+        try:
+            if not inc.wait_ready(timeout=300):
+                raise AssertionError("the incumbent did not become ready")
+            t0 = time.perf_counter()
+            for pref in prefixes:
+                inc.submit(list(pref), WB_NEW).wait(timeout=300)
+            svc = (time.perf_counter() - t0) / WB_PREFIXES
+        finally:
+            t0 = time.perf_counter()
+            inc.stop()  # the final snapshot
+            stop_s = time.perf_counter() - t0
+        version = kvstore.latest_complete_version(store)
+        saved = inc.stats()["kv_persisted_blocks"]
+        npz = Path(store) / str(version) / "blocks.npz"
+        out["save"] = {"blocks": saved, "bytes": npz.stat().st_size, "stop_s": stop_s,
+                       "gb_per_s": npz.stat().st_size / stop_s / 1e9, "version": version}
+        del inc
+        _free()
+        rate = WB_LOAD / svc
+        out["offered_rps"] = rate
+        for label, where in (("cold", None), ("warm", store)):
+            eng = engine(where)
+            try:
+                if not eng.wait_ready(timeout=300):
+                    raise AssertionError(f"the {label} replacement did not become ready")
+                ready = eng.stats()
+                res = poisson_load(eng, prompts, WB_NEW, rate_rps=rate, seed=WB_LOAD_SEED)
+                probe_tokens = eng.submit(list(probe), WB_NEW).wait(timeout=300)
+                stats = eng.stats()
+            finally:
+                eng.stop()
+            out[label] = {
+                "kv_preloaded_blocks": ready["kv_preloaded_blocks"],
+                "ready_s": ready["warmup"]["ready_s"],
+                "completed": res["completed"], "errors": res["errors"],
+                "ttft_p50_s": res["ttft_p50_s"], "ttft_p99_s": res["ttft_p99_s"],
+                "ttft_mean_s": res["ttft_mean_s"],
+                "prefix_cache_hit_rate": stats["prefix_cache_hit_rate"],
+                "steady_state_compiles": stats["steady_state_compiles"],
+                "probe_tokens": probe_tokens,
+            }
+            log(f"warm boot, {label} replacement: "
+                f"{ {k: v for k, v in out[label].items() if k != 'probe_tokens'} }")
+            del eng
+            _free()
+        # The preload alone, on an engine that is not started: the store
+        # read, then the whole preload (read, copies to the card, installs).
+        eng = ServingEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_SEQ,
+                            block_size=OFFLOAD_BLOCK, num_blocks=WB_BLOCKS,
+                            prefill_chunk=LOADED_CHUNK, prefix_cache=True, kv_persist_dir=store,
+                            kv_persist_sig="bench", kv_persist_blocks=WB_PERSIST, device="cuda")
+        t0 = time.perf_counter()
+        kvstore.load_prefix_store(store, expect=eng._kv_store_meta())
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng._preload_prefixes()
+        eng._copy_figures()
+        preload_s = time.perf_counter() - t0
+        eng.stop()
+        del eng
+        _free()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    cold, warm = out["cold"], out["warm"]
+    out["preload"] = {"blocks": warm["kv_preloaded_blocks"],
+                      "bytes": warm["kv_preloaded_blocks"] * block_bytes,
+                      "ready_s_over_cold": warm["ready_s"] - cold["ready_s"],
+                      "store_read_s": load_s, "preload_s": preload_s}
+    out["token_identical"] = cold["probe_tokens"] == warm["probe_tokens"]
+    log(f"warm boot: save {out['save']}, preload {out['preload']}, probe tokens equal "
+        f"{out['token_identical']}")
+    if not (out["token_identical"] and warm["kv_preloaded_blocks"] > 0
+            and cold["kv_preloaded_blocks"] == 0 and saved > 0
+            and cold["completed"] == warm["completed"] == WB_N
+            and cold["steady_state_compiles"] == warm["steady_state_compiles"] == 0):
+        raise AssertionError(f"warm boot: {out}")
+    for side in (cold, warm):
+        side.pop("probe_tokens")
+    return out
+
+
+def phase_tracing():
+    """(g) bench.py's trace-overhead arm at the 671M width: interleaved
+    runs with request tracing off and on (16 a side in turns, the minimum
+    wall of each), 16 prompts of 24 tokens queued at once; the overhead must
+    stay under 3% and every traced request's waterfall within 10% of its
+    client latency.  Then one lm_server /generate with a traceparent header: the
+    answer carries that trace id, and /v1/trace/<id> returns
+    serving.generate, serving.request and serving.queue_wait under it."""
+    from polyaxon_tpu_torch.builtins.services import lm_server
+    from polyaxon_tpu_torch.serving import ServingEngine
+    from polyaxon_tpu_torch.tracking.context import Context
+    from polyaxon_tpu_torch.tracking.trace import TraceContext, new_trace_id
+
+    params, cfg = _serving_model()
+    rng = np.random.default_rng(SEED + 7)
+    prompts = [rng.integers(0, cfg.vocab_size, TRACE_PROMPT).tolist() for _ in range(TRACE_N)]
+
+    # The collector stays on, as in lm_server: the span records, waterfalls
+    # and exemplars that tracing allocates are part of what it costs.  A
+    # callback counts the collections and their time in each timed run, so
+    # the readout says what share of the difference they are.
+    collections = {"n": 0, "s": 0.0, "t0": 0.0}
+
+    def on_collect(phase, info):
+        if phase == "start":
+            collections["t0"] = time.perf_counter()
+        else:
+            collections["n"] += 1
+            collections["s"] += time.perf_counter() - collections["t0"]
+
+    def run(eng, traced):
+        eng.trace_requests = traced
+        eng.submit([1] * TRACE_PROMPT, 2).wait(timeout=300)  # the card busy again
+        n0, s0 = collections["n"], collections["s"]
+        t0 = time.perf_counter()
+        # All 16 queued before the scheduler admits any (submit takes the
+        # engine's reentrant lock too), so every run steps the same batches.
+        with eng._cv:
+            pending = [(eng.submit(p, TRACE_NEW,
+                                   trace=TraceContext(new_trace_id()) if traced else None),
+                        time.perf_counter()) for p in prompts]
+        errs = []
+        for i, (r, ts) in enumerate(pending):
+            r.wait(timeout=300)
+            lat = time.perf_counter() - ts
+            woke = time.time()
+            if r.trace_summary is not None:
+                total = sum(r.trace_summary["waterfall"].values())
+                errs.append((abs(total - lat) / lat * 100, {
+                    "request": i, "client_s": lat, "waterfall_s": total,
+                    "woke_after_finish_s": woke - r.finished_at}))
+        wall = time.perf_counter() - t0
+        if traced and len(errs) != TRACE_N:
+            raise AssertionError(f"{len(errs)} of {TRACE_N} traced requests have a waterfall")
+        return wall, errs, collections["n"] - n0, collections["s"] - s0
+
+    # One engine for every run (tracing switched between runs), so the runs
+    # differ only by tracing, not by a new capture of the step family.
+    eng = ServingEngine(params, cfg, slots=TRACE_SLOTS, max_len=SERVE_SEQ, prefix_cache=False,
+                        warmup=True, device="cuda").start()
+    walls = {False: [], True: []}
+    gcs = {False: [0, 0.0], True: [0, 0.0]}
+    errs = []
+    gc.callbacks.append(on_collect)
+    try:
+        if not eng.wait_ready(timeout=300):
+            raise AssertionError("the tracing engine did not become ready")
+        run(eng, False)  # untimed: the card and the host settle first
+        # In turns, off, on, on, off, on, off, off, on: a drift across the
+        # runs falls on both sides.
+        for traced in ((False, True, True, False, True, False, False, True)
+                       * TRACE_REPS)[:2 * TRACE_REPS]:
+            wall, e, n_gc, s_gc = run(eng, traced)
+            walls[traced].append(wall)
+            gcs[traced][0] += n_gc
+            gcs[traced][1] += s_gc
+            errs += e
+        if eng.stats()["steady_state_compiles"]:
+            raise AssertionError("the tracing engine built an entry after ready")
+    finally:
+        gc.callbacks.remove(on_collect)
+        eng.stop()
+    off, on = min(walls[False]), min(walls[True])
+    out = {"walls_off_s": walls[False], "walls_on_s": walls[True],
+           "overhead_pct": max(0.0, (on - off) / off * 100),
+           "waterfall_err_pct": max(e for e, _ in errs),
+           "waterfall_worst": max(errs, key=lambda e: e[0])[1],
+           "gc_collections_off": gcs[False][0], "gc_collections_on": gcs[True][0],
+           "gc_s_off": gcs[False][1], "gc_s_on": gcs[True][1]}
+    log(f"tracing at 671M: {out}")
+    if not (out["overhead_pct"] < TRACE_BUDGET_PCT and out["waterfall_err_pct"] <= WATERFALL_PCT):
+        raise AssertionError(f"request tracing: {out}")
+
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    ctx = Context(params=dict(BENCH_MODEL, seq=SERVE_SEQ, slots=TRACE_SLOTS,
+                              block_size=SERVE_BLOCK, service_port=port, host="127.0.0.1",
+                              device="cuda"), seed=SEED, records=[])
+    errors = []
+
+    def serve():
+        try:
+            lm_server(ctx)
+        except Exception as e:  # re-raised by the main thread
+            errors.append(e)
+
+    server = threading.Thread(target=serve, name="lm_server", daemon=True)
+    server.start()
+    try:
+        _await_ready(base, errors, "lm_server (tracing)")
+        trace_id = new_trace_id()
+        status, body = _http(base, "/generate",
+                             {"prompts": [prompts[0]], "max_new_tokens": TRACE_NEW},
+                             headers={"traceparent": f"00-{trace_id}-00f067aa0ba902b7-01"})
+        want = {"serving.generate", "serving.request", "serving.queue_wait"}
+        deadline = time.time() + 30
+        while True:  # serving.generate is recorded once the answer is out
+            spans = _http(base, f"/v1/trace/{trace_id}")[1]["spans"]
+            names = {s["name"] for s in spans if s.get("trace_id") == trace_id}
+            if want <= names or time.time() > deadline:
+                break
+            time.sleep(0.05)
+        out["lm_server"] = {"status": status, "trace_id_equal": body.get("trace", {}).get(
+            "trace_id") == trace_id, "spans": sorted(names),
+            "waterfalls": len(body.get("trace", {}).get("waterfalls", []))}
+        log(f"lm_server traceparent round trip: {out['lm_server']}")
+        if not (status == 200 and out["lm_server"]["trace_id_equal"] and want <= names
+                and out["lm_server"]["waterfalls"] == 1):
+            raise AssertionError(f"lm_server tracing: {out['lm_server']}")
+    finally:
+        ctx.stop.set()
+        server.join(timeout=120)
+    if server.is_alive() or errors:
+        raise AssertionError(f"lm_server (tracing) did not stop cleanly: {errors}")
+    return out
+
+
+def _tracing_in_a_process_of_its_own():
+    """Phase 24 in a child process of this script: a serving process holds
+    one engine, not the objects, threads and heap of the 23 phases before,
+    and in this process the walls of the same run spread twice as wide."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), TRACING_ONLY],
+                          capture_output=True, text=True, timeout=600)
+    log(proc.stdout.rstrip())
+    if proc.returncode:
+        raise AssertionError(f"the tracing phase failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card", file=sys.stderr)
@@ -2159,6 +2610,9 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == [TRACING_ONLY]:  # the child of _tracing_in_a_process_of_its_own
+        print(json.dumps(phase_tracing()))
+        return 0
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -2200,9 +2654,16 @@ def main() -> int:
     compiled["paged_decode_step"] = phase_profile_graph_step()
     _free()
     compiled["loaded_arm"] = phase_loaded_arm()
+    _free()
+    tiers = {"kv_offload": phase_kv_offload(compiled["loaded_arm"]["eager"]["offered_rps"])}
+    _free()
+    tiers["warm_boot"] = phase_warm_boot()
+    _free()
+    tiers["tracing"] = _tracing_in_a_process_of_its_own()
     torch.cuda.synchronize()
     if _counts() != (4 * BENCH_MODEL["n_layers"], 0, 0):  # the two generate prefills, twice
-        raise AssertionError(f"the compiled decode paths launched flash kernels {_counts()}")
+        raise AssertionError(f"the compiled decode paths and the KV tiers launched flash "
+                             f"kernels {_counts()}")
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
@@ -2222,6 +2683,7 @@ def main() -> int:
     print(json.dumps({"long_context": {"t8192": long_train, "sp_ring_t16384": ring_train}}))
     print(json.dumps({"checkpoint": ckpt}))
     print(json.dumps({"compiled_decode": compiled}))
+    print(json.dumps({"kv_tiers_and_tracing": tiers}))
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd["dq"], bwd["dkv"]]}))
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,7 @@ from polyaxon_tpu_torch.stats.metrics import (
 )
 from polyaxon_tpu_torch.tracking.capture import get_capture_agent
 from polyaxon_tpu_torch.tracking.context import Context
+from polyaxon_tpu_torch.tracking.trace import TraceContext, extract, get_tracer, new_trace_id
 
 _FALSY = ("", "0", "false", "no")
 
@@ -47,8 +48,11 @@ def _make_lm_handler(engine, cfg, meta: dict, log=lambda line: None):
     ``lm_server`` so tests drive the production handler against a bare
     engine).  Routes and payloads are the reference's; errors are typed
     ``{"error": {"kind", "message"}}``: ``bad_request`` 400, ``not_found``
-    404, ``shed`` 429, ``draining`` and ``timeout`` 503.  Request tracing
-    (``traceparent``, ``/v1/trace/<id>``) is not ported yet."""
+    404, ``shed`` 429, ``draining`` and ``timeout`` 503.  A ``/generate``
+    joins the caller's trace (its ``traceparent`` header) or, with the
+    engine's ``trace_requests`` on, starts one; its answer carries the
+    ``trace`` block (``trace_id`` and one waterfall per prompt), and
+    ``GET /v1/trace/<id>`` returns this process's spans of a trace."""
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # route into run logs, not stderr
@@ -76,6 +80,12 @@ def _make_lm_handler(engine, cfg, meta: dict, log=lambda line: None):
                 if latency:
                     payload["latency"] = latency
                 return self._json(200, payload)
+            if self.path.startswith("/v1/trace/"):
+                # This process's spans of one trace, from the tracer's ring;
+                # an empty list is an answer (expired or never sampled).
+                trace_id = self.path[len("/v1/trace/"):]
+                spans = [s for s in get_tracer().spans() if s.get("trace_id") == trace_id]
+                return self._json(200, {"trace_id": trace_id, "spans": spans})
             if self.path == "/metrics":
                 labels = {"component": "lm_server"}
                 text = render_prometheus(engine.stats_registry.snapshot(), labels=labels)
@@ -134,15 +144,26 @@ def _make_lm_handler(engine, cfg, meta: dict, log=lambda line: None):
                     raise ValueError("prompts must be a list of id lists")
             except (KeyError, ValueError, TypeError) as e:
                 return self._error(400, "bad_request", str(e))
-            return self._generate(prompts, max_new, temperature)
+            # Join the caller's trace or mint one; a malformed traceparent
+            # extracts to None and gives a fresh trace, never an error.
+            tctx = extract(self.headers)
+            if tctx is None and engine.trace_requests:
+                tctx = TraceContext(new_trace_id())
+            if tctx is not None and not tctx.sampled:
+                tctx = None
+            if tctx is None:
+                return self._generate(prompts, max_new, temperature, None)
+            with get_tracer().span("serving.generate", sample=1.0, trace_id=tctx.trace_id,
+                                   parent_id=tctx.span_id or None, prompts=len(prompts)) as sp:
+                return self._generate(prompts, max_new, temperature, tctx.child(sp.span_id))
 
-        def _generate(self, prompts, max_new, temperature):
+        def _generate(self, prompts, max_new, temperature, tctx):
             retry_after = {"Retry-After": str(int(meta.get("retry_after_s", 1)))}
             try:
                 # Each prompt is its own engine request (mixed lengths are
                 # fine); submit() validates each one.
                 t0 = time.time()
-                reqs = [engine.submit(p, max_new, temperature) for p in prompts]
+                reqs = [engine.submit(p, max_new, temperature, trace=tctx) for p in prompts]
             except EngineDrainingError as e:
                 return self._error(503, "draining", str(e), retry_after)
             except (KeyError, ValueError, TypeError) as e:
@@ -165,14 +186,21 @@ def _make_lm_handler(engine, cfg, meta: dict, log=lambda line: None):
                 return self._error(503, next(iter(kinds)) if kinds else "engine_error", str(e))
             dt = time.time() - t0
             total = sum(len(t) for t in tokens)
-            self._json(200, {
+            payload = {
                 "tokens": tokens,
                 "decode_tokens_per_s": round(total / max(dt, 1e-9), 1),
                 "ttft_s": [
                     round(r.first_token_at - t0, 6) if r.first_token_at is not None else None
                     for r in reqs
                 ],
-            })
+            }
+            if tctx is not None:
+                # Each request's waterfall rides the answer.
+                payload["trace"] = {
+                    "trace_id": tctx.trace_id,
+                    "waterfalls": [r.trace_summary for r in reqs if r.trace_summary is not None],
+                }
+            self._json(200, payload)
 
     return Handler
 
@@ -188,8 +216,11 @@ def lm_server(ctx: Context) -> None:
     ``{"request_id": N}``; ``GET /healthz`` (model, occupancy, ``state``
     ``warming``/``ready``/``draining``, warming while the engine builds its
     step family, and the ``steady_state_compiles`` count); ``GET /v1/stats``
-    (engine stats and latency percentiles); ``GET /metrics`` (Prometheus
-    text).
+    (engine stats and latency percentiles); ``GET /v1/trace/<id>`` (this
+    process's spans of a trace); ``GET /metrics`` (Prometheus text).  A
+    ``/generate`` with a ``traceparent`` header joins that trace (without
+    one, a trace is started while ``POLYAXON_TPU_TRACE_REQUESTS`` is on), and
+    its answer carries ``trace``: ``{"trace_id", "waterfalls"}``.
 
     Params as the reference's: the model shape of ``lm_train``, ``seq`` (per
     request prompt + generation, default 512), ``slots``, ``block_size``,
@@ -199,17 +230,17 @@ def lm_server(ctx: Context) -> None:
     ``port``), ``quantize`` (``int8`` weights), ``spec_decode``,
     ``spec_k``, ``spec_min_ngram``, ``target`` (the uuid of a run whose
     newest complete checkpoint gives the weights; omitted = random weights
-    from ``ctx.seed``, made on the device); plus ``device`` (default
-    ``cuda``; raises without a card).  ``kv_offload*`` and ``kv_persist*``
-    raise ``NotImplementedError``.  A ``drain`` command on the capture
-    agent's bus stops admissions (new ``/generate`` calls get a typed 503)
-    while in-flight requests finish.
+    from ``ctx.seed``, made on the device), ``kv_offload`` /
+    ``kv_offload_blocks`` (the pinned host KV tier: parked sequences spill
+    their blocks, cold prefixes demote), ``kv_persist`` / ``kv_persist_dir``
+    (the persistent prefix store; ``kv_persist: true`` puts it in
+    ``kv_cache/`` beside the runs root, which every replica shares); plus
+    ``device`` (default ``cuda``; raises without a card).  The store is
+    signed ``ckpt:<target>:<step>`` or ``random:<seed>`` (``:wq-int8`` with
+    int8 weights).  A ``drain`` command on the capture agent's bus stops
+    admissions (new ``/generate`` calls get a typed 503) while in-flight
+    requests finish.
     """
-    for name in ("kv_offload", "kv_offload_blocks", "kv_persist", "kv_persist_dir"):
-        if str(ctx.get_param(name, "") or "").lower() not in _FALSY:
-            raise NotImplementedError(
-                f"lm_server {name} is not ported yet (ROADMAP: Queue 1 item 4)"
-            )
     device = resolve_device(ctx.get_param("device", "cuda"))
     seq = int(ctx.get_param("seq", 512))
     cfg = TransformerConfig(max_seq=seq, **_int_params(ctx, (
@@ -230,6 +261,11 @@ def lm_server(ctx: Context) -> None:
 
     port = _service_port(ctx)
     host = str(ctx.get_param("host", "0.0.0.0"))
+    # Label this process's spans, so a fleet's merged trace puts each
+    # replica on its own track.
+    get_tracer().configure(
+        process=f"lm_server-{ctx.run_uuid[:8]}" if ctx.run_uuid else f"lm_server-{port}"
+    )
     eos_id = ctx.get_param("eos_id")
     kv_blocks = ctx.get_param("kv_blocks")
     prefill_chunk = int(ctx.get_param("prefill_chunk", 0) or 0)
@@ -243,6 +279,24 @@ def lm_server(ctx: Context) -> None:
     if spec_decode:
         ctx.log_text(f"lm_server: speculative decoding enabled "
                      f"(spec_k={spec_k}, spec_min_ngram={spec_min_ngram})")
+    kv_offload = ctx.get_param("kv_offload")
+    kv_offload = None if kv_offload is None else str(kv_offload).lower() not in _FALSY
+    kv_offload_blocks = ctx.get_param("kv_offload_blocks")
+    kv_persist_dir = ctx.get_param("kv_persist_dir")
+    if kv_persist_dir is None and str(ctx.get_param("kv_persist", "") or "").lower() in (
+            "1", "true", "yes"):
+        # The store layout's kv_cache/ dir beside runs/: every replica of a
+        # fleet lands on the same store, which is what makes warm boot work.
+        runs_root = ctx.runs_root or ctx.outputs_path.parent.parent
+        kv_persist_dir = runs_root.parent / "kv_cache"
+    # Prefix blocks are reusable only under the weights (and the weight
+    # quantization) that made them.
+    kv_persist_sig = (f"ckpt:{target}:{step}" if target is not None else f"random:{seed}") + (
+        ":wq-int8" if qweights is not None else "")
+    if kv_offload:
+        ctx.log_text("lm_server: host KV offload tier enabled")
+    if kv_persist_dir:
+        ctx.log_text(f"lm_server: prefix KV persistence at {kv_persist_dir}")
     engine = ServingEngine(
         params,
         cfg,
@@ -259,6 +313,10 @@ def lm_server(ctx: Context) -> None:
         spec_decode=spec_decode,
         spec_k=int(spec_k) if spec_k is not None else None,
         spec_min_ngram=int(spec_min_ngram) if spec_min_ngram is not None else None,
+        kv_offload=kv_offload,
+        kv_offload_blocks=int(kv_offload_blocks) if kv_offload_blocks is not None else None,
+        kv_persist_dir=str(kv_persist_dir) if kv_persist_dir else None,
+        kv_persist_sig=kv_persist_sig,
         # The process-wide registry: /metrics exports whatever else this
         # process records too.
         stats=get_stats(),

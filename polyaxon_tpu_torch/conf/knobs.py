@@ -1,7 +1,7 @@
 """The environment knobs the port reads, with the reference's names and defaults.
 
 The port's own copy of the part of ``polyaxon_tpu/conf/knobs.py`` its
-serving engine uses: the same ``POLYAXON_TPU_*`` variables,
+serving engine, its KV tiers and its tracer use: the same ``POLYAXON_TPU_*`` variables,
 the same defaults, the same parsing (a bool is false for ``0``, ``false``,
 ``off``, ``no`` and the empty string; an unparsable number keeps the
 default).  Reading a knob that is not in :data:`KNOBS` raises ``KeyError``.
@@ -21,6 +21,18 @@ KNOBS: Dict[str, Any] = {
     "POLYAXON_TPU_SERVING_SPEC_K": 4,
     "POLYAXON_TPU_SERVING_SPEC_MIN_NGRAM": 2,
     "POLYAXON_TPU_SERVING_STATS_WINDOW_S": 60.0,
+    # tracing
+    "POLYAXON_TPU_TRACE_SAMPLE": 1.0,
+    "POLYAXON_TPU_TRACE_HOT_SAMPLE": 0.05,
+    "POLYAXON_TPU_TRACE_REQUESTS": True,
+    "POLYAXON_TPU_TRACE_EXEMPLARS": 5,
+    "POLYAXON_TPU_TRACE_EXEMPLAR_WINDOW_S": 300.0,
+    # the host KV tier and the persistent prefix store
+    "POLYAXON_TPU_KV_OFFLOAD": False,
+    "POLYAXON_TPU_KV_OFFLOAD_BLOCKS": 0,
+    "POLYAXON_TPU_KV_PERSIST_DIR": "",
+    "POLYAXON_TPU_KV_PERSIST_BLOCKS": 64,
+    "POLYAXON_TPU_KV_PERSIST_INTERVAL_S": 60.0,
 }
 
 
@@ -29,6 +41,12 @@ def _default(name: str) -> Any:
         return KNOBS[name]
     except KeyError:
         raise KeyError(f"Unknown knob {name!r}: declare it in polyaxon_tpu_torch/conf/knobs.py") from None
+
+
+def knob_str(name: str) -> str:
+    default = _default(name)
+    raw = os.environ.get(name)
+    return default if raw is None else raw
 
 
 def knob_bool(name: str) -> bool:

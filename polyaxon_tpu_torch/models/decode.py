@@ -35,6 +35,7 @@ otherwise cast every float32 weight again.
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -65,7 +66,10 @@ def capture_step(fn: Callable[[], Any], pool=None, warmup: int = 2):
     values whose writes are harmless.  ``pool`` (from
     ``torch.cuda.graph_pool_handle()``) lets graphs replayed one at a time
     share their memory.  Only the calling thread's CUDA calls are checked
-    during the capture.
+    during the capture, and the garbage collector is off meanwhile: a
+    collection there that frees an unreachable CUDA graph (a stopped
+    engine's step entries sit in reference cycles with their engine)
+    destroys it on the capturing thread, and that invalidates the capture.
     """
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -74,8 +78,14 @@ def capture_step(fn: Callable[[], Any], pool=None, warmup: int = 2):
             fn()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-        out = fn()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
     return graph, out
 
 

@@ -1,5 +1,8 @@
 """Serving of the port (counterpart of ``polyaxon_tpu.serving``): the paged
-continuous-batching engine and its block bookkeeping."""
+continuous-batching engine, its block bookkeeping and host KV tier, and the
+persistent prefix store (``serving.kvstore``).  The fleet's pieces
+(``FleetAutoscaler``, the router, replicas) are not ported yet (ROADMAP
+Queue 1 item 4, step 7)."""
 
 from polyaxon_tpu_torch.serving.engine import (
     EngineDrainingError,
@@ -8,12 +11,18 @@ from polyaxon_tpu_torch.serving.engine import (
     ServingEngine,
     SlotAllocator,
 )
-from polyaxon_tpu_torch.serving.paging import BlockAllocator, PrefixCache, truncate_table
+from polyaxon_tpu_torch.serving.paging import (
+    BlockAllocator,
+    HostKVTier,
+    PrefixCache,
+    truncate_table,
+)
 
 __all__ = [
     "BlockAllocator",
     "EngineDrainingError",
     "GenerationRequest",
+    "HostKVTier",
     "NgramDrafter",
     "PrefixCache",
     "ServingEngine",

@@ -47,17 +47,40 @@ After the ready gate, each decode iteration calls the capture agent's
 ``on_step``, so a ``profile`` command on the bus traces a window of decode
 steps.
 
-Not ported yet (ROADMAP Queue 1 item 4, each raising or absent): meshes and
-sharded weights, the host KV tier (``kv_offload*``), the persistent prefix
-store (``kv_persist*``), request tracing, the utilization ledger and the
-progress beat.
+The KV tiers.  With ``kv_offload`` a parked sequence spills its private
+blocks to the host tier (:class:`~polyaxon_tpu_torch.serving.paging.HostKVTier`)
+and frees them, and a cold cached prefix demotes there instead of being
+evicted; with ``kv_persist_dir`` the hottest prefix blocks are saved to the
+persistent store (``serving/kvstore.py``) when idle and on ``stop()``, and
+the warmup preloads the newest snapshot before the ready gate opens.  On
+the card a spill gathers its blocks' rows and copies them into pinned host
+memory on a dedicated copy stream (ordered after the work already queued;
+the whole batch dispatched, then one wait on its event), and a restore
+copies pinned memory into fresh pool blocks in place on the stream the
+graphs replay on: the captured entries hold the pool's addresses, so
+nothing rebinds the pool.  Spill and restore run eagerly between replays,
+never in a graph.
+
+Request tracing.  A request submitted with a ``TraceContext`` records its
+phases as spans under that trace id (``tracking/trace.py``): queue wait,
+admission, prefix hits, prefill chunks, spill, restore, park, the first
+token, sampled decode steps, and the request's root span when it ends on
+any path (finished, shed, cancelled, stopped).  Phases are intervals of one
+host clock read where the scheduler has already read the step's tokens
+back, so a request's waterfall sums to its server-side total.
+
+Not ported yet (ROADMAP Queue 1 items 4 and 5): meshes and sharded weights
+(raising), the utilization ledger and the progress beat.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import logging
+import os
 import queue
+import random
 import threading
 import time
 from collections import deque
@@ -67,11 +90,18 @@ import numpy as np
 import torch
 
 from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
-from polyaxon_tpu_torch.conf.knobs import knob_bool, knob_float, knob_int
+from polyaxon_tpu_torch.conf.knobs import knob_bool, knob_float, knob_int, knob_str
 from polyaxon_tpu_torch.models import decode
-from polyaxon_tpu_torch.serving.paging import BlockAllocator, PrefixCache, truncate_table
+from polyaxon_tpu_torch.serving import kvstore
+from polyaxon_tpu_torch.serving.paging import (
+    BlockAllocator,
+    HostKVTier,
+    PrefixCache,
+    truncate_table,
+)
 from polyaxon_tpu_torch.stats import MemoryStats, RatioWindow
 from polyaxon_tpu_torch.tracking.capture import get_capture_agent
+from polyaxon_tpu_torch.tracking.trace import TraceContext, get_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -128,6 +158,60 @@ class NgramDrafter:
         return t[end : end + k]
 
 
+class _RequestTrace:
+    """Per-request distributed-trace state.
+
+    ``ctx`` is the propagated :class:`TraceContext` (one trace id across
+    router, replica and engine); ``root_id`` is the engine-side request span
+    every phase span parents to.  ``park_s`` accumulates the time spent
+    parked, so the waterfall splits decode time from capacity stalls.  The
+    phases are intervals (queue wait, prefill, decode and parked partition
+    the request's wall clock), so the waterfall sums to the server-side
+    total however many hot spans were sampled away.
+    """
+
+    __slots__ = ("ctx", "root_id", "parked_at", "park_s", "ttft_s")
+
+    def __init__(self, ctx: TraceContext, root_id: str) -> None:
+        self.ctx = ctx
+        self.root_id = root_id
+        self.parked_at: Optional[float] = None
+        self.park_s = 0.0
+        self.ttft_s: Optional[float] = None
+
+
+class _SlowExemplars:
+    """Bounded ring of the ``n`` slowest fully traced requests in a sliding
+    window: ``offer`` keeps the slowest finished-request summaries whose
+    finish time falls in the window, ``snapshot`` returns them slowest
+    first (``/v1/stats``'s ``trace_exemplars``)."""
+
+    def __init__(self, n: int, window_s: float) -> None:
+        self.n = int(n)
+        self.window_s = float(window_s)
+        self._lock = threading.Lock()
+        self._entries: List[Dict[str, Any]] = []
+
+    def offer(self, summary: Dict[str, Any]) -> None:
+        if self.n <= 0:
+            return
+        now = time.time()
+        with self._lock:
+            self._entries = [
+                e for e in self._entries if now - e.get("finished_at", now) <= self.window_s
+            ]
+            self._entries.append(summary)
+            self._entries.sort(key=lambda e: e.get("total_s", 0.0), reverse=True)
+            del self._entries[self.n:]
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        now = time.time()
+        with self._lock:
+            return [
+                dict(e) for e in self._entries if now - e.get("finished_at", now) <= self.window_s
+            ]
+
+
 class GenerationRequest:
     """One queued generation: its prompt, its budget, and its results.
 
@@ -153,6 +237,10 @@ class GenerationRequest:
         self.started_at: Optional[float] = None
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+        #: Distributed-trace state (None: an untraced request).
+        self.trace: Optional[_RequestTrace] = None
+        #: The latency waterfall, filled once when the request ends.
+        self.trace_summary: Optional[Dict[str, Any]] = None
 
     def wait(self, timeout: Optional[float] = None) -> List[int]:
         """Block until done; raise on engine-side failure."""
@@ -219,6 +307,16 @@ def _pinned(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.pin_memory() if device.type == "cuda" else t
 
 
+def _tree_leaves(tree: Any, path: str = "") -> List[tuple]:
+    """``(path, tensor)`` for every leaf of a weight tree (dicts in sorted
+    key order, lists and tuples in order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, v in enumerate(tree) for leaf in _tree_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
 class _StepEntry:
     """One member of the engine's step family: a step bound to its key, its
     static input buffers and, when captured, its CUDA graph.
@@ -269,10 +367,20 @@ class ServingEngine:
 
     Sampling (temperature > 0) draws Gumbel noise from one
     ``torch.Generator`` seeded from ``seed``, a row per slot, so a slot's
-    draw does not depend on its neighbours' logits.  ``mesh``,
-    ``param_shardings``, ``qweights_shardings``, ``kv_offload*`` and
-    ``kv_persist*`` raise ``NotImplementedError`` unless left at their
-    defaults.
+    draw does not depend on its neighbours' logits.
+
+    ``kv_offload`` / ``kv_offload_blocks`` (default the
+    ``POLYAXON_TPU_KV_OFFLOAD*`` knobs) arm the host tier: parked sequences
+    spill their private blocks, cold prefixes demote (``kv_offload_blocks``
+    bounds the demoted population, 0 = unbounded; spills are pinned and
+    never count).  ``kv_persist_dir`` / ``kv_persist_blocks`` /
+    ``kv_persist_sig`` (default the ``POLYAXON_TPU_KV_PERSIST_*`` knobs) arm
+    the persistent prefix store; an empty ``kv_persist_sig`` is derived from
+    the weights, and persistence turns off when that fails.  A traced
+    request (``submit(..., trace=)``, while ``trace_requests``, default the
+    ``POLYAXON_TPU_TRACE_REQUESTS`` knob) records its phases as spans.
+    ``mesh``, ``param_shardings`` and ``qweights_shardings`` raise
+    ``NotImplementedError`` unless left at their defaults.
     """
 
     #: Padding buckets for prompt chunks: powers of two bound the number of
@@ -319,10 +427,6 @@ class ServingEngine:
                             ("qweights_shardings", qweights_shardings)):
             if value is not None:
                 raise _not_ported(name, "Queue 1 item 7, multi-process and parallelism")
-        if kv_offload or kv_offload_blocks is not None:
-            raise _not_ported("kv_offload", "Queue 1 item 4, the host KV tier")
-        if kv_persist_dir or kv_persist_blocks is not None or kv_persist_sig:
-            raise _not_ported("kv_persist", "Queue 1 item 4, the persistent prefix store")
         self.device = resolve_device(device)
         require_on(self.device, embed=params["embed"])
         if qweights is not None:
@@ -435,6 +539,59 @@ class ServingEngine:
         self._spec_fallbacks = 0
         self._spec_steps = 0
 
+        # The KV tiers: the host offload tier and the persistent prefix
+        # store, both defaulting from the POLYAXON_TPU_KV_* knobs.
+        if kv_offload is None:
+            kv_offload = knob_bool("POLYAXON_TPU_KV_OFFLOAD")
+        self.kv_offload = bool(kv_offload)
+        self.kv_offload_blocks = int(
+            kv_offload_blocks if kv_offload_blocks is not None
+            else knob_int("POLYAXON_TPU_KV_OFFLOAD_BLOCKS")
+        )
+        if kv_persist_dir is None:
+            kv_persist_dir = knob_str("POLYAXON_TPU_KV_PERSIST_DIR")
+        self.kv_persist_dir = str(kv_persist_dir) if kv_persist_dir else None
+        self.kv_persist_blocks = int(
+            kv_persist_blocks if kv_persist_blocks is not None
+            else knob_int("POLYAXON_TPU_KV_PERSIST_BLOCKS")
+        )
+        self.kv_persist_sig = str(kv_persist_sig or "")
+        if self.kv_persist_dir and not self.kv_persist_sig:
+            # Geometry cannot tell two checkpoints of one config apart, and
+            # an unsigned shared store could serve another model's KV: sign
+            # with a fingerprint of the weights, or do not persist.
+            self.kv_persist_sig = self._auto_persist_sig(params, qweights, seed)
+            if not self.kv_persist_sig:
+                logger.warning("kv_persist_dir is set but no kv_persist_sig was given and no "
+                               "weight fingerprint could be derived: KV persistence is off")
+                self.kv_persist_dir = None
+        self._kv_persist_interval_s = knob_float("POLYAXON_TPU_KV_PERSIST_INTERVAL_S")
+        self._host_tier = HostKVTier(self.kv_offload_blocks) if self.kv_offload else None
+        #: Parked-sequence spill map: slot -> {table index: tier handle}.
+        self._spilled: Dict[int, Dict[int, int]] = {}
+        self._n_spilled_blocks = 0
+        self._n_restored_blocks = 0
+        self._kv_preloaded_blocks = 0
+        self._kv_persisted_blocks = 0
+        self._last_persist_t = 0.0
+        self._last_persist_mut = -1
+        # On the card: the spill copies' own stream (made at first use), the
+        # restores still in flight with the pinned payloads they read (kept
+        # alive until their copies end), and the copies' bytes and times.
+        self._copy_stream: Optional[torch.cuda.Stream] = None
+        self._restores_in_flight: "deque[tuple]" = deque()
+        self._copy_clock = {kind: {"blocks": 0, "bytes": 0, "copy_s": 0.0, "host_s": 0.0}
+                            for kind in ("spill", "restore")}
+        if self._host_tier is not None and self.prefix_cache is not None:
+            self.prefix_cache.attach_tier(
+                self._host_tier,
+                spill=self._spill_to_tier,
+                restore=self._restore_from_tier,
+                alloc=self._alloc_block,
+            )
+
+        # The event the scheduler's reads of step results poll (``_to_host``).
+        self._read_done = torch.cuda.Event() if self.device.type == "cuda" else None
         self._generator = torch.Generator(device=self.device).manual_seed(int(seed))
 
         # Stats: lifetime counters plus a sliding window for tokens/s; latency
@@ -460,6 +617,12 @@ class ServingEngine:
         self._stats_window_s = knob_float("POLYAXON_TPU_SERVING_STATS_WINDOW_S")
         self._pc_window = RatioWindow(self._stats_window_s * 2.0)
         self._spec_window = RatioWindow(self._stats_window_s * 2.0)
+        # Request tracing: the master switch and the slow-request exemplars.
+        self.trace_requests = knob_bool("POLYAXON_TPU_TRACE_REQUESTS")
+        self._exemplars = _SlowExemplars(
+            knob_int("POLYAXON_TPU_TRACE_EXEMPLARS"),
+            knob_float("POLYAXON_TPU_TRACE_EXEMPLAR_WINDOW_S"),
+        )
         # Device-busy seconds (prefill chunks and steps, host sync included)
         # and their occupancy-weighted sum, since start().
         self._started_at: Optional[float] = None
@@ -562,6 +725,8 @@ class ServingEngine:
         with self._stats_lock:
             self._n_steady_compiles += grew
         self.stats_registry.incr("serving.steady_state_compiles", grew)
+        with get_tracer().span("engine.compile", n=grew, total=n):
+            pass
 
     # -- device calls ----------------------------------------------------------
 
@@ -617,7 +782,24 @@ class ServingEngine:
         n_emit = 1 + torch.cumprod(match.long(), dim=1).sum(dim=1)
         out = torch.where(active[:, None], out, 0)
         n_emit = torch.where(active, n_emit, 0)
-        return torch.cat([out, n_emit[:, None]], dim=1).cpu().numpy()
+        return self._to_host(torch.cat([out, n_emit[:, None]], dim=1))
+
+    @torch.inference_mode()
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """A step's result as a host array.  On the card it is copied into
+        pinned memory, and until the copy lands the scheduler polls an event
+        and yields its core between polls: a synchronous copy spins on the
+        core, and a thread the scheduler has just woken (an ``lm_server``
+        handler or a client waiting on a finished request) can be queued
+        behind that spin."""
+        if self._read_done is None:
+            return t.numpy()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        self._read_done.record()
+        while not self._read_done.query():
+            os.sched_yield()
+        return host.numpy()
 
     @torch.inference_mode()
     def _chunk(self, table: np.ndarray, chunk: np.ndarray, start: int) -> torch.Tensor:
@@ -628,17 +810,153 @@ class ServingEngine:
         tokens[:n] = chunk
         return self._get_chunk(len(tokens))(table=table, tokens=tokens, start=start, length=n)
 
+    # -- the host tier's copies ------------------------------------------------
+
+    @torch.inference_mode()
+    def _export_blocks(self, blocks: List[int]) -> List[Dict[str, torch.Tensor]]:
+        """Device-to-host copies of ``blocks``' payloads (``{leaf: [L, bs,
+        ...]}`` in the pool's storage dtypes).
+
+        On the card the whole batch is dispatched before the one wait: per
+        pool leaf, each block's rows copied into one device staging buffer
+        (plain strided copies, whatever the batch's size) and one
+        non-blocking copy of it into a pinned buffer (allocated first), on
+        the copy stream, which first waits for the work already queued on
+        the scheduler's stream (the steps that wrote the rows).  The host then waits on the copies'
+        event, so the payloads are whole when they enter the tier, and a
+        block freed after this returns cannot be overwritten under its copy;
+        the scheduler's stream also waits on that event.  Block ``i``'s
+        payload is row ``i`` of each pinned buffer."""
+        if self.device.type != "cuda":
+            return [decode.export_block(self._pool, b) for b in blocks]
+        current = torch.cuda.current_stream(self.device)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        stream = self._copy_stream
+        shapes = {name: (len(blocks),) + leaf.shape[:1] + leaf.shape[2:]
+                  for name, leaf in self._pool.items()}
+        staged = {name: torch.empty(shapes[name], dtype=leaf.dtype, pin_memory=True)
+                  for name, leaf in self._pool.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            rows = {name: torch.empty(shapes[name], dtype=leaf.dtype, device=self.device)
+                    for name, leaf in self._pool.items()}
+            start.record(stream)
+            for name, leaf in self._pool.items():
+                for i, b in enumerate(blocks):
+                    rows[name][i].copy_(leaf[:, b])
+                staged[name].copy_(rows[name], non_blocking=True)
+            done.record(stream)
+        current.wait_event(done)
+        done.synchronize()
+        clock = self._copy_clock["spill"]
+        clock["blocks"] += len(blocks)
+        clock["bytes"] += sum(t.nbytes for t in staged.values())
+        clock["copy_s"] += start.elapsed_time(done) / 1e3
+        return [{name: buf[i] for name, buf in staged.items()} for i in range(len(blocks))]
+
+    @torch.inference_mode()
+    def _copy_in(self, blocks: List[int], payloads: List[Dict[str, torch.Tensor]]) -> None:
+        """Write ``payloads[i]`` into pool block ``blocks[i]`` in place (the
+        captured entries hold the pool's addresses).  On the card, on the
+        current stream, the one the graphs replay on, so the next replay is
+        ordered after the writes: per pool leaf, non-blocking copies from
+        pinned memory into one device staging buffer, then a strided copy of
+        each block's rows into the pool.  Payloads not in pinned memory (a store's) are stacked into
+        one pinned buffer a leaf first.  The sources stay referenced until
+        the copies' event has passed."""
+        if self.device.type != "cuda":
+            for block, data in zip(blocks, payloads):
+                decode.import_block(self._pool, data, block)
+            return
+        while self._restores_in_flight and self._restores_in_flight[0][1].query():
+            self._retire_restore(*self._restores_in_flight.popleft())
+        current = torch.cuda.current_stream(self.device)
+        stacked = {}  # leaf -> one pinned buffer of the batch's rows
+        for name in self._pool:
+            leaves = [data[name] for data in payloads]
+            if not all(t.is_pinned() for t in leaves):
+                stacked[name] = torch.stack(leaves).pin_memory()
+        rows = {name: torch.empty((len(blocks),) + leaf.shape[:1] + leaf.shape[2:],
+                                  dtype=leaf.dtype, device=self.device)
+                for name, leaf in self._pool.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        start.record(current)
+        for name, leaf in self._pool.items():
+            if name in stacked:
+                rows[name].copy_(stacked[name], non_blocking=True)
+            else:
+                for i, data in enumerate(payloads):
+                    rows[name][i].copy_(data[name], non_blocking=True)
+            for i, b in enumerate(blocks):
+                leaf[:, b].copy_(rows[name][i])
+        done.record(current)
+        self._restores_in_flight.append((start, done, payloads, stacked))
+
+    def _retire_restore(self, start, done, payloads, stacked) -> None:
+        clock = self._copy_clock["restore"]
+        clock["blocks"] += len(payloads)
+        clock["bytes"] += sum(t.nbytes for data in payloads for t in data.values())
+        clock["copy_s"] += start.elapsed_time(done) / 1e3
+
+    def _copy_figures(self) -> Dict[str, Dict[str, float]]:
+        """The spill and restore copies so far: blocks, bytes, device seconds
+        between each batch's copy events, and the host seconds a park spill
+        and a parked slot's restore held the scheduler (waits for the
+        restores still in flight)."""
+        while self._restores_in_flight:
+            restore = self._restores_in_flight.popleft()
+            restore[1].synchronize()
+            self._retire_restore(*restore)
+        return {kind: dict(v) for kind, v in self._copy_clock.items()}
+
+    def _import_blocks(self, blocks: List[int], payloads: List[Dict[str, torch.Tensor]]) -> None:
+        """Host-to-device copies of payloads into pool blocks."""
+        self._copy_in(blocks, payloads)
+        with self._stats_lock:
+            self._n_restored_blocks += len(blocks)
+
+    def _spill_to_tier(self, block: int) -> Optional[int]:
+        """PrefixCache demotion callback: move one cached block's payload to
+        the host; returns its tier handle (None: the tier refused, and the
+        entry is evicted instead)."""
+        [data] = self._export_blocks([block])
+        handle = self._host_tier.put(data, pinned=False)
+        if handle is not None:
+            with self._stats_lock:
+                self._n_spilled_blocks += 1
+        return handle
+
+    def _restore_from_tier(self, handle: int, block: int) -> None:
+        """PrefixCache restore callback: write a demoted entry's payload back
+        into the freshly allocated block."""
+        self._import_blocks([block], [self._host_tier.pop(handle)])
+
     def _run_warmup(self) -> None:
         """Build and run the whole step family before serving (scheduler
         thread, before its first iteration), with all writes landing in trash
         block 0: the decode step with no active lane, each chunk bucket with
-        ``length=0``, each verify width all-inactive, and the COW copy as a
-        trash self-copy.  A failure is logged and the gate opens regardless:
-        the first request that needs the entry then meets the error."""
+        ``length=0``, each verify width all-inactive, the COW copy as a trash
+        self-copy, and with a tier or a store armed one export and import of
+        block 0.  A persisted prefix store is preloaded first.  A failure is
+        logged and the gate opens regardless: the first request that needs
+        the entry then meets the error."""
+        tracer = get_tracer()
         t0 = time.perf_counter()
+        # Warm boot: fill the prefix cache from the persisted store before
+        # the gate opens.  A missing, torn or mismatched store boots cold.
+        try:
+            self._preload_prefixes()
+        except Exception:
+            logger.exception("prefix store preload failed; booting cold")
+        spillers = self._host_tier is not None or bool(self.kv_persist_dir)
         buckets = self._warmup_buckets() if self._warmup else []
         widths = self._spec_widths() if self._warmup else []
-        self._warmup_total = len(buckets) + len(widths) + 2 if self._warmup else 0
+        self._warmup_total = (len(buckets) + len(widths) + 2 + (1 if spillers else 0)
+                              if self._warmup else 0)
         gauge = self.stats_registry.gauge
 
         def _tick() -> None:
@@ -647,25 +965,36 @@ class ServingEngine:
 
         try:
             if self._warmup:
-                self._decode().cpu()
-                _tick()
-                table0 = np.zeros(self._table_width, np.int64)
-                for c_pad in buckets:
-                    if self._stop.is_set():
-                        break
-                    self._get_chunk(c_pad)(table=table0, tokens=np.zeros(c_pad, np.int64),
-                                           start=0, length=0).cpu()
+                with tracer.span("serving.warmup", buckets=len(buckets)):
+                    self._decode().cpu()
                     _tick()
-                for width in widths:
-                    if self._stop.is_set():
-                        break
-                    self._verify(np.zeros((self.slots, width), np.int64),
-                                 np.ones(self.slots, np.int64))
+                    table0 = np.zeros(self._table_width, np.int64)
+                    for c_pad in buckets:
+                        if self._stop.is_set():
+                            break
+                        self._get_chunk(c_pad)(table=table0, tokens=np.zeros(c_pad, np.int64),
+                                               start=0, length=0).cpu()
+                        _tick()
+                    for width in widths:
+                        if self._stop.is_set():
+                            break
+                        self._verify(np.zeros((self.slots, width), np.int64),
+                                     np.ones(self.slots, np.int64))
+                        _tick()
+                    self._pool = decode.copy_block(self._pool, 0, 0)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
                     _tick()
-                self._pool = decode.copy_block(self._pool, 0, 0)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                _tick()
+                    if spillers:
+                        # A spill and restore round trip through the trash
+                        # block: the copy stream and the pinned buffers are
+                        # made before the first park or demotion.
+                        [data] = self._export_blocks([0])
+                        self._copy_in([0], [data])
+                        self._copy_figures()
+                        for clock in self._copy_clock.values():
+                            clock.update(blocks=0, bytes=0, copy_s=0.0, host_s=0.0)
+                        _tick()
         except Exception:
             logger.exception("serving engine warmup failed")
         finally:
@@ -697,6 +1026,9 @@ class ServingEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        # The final prefix-store snapshot (the scheduler is down, the pool is
+        # this thread's): whatever this replica learned, the next one boots with.
+        self._maybe_persist(force=True)
         with self._cv:
             pending = list(self._queue)
             self._queue.clear()
@@ -711,8 +1043,14 @@ class ServingEngine:
             if not req.done.is_set():
                 req.error = "engine stopped"
                 req.error_kind = "stopped"
+                self._finalize_trace(req, "stopped")
                 req.stream.put(None)
                 req.done.set()
+        # Spilled payloads of the requests just failed: nobody restores them.
+        for handles in self._spilled.values():
+            for handle in handles.values():
+                self._host_tier.discard(handle)
+        self._spilled.clear()
 
     def drain(self) -> None:
         """Stop admitting new requests; in-flight work runs to completion.
@@ -722,8 +1060,14 @@ class ServingEngine:
             self._draining = True
             self._cv.notify_all()
 
-    def submit(self, prompt: List[int], max_new_tokens: int, temperature: float = 0.0) -> GenerationRequest:
-        """Validate and enqueue; returns immediately with the request."""
+    def submit(self, prompt: List[int], max_new_tokens: int, temperature: float = 0.0,
+               trace: Optional[TraceContext] = None) -> GenerationRequest:
+        """Validate and enqueue; returns immediately with the request.
+
+        ``trace`` opts the request into tracing (when ``trace_requests`` is
+        on and the context is sampled): its phases are recorded as spans
+        under the propagated trace id, parented to the caller's span, and the
+        ended request carries its ``trace_summary``."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must be non-empty")
@@ -744,6 +1088,8 @@ class ServingEngine:
                 f"{usable}; raise num_blocks or shorten the request"
             )
         req = GenerationRequest(prompt, max_new_tokens, temperature)
+        if trace is not None and self.trace_requests and trace.sampled:
+            req.trace = _RequestTrace(trace, get_tracer().next_span_id())
         with self._cv:
             if self._stop.is_set():
                 raise RuntimeError("engine is stopped")
@@ -767,6 +1113,7 @@ class ServingEngine:
                         self._n_cancelled += 1
                     req.error = "request cancelled"
                     req.error_kind = "cancelled"
+                    self._finalize_trace(req, "cancelled")
                     req.stream.put(None)
                     req.done.set()
                     return True
@@ -802,6 +1149,7 @@ class ServingEngine:
         alloc = self.block_allocator
         total = alloc.num_blocks - 1
         pc = self.prefix_cache
+        tier = self._host_tier
         with self._stats_lock:
             now = time.time()
             pc_rate_window = 0.0
@@ -823,8 +1171,17 @@ class ServingEngine:
                 "prefix_cache_hits": pc.hits if pc is not None else 0,
                 "prefix_cache_misses": pc.misses if pc is not None else 0,
                 "prefix_cache_evictions": pc.evictions if pc is not None else 0,
+                "prefix_cache_demotions": pc.demotions if pc is not None else 0,
+                "prefix_cache_restores": pc.demote_restores if pc is not None else 0,
                 "parked_sequences": len(self._parked),
                 "requests_shed": self._n_shed,
+                "kv_offload": self.kv_offload,
+                "host_tier_blocks": len(tier) if tier is not None else 0,
+                "host_tier_bytes": tier.nbytes if tier is not None else 0,
+                "host_spilled_blocks_total": self._n_spilled_blocks,
+                "host_restored_blocks_total": self._n_restored_blocks,
+                "kv_preloaded_blocks": self._kv_preloaded_blocks,
+                "kv_persisted_blocks": self._kv_persisted_blocks,
                 "prefill_backlog_chunks": self._backlog_chunks,
                 "prefill_jobs": self._prefill_jobs,
                 "block_parks": self._n_parks,
@@ -895,6 +1252,7 @@ class ServingEngine:
                 "decode_steps": self._n_steps,
                 "tokens_per_s": round(tps, 1),
                 "max_len": self.max_len,
+                "trace_exemplars": self._exemplars.snapshot(),
                 **paging,
                 **spec,
                 **util,
@@ -914,9 +1272,134 @@ class ServingEngine:
                 out[wanted[key]] = {k: round(v, 6) for k, v in summary.items()}
         return out
 
+    # -- persistent prefix store (warm replica boot) ---------------------------
+
+    @staticmethod
+    def _auto_persist_sig(params: Any, qweights: Any, seed: int) -> str:
+        """Weight-identity fingerprint for an unsigned store: the seed, the
+        weight-quantization flag, the trees' structure and the first and last
+        16 elements of every leaf (a few small reads; it changes with the
+        checkpoint, which geometry cannot).  ``""`` when the weights cannot be
+        sampled."""
+        try:
+            h = hashlib.sha256()
+            h.update(f"seed:{int(seed)};wq:{qweights is not None};".encode())
+            for tree in (params, qweights):
+                if tree is None:
+                    continue
+                leaves = _tree_leaves(tree)
+                h.update(repr([path for path, _ in leaves]).encode())
+                for _, leaf in leaves:
+                    flat = leaf.detach().reshape(-1)
+                    sample = torch.cat([flat[:16], flat[-16:]]).cpu().contiguous()
+                    h.update(str(sample.dtype).replace("torch.", "").encode())
+                    h.update(str(tuple(flat.shape)).encode())
+                    h.update(sample.view(torch.uint8).numpy().tobytes())
+            return "auto:" + h.hexdigest()[:16]
+        except Exception:
+            return ""
+
+    def _kv_store_meta(self) -> Dict[str, Any]:
+        """The fingerprint a snapshot must match exactly: the pool's geometry
+        and storage dtype, and the model signature."""
+        c = self.cfg
+        return {
+            "sig": self.kv_persist_sig,
+            "kv_dtype": self.kv_dtype,
+            "block_size": self.block_size,
+            "n_layers": int(c.n_layers),
+            "kv_heads": int(c.kv_heads),
+            "head_dim": int(c.head_dim),
+            "vocab_size": int(c.vocab_size),
+        }
+
+    def persist_prefixes(self) -> int:
+        """Save the hottest prefix-cache blocks (chain-closed, see
+        ``PrefixCache.hottest_chains``) to ``kv_persist_dir``; returns the
+        blocks written.  Demoted entries persist straight from their host
+        payloads.  Runs on whichever thread owns the pool (the scheduler, or
+        any thread after it has stopped)."""
+        pc = self.prefix_cache
+        if not self.kv_persist_dir or pc is None:
+            return 0
+        entries = []
+        for chain, block, handle in pc.hottest_chains(self.kv_persist_blocks):
+            if block >= 0:
+                [data] = self._export_blocks([block])
+            elif handle is not None and self._host_tier is not None:
+                data = self._host_tier.get(handle)
+            else:
+                continue
+            entries.append((chain, data))
+        if not entries:
+            return 0
+        version = kvstore.save_prefix_store(self.kv_persist_dir, entries,
+                                            meta=self._kv_store_meta())
+        if version is None:
+            return 0
+        self._last_persist_t = time.monotonic()
+        self._last_persist_mut = pc.mutations
+        with self._stats_lock:
+            self._kv_persisted_blocks = len(entries)
+        return len(entries)
+
+    def _maybe_persist(self, force: bool = False) -> None:
+        """A throttled snapshot: at most one per
+        ``POLYAXON_TPU_KV_PERSIST_INTERVAL_S``, and only when the cache's
+        entries changed (its mutation count, not its size) since the last.
+        The scheduler calls it when idle: incumbents publish while running,
+        since scale-up replicas boot when nobody is stopping."""
+        pc = self.prefix_cache
+        if not self.kv_persist_dir or pc is None or not len(pc):
+            return
+        if pc.mutations == self._last_persist_mut:
+            return
+        if not force and time.monotonic() - self._last_persist_t < self._kv_persist_interval_s:
+            return
+        try:
+            self.persist_prefixes()
+        except Exception:
+            logger.exception("prefix store snapshot failed")
+
+    def _preload_prefixes(self) -> None:
+        """Warm boot: fill the prefix cache from the newest complete snapshot
+        under ``kv_persist_dir`` (scheduler thread, before the ready gate),
+        at most half the pool: a preload must not starve the first
+        admissions."""
+        pc = self.prefix_cache
+        if not self.kv_persist_dir or pc is None:
+            return
+        loaded = kvstore.load_prefix_store(self.kv_persist_dir, expect=self._kv_store_meta())
+        if not loaded:
+            return
+        budget = max(0, (self.block_allocator.num_blocks - 1) // 2)
+        picked = []
+        for chain, data in loaded[:budget]:
+            block = self.block_allocator.alloc()
+            if block is None:
+                break
+            picked.append((chain, block, data))
+        # All copies are queued before any entry is installed: a copy that
+        # fails leaves no entry that a prompt could match (the blocks go back
+        # to the pool and the warmup boots cold).
+        try:
+            if picked:
+                self._import_blocks([b for _, b, _ in picked], [d for _, _, d in picked])
+        except BaseException:
+            for _, block, _ in picked:
+                self.block_allocator.decref(block)
+            raise
+        n = sum(pc.install(chain, block) for chain, block, _ in picked)
+        with self._stats_lock:
+            self._kv_preloaded_blocks = n
+        # A freshly preloaded cache equals the stored one: do not write it back.
+        self._last_persist_mut = pc.mutations
+        self._last_persist_t = time.monotonic()
+
     # -- scheduler loop --------------------------------------------------------
 
     def _loop(self) -> None:
+        tracer = get_tracer()
         self._run_warmup()
         while not self._stop.is_set():
             self._process_cancels()
@@ -936,7 +1419,10 @@ class ServingEngine:
                 remaining = len(job.req.prompt) - job.next_pos
                 spent += min(remaining, budget) if budget else remaining
                 try:
-                    did = self._prefill_tick()
+                    # One span a chunk, at the hot sample rate.
+                    with tracer.span("serving.prefill", sample=tracer.hot_sample,
+                                     request_id=job.req.id):
+                        did = self._prefill_tick()
                 except Exception as e:
                     logger.exception("prefill failed")
                     if self._prefill and self._prefill[0] is job:
@@ -951,7 +1437,8 @@ class ServingEngine:
                     break
             if self._active.any():
                 try:
-                    self._step_once()
+                    with tracer.span("serving.step", sample=tracer.hot_sample):
+                        self._step_once()
                 except Exception as e:  # fail in-flight, keep serving
                     logger.exception("decode step failed")
                     for slot in np.nonzero(self._active)[0]:
@@ -964,6 +1451,9 @@ class ServingEngine:
                 # requests waiting on blocks are deadlocked; shed one.
                 self._resolve_block_deadlock()
                 continue
+            # Fully idle: a good moment for a (throttled) prefix-store
+            # snapshot, which scale-up replicas preload.
+            self._maybe_persist()
             with self._cv:
                 if not self._queue and not self._stop.is_set():
                     self._cv.wait(timeout=0.2)
@@ -982,6 +1472,9 @@ class ServingEngine:
                 req = self._queue.popleft()
             req.started_at = time.time()
             self.stats_registry.timing("serving.queue_wait_s", req.started_at - req.submitted_at)
+            self._trace_span(req, "serving.queue_wait", req.submitted_at,
+                             req.started_at - req.submitted_at)
+            self._trace_span(req, "serving.admit", req.started_at, 0.0, slot=slot)
             self._slot_req[slot] = req
             # Greedy requests get a drafter, seeded from the whole prompt (the
             # prefix cache may skip recomputing matched tokens, but the
@@ -997,10 +1490,18 @@ class ServingEngine:
                     self._drafters[slot] = drafter
             job = _PrefillJob(req, slot)
             if self.prefix_cache is not None:
-                matched = self.prefix_cache.match(req.prompt)
+                try:  # a demoted prefix restores here
+                    matched = self.prefix_cache.match(req.prompt)
+                except Exception as e:
+                    logger.exception("prefix restore failed")
+                    self._fail_slot(slot, f"KV restore failed: {e!r}")
+                    continue
                 for i, block in enumerate(matched):
                     self._tables[slot, i] = block
                 m = len(matched) * self.block_size
+                if matched:
+                    self._trace_span(req, "serving.prefix_cache.hit", time.time(), 0.0,
+                                     blocks=len(matched), tokens=m)
                 if m and m == len(req.prompt):
                     # Every prompt block hit.  The last token's logits must
                     # still be computed, and its KV row lands in the final
@@ -1056,6 +1557,10 @@ class ServingEngine:
         chunk = np.asarray(req.prompt[job.next_pos : job.next_pos + n], np.int64)
         logits = self._chunk(self._table_array()[slot], chunk, job.next_pos)
         job.next_pos += n
+        if req.trace is not None:
+            t1 = time.perf_counter()
+            self._trace_span(req, "serving.prefill.chunk", time.time() - (t1 - t0), t1 - t0,
+                             tokens=n, pos=job.next_pos)
         if job.next_pos >= t:
             self._prefill.popleft()
             self._finalize_prefill(job, logits)
@@ -1072,7 +1577,12 @@ class ServingEngine:
             full = t // self.block_size
             self.prefix_cache.offer(req.prompt, [int(self._tables[slot, i]) for i in range(full)])
         first = self._pick_first(logits, req.temperature)
-        self.stats_registry.timing("serving.ttft_s", time.time() - req.submitted_at)
+        # Time to first token: prefill made it, the client can read it.
+        ttft = time.time() - req.submitted_at
+        self.stats_registry.timing("serving.ttft_s", ttft)
+        if req.trace is not None:
+            req.trace.ttft_s = ttft
+            self._trace_span(req, "serving.first_token", time.time(), 0.0, ttft_s=round(ttft, 6))
         self._emit(slot, req, first)
         if not req.done.is_set():
             self._tok[slot] = first
@@ -1084,21 +1594,102 @@ class ServingEngine:
         """The first generated token, from the prefill logits [vocab] (a host
         read), picked as every later token is."""
         with torch.inference_mode():
-            return int(self._sample(logits[None], np.array([temperature], np.float32))[0])
+            return int(self._to_host(
+                self._sample(logits[None], np.array([temperature], np.float32)))[0])
 
     def _park(self, slot: int) -> None:
         """Pool exhausted at a block boundary: deactivate the slot with its
-        state and blocks intact until it can resume."""
+        state intact until it can resume.  With the host tier armed, the
+        slot's private blocks (refcount 1; shared prefix blocks cost it
+        nothing) spill to the tier and free: parking releases capacity
+        instead of sitting on it.  A spill that fails fails its request."""
         self._active[slot] = False
         self._parked.append(slot)
+        req = self._slot_req[slot]
+        if req is not None and req.trace is not None:
+            req.trace.parked_at = time.time()
         with self._stats_lock:
             self._n_parks += 1
+        if self._host_tier is not None:
+            t0 = time.perf_counter()
+            try:
+                self._spill_slot(slot)
+            except Exception as e:
+                logger.exception("KV spill failed")
+                self._fail_slot(slot, f"KV spill failed: {e!r}")
+            self._copy_clock["spill"]["host_s"] += time.perf_counter() - t0
+
+    def _spill_slot(self, slot: int) -> None:
+        """Move a parked slot's private blocks to the host tier (pinned)."""
+        alloc = self.block_allocator
+        spill_bi = [bi for bi in range(self._table_width)
+                    if self._tables[slot, bi] >= 0 and alloc.refcount(int(self._tables[slot, bi])) == 1]
+        if not spill_bi:
+            return
+        payloads = self._export_blocks([int(self._tables[slot, bi]) for bi in spill_bi])
+        handles = self._spilled.setdefault(slot, {})
+        for bi, data in zip(spill_bi, payloads):
+            handles[bi] = self._host_tier.put(data, pinned=True)
+            alloc.decref(int(self._tables[slot, bi]))
+            self._tables[slot, bi] = -1
+        req = self._slot_req[slot]
+        if req is not None:
+            self._trace_span(req, "serving.spill", time.time(), 0.0, blocks=len(spill_bi))
+        with self._stats_lock:
+            self._n_spilled_blocks += len(spill_bi)
+
+    def _restore_slot(self, slot: int) -> tuple:
+        """Bring a parked slot's spilled blocks back into fresh blocks, all or
+        nothing: restoring starts only once the pool (after demoting or
+        evicting cold prefixes) covers the slot's whole remaining need, the
+        faulted position block included.  A partial restore would hold
+        blocks while still parked, and that hold-and-wait livelocks against
+        a prefill holding the rest.  Returns ``(moved, complete)``."""
+        handles = self._spilled.get(slot)
+        if not handles:
+            return False, True
+        need = len(handles)
+        bi_pos = int(self._pos[slot]) // self.block_size
+        if self._tables[slot, bi_pos] < 0 and bi_pos not in handles:
+            need += 1  # the faulted position block resumes alongside
+        alloc = self.block_allocator
+        if alloc.n_free < need and self.prefix_cache is not None:
+            self.prefix_cache.evict(need - alloc.n_free)
+        if alloc.n_free < need:
+            return False, False
+        order = sorted(handles)
+        n_restore = len(order)
+        t0 = time.perf_counter()
+        fresh = []
+        for bi in order:
+            fresh.append(self._alloc_block())
+            self._tables[slot, bi] = fresh[-1]  # held by the slot, even if the copy fails
+        self._import_blocks(fresh, [self._host_tier.pop(handles.pop(bi)) for bi in order])
+        self._spilled.pop(slot, None)
+        dt = time.perf_counter() - t0
+        self._copy_clock["restore"]["host_s"] += dt
+        req = self._slot_req[slot]
+        if req is not None:
+            self._trace_span(req, "serving.restore", time.time() - dt, dt, blocks=n_restore)
+        return True, True
 
     def _resume_parked(self) -> bool:
         """Give parked slots another shot at their faulted block, oldest
-        first."""
+        first; spilled blocks restore before the fault retries.  A restore
+        that fails fails its request."""
         progressed = False
         for slot in list(self._parked):
+            try:
+                moved, complete = self._restore_slot(slot)
+            except Exception as e:
+                logger.exception("KV restore failed")
+                self._fail_slot(slot, f"KV restore failed: {e!r}")
+                progressed = True
+                continue
+            if moved:
+                progressed = True
+            if not complete:
+                continue
             bi = int(self._pos[slot]) // self.block_size
             if self._tables[slot, bi] < 0:
                 fresh = self._alloc_block()
@@ -1111,9 +1702,23 @@ class ServingEngine:
         return progressed
 
     def _unpark(self, slot: int) -> None:
-        """The one place a slot leaves the parked list (resume, retire, fail)."""
+        """The one place a slot leaves the parked list (resume, retire,
+        fail), so the parked list and the spill map cannot drift apart: a
+        payload still spilled is discarded (resume has drained its map
+        already; retire and fail abandon theirs)."""
         if slot in self._parked:
             self._parked.remove(slot)
+            req = self._slot_req[slot]
+            rt = req.trace if req is not None else None
+            if rt is not None and rt.parked_at is not None:
+                parked_s = time.time() - rt.parked_at
+                rt.park_s += parked_s
+                rt.parked_at = None
+                self._trace_span(req, "serving.park", time.time() - parked_s, parked_s)
+        handles = self._spilled.pop(slot, None)
+        if handles and self._host_tier is not None:
+            for handle in handles.values():
+                self._host_tier.discard(handle)
 
     def _resolve_block_deadlock(self) -> None:
         """Nobody active, nobody progressing, eviction exhausted: shed the
@@ -1162,13 +1767,16 @@ class ServingEngine:
         if not self._active.any():
             return
         drafts = self._collect_drafts() if self.spec_decode else {}
+        participants = [self._slot_req[int(s)] for s in np.nonzero(self._active)[0]
+                        if self._slot_req[int(s)] is not None
+                        and self._slot_req[int(s)].trace is not None]
         t0 = time.perf_counter()
         n_live = int(self._active.sum())
         emitted = 0
         if drafts:
             emitted = self._verify_once(drafts)
         else:
-            toks = self._decode().cpu().numpy()  # the loop's one device read
+            toks = self._to_host(self._decode())  # the loop's one device read
             for slot in np.nonzero(self._active)[0]:
                 slot = int(slot)
                 tok = int(toks[slot])
@@ -1184,6 +1792,11 @@ class ServingEngine:
         step_dt = time.perf_counter() - t0
         self.stats_registry.timing("serving.decode_step_s", step_dt)
         self.stats_registry.observe("serving.batch_occupancy", float(n_live))
+        # Per-request step spans ride at the hot sample rate: the waterfall's
+        # decode phase is an interval and never depends on them.
+        for req in participants:
+            self._trace_hot(req, "serving.decode.step", time.time() - step_dt, step_dt,
+                            batch=n_live)
         self._account(step_dt, n_live / self.slots)
         self._record_gauges()
         if self._ready.is_set():
@@ -1218,6 +1831,7 @@ class ServingEngine:
                     self._tables[slot, bi] = fresh
             if prop:
                 drafts[slot] = prop
+                self._trace_hot(req, "serving.spec.draft", time.time(), 0.0, proposed=len(prop))
         return drafts
 
     def _verify_once(self, drafts: Dict[int, List[int]]) -> int:
@@ -1241,6 +1855,8 @@ class ServingEngine:
                 n_proposed += len(prop)
                 n_accepted += e - 1
                 self.stats_registry.observe("serving.spec_accept_len", float(e - 1))
+                self._trace_hot(req, "serving.spec.verify", time.time(), 0.0,
+                                proposed=len(prop), accepted=e - 1)
             self._pos[slot] += e
             self._tok[slot] = int(out[slot, e - 1])
             # Rollback: blocks wholly past the next write position go back.
@@ -1284,10 +1900,84 @@ class ServingEngine:
         gauge("serving.parked_sequences", float(len(self._parked)))
         if pc is not None:
             gauge("serving.prefix_cache_evictions", float(pc.evictions))
+            gauge("serving.prefix_cache_demotions", float(pc.demotions))
+            gauge("serving.prefix_cache_restores", float(pc.demote_restores))
+        if self._host_tier is not None:
+            gauge("serving.host_tier_blocks", float(len(self._host_tier)))
+            gauge("serving.host_tier_bytes", float(self._host_tier.nbytes))
         if self.spec_decode:
             with self._stats_lock:
                 proposed, accepted = self._spec_proposed, self._spec_accepted
             gauge("serving.spec_accept_rate", round(accepted / proposed, 6) if proposed else 0.0)
+
+    # -- request tracing -------------------------------------------------------
+
+    def _trace_span(self, req: GenerationRequest, name: str, start: float, duration: float,
+                    **attrs: Any) -> None:
+        """Record one phase span under the request's trace (no-op for an
+        untraced request)."""
+        rt = req.trace
+        if rt is None:
+            return
+        get_tracer().record_span(name, start=start, duration=duration,
+                                 trace_id=rt.ctx.trace_id, parent_id=rt.root_id,
+                                 request_id=req.id, **attrs)
+
+    def _trace_hot(self, req: GenerationRequest, name: str, start: float, duration: float,
+                   **attrs: Any) -> None:
+        """A hot-path phase span (a decode step, a draft, a verify), kept at
+        the tracer's hot sample rate."""
+        if req.trace is None:
+            return
+        rate = get_tracer().hot_sample
+        if rate < 1.0 and (rate <= 0.0 or random.random() >= rate):
+            return
+        self._trace_span(req, name, start, duration, **attrs)
+
+    def _finalize_trace(self, req: GenerationRequest, outcome: str) -> None:
+        """Close the request's trace: its root span, its latency waterfall,
+        and an offer to the slow-request exemplars.  Runs on every terminal
+        path (finished, shed, cancelled, stopped, failed), so a traced
+        request never leaves a span open."""
+        rt = req.trace
+        if rt is None or req.trace_summary is not None:
+            return
+        now = req.finished_at if req.finished_at is not None else time.time()
+        req.finished_at = now
+        if rt.parked_at is not None:  # ended while parked
+            rt.park_s += now - rt.parked_at
+            rt.parked_at = None
+        total = max(0.0, now - req.submitted_at)
+        started, first = req.started_at, req.first_token_at
+        waterfall: Dict[str, float] = {
+            "queue_wait_s": max(0.0, (started if started is not None else now) - req.submitted_at),
+        }
+        if started is not None:
+            waterfall["prefill_s"] = max(0.0, (first if first is not None else now) - started)
+        if first is not None:
+            waterfall["decode_s"] = max(0.0, now - first - rt.park_s)
+        if rt.park_s > 0:
+            waterfall["parked_s"] = rt.park_s
+        # The root span: every phase span parents to it, and it parents to
+        # the caller's span (a router attempt or the lm_server handler).
+        get_tracer().record_span(
+            "serving.request", start=req.submitted_at, duration=total,
+            trace_id=rt.ctx.trace_id, span_id=rt.root_id, parent_id=rt.ctx.span_id or None,
+            request_id=req.id, outcome=outcome, tokens=len(req.tokens),
+        )
+        self._trace_span(req, "serving.finish", now, 0.0, outcome=outcome)
+        req.trace_summary = {
+            "trace_id": rt.ctx.trace_id,
+            "span_id": rt.root_id,
+            "request_id": req.id,
+            "outcome": outcome,
+            "total_s": round(total, 6),
+            "ttft_s": round(rt.ttft_s, 6) if rt.ttft_s is not None else None,
+            "tokens": len(req.tokens),
+            "finished_at": now,
+            "waterfall": {k: round(v, 6) for k, v in waterfall.items()},
+        }
+        self._exemplars.offer(req.trace_summary)
 
     def _emit(self, slot: int, req: GenerationRequest, tok: int) -> None:
         """Record one generated token; retire the slot when done."""
@@ -1324,6 +2014,7 @@ class ServingEngine:
     def _retire(self, slot: int, req: GenerationRequest) -> None:
         req.finished_at = time.time()
         self._free_slot(slot)
+        self._finalize_trace(req, "completed")
         req.stream.put(None)
         req.done.set()
         with self._stats_lock:
@@ -1342,5 +2033,6 @@ class ServingEngine:
             req.error = msg
             req.error_kind = kind
             req.finished_at = time.time()
+            self._finalize_trace(req, kind or "error")
             req.stream.put(None)
             req.done.set()

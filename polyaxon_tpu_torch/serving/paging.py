@@ -1,8 +1,7 @@
 """Host-side bookkeeping for the paged KV cache.
 
-The port's own copy of the parts of ``polyaxon_tpu/serving/paging.py`` the
-engine uses; pure Python, no tensors (the device side lives in
-``models/decode.py``):
+The port's own copy of ``polyaxon_tpu/serving/paging.py``; pure Python, no
+device work (the device side lives in ``models/decode.py`` and the engine):
 
 :class:`BlockAllocator` — a ref-counted free list over a fixed pool of KV
 blocks.  Every in-flight sequence holds one reference per block in its
@@ -15,18 +14,24 @@ chains to physical blocks.  Keys are chained per block, so a lookup walks
 the prompt one block at a time and stops at the first miss; the stored
 token tuple is compared on every hit, so a hash collision degrades to a
 miss.  Eviction only takes entries whose block has no holder but the cache.
+With a host tier attached, eviction demotes instead, and the entry stays
+matchable.  Entries remember their full token chain, which is what the
+persistent prefix store (``serving/kvstore.py``) saves.
+
+:class:`HostKVTier` — the host-memory tier under the device pool: block
+payloads (dicts of CPU tensors, one per pool leaf, in the pool's storage
+dtypes; pinned memory when the pool is on the card) for two populations, a
+parked sequence's spilled private blocks (pinned entries: correctness
+state) and demoted prefix-cache blocks (a bounded LRU: pure cache).  The
+copies themselves live in the engine.
 
 :func:`truncate_table` — the speculative-decoding rollback of a block table.
-
-Not ported yet (ROADMAP Queue 1 item 4): the host KV tier (``HostKVTier``,
-the cache's demotion hooks) and the persistent prefix store's
-``install``/``hottest_chains``.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict, deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 #: Chain seed: any fixed value distinct from real chain keys' structure.
 _CHAIN_SEED = "kv-prefix"
@@ -119,15 +124,128 @@ def truncate_table(
     return freed
 
 
+#: Entry-block sentinel for a prefix-cache entry whose payload lives in
+#: the host tier (no device block); ``PrefixCache._demoted`` maps the
+#: entry's key to its tier handle.
+DEMOTED = -1
+
+
+class HostKVTier:
+    """Host-memory KV block store — the offload tier under the device pool.
+
+    Entries are opaque payloads (dicts of CPU tensors, one per pool leaf,
+    in the pool's storage dtypes, so an int8 pool spills int8 rows + scales
+    bit-exact and a bf16 pool bf16 rows) keyed by a monotonically
+    increasing handle.  Two populations share the tier:
+
+    - **pinned** — a parked sequence's spilled private blocks.  This is
+      correctness state (the KV exists nowhere else), so pinned entries
+      are never dropped and don't count against ``capacity_blocks``.
+    - **unpinned** — demoted prefix-cache blocks.  Pure cache: bounded
+      by ``capacity_blocks`` (0 = unbounded) with LRU drop; each drop
+      invokes ``on_drop(handle)`` so the owning cache forgets the entry.
+    """
+
+    def __init__(self, capacity_blocks: int = 0) -> None:
+        if capacity_blocks < 0:
+            raise ValueError(
+                f"capacity_blocks must be >= 0, got {capacity_blocks}"
+            )
+        self.capacity_blocks = int(capacity_blocks)
+        self._data: "OrderedDict[int, Dict[str, Any]]" = OrderedDict()
+        self._pinned: set = set()
+        self._next_handle = 1
+        self.on_drop: Optional[Callable[[int], None]] = None
+        self.spilled_total = 0
+        self.restored_total = 0
+        self.dropped_total = 0
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def __contains__(self, handle: int) -> bool:
+        return handle in self._data
+
+    @property
+    def n_pinned(self) -> int:
+        return len(self._pinned)
+
+    @property
+    def n_unpinned(self) -> int:
+        return len(self._data) - len(self._pinned)
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes currently held (all payload leaves' tensor bytes)."""
+        return sum(
+            t.numel() * t.element_size()
+            for tree in list(self._data.values())  # one step: stats threads read it
+            for t in tree.values()
+        )
+
+    def put(self, data: Dict[str, Any], pinned: bool = False) -> Optional[int]:
+        """Admit one payload; returns its handle, or ``None`` when the
+        unpinned budget is exhausted and nothing can be dropped (pinned
+        admissions never fail — losing parked state would lose KV)."""
+        if not pinned and self.capacity_blocks:
+            while self.n_unpinned >= self.capacity_blocks:
+                victim = next(
+                    (h for h in self._data if h not in self._pinned), None
+                )
+                if victim is None:
+                    return None
+                self._drop(victim)
+        handle = self._next_handle
+        self._next_handle += 1
+        self._data[handle] = data
+        if pinned:
+            self._pinned.add(handle)
+        self.spilled_total += 1
+        return handle
+
+    def get(self, handle: int) -> Dict[str, Any]:
+        """Read a payload without removing it (refreshes LRU position)."""
+        data = self._data[handle]
+        self._data.move_to_end(handle)
+        return data
+
+    def pop(self, handle: int) -> Dict[str, Any]:
+        """Remove and return a payload (the restore path)."""
+        self._pinned.discard(handle)
+        self.restored_total += 1
+        return self._data.pop(handle)
+
+    def discard(self, handle: int) -> None:
+        """Drop a payload without restoring it (retire/fail paths);
+        unknown handles are ignored."""
+        self._pinned.discard(handle)
+        self._data.pop(handle, None)
+
+    def _drop(self, handle: int) -> None:
+        self._data.pop(handle)
+        self.dropped_total += 1
+        if self.on_drop is not None:
+            self.on_drop(handle)
+
+
 class PrefixCache:
     """Block-granular shared-prefix cache over a :class:`BlockAllocator`.
 
     ``match()`` walks a prompt's full blocks against the chain map and
     returns the longest run of cached blocks, taking one reference per
-    returned block on the caller's behalf.  ``offer()`` publishes a finished
-    prompt's blocks (taking the cache's own reference on each newly
-    published block).  ``evict()`` reclaims LRU entries whose block nobody
-    else holds.
+    returned block on the caller's behalf.  ``offer()`` publishes a
+    finished prompt's blocks (taking the cache's own reference on each
+    newly published block).  ``evict()`` reclaims LRU entries whose
+    block nobody else holds.
+
+    With a host tier attached (:meth:`attach_tier`), eviction DEMOTES
+    instead: the cold entry's payload moves to host memory, its device
+    block frees, and the entry stays matchable — a later hit restores it
+    through a fresh device block (verify-on-hit unchanged, since the
+    stored token tuple never leaves the entry).  Entries also remember
+    their FULL prefix token chain, which is what makes them persistable:
+    chain keys are built with Python's process-randomized string hash,
+    so a store must carry tokens, not keys, and rebuild keys on load.
     """
 
     def __init__(self, allocator: BlockAllocator, block_size: int) -> None:
@@ -135,12 +253,29 @@ class PrefixCache:
             raise ValueError(f"block_size must be positive, got {block_size}")
         self._alloc = allocator
         self.block_size = int(block_size)
-        # chain key -> (physical block, the block's token tuple)
-        self._entries: "OrderedDict[int, Tuple[int, Tuple[int, ...]]]" = OrderedDict()
+        # chain key -> (physical block | DEMOTED, the block's token tuple)
+        self._entries: "OrderedDict[int, Tuple[int, Tuple[int, ...]]]" = (
+            OrderedDict()
+        )
+        # chain key -> the FULL prefix token chain ending at this block
+        # (ancestors included) — the persistable identity of an entry.
+        self._chains: Dict[int, Tuple[int, ...]] = {}
+        # Demoted entries: chain key <-> host tier handle.
+        self._demoted: Dict[int, int] = {}
+        self._handle_key: Dict[int, int] = {}
+        self._tier: Optional[HostKVTier] = None
+        self._spill: Optional[Callable[[int], Optional[int]]] = None
+        self._restore: Optional[Callable[[int, int], None]] = None
+        self._alloc_fn: Optional[Callable[[], Optional[int]]] = None
         self.hits = 0
         self.lookups = 0
         self.evictions = 0
-        #: Content-change counter: bumped whenever the entry set changes.
+        self.demotions = 0
+        self.demote_restores = 0
+        #: Monotonic content-change counter: bumped whenever the entry
+        #: SET changes (offer/install adds, evict/demote/restore/drop
+        #: removals or tier moves).  len() can't detect churn at
+        #: constant size, so persistence freshness keys off this.
         self.mutations = 0
 
     def __len__(self) -> int:
@@ -155,8 +290,48 @@ class PrefixCache:
     def misses(self) -> int:
         return self.lookups - self.hits
 
+    @property
+    def n_demoted(self) -> int:
+        """Entries currently resident in the host tier (no device block)."""
+        return len(self._demoted)
+
+    def attach_tier(
+        self,
+        tier: HostKVTier,
+        spill: Callable[[int], Optional[int]],
+        restore: Callable[[int, int], None],
+        alloc: Callable[[], Optional[int]],
+    ) -> None:
+        """Arm demotion over ``tier``.  ``spill(block)`` copies a device
+        block's payload into the tier (returns its handle, or ``None``
+        when the tier refuses — then the entry hard-evicts as before);
+        ``restore(handle, block)`` writes a payload back into a fresh
+        device block and removes it from the tier; ``alloc()`` provides
+        that fresh block (the engine passes its evict-then-retry
+        allocator, so restoring a hot prefix may demote a colder one).
+        The tier's ``on_drop`` is wired back here so a capacity drop
+        forgets the corresponding entry."""
+        self._tier = tier
+        self._spill = spill
+        self._restore = restore
+        self._alloc_fn = alloc
+        tier.on_drop = self._forget_handle
+
+    def _forget_handle(self, handle: int) -> None:
+        """Host-tier capacity drop: the demoted entry's payload is gone,
+        so the entry itself must go too (a match against it would
+        otherwise restore garbage)."""
+        key = self._handle_key.pop(handle, None)
+        if key is None:
+            return
+        self._demoted.pop(key, None)
+        self._entries.pop(key, None)
+        self._chains.pop(key, None)
+        self.evictions += 1
+        self.mutations += 1
+
     def _keys_for(self, prompt: Sequence[int]) -> List[Tuple[int, Tuple[int, ...]]]:
-        """Chained (key, tokens) per full block of the prompt."""
+        """Chained (key, tokens) per FULL block of the prompt."""
         out = []
         key: object = _CHAIN_SEED
         for i in range(len(prompt) // self.block_size):
@@ -166,8 +341,12 @@ class PrefixCache:
         return out
 
     def match(self, prompt: Sequence[int]) -> List[int]:
-        """Longest cached block-prefix of ``prompt``; increfs each returned
-        block (the caller owns those references)."""
+        """Longest cached block-prefix of ``prompt``; increfs each
+        returned block (the caller owns those references).  A demoted
+        entry on the walk restores through a fresh device block first
+        (host→device copy); if the pool can't provide one even after
+        demoting colder entries, the walk stops there — a miss, never an
+        error."""
         blocks: List[int] = []
         for key, toks in self._keys_for(prompt):
             self.lookups += 1
@@ -175,34 +354,154 @@ class PrefixCache:
             if entry is None or entry[1] != toks:
                 break
             block = entry[0]
+            if block < 0:
+                block = self._restore_entry(key, toks)
+                if block is None:
+                    break
             self.hits += 1
             self._entries.move_to_end(key)
             self._alloc.incref(block)
             blocks.append(block)
         return blocks
 
+    def _restore_entry(self, key: int, toks: Tuple[int, ...]) -> Optional[int]:
+        """Bring one demoted entry back on-device; returns its fresh
+        block or ``None`` (allocation failed — entry stays demoted)."""
+        handle = self._demoted.get(key)
+        if handle is None or self._restore is None:
+            return None
+        # MRU first on BOTH levels: the allocation below may demote LRU
+        # entries to make room (cache side), and each demotion's
+        # tier.put may LRU-drop tier payloads (tier side) — neither
+        # cascade may land on the entry being restored.
+        self._entries.move_to_end(key)
+        if self._tier is not None and handle in self._tier:
+            self._tier.get(handle)
+        alloc = self._alloc_fn or self._alloc.alloc
+        block = alloc()
+        if block is None:
+            return None
+        # A tier smaller than the eviction cascade can still have
+        # dropped this handle during alloc (on_drop already forgot the
+        # entry): the payload is gone, so treat it as a miss.
+        if self._demoted.get(key) != handle or (
+            self._tier is not None and handle not in self._tier
+        ):
+            self._alloc.decref(block)
+            return None
+        self._restore(handle, block)
+        del self._demoted[key]
+        self._handle_key.pop(handle, None)
+        self._entries[key] = (block, toks)
+        self.demote_restores += 1
+        self.mutations += 1
+        return block
+
     def offer(self, prompt: Sequence[int], blocks: Sequence[int]) -> None:
         """Publish a prompt's full blocks.  ``blocks[i]`` must hold block
         ``i``'s KV; already published prefixes keep their existing block
-        (first writer wins; later identical blocks stay private)."""
+        (first writer wins — later identical blocks stay private)."""
+        chain: List[int] = []
         for (key, toks), block in zip(self._keys_for(prompt), blocks):
-            if key not in self._entries:
+            chain.extend(toks)
+            entry = self._entries.get(key)
+            if entry is None:
                 self._alloc.incref(block)
                 self._entries[key] = (block, toks)
+                self._chains[key] = tuple(chain)
                 self.mutations += 1
             self._entries.move_to_end(key)
 
-    def evict(self, need: int = 1) -> int:
-        """Reclaim up to ``need`` blocks from LRU entries whose block only the
-        cache still references; returns how many blocks were freed."""
+    def install(self, chain_tokens: Sequence[int], block: int) -> bool:
+        """Register a persisted prefix block (warm boot): ``chain_tokens``
+        is the FULL token prefix ending at this block, and the caller —
+        who has already written the block's KV — transfers its fresh
+        refcount-1 allocation to the cache.  First writer wins like
+        ``offer``: a pre-existing entry keeps its block and the caller's
+        is freed.  Returns True when the entry was installed."""
+        keys = self._keys_for(chain_tokens)
+        if not keys:
+            self._alloc.decref(block)
+            return False
+        key, toks = keys[-1]
+        if key in self._entries:
+            self._alloc.decref(block)
+            return False
+        self._entries[key] = (block, toks)
+        self._chains[key] = tuple(int(t) for t in chain_tokens)
+        self._entries.move_to_end(key)
+        self.mutations += 1
+        return True
+
+    def hottest_chains(
+        self, limit: int
+    ) -> List[Tuple[Tuple[int, ...], int, Optional[int]]]:
+        """Up to ``limit`` entries worth persisting, hottest-first WITH
+        chain closure: an entry only helps a future ``match`` walk if its
+        ancestors are stored too, so each hot entry pulls in its whole
+        chain root-first.  (Taking the raw MRU tail would do the
+        opposite — ``match`` moves ancestors to the end *before* their
+        descendants, so a tail cut keeps children and orphans parents.)
+        Returns ``(full_chain_tokens, block_or_DEMOTED, handle_or_None)``
+        tuples, ancestors before descendants."""
+        out: List[Tuple[Tuple[int, ...], int, Optional[int]]] = []
+        seen: set = set()
+        for key in reversed(self._entries):
+            if len(out) >= limit:
+                break
+            chain = self._chains.get(key)
+            if chain is None:
+                continue
+            for k2, _ in self._keys_for(chain):
+                if k2 in seen or len(out) >= limit:
+                    continue
+                entry = self._entries.get(k2)
+                chain2 = self._chains.get(k2)
+                if entry is None or chain2 is None:
+                    continue
+                seen.add(k2)
+                out.append((chain2, entry[0], self._demoted.get(k2)))
+        return out
+
+    def evict(self, need: int = 1, demote: Optional[bool] = None) -> int:
+        """Reclaim up to ``need`` device blocks from LRU entries whose
+        block only the cache still references; returns how many device
+        blocks freed.  With a host tier attached (and ``demote`` not
+        forced off) the entry's payload moves to the tier instead of
+        vanishing — the device block frees either way, but a demoted
+        entry stays matchable.  A tier refusal (unpinned capacity
+        exhausted) falls back to the hard evict."""
+        if demote is None:
+            demote = self._tier is not None
         freed = 0
         for key in list(self._entries):
             if freed >= need:
                 break
-            block, _ = self._entries[key]
+            # The demote branch's spill can re-enter _forget_handle (a
+            # tier capacity drop fires on_drop) and delete OTHER demoted
+            # entries mid-iteration, so keys from the snapshot above may
+            # be gone by the time the walk reaches them.
+            entry = self._entries.get(key)
+            if entry is None:
+                continue
+            block, toks = entry
+            if block < 0:
+                continue  # already demoted: holds no device block
             if self._alloc.refcount(block) != 1:
                 continue
-            del self._entries[key]
+            if demote and self._spill is not None:
+                handle = self._spill(block)
+                if handle is not None:
+                    self._demoted[key] = handle
+                    self._handle_key[handle] = key
+                    self._entries[key] = (DEMOTED, toks)
+                    self._alloc.decref(block)
+                    self.demotions += 1
+                    self.mutations += 1
+                    freed += 1
+                    continue
+            self._entries.pop(key, None)
+            self._chains.pop(key, None)
             self._alloc.decref(block)
             self.evictions += 1
             self.mutations += 1
@@ -210,5 +509,16 @@ class PrefixCache:
         return freed
 
     def drop_all(self) -> int:
-        """Evict everything evictable (shutdown, tests)."""
-        return self.evict(need=len(self._entries))
+        """Evict everything evictable (shutdown / tests) — hard evicts,
+        never demotes, and forgets demoted entries' host payloads too."""
+        freed = self.evict(need=len(self._entries), demote=False)
+        for key in [k for k, e in self._entries.items() if e[0] < 0]:
+            handle = self._demoted.pop(key)
+            self._handle_key.pop(handle, None)
+            if self._tier is not None:
+                self._tier.discard(handle)
+            del self._entries[key]
+            self._chains.pop(key, None)
+            self.evictions += 1
+            self.mutations += 1
+        return freed

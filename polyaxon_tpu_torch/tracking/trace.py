@@ -1,0 +1,475 @@
+"""Structured span tracing and request-scoped trace propagation.
+
+The port's own copy of ``polyaxon_tpu/tracking/trace.py`` (framework-free
+there too): a process-wide :class:`Tracer` whose ``span(name, **attrs)``
+context managers record a wall-clock start (``time.time()``, so spans of
+different processes line up on one timeline) and a ``perf_counter``
+duration, with trace/span/parent ids kept per thread for nesting.  Finished
+spans land in a bounded ring buffer (and go to a ``sink`` when one is
+configured).  Sampling is decided before any id or timestamp is taken: a
+sampled-out ``span()`` returns a shared no-op context manager, so hot-path
+call sites gated on ``tracer.hot_sample`` cost about a ``perf_counter``.
+
+Request tracing rides on the same records: a W3C-traceparent-shaped
+:class:`TraceContext` (``inject`` / ``extract``) carries one trace id across
+the serving hops (router, ``lm_server``, engine), and spans recorded with
+explicit ``trace_id`` / ``parent_id`` (or after the fact through
+:meth:`Tracer.record_span`) stitch the per-process records into one
+timeline.  :func:`chrome_trace` renders spans as Chrome-trace / Perfetto
+JSON with rows keyed by *(process label, pid)*.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import random
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
+
+from polyaxon_tpu_torch.conf.knobs import knob_float
+
+__all__ = [
+    "Tracer",
+    "get_tracer",
+    "configure",
+    "chrome_trace",
+    "TraceContext",
+    "TRACEPARENT_HEADER",
+    "new_trace_id",
+    "inject",
+    "extract",
+]
+
+_UNSET = object()
+
+#: The propagation header, lowercase per W3C Trace Context.
+TRACEPARENT_HEADER = "traceparent"
+
+
+def new_trace_id() -> str:
+    """A fresh 32-hex-char trace id (W3C trace-id width)."""
+    return os.urandom(16).hex()
+
+
+class TraceContext:
+    """Propagated trace state: one trace id + the remote parent span.
+
+    ``span_id`` is the *caller's* span — the hop that injected the
+    header — so spans the receiving process creates parent to it and
+    the merged timeline nests correctly across hosts.
+    """
+
+    __slots__ = ("trace_id", "span_id", "sampled")
+
+    def __init__(
+        self, trace_id: str, span_id: str = "", sampled: bool = True
+    ) -> None:
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.sampled = sampled
+
+    def header(self) -> str:
+        """Serialize as a ``version-traceid-spanid-flags`` header value.
+
+        The span-id field is 16 hex chars per the W3C layout; internal
+        span ids (``<label>.<n>``) don't fit that alphabet, so they are
+        carried verbatim — both ends of every hop are this module.
+        """
+        return "00-%s-%s-%s" % (
+            self.trace_id,
+            self.span_id or "0" * 16,
+            "01" if self.sampled else "00",
+        )
+
+    def child(self, span_id: str) -> "TraceContext":
+        """The context to inject on an outbound hop parented to
+        ``span_id`` (a span of the current process)."""
+        return TraceContext(self.trace_id, span_id, self.sampled)
+
+
+def inject(ctx: Optional[TraceContext], headers: Dict[str, str]) -> Dict[str, str]:
+    """Write ``ctx`` into an outbound header dict (no-op when None)."""
+    if ctx is not None:
+        headers[TRACEPARENT_HEADER] = ctx.header()
+    return headers
+
+
+def extract(headers: Optional[Mapping[str, Any]]) -> Optional[TraceContext]:
+    """Parse a traceparent header from ``headers`` (case-insensitive).
+
+    Malformed or missing headers return None — the caller degrades to a
+    fresh trace; propagation must never turn into a 500.
+    """
+    if headers is None:
+        return None
+    try:
+        raw = headers.get(TRACEPARENT_HEADER) or headers.get(
+            TRACEPARENT_HEADER.title()
+        )
+    except Exception:
+        return None
+    if not raw or not isinstance(raw, str):
+        return None
+    parts = raw.strip().split("-")
+    if len(parts) != 4:
+        return None
+    version, trace_id, span_id, flags = parts
+    if len(version) != 2 or not trace_id or trace_id.strip("0") == "":
+        return None
+    if len(trace_id) != 32:
+        return None
+    try:
+        int(trace_id, 16)
+        int(flags, 16)
+    except ValueError:
+        return None
+    sampled = False
+    try:
+        sampled = bool(int(flags, 16) & 1)
+    except ValueError:
+        pass
+    if span_id.strip("0") == "":
+        span_id = ""
+    return TraceContext(trace_id, span_id, sampled)
+
+
+class _NoopSpan:
+    """Shared zero-state stand-in yielded when a span is sampled out."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        return False
+
+    def set(self, **attrs: Any) -> None:
+        pass
+
+
+_NOOP = _NoopSpan()
+
+
+class _Span:
+    """A live (sampled-in) span; created by :meth:`Tracer.span`."""
+
+    __slots__ = (
+        "_tracer",
+        "name",
+        "attrs",
+        "span_id",
+        "parent_id",
+        "_trace_id",
+        "_explicit_parent",
+        "_t0",
+        "_p0",
+    )
+
+    def __init__(
+        self,
+        tracer: "Tracer",
+        name: str,
+        attrs: Dict[str, Any],
+        trace_id: Optional[str] = None,
+        parent_id: Optional[str] = None,
+    ) -> None:
+        self._tracer = tracer
+        self.name = name
+        self.attrs = attrs
+        self.span_id = ""
+        self.parent_id: Optional[str] = parent_id
+        self._trace_id = trace_id
+        self._explicit_parent = parent_id is not None
+        self._t0 = 0.0
+        self._p0 = 0.0
+
+    def set(self, **attrs: Any) -> None:
+        """Attach attributes discovered while the span body runs."""
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> "_Span":
+        tracer = self._tracer
+        stack = tracer._stack()
+        if not self._explicit_parent:
+            self.parent_id = stack[-1] if stack else None
+        self.span_id = tracer.next_span_id()
+        stack.append(self.span_id)
+        self._t0 = time.time()
+        self._p0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type: Any, exc: Any, tb: Any) -> bool:
+        duration = time.perf_counter() - self._p0
+        stack = self._tracer._stack()
+        if stack and stack[-1] == self.span_id:
+            stack.pop()
+        if exc_type is not None:
+            self.attrs["error"] = getattr(exc_type, "__name__", str(exc_type))
+        self._tracer.record_span(
+            self.name,
+            start=self._t0,
+            duration=duration,
+            trace_id=(
+                self._trace_id
+                if self._trace_id is not None
+                else self._tracer.trace_id
+            ),
+            span_id=self.span_id,
+            parent_id=self.parent_id,
+            **self.attrs,
+        )
+        return False
+
+
+class Tracer:
+    """Thread-safe span recorder with a bounded ring buffer.
+
+    ``sample`` gates ordinary spans, ``hot_sample`` is the conventional
+    rate call sites use for per-step/per-token spans (pass it explicitly:
+    ``tracer.span("train.step", sample=tracer.hot_sample)``).  Both are
+    env-tunable so a run can be re-launched fully traced without a code
+    change.
+    """
+
+    def __init__(
+        self,
+        *,
+        sink: Optional[Callable[[Dict[str, Any]], None]] = None,
+        sample: float = 1.0,
+        hot_sample: float = 0.05,
+        buffer: int = 2048,
+        process_id: int = 0,
+        process: str = "",
+        trace_id: Optional[str] = None,
+    ) -> None:
+        self.sink = sink
+        self.sample = sample
+        self.hot_sample = hot_sample
+        self.process_id = process_id
+        self.process = process
+        self.trace_id = trace_id
+        self._buffer: deque = deque(maxlen=buffer)
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+
+    # -- configuration ------------------------------------------------------
+
+    def configure(
+        self,
+        *,
+        sink: Any = _UNSET,
+        sample: Any = _UNSET,
+        hot_sample: Any = _UNSET,
+        process_id: Any = _UNSET,
+        process: Any = _UNSET,
+        trace_id: Any = _UNSET,
+    ) -> "Tracer":
+        """Update settings in place (unset arguments keep current values)."""
+        if sink is not _UNSET:
+            self.sink = sink
+        if sample is not _UNSET:
+            self.sample = float(sample)
+        if hot_sample is not _UNSET:
+            self.hot_sample = float(hot_sample)
+        if process_id is not _UNSET:
+            self.process_id = int(process_id)
+        if process is not _UNSET:
+            self.process = str(process)
+        if trace_id is not _UNSET:
+            self.trace_id = trace_id
+        return self
+
+    # -- recording ----------------------------------------------------------
+
+    def span(
+        self,
+        name: str,
+        sample: Optional[float] = None,
+        trace_id: Optional[str] = None,
+        parent_id: Optional[str] = None,
+        **attrs: Any,
+    ):
+        """Context manager timing ``name``; sampled-out calls are ~free.
+
+        ``trace_id`` / ``parent_id`` override the process trace id and
+        the thread-local parent stack — request-scoped spans pass the
+        propagated :class:`TraceContext` ids so phases executed on a
+        shared scheduler thread still nest under their own request.
+        Sampling uses the module-level ``random.random()`` (its own lock
+        via the shared Random's C implementation) — a per-instance RNG
+        here would be raced by concurrent HTTP handler threads.
+        """
+        rate = self.sample if sample is None else sample
+        if rate < 1.0 and (rate <= 0.0 or random.random() >= rate):
+            return _NOOP
+        return _Span(self, name, attrs, trace_id=trace_id, parent_id=parent_id)
+
+    def next_span_id(self) -> str:
+        """Allocate a span id unique within (and, when a process label is
+        set, across) processes: ``[label.]pid.counter``."""
+        n = next(self._ids)
+        if self.process:
+            return "%s.%d.%x" % (self.process, self.process_id, n)
+        return "%d.%x" % (self.process_id, n)
+
+    def record_span(
+        self,
+        name: str,
+        *,
+        start: float,
+        duration: float,
+        trace_id: Optional[str] = None,
+        span_id: Optional[str] = None,
+        parent_id: Optional[str] = None,
+        **attrs: Any,
+    ) -> Dict[str, Any]:
+        """Record a completed span directly (no context manager).
+
+        The engine uses this to emit request phases measured by its own
+        accounting (queue wait, park intervals, the request root) whose
+        start/end don't bracket a ``with`` block.
+        """
+        record: Dict[str, Any] = {
+            "name": name,
+            "trace_id": trace_id if trace_id is not None else self.trace_id,
+            "span_id": span_id if span_id is not None else self.next_span_id(),
+            "parent_id": parent_id,
+            "start": start,
+            "duration": duration,
+            "process_id": self.process_id,
+            "thread": threading.current_thread().name,
+        }
+        if self.process:
+            record["process"] = self.process
+        process = attrs.pop("process", None)
+        if process:
+            record["process"] = str(process)
+        if attrs:
+            record["attrs"] = attrs
+        self._record(record)
+        return record
+
+    def _stack(self) -> List[str]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _record(self, record: Dict[str, Any]) -> None:
+        with self._lock:
+            self._buffer.append(record)
+        sink = self.sink
+        if sink is not None:
+            try:
+                sink(record)
+            except Exception:
+                pass  # a broken sink must never take down the traced code
+
+    def spans(self) -> List[Dict[str, Any]]:
+        """Snapshot of the ring buffer, oldest first."""
+        with self._lock:
+            return list(self._buffer)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buffer.clear()
+
+
+_tracer = Tracer(
+    sample=knob_float("POLYAXON_TPU_TRACE_SAMPLE"),
+    hot_sample=knob_float("POLYAXON_TPU_TRACE_HOT_SAMPLE"),
+)
+
+
+def get_tracer() -> Tracer:
+    """The process-wide tracer (unconfigured: buffer-only, no sink)."""
+    return _tracer
+
+
+def configure(**kwargs: Any) -> Tracer:
+    """Configure the process-wide tracer (see :meth:`Tracer.configure`)."""
+    return _tracer.configure(**kwargs)
+
+
+def chrome_trace(spans: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
+    """Render span records as Chrome-trace / Perfetto JSON.
+
+    Each span becomes a complete ("ph": "X") event; timestamps are the
+    original wall-clock epoch in microseconds, so spans reported by
+    different gang processes land on one shared timeline.  Process rows
+    are keyed by *(process label, process_id)* — serving processes
+    (router, every replica) all default to ``process_id=0``, so the
+    label is what keeps a merged fleet trace on distinct tracks — with
+    process_name/thread_name metadata so the viewer labels each one.
+    Unlabeled gang spans keep their process_id as the pid, preserving
+    the existing run-timeline export.
+    """
+    events: List[Dict[str, Any]] = []
+    tids: Dict[Any, int] = {}
+    per_pid: Dict[Any, int] = {}
+    pids: Dict[Any, int] = {}
+    for span in spans:
+        raw_pid = int(span.get("process_id") or 0)
+        label = str(span.get("process") or "")
+        pkey = (label, raw_pid)
+        pid = pids.get(pkey)
+        if pid is None:
+            # Labeled processes get synthetic pids above the unlabeled
+            # range so "router" and gang process 0 never share a row.
+            pid = raw_pid if not label else 10_000 + len(pids)
+            while label and pid in pids.values():
+                pid += 1
+            pids[pkey] = pid
+            events.append(
+                {
+                    "ph": "M",
+                    "name": "process_name",
+                    "pid": pid,
+                    "tid": 0,
+                    "args": {
+                        "name": label or ("process %d" % raw_pid),
+                    },
+                }
+            )
+        thread = str(span.get("thread") or "main")
+        key = (pkey, thread)
+        tid = tids.get(key)
+        if tid is None:
+            tid = per_pid.get(pkey, 0) + 1
+            per_pid[pkey] = tid
+            tids[key] = tid
+            events.append(
+                {
+                    "ph": "M",
+                    "name": "thread_name",
+                    "pid": pid,
+                    "tid": tid,
+                    "args": {"name": thread},
+                }
+            )
+        args: Dict[str, Any] = {}
+        attrs = span.get("attrs")
+        if isinstance(attrs, dict):
+            args.update(attrs)
+        for field in ("trace_id", "span_id", "parent_id"):
+            value = span.get(field)
+            if value:
+                args[field] = value
+        event: Dict[str, Any] = {
+            "name": str(span.get("name") or "span"),
+            "ph": "X",
+            "cat": "span",
+            "pid": pid,
+            "tid": tid,
+            "ts": float(span.get("start") or 0.0) * 1e6,
+            "dur": float(span.get("duration") or 0.0) * 1e6,
+        }
+        if args:
+            event["args"] = args
+        events.append(event)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}

@@ -11,6 +11,7 @@ records) without a real trace.  One test runs a real ``torch.profiler``
 window on the CPU.
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 import json
 import time

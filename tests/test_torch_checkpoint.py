@@ -18,6 +18,7 @@ on the CPU, held against the JAX package's where the two meet.
   mirrored on torch trees.
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import signal
 import subprocess
 import sys

@@ -16,7 +16,12 @@ summation order could round the other way, so only smaller ones may flip),
 1e-4 with float32 inputs (summation order over up to 1000 terms).
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+import json
 import math
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -554,3 +559,222 @@ def test_no_capture_after_ready_under_mixed_traffic(cuda, kv):
         assert (engine._step_fn.graph is None) == eager
     greedy = [i for i, (_, _, temp) in enumerate(traffic) if temp == 0]
     assert [outs[0][i] for i in greedy] == [outs[1][i] for i in greedy]
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_spill_and_restore_copies_move_the_pool_rows_bit_for_bit(cuda, kv):
+    """The host tier's copies on the card: an export of scattered blocks
+    gives pinned payloads equal to the pool's rows in its storage dtypes,
+    and an import writes them into other blocks in place (the pool's leaves
+    keep their addresses, which the captured steps hold)."""
+    graphed, _ = _family_engines(cuda, kv, kv_offload=True)
+    pool = graphed._pool
+    addresses = {name: leaf.data_ptr() for name, leaf in pool.items()}
+    blocks = [5, 2, 9]
+    payloads = graphed._export_blocks(blocks)
+    for b, data in zip(blocks, payloads):
+        for name, t in data.items():
+            assert t.is_pinned() and t.device.type == "cpu" and t.dtype == pool[name].dtype
+            assert torch.equal(t, pool[name][:, b].cpu()), name
+    graphed._import_blocks([11, 3, 7], payloads)
+    torch.cuda.synchronize()
+    for src, dst in zip(blocks, [11, 3, 7]):
+        for name, leaf in pool.items():
+            assert torch.equal(leaf[:, dst], leaf[:, src]), name
+    # payloads outside pinned memory (a store's) go through one pinned stack
+    graphed._import_blocks([12, 13], [{n: t.clone() for n, t in d.items()} for d in payloads[:2]])
+    torch.cuda.synchronize()
+    for src, dst in zip(blocks, [12, 13]):
+        for name, leaf in pool.items():
+            assert torch.equal(leaf[:, dst], leaf[:, src]), name
+    assert {name: leaf.data_ptr() for name, leaf in pool.items()} == addresses
+    figures = graphed._copy_figures()
+    assert figures["spill"]["blocks"] == 3 and figures["restore"]["blocks"] == 5
+    assert figures["spill"]["bytes"] * 5 == figures["restore"]["bytes"] * 3 > 0
+    assert figures["spill"]["copy_s"] > 0 and figures["restore"]["copy_s"] > 0
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_an_oversubscribed_graphed_engine_spills_and_gives_the_ample_tokens(cuda, kv):
+    """Four requests of 4 blocks each against 8 usable blocks, the tier
+    armed, the step family captured: no shed, blocks spilled and restored,
+    nothing built after ready, and the tokens of an engine whose pool never
+    fills, request by request."""
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_layers=2, n_heads=4, head_dim=8, d_ff=64,
+                            max_seq=48, dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(2))
+    rng = np.random.default_rng(40)
+    prompts = [rng.integers(0, 64, 8).tolist() for _ in range(4)]
+    outs, stats = [], []
+    for kw in (dict(num_blocks=9, kv_offload=True), {}):
+        engine = ServingEngine(params, cfg, slots=4, max_len=48, block_size=4,
+                               prefix_cache=False, kv_quantize=kv, warmup=True, device=cuda,
+                               **kw).start()
+        try:
+            assert engine.wait_ready(timeout=300)
+            reqs = [engine.submit(p, 8) for p in prompts]
+            outs.append([r.wait(timeout=120) for r in reqs])
+            stats.append(engine.stats())
+        finally:
+            engine.stop()
+    assert outs[0] == outs[1]
+    s = stats[0]
+    assert s["requests_shed"] == 0 and s["steady_state_compiles"] == 0
+    assert s["host_spilled_blocks_total"] > 0 and s["host_restored_blocks_total"] > 0
+    assert s["blocks_free"] == s["blocks_total"] and s["host_tier_blocks"] == 0
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_demoted_prefixes_restore_under_the_captured_family(cuda, kv):
+    """Prefix reuse with a pool that must demote cold prefixes to admit new
+    ones, and later hits that restore them inside admission (one export per
+    demotion, one in-place import per restore, between replays of the
+    captured steps): the tokens of an engine whose pool never fills,
+    request by request, and nothing built after ready."""
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_layers=2, n_heads=4, head_dim=8, d_ff=64,
+                            max_seq=48, dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(3))
+    rng = np.random.default_rng(33)
+    pre = [int(x) for x in rng.integers(0, 64, 12)]
+    other = [int(x) for x in rng.integers(0, 64, 16)]
+    traffic = [(pre + [1, 2], 6), (other, 6), (pre + [3], 6), (other[:8] + [4, 5], 6),
+               (pre, 5), (other + [6], 4), (pre + [1, 2], 6)]
+    outs, stats = [], []
+    for kw in (dict(num_blocks=9, kv_offload=True), {}):
+        engine = ServingEngine(params, cfg, slots=1, max_len=48, block_size=4, prefix_cache=True,
+                               kv_quantize=kv, warmup=True, device=cuda, **kw).start()
+        try:
+            assert engine.wait_ready(timeout=300)
+            assert engine._step_fn.graph is not None
+            outs.append([engine.submit(p, n).wait(timeout=120) for p, n in traffic])
+            stats.append(engine.stats())
+        finally:
+            engine.stop()
+    assert outs[0] == outs[1]
+    s = stats[0]
+    assert s["prefix_cache_demotions"] > 0 and s["prefix_cache_restores"] > 0
+    assert s["host_spilled_blocks_total"] > 0 and s["host_restored_blocks_total"] > 0
+    assert s["requests_shed"] == 0 and s["steady_state_compiles"] == 0
+    assert stats[1]["prefix_cache_demotions"] == 0
+
+
+_CAPTURE_UNDER_COLLECTION = r'''
+import gc, json, sys, weakref
+import torch
+from polyaxon_tpu_torch.models import decode
+
+
+# One CUDA object in a reference cycle, as a stopped engine holds them (its
+# step entries and prefix-cache callbacks close over it): a replayed graph
+# (a step entry's), a pinned buffer that a non-blocking copy on a side
+# stream filled (a spill's staging buffer), or timing events (the copies'
+# clock).
+def garbage(kind):
+    if kind == "graph":
+        x = torch.zeros(4, device="cuda")
+        obj = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(obj, capture_error_mode="thread_local"):
+            y = x + 1
+        obj.replay()
+        box = [obj, x, y]
+    elif kind == "pinned":
+        stream = torch.cuda.Stream()
+        rows = torch.ones(1 << 20, device="cuda")
+        obj = torch.empty(1 << 20, pin_memory=True)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            obj.copy_(rows, non_blocking=True)
+        box = [obj, rows]
+    else:
+        obj, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        obj.record()
+        end.record()
+        box = [obj, end]
+    torch.cuda.synchronize()
+    box.append(box)
+    return [box], weakref.ref(obj)
+
+
+def capture(kind, guarded):
+    holder, ref = garbage(kind)
+    x = torch.arange(8.0, device="cuda")
+    during, freed = [], []
+
+    def seen(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            during.append(info["generation"])
+
+    def fn():
+        holder.clear()  # the cycle becomes garbage inside the capture
+        junk = [[] for _ in range(20000)]  # allocations: the collector's trigger
+        del junk
+        if not guarded:
+            gc.collect()  # a full collection, as the trigger may start one
+        freed.append(ref() is None)
+        return x * 2
+
+    gc.callbacks.append(seen)
+    gc.set_threshold(1, 1, 1)
+    try:
+        if guarded:
+            graph, out = decode.capture_step(fn, warmup=0)
+        else:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        result = "ok" if torch.equal(out, x * 2) else "wrong output"
+    except Exception as e:
+        result = type(e).__name__ + ": " + str(e).splitlines()[0]
+    finally:
+        gc.set_threshold(700, 10, 10)
+        gc.callbacks.remove(seen)
+    return {"result": result, "collections_in_capture": len(during),
+            "freed_in_capture": freed == [True]}
+
+
+print(json.dumps(capture(sys.argv[1], sys.argv[2] == "guarded")))
+'''
+
+
+def _capture_under_collection(kind, guarded):
+    proc = subprocess.run(
+        [sys.executable, "-c", _CAPTURE_UNDER_COLLECTION, kind,
+         "guarded" if guarded else "plain"],
+        capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("guarded", [False, True])
+def test_a_collection_inside_a_capture_invalidates_it_and_capture_step_holds_it_off(cuda,
+                                                                                   guarded):
+    """A garbage collection inside a capture that frees a CUDA graph (a
+    stopped engine's step entries are such garbage) invalidates the
+    capture.  The garbage is made while capturing, with the collector on
+    and its threshold at 1, then 20000 allocations: inside a plain
+    ``torch.cuda.graph`` capture the collector runs, and a full collection
+    there (forced, as its trigger can start one) frees the graph and fails
+    the capture; ``decode.capture_step`` holds the collector off through
+    the same allocations, captures and replays right.  Each case runs in a
+    process of its own (a failed capture leaves its process's graph pool
+    recording)."""
+    seen = _capture_under_collection("graph", guarded)
+    if guarded:
+        assert seen == {"result": "ok", "collections_in_capture": 0, "freed_in_capture": False}
+    else:
+        assert seen["collections_in_capture"] > 0 and seen["freed_in_capture"], seen
+        assert seen["result"] != "ok" and "capture" in seen["result"].lower(), seen
+
+
+@pytest.mark.parametrize("kind", ["pinned", "events"])
+def test_a_collection_inside_a_capture_may_free_the_host_tiers_buffers_and_events(cuda, kind):
+    """The host tier's own garbage, a pinned staging buffer that a copy on
+    the copy stream filled and the copies' timing events, freed by a full
+    collection inside a plain capture: the capture holds and replays
+    right.  Of a stopped engine's objects only its graphs invalidate a
+    capture."""
+    seen = _capture_under_collection(kind, False)
+    assert seen["collections_in_capture"] > 0 and seen["freed_in_capture"], seen
+    assert seen["result"] == "ok", seen

@@ -5,6 +5,7 @@ weights carried over through numpy, prompts from numpy.  Logits: atol 1e-4
 (float32, different summation order).  Greedy tokens: identical.
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ Tolerances: o atol 2e-5 and lse atol 1e-5 in float32 — both sides compute
 the same softmax in float32 and differ only in summation order.
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

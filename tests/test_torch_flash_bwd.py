@@ -17,6 +17,7 @@ and delta come from a dense float32 forward and are handed to both.  Tolerances:
   plain version, which moves o, and with it delta, by bf16 roundings.
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ in-process on the CPU, with random weights and with a ``target`` run's
 checkpoint, and its ``drain`` command through the capture agent's mailbox.
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import socket
 import threading
@@ -256,12 +257,21 @@ def test_lm_server_serves_on_the_cpu_and_stops():
     assert any("lm_server: " in r["line"] and "slots" in r["line"] for r in records)
 
 
-def test_lm_server_refuses_what_is_not_ported():
-    base = dict(SMALL, seq=48, service_port=1, device="cpu")
-    for extra, match in (({"kv_offload": "true"}, "kv_offload"),
-                         ({"kv_persist_dir": "/tmp/x"}, "kv_persist_dir")):
-        with pytest.raises(NotImplementedError, match=match):
-            lm_server(Context(params=dict(base, **extra), records=[]))
+def test_lm_server_refuses_what_is_not_ported(tmp_path):
+    """The host KV tier and the prefix store are ported: lm_server takes
+    ``kv_offload`` and ``kv_persist`` (the store beside the runs root, as the
+    reference puts it); without a card it refuses the default device."""
+    runs = tmp_path / "runs"
+    runs.mkdir()
+    records = []
+    ctx = Context(params=dict(SMALL, seq=48, service_port=_free_port(), host="127.0.0.1",
+                              device="cpu", kv_offload="true", kv_persist="true"),
+                  runs_root=str(runs), seed=5, records=records)
+    ctx.stop.set()  # serve nothing: build, start and stop
+    lm_server(ctx)
+    lines = [r["line"] for r in records]
+    assert any("host KV offload tier enabled" in line for line in lines), lines
+    assert any(f"prefix KV persistence at {tmp_path / 'kv_cache'}" in line for line in lines)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             lm_server(Context(params=dict(SMALL, seq=48, service_port=1), records=[]))

@@ -9,6 +9,7 @@ the same typed outcomes.  The model is the reference tests' small float32
 one (vocab 64, d_model 32, 2 layers, 4 heads x 8, d_ff 64, max_seq 48).
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import threading
 from http.server import ThreadingHTTPServer
 
@@ -124,7 +125,14 @@ def test_http_poisson_load_gives_the_jax_server_outcomes(params):
     assert port["outcomes"] == ref["outcomes"] == ["completed"] * 5 + ["error:bad_request"] * 2
     for key in ("completed", "sheds", "errors", "failures", "hangs", "total_tokens"):
         assert port[key] == ref[key], key
-    assert port["slow_requests"] == [] and port["trace_ids"] == [None] * len(prompts)
+    # Both servers trace every request (the knob's default): a trace id for
+    # each completed request, none for the refused ones, and the same
+    # waterfall keys among the slowest.
+    assert [t is None for t in port["trace_ids"]] == [t is None for t in ref["trace_ids"]]
+    assert [t is None for t in port["trace_ids"]] == [False] * 5 + [True] * 2
+    assert len(port["slow_requests"]) == len(ref["slow_requests"]) > 0
+    for mine, theirs in zip(port["slow_requests"], ref["slow_requests"]):
+        assert set(mine) == set(theirs) and set(mine["waterfall"]) == set(theirs["waterfall"])
 
 
 def test_fleet_and_chaos_are_not_ported():

@@ -9,6 +9,7 @@ weights carried over through numpy.  Tolerances: pool operations
 cache, table rollback) identical.
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ of the ranks' losses within 1e-5 of the JAX single-device loss, and the sum
 of the ranks' grads within 1e-4 of each JAX grad's norm.
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import functools
 
 import jax

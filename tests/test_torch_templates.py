@@ -6,6 +6,7 @@ same fields, or raise the same error; the port's ``batch_spec`` is the
 plain tuple of the axes the JAX ``PartitionSpec`` names.
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import pytest
 
 from polyaxon_tpu.exceptions import RuntimeLayerError as JaxRuntimeLayerError

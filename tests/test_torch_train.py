@@ -21,6 +21,7 @@ order:
   1e-6 relative difference in it moves the update by up to about 1e-6).
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import signal
 import subprocess
 import sys

@@ -3,6 +3,7 @@
 ``generate`` on the restored weights), and the port's isolation from JAX and
 from the JAX package."""
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import ast
 import subprocess
 import sys

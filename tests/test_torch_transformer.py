@@ -7,6 +7,7 @@ Tolerance: atol 1e-4 on logits and KV stacks (float32; the two frameworks
 sum in different orders over d_model=64 and 2 layers).
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ was.  Small float32 model of the reference tests (vocab 64, d_model 32, 2
 layers, 4 heads x 8, d_ff 64, max_seq 48); logits atol 1e-4.
 """
 
+from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np
