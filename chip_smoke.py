@@ -14,8 +14,9 @@ of the port, each step shape captured once as a CUDA graph), then long
 context: ``lm_train`` at T = 8192 and through the ``sp_ring`` strategy at
 T = 16384; then checkpoint, preemption and restore; then the compiled
 decode paths against their eager runs; then the engine's KV tiers (the
-pinned host tier and the persistent prefix store) and request tracing.
-Phases:
+pinned host tier and the persistent prefix store) and request tracing;
+then the serving fleet (replica processes behind the router, failover,
+the autoscaler under chaos).  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -140,19 +141,43 @@ Phases:
     overhead under 3%, waterfalls within 10% of client latency; then
     ``lm_server`` with a ``traceparent``: the
     same trace id back, and ``/v1/trace/<id>`` with ``serving.generate``,
-    ``serving.request`` and ``serving.queue_wait``.
+    ``serving.request`` and ``serving.queue_wait``;
+25. the serving fleet, bench.py's ``serving_fleet`` arm at the 671M width:
+    replica subprocesses (``serving/replica.py``) on the one card, each
+    with lm_server's configuration of phase 11 (warmup on), behind a
+    ``make_router_handler`` front; 48 requests from 4 shared 256-token
+    prefixes, 64 new tokens, a seeded burst at 200 rps to N = 1 and then
+    N = 2: each replica's seconds from launch to ready, tokens/s, the
+    scale-up ratio (recorded, not gated), completions, hangs, TTFT p99,
+    0 captures after ready; one greedy prompt's tokens equal through the
+    router, from every replica and from an in-process engine; a merged
+    trace with a router and a replica track;
+26. on the same two replicas, bench.py's failover arm: 128 new tokens,
+    seed 13, one replica SIGKILLed at 30% of the N = 2 wall: no request
+    lost, none hung, every completed request the survivor's tokens; the
+    router's failovers, retries and ejections; then the dead replica
+    reaped, a replacement booted and SIGSTOPped while it serves: ejected,
+    re-admitted after SIGCONT, its request completed or typed;
+27. bench.py's ``serving_autoscale_chaos`` at the 671M width: one replica of
+    2 slots, the router's shedding at 0.8, the autoscaler, a shared prefix
+    store; one replica's capacity measured, then 2x, 2x with a kill, 0.8x
+    and an idle tail: none lost, a scale-up that succeeded and preloaded
+    the store, the kill repaired, back at one replica with target 1; shed
+    fractions, decisions, the scale-ups' preloaded blocks and first TTFT.
 
-Any failed check raises, and the script exits non-zero.  On success its
-last lines are the serving figures as JSON (``lm_generate``'s decode rate,
-``lm_server``'s, and the paged profile), the long-context, the
-checkpoint, the compiled decode and the KV-tier and tracing figures as
-JSON, the card's name and power limit, the kernels' JSON record and
+Any failed check raises, and the script exits non-zero; an atexit hook
+SIGKILLs any replica left.  On success its last lines are the serving
+figures as JSON (``lm_generate``'s decode rate, ``lm_server``'s, and the
+paged profile), the long-context, the checkpoint, the compiled decode and
+the KV-tier and tracing figures as JSON, the card's name and power limit,
+the kernels' JSON record, the fleet's figures and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
 at once.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import json
@@ -281,6 +306,29 @@ DM_PREFIXES, DM_PREFIX, DM_TAIL, DM_ROUNDS, DM_NEW, DM_BLOCKS, DM_SEED = 4, 240,
 TRACE_N, TRACE_PROMPT, TRACE_NEW, TRACE_SLOTS, TRACE_REPS = 16, 24, 16, 4, 16
 TRACING_ONLY = "--tracing-phase"
 TRACE_BUDGET_PCT, WATERFALL_PCT = 3.0, 10.0
+# The serving fleet (phases 25-27): replica subprocesses on the one card, each
+# lm_server's phase-11 configuration at the 671M width (SERVE_SEQ, 16-token
+# blocks, 256-token chunks, prefix cache on, bf16, warmup on), behind a
+# make_router_handler front.  bench.py's serving_fleet arms (bench.py:1682-1860):
+# 48 prompts from shared_prefix_prompts (4 groups, a 256-token prefix, a 64-token
+# suffix), 64 new tokens, a burst offered at 200 rps with seed 11 to N = 1 and
+# N = 2, the router's shedding off; the failover arm: 128 new tokens, seed 13, one
+# replica SIGKILLed at 30% of the N = 2 wall (at least 0.5 s).  Two processes
+# time-share the card, so the scale-up ratio is recorded, not gated.
+FLEET_N, FLEET_PREFIX, FLEET_SUFFIX, FLEET_GROUPS, FLEET_SEED = 48, 256, 64, 4, 11
+FLEET_NEW, FLEET_RPS, FAILOVER_NEW, FAILOVER_SEED, STALL_NEW = 64, 200.0, 128, 13, 256
+# serving_autoscale_chaos (bench.py:1862-1990): one replica of 2 slots, the
+# router's shed_occupancy 0.8, the autoscaler's settings of bench.py:1900-1906, a
+# shared prefix store, seed 17.  The rates are multiples of one replica's capacity
+# measured here as phase 21 measures it (the sequential service time of 3
+# prompts after a warm-up), since a 671M replica serves more than bench.py's 8
+# rps; each loaded phase holds the measured boot time plus up_hold_s, the kill
+# lands 3 s into the sustained phase, then an idle tail and a settle back to 1.
+CHAOS_SLOTS, CHAOS_SHED_OCCUPANCY, CHAOS_SEED, CHAOS_OVER, CHAOS_RECOVER = 2, 0.8, 17, 2.0, 0.8
+CHAOS_SCALER = dict(enabled=True, shed_rate=0.25, idle_occupancy=0.3, min_replicas=1,
+                    max_replicas=2, up_hold_s=1.0, down_hold_s=1.0, up_cooldown_s=1.0,
+                    down_cooldown_s=2.0, budget=8)
+CHAOS_KILL_S, CHAOS_IDLE_S, CHAOS_SETTLE_S = 3.0, 6.0, 60.0
 KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
 
 
@@ -2590,6 +2638,493 @@ def phase_tracing():
     return out
 
 
+# -- the serving fleet (phases 25-27) ---------------------------------------------
+
+#: Every fleet this run started: its replicas run in sessions of their own, so a
+#: run that dies must still take them down (an atexit hook SIGKILLs what is left).
+_FLEETS = []
+
+
+def _kill_fleets() -> None:
+    for fleet in _FLEETS:
+        for ref in list(fleet._procs.values()):
+            ref.signal(signal.SIGKILL)
+
+
+atexit.register(_kill_fleets)
+
+
+def _fleet(workdir, replicas, slots, router, **kw):
+    """A LocalServingFleet of lm_server's 671M configuration on the card."""
+    from polyaxon_tpu_torch.serving import LocalServingFleet
+
+    fleet = LocalServingFleet(Path(workdir), BENCH_MODEL, replicas=replicas, seq=SERVE_SEQ,
+                              slots=slots, block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK,
+                              seed=SEED, router=router,
+                              env={"POLYAXON_TPU_SERVING_WARMUP": "1"}, device="cuda", **kw)
+    _FLEETS.append(fleet)
+    return fleet
+
+
+def _fleet_router(**kw):
+    from polyaxon_tpu_torch.serving import FleetRouter
+
+    return FleetRouter(probe_timeout_s=1.0, retry_limit=2, eject_failures=2,
+                       eject_backoff_s=0.5, **kw)
+
+
+def _replica_log(fleet, name) -> str:
+    path = fleet.workdir / f"{name}.log"
+    return path.read_text(errors="replace") if path.exists() else ""
+
+
+def _await_replicas(fleet, launched, timeout=300):
+    """Seconds from launch to ``ready`` of each replica in ``launched`` (name
+    -> perf_counter at launch), probing every 50 ms; a replica that exits or
+    never gets there fails the run with its log."""
+    boot = {}
+    deadline = time.perf_counter() + timeout
+    while len(boot) < len(launched):
+        fleet.router.probe_all()
+        for name, t0 in launched.items():
+            if name in boot:
+                continue
+            rc = fleet._procs[name].poll()
+            if rc is not None:
+                raise AssertionError(f"replica {name} exited with rc {rc}:\n"
+                                     f"{_replica_log(fleet, name)[-4000:]}")
+            if fleet.router.replica(name).state == "ready":
+                boot[name] = time.perf_counter() - t0
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"replicas not ready in {timeout} s: {fleet.router.stats()}")
+        time.sleep(0.05)
+    return boot
+
+
+def _start_fleet(fleet):
+    t0 = time.perf_counter()
+    fleet.start()
+    return _await_replicas(fleet, {name: t0 for name in fleet._procs})
+
+
+def _scale_up(fleet):
+    t0 = time.perf_counter()
+    name = fleet.scale_up()
+    return name, _await_replicas(fleet, {name: t0})[name]
+
+
+def _front(router, name):
+    from http.server import ThreadingHTTPServer
+
+    from polyaxon_tpu_torch.serving.router import make_router_handler
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0),
+                                 make_router_handler(router, {"fleet_name": name}))
+    threading.Thread(target=server.serve_forever, name=f"front-{name}", daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+#: What a replica's HTTP server may log when a client went away first (the
+#: router's probes of a stalled replica time out and close their sockets).
+_CLIENT_GONE = ("BrokenPipeError", "ConnectionResetError")
+
+
+def _stop_fleet(fleet, front=None):
+    """Stop the front and the fleet, then fail on any replica traceback but
+    a write to a client that had gone (its handler threads may interleave
+    their tracebacks, so every exception line is read, not each block)."""
+    if front is not None:
+        front.shutdown()
+        front.server_close()
+    fleet.stop()
+    for log_path in sorted(fleet.workdir.glob("*.log")):
+        text = log_path.read_text(errors="replace")
+        lines = text.splitlines()
+        raised = [ln for ln in lines if ln[:1].isalpha() and ln.split(":")[0].endswith(
+            ("Error", "Exception", "Interrupt", "Exit"))]
+        if any(not ln.startswith(_CLIENT_GONE) for ln in raised) or \
+                len(raised) < sum(ln.startswith("Traceback") for ln in lines):
+            raise AssertionError(f"replica {log_path.stem} logged a traceback:\n{text[-6000:]}")
+
+
+def _replica_call(fleet, name, path, payload=None, timeout=600):
+    status, body = _http(fleet.router.replica(name).base_url, path, payload, timeout=timeout)
+    if status != 200:
+        raise AssertionError(f"replica {name} {path}: {status} {body}")
+    return body
+
+
+def _steady_compiles(fleet):
+    return {name: _replica_call(fleet, name, "/healthz")["engine"]["steady_state_compiles"]
+            for name in fleet._procs}
+
+
+def _fleet_warm(fleet, prompt, max_new):
+    """One request straight at every replica before the timed run (bench.py's
+    fleet_warm): the first request of a process pays its one-off costs."""
+    for name in list(fleet._procs):
+        _replica_call(fleet, name, "/generate", {"prompts": [prompt], "max_new_tokens": max_new})
+
+
+def _record_generate(router):
+    """Wrap the router's generate to keep what every routed request returned:
+    (prompt, tokens, replica, engine-side TTFT, when)."""
+    records = []
+    generate = router.generate
+
+    def recorded(prompts, *args, **kwargs):
+        body = generate(prompts, *args, **kwargs)
+        records.append({"prompt": list(prompts[0]), "tokens": body["tokens"][0],
+                        "replica": body["replica"], "ttft_s": body["ttft_s"][0],
+                        "at": time.perf_counter()})
+        return body
+
+    router.generate = recorded
+    return records
+
+
+def _burst_figures(res):
+    return {k: res[k] for k in ("n_requests", "completed", "sheds", "errors", "failures",
+                                "hangs", "wall_s", "tokens_per_s", "total_tokens",
+                                "ttft_p50_s", "ttft_p99_s")}
+
+
+def phase_fleet():
+    """Phases 25 and 26 (bench.py's serving_fleet arms at the 671M width):
+    the burst against N = 1 and N = 2 replicas with the boot times, one
+    greedy prompt's tokens on every replica, through the router and from an
+    in-process engine, a merged trace; then on the same two replicas the
+    failover arm (a SIGKILL mid-load: no request lost, every completed
+    request the survivor's tokens) and a SIGSTOPped replacement ejected and
+    re-admitted.  Returns the figures."""
+    from polyaxon_tpu_torch.serving import ServingEngine
+    from polyaxon_tpu_torch.serving.loadgen import http_poisson_load, shared_prefix_prompts
+
+    from polyaxon_tpu_torch.tracking.trace import get_tracer
+
+    # This process is the fleet's router now.  Phases 11 and 17 ran
+    # lm_server in it, which labelled its tracer "lm_server-<port>"; a span
+    # id carries the label, and a label with a "-" makes a traceparent of
+    # five fields, which the replica's extract() refuses (so its spans
+    # would start a trace of their own).
+    get_tracer().configure(process="router")
+    V = BENCH_MODEL["vocab_size"]
+    prompts = shared_prefix_prompts(FLEET_N, V, prefix_len=FLEET_PREFIX, suffix_len=FLEET_SUFFIX,
+                                    groups=FLEET_GROUPS, seed=FLEET_SEED)
+    probe = prompts[0][:FLEET_PREFIX] + [3, 1, 4, 1, 5, 9, 2, 6]
+    out = {"boot_s": {}}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    try:
+        # -- phase 25: N = 1, then N = 2 -------------------------------------
+        bursts = {}
+        for n in (1, 2):
+            router = _fleet_router(probe_interval_s=0.2, request_timeout_s=300.0,
+                                   shed_occupancy=1e9)
+            fleet = _fleet(root / f"n{n}", n, SERVE_SLOTS, router)
+            front = None
+            try:
+                boot = _start_fleet(fleet)
+                out["boot_s"][f"n{n}"] = boot
+                log(f"fleet N={n}: replicas ready after {boot} s (launch to ready)")
+                front, url = _front(router, f"n{n}")
+                _fleet_warm(fleet, prompts[0], 2 * FLEET_NEW)
+                res = http_poisson_load(url, prompts, FLEET_NEW, rate_rps=FLEET_RPS,
+                                        seed=FLEET_SEED, timeout_s=300.0)
+                bursts[n] = dict(_burst_figures(res), steady_state_compiles=_steady_compiles(fleet))
+                log(f"fleet N={n} burst: {bursts[n]}")
+                if res["completed"] != FLEET_N or res["hangs"] or any(
+                        bursts[n]["steady_state_compiles"].values()):
+                    raise AssertionError(f"fleet N={n} burst: {bursts[n]}")
+                if n == 1:
+                    _stop_fleet(fleet, front)
+                    continue
+                # Identity: the probe's greedy tokens through the router, from
+                # each replica, and from an in-process engine from the seed.
+                status, body = _http(url, "/generate", {"prompts": [probe],
+                                                        "max_new_tokens": FLEET_NEW})
+                if status != 200:
+                    raise AssertionError(f"the front answered {status}: {body}")
+                routed = body["tokens"][0]
+                direct = {name: _replica_call(fleet, name, "/generate",
+                                              {"prompts": [probe], "max_new_tokens": FLEET_NEW}
+                                              )["tokens"][0] for name in fleet._procs}
+                params, cfg = _serving_model()
+                engine = ServingEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_SEQ,
+                                       block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK,
+                                       seed=SEED, device="cuda").start()
+                try:
+                    if not engine.wait_ready(timeout=300):
+                        raise AssertionError("the in-process engine did not become ready")
+                    local = engine.submit(probe, FLEET_NEW).wait(timeout=300)
+                finally:
+                    engine.stop()
+                del engine, params
+                _free()
+                same = all(t == routed for t in direct.values()) and local == routed
+                out["identity"] = {"replicas": sorted(direct), "tokens_equal": same,
+                                   "new_tokens": len(routed)}
+                log(f"fleet identity: router, replicas {sorted(direct)} and the in-process "
+                    f"engine give equal greedy tokens: {same}")
+                if not same:
+                    raise AssertionError(f"replicas disagree: routed {routed}, direct {direct}, "
+                                         f"in-process {local}")
+                # One traced request: the front's merged trace has a router
+                # track and the serving replica's track.
+                trace_id = body["trace"]["trace_id"]
+                status, merged = _http(url, f"/v1/trace/{trace_id}")
+                tracks = sorted({e["args"]["name"] for e in merged["chrome_trace"]["traceEvents"]
+                                 if e["ph"] == "M" and e["name"] == "process_name"}) \
+                    if status == 200 else []
+                out["merged_trace"] = {"status": status, "tracks": tracks,
+                                       "spans": len(merged.get("spans", []))}
+                log(f"fleet merged trace {trace_id}: {out['merged_trace']}")
+                if status != 200 or "router" not in tracks or body["replica"] not in tracks:
+                    raise AssertionError(f"merged trace: {out['merged_trace']}")
+
+                # -- phase 26: failover and ejection on the same fleet ----------
+                records = _record_generate(router)
+                victim, survivor = sorted(fleet._procs)
+                kill_at = max(0.5, res["wall_s"] * 0.3)
+                resf = http_poisson_load(url, prompts, FAILOVER_NEW, rate_rps=FLEET_RPS,
+                                         seed=FAILOVER_SEED, timeout_s=300.0,
+                                         kill_at_s={victim: kill_at}, fleet=fleet)
+                counters = router.stats()["counters"]
+                tail = [t for t in resf["ttft_s"][-(FLEET_N // 3):] if t is not None]
+                want = _replica_call(fleet, survivor, "/generate",
+                                     {"prompts": prompts, "max_new_tokens": FAILOVER_NEW})["tokens"]
+                by_prompt = {tuple(p): t for p, t in zip(prompts, want)}
+                equal = sum(r["tokens"] == by_prompt[tuple(r["prompt"])] for r in records)
+                failover = dict(_burst_figures(resf), kill_at_s=kill_at, victim=victim,
+                                router_failovers=counters["failovers"],
+                                router_retries=counters["retries"],
+                                router_ejections=counters["ejections"],
+                                tail_ttft_p99_s=max(tail) if tail else None,
+                                completed_equal_to_survivor=equal,
+                                served_by={name: sum(r["replica"] == name for r in records)
+                                           for name in (victim, survivor)})
+                log(f"fleet failover (SIGKILL {victim} at {kill_at:.3f} s): {failover}")
+                accounted = resf["completed"] + resf["sheds"] + resf["errors"]
+                if accounted != FLEET_N or resf["hangs"] or resf["failures"]:
+                    raise AssertionError(f"failover lost requests: {failover}")
+                if equal != resf["completed"] or len(records) != resf["completed"]:
+                    raise AssertionError(f"failover tokens differ from the survivor's: {failover}")
+
+                # The dead replica is reaped before its replacement starts.
+                deadline = time.time() + 30
+                while victim in fleet._procs and time.time() < deadline:
+                    fleet.poll()
+                    time.sleep(0.05)
+                if victim in fleet._procs:
+                    raise AssertionError(f"replica {victim} was not reaped")
+                repl, boot_s = _scale_up(fleet)
+                out["boot_s"]["replacement"] = {repl: boot_s}
+                failover["stall"] = _stall_and_resume(fleet, url, repl)
+                out["failover"] = failover
+            finally:
+                if fleet._procs:
+                    _stop_fleet(fleet, front)
+        out["bursts"] = {f"n{n}": b for n, b in bursts.items()}
+        out["scaleup"] = bursts[2]["tokens_per_s"] / bursts[1]["tokens_per_s"]
+        log(f"fleet scale-up N=2 over N=1 (recorded, not gated: two processes time-share "
+            f"one card): {out['scaleup']:.3f}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _stall_and_resume(fleet, url, name):
+    """SIGSTOP ``name`` while it serves a request routed to it: the router
+    ejects it once its probes time out; after SIGCONT it is re-admitted and
+    the request ends completed or typed, never hung."""
+    router = fleet.router
+    rep = router.replica(name)
+    ready = [router.replica(n) for n in router.replica_names()]
+    rng = np.random.default_rng(FAILOVER_SEED)
+    prompt = rng.integers(0, BENCH_MODEL["vocab_size"], FLEET_SUFFIX).tolist()
+    while router._affine(prompt, ready) is not rep:  # a prompt the router sends to it
+        prompt = rng.integers(0, BENCH_MODEL["vocab_size"], FLEET_SUFFIX).tolist()
+    result = []
+    client = threading.Thread(target=lambda: result.append(_http(
+        url, "/generate", {"prompts": [prompt], "max_new_tokens": STALL_NEW}, timeout=600)))
+    client.start()
+    deadline = time.time() + 60
+    while _replica_call(fleet, name, "/v1/stats")["slots_active"] == 0:
+        if time.time() > deadline or not client.is_alive():
+            raise AssertionError(f"the request never reached {name}: {result}")
+        time.sleep(0.01)
+    t0 = time.perf_counter()
+    fleet.stall_replica(name)
+    try:
+        while rep.state != "ejected":
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError(f"stalled {name} was not ejected: {router.stats()}")
+            time.sleep(0.02)
+        eject_s = time.perf_counter() - t0
+    finally:
+        fleet.resume_replica(name)
+    t1 = time.perf_counter()
+    while rep.state != "ready":
+        if time.perf_counter() - t1 > 60:
+            raise AssertionError(f"{name} was not re-admitted: {router.stats()}")
+        time.sleep(0.02)
+    readmit_s = time.perf_counter() - t1
+    client.join(timeout=600)
+    if client.is_alive() or not result:
+        raise AssertionError(f"the stalled request hung: {result}")
+    status, body = result[0]
+    outcome = "completed" if status == 200 else f"error:{body.get('error', {}).get('kind')}"
+    if status == 200 and len(body["tokens"][0]) != STALL_NEW or \
+            status != 200 and "error" not in body:
+        raise AssertionError(f"the stalled request: {status} {body}")
+    figures = {"replica": name, "eject_s": eject_s, "readmit_s": readmit_s,
+               "outcome": outcome, "readmissions": router.counters["readmissions"]}
+    log(f"fleet stall of {name}: {figures}")
+    return figures
+
+
+def phase_autoscale_chaos():
+    """Phase 27 (bench.py's serving_autoscale_chaos at the 671M width): one
+    replica of 2 slots with the autoscaler, a shared prefix store; overload at
+    2x one replica's measured capacity, then sustained 2x with a SIGKILL, then
+    0.8x, then idle, then a settle back to one replica.  No request lost, a
+    scale-up that succeeded, the kill repaired, the fleet back at
+    min_replicas.  Returns the figures."""
+    from polyaxon_tpu_torch.serving.loadgen import (ChaosEvent, chaos_poisson_load,
+                                                    shared_prefix_prompts)
+
+    V = BENCH_MODEL["vocab_size"]
+    prompts = shared_prefix_prompts(FLEET_N, V, prefix_len=FLEET_PREFIX, suffix_len=FLEET_SUFFIX,
+                                    groups=FLEET_GROUPS, seed=FLEET_SEED)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_chaos_"))
+    router = _fleet_router(probe_interval_s=0.1, request_timeout_s=120.0,
+                           shed_occupancy=CHAOS_SHED_OCCUPANCY)
+    fleet = _fleet(root / "fleet", 1, CHAOS_SLOTS, router, kv_persist_dir=str(root / "kv_cache"),
+                   kv_persist_sig=f"random:{SEED}")
+    front = None
+    try:
+        boot = _start_fleet(fleet)
+        (incumbent,) = boot
+        boot_s = boot[incumbent]
+        # Capacity as phase 21 measures it: one request of each group first,
+        # in one call (the engine's first idle snapshot, which a scale-up
+        # preloads, then holds every prefix; later ones wait out
+        # POLYAXON_TPU_KV_PERSIST_INTERVAL_S), then 3 timed one at a time.
+        _replica_call(fleet, incumbent, "/generate",
+                      {"prompts": prompts[:FLEET_GROUPS], "max_new_tokens": 2})
+        t0 = time.perf_counter()
+        for p in prompts[FLEET_GROUPS:FLEET_GROUPS + 3]:
+            _replica_call(fleet, incumbent, "/generate",
+                          {"prompts": [p], "max_new_tokens": FLEET_NEW})
+        svc = (time.perf_counter() - t0) / 3
+        capacity = 1.0 / svc
+        deadline = time.time() + 30  # the idle snapshot a scale-up preloads
+        while not _replica_call(fleet, incumbent, "/v1/stats")["kv_persisted_blocks"]:
+            if time.time() > deadline:
+                raise AssertionError("the incumbent persisted no prefix block")
+            time.sleep(0.1)
+        persisted = _replica_call(fleet, incumbent, "/v1/stats")["kv_persisted_blocks"]
+        hold = boot_s + CHAOS_SCALER["up_hold_s"]
+        phases = [(hold + 2.0, CHAOS_OVER * capacity),
+                  (hold + CHAOS_KILL_S + 2.0, CHAOS_OVER * capacity),
+                  (hold + 2.0, CHAOS_RECOVER * capacity),
+                  (CHAOS_IDLE_S, 0.0)]
+        kill_at = phases[0][0] + CHAOS_KILL_S
+        log(f"autoscale chaos: {incumbent} ready in {boot_s:.2f} s, sequential service time "
+            f"{svc:.4f} s -> capacity {capacity:.3f} rps; {persisted} blocks persisted; "
+            f"phases {phases}, kill at {kill_at:.2f} s")
+        scaler = fleet.attach_autoscaler(**CHAOS_SCALER)
+        front, url = _front(router, "autoscale-chaos")
+        records = _record_generate(router)
+        decisions, kills, launches, ready_at, ready_stats = [], [], [], {}, {}
+        kill, scale_up = fleet.kill_replica, fleet.scale_up
+
+        def recorded_kill(name):
+            kills.append((name, time.perf_counter()))
+            kill(name)
+
+        def recorded_scale_up():
+            name = scale_up()
+            launches.append((name, time.perf_counter()))
+            return name
+
+        fleet.kill_replica, fleet.scale_up = recorded_kill, recorded_scale_up
+
+        def pump():
+            fleet.poll()
+            now = time.perf_counter()
+            last = scaler.last_decision
+            if last and (not decisions or decisions[-1][1] != last):
+                decisions.append((now, dict(last)))
+            for name, _ in launches:
+                rep = router.replica(name)
+                if name not in ready_at and rep is not None and rep.state == "ready":
+                    ready_at[name] = now
+                    ready_stats[name] = router.replica_stats().get(name, {})
+
+        t_run = time.perf_counter()
+        res = chaos_poisson_load(url, prompts, FLEET_NEW, phases=phases, seed=CHAOS_SEED,
+                                 events=[ChaosEvent(kill_at, "kill")], fleet=fleet, pump=pump,
+                                 pump_interval_s=0.05, timeout_s=300.0)
+        t_settle = time.perf_counter()
+        while time.perf_counter() - t_settle < CHAOS_SETTLE_S:
+            pump()
+            st = scaler.status()
+            if router.stats()["n_ready"] == 1 and len(fleet._procs) == 1 and \
+                    st["state"] == "idle":
+                break
+            time.sleep(0.05)
+        settle_s = time.perf_counter() - t_settle
+        st = scaler.status()
+        kill_t = kills[0][1] if kills else None
+        scale_ups = {name: {"launched_at_s": t - t_run,
+                            "boot_s": ready_at[name] - t if name in ready_at else None,
+                            "after_kill": kill_t is not None and t > kill_t}
+                     for name, t in launches}
+        for name, fig in scale_ups.items():
+            mine = [r for r in records if r["replica"] == name]
+            fig["kv_preloaded_blocks"] = ready_stats.get(name, {}).get("kv_preloaded_blocks")
+            fig["first_request_ttft_s"] = mine[0]["ttft_s"] if mine else None
+        up_ok = [n for n, f in scale_ups.items() if f["boot_s"] is not None]
+        repaired = [n for n in up_ok if scale_ups[n]["after_kill"]]
+        counts = {k: v for k, v in router.metrics.snapshot()["counters"].items()
+                  if k.startswith("autoscaler_decision_total")}
+
+        def shed_frac(p):
+            return (p["sheds"] + p["errors"]) / p["n"] if p["n"] else None
+
+        out = {
+            "boot_s": boot_s, "service_time_s": svc, "capacity_rps": capacity,
+            "persisted_blocks": persisted, "phases": phases, "kill_at_s": kill_at,
+            "killed": [k for k, _ in kills],
+            **{k: res[k] for k in ("n_requests", "completed", "sheds", "errors", "failures",
+                                   "hangs", "wall_s", "tokens_per_s", "ttft_p50_s",
+                                   "ttft_p99_s", "by_phase")},
+            "overload_shed_frac": shed_frac(res["by_phase"][0]),
+            "sustain_shed_frac": shed_frac(res["by_phase"][1]),
+            "recovery_shed_frac": shed_frac(res["by_phase"][2]),
+            "decisions_spent": scaler.decisions_spent, "decision_counts": counts,
+            "decisions": [dict(d, at=t - t_run) for t, d in decisions],
+            "scale_ups": scale_ups, "repaired_by": repaired, "settle_s": settle_s,
+            "final": {"n_ready": router.stats()["n_ready"], "replicas": sorted(fleet._procs),
+                      "state": st["state"], "target_replicas": st["target_replicas"]},
+        }
+        out["recovery_below_overload"] = (out["recovery_shed_frac"] is not None and
+                                          out["recovery_shed_frac"] < out["overload_shed_frac"])
+        log(f"autoscale chaos: {out}")
+        accounted = res["completed"] + res["sheds"] + res["errors"]
+        if accounted != res["n_requests"] or res["hangs"] or res["failures"]:
+            raise AssertionError(f"autoscale chaos lost requests: {out}")
+        if not up_ok or not repaired or not kills:
+            raise AssertionError(f"autoscale chaos: no successful scale-up or no repair: {out}")
+        if out["final"]["n_ready"] != 1 or len(fleet._procs) != 1 or st["state"] != "idle" \
+                or st["target_replicas"] != CHAOS_SCALER["min_replicas"]:
+            raise AssertionError(f"autoscale chaos did not settle back to one replica: {out}")
+        return out
+    finally:
+        _stop_fleet(fleet, front)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _tracing_in_a_process_of_its_own():
     """Phase 24 in a child process of this script: a serving process holds
     one engine, not the objects, threads and heap of the 23 phases before,
@@ -2664,6 +3199,13 @@ def main() -> int:
     if _counts() != (4 * BENCH_MODEL["n_layers"], 0, 0):  # the two generate prefills, twice
         raise AssertionError(f"the compiled decode paths and the KV tiers launched flash "
                              f"kernels {_counts()}")
+    _free()
+    fleet = phase_fleet()
+    _free()
+    fleet["autoscale_chaos"] = phase_autoscale_chaos()
+    torch.cuda.synchronize()
+    if _counts() != (4 * BENCH_MODEL["n_layers"], 0, 0):  # the fleet's in-process engine: none
+        raise AssertionError(f"the fleet phases launched flash kernels {_counts()}")
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
@@ -2686,6 +3228,7 @@ def main() -> int:
     print(json.dumps({"kv_tiers_and_tracing": tiers}))
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd["dq"], bwd["dkv"]]}))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """The environment knobs the port reads, with the reference's names and defaults.
 
 The port's own copy of the part of ``polyaxon_tpu/conf/knobs.py`` its
-serving engine, its KV tiers and its tracer use: the same ``POLYAXON_TPU_*`` variables,
+serving engine, its KV tiers, its tracer and its serving fleet (router,
+fleet, autoscaler) use: the same ``POLYAXON_TPU_*`` variables,
 the same defaults, the same parsing (a bool is false for ``0``, ``false``,
 ``off``, ``no`` and the empty string; an unparsable number keeps the
 default).  Reading a knob that is not in :data:`KNOBS` raises ``KeyError``.
@@ -33,6 +34,35 @@ KNOBS: Dict[str, Any] = {
     "POLYAXON_TPU_KV_PERSIST_DIR": "",
     "POLYAXON_TPU_KV_PERSIST_BLOCKS": 64,
     "POLYAXON_TPU_KV_PERSIST_INTERVAL_S": 60.0,
+    # the fleet router
+    "POLYAXON_TPU_ROUTER_PROBE_INTERVAL_S": 1.0,
+    "POLYAXON_TPU_ROUTER_PROBE_TIMEOUT_S": 2.0,
+    "POLYAXON_TPU_ROUTER_REQUEST_TIMEOUT_S": 600.0,
+    "POLYAXON_TPU_ROUTER_SHED_OCCUPANCY": 0.95,
+    "POLYAXON_TPU_ROUTER_RETRY_AFTER_S": 1.0,
+    "POLYAXON_TPU_ROUTER_RETRY_LIMIT": 2,
+    "POLYAXON_TPU_ROUTER_EJECT_FAILURES": 2,
+    "POLYAXON_TPU_ROUTER_EJECT_BACKOFF_S": 1.0,
+    "POLYAXON_TPU_ROUTER_EJECT_BACKOFF_MAX_S": 30.0,
+    "POLYAXON_TPU_ROUTER_AFFINITY_TOKENS": 16,
+    "POLYAXON_TPU_ROUTER_AFFINITY_SLACK": 0.25,
+    "POLYAXON_TPU_ROUTER_AFFINITY_HIT_SLACK": 0.75,
+    # the serving fleet
+    "POLYAXON_TPU_FLEET_REPLICAS": 2,
+    "POLYAXON_TPU_FLEET_DRAIN_DEADLINE_S": 30.0,
+    "POLYAXON_TPU_FLEET_READY_TIMEOUT_S": 120.0,
+    # the fleet autoscaler (a zero budget inherits the remediation budget)
+    "POLYAXON_TPU_AUTOSCALER_ENABLED": True,
+    "POLYAXON_TPU_AUTOSCALER_SHED_RATE": 0.05,
+    "POLYAXON_TPU_AUTOSCALER_IDLE_OCCUPANCY": 0.1,
+    "POLYAXON_TPU_AUTOSCALER_MIN_REPLICAS": 1,
+    "POLYAXON_TPU_AUTOSCALER_MAX_REPLICAS": 4,
+    "POLYAXON_TPU_AUTOSCALER_UP_HOLD_S": 5.0,
+    "POLYAXON_TPU_AUTOSCALER_DOWN_HOLD_S": 30.0,
+    "POLYAXON_TPU_AUTOSCALER_UP_COOLDOWN_S": 15.0,
+    "POLYAXON_TPU_AUTOSCALER_DOWN_COOLDOWN_S": 60.0,
+    "POLYAXON_TPU_AUTOSCALER_BUDGET": 0,
+    "POLYAXON_TPU_REMEDIATION_BUDGET": 16,
 }
 
 

@@ -6,13 +6,11 @@ traffic arrives: exponential inter-arrival gaps at a target rate drawn up
 front from a seed, one watcher thread per request reading its token stream
 (so TTFT is measured when the first token is readable by a client), and
 aggregate tokens/s over the loaded wall clock.  :func:`http_poisson_load`
-does the same against ``lm_server``'s ``/generate`` with typed outcomes.
-The prompt builders give the same byte-for-byte prompt sets as the
-reference's for the same seed.
-
-Not ported yet (ROADMAP Queue 1 item 4 step 7, the fleet, the router and
-the autoscaler): the fault schedule of :func:`http_poisson_load`
-(``kill_at_s``, ``stall_at_s``, ``fleet``) and :func:`chaos_poisson_load`.
+does the same against ``lm_server``'s or the fleet router's ``/generate``
+with typed outcomes and a seeded fault schedule; :func:`chaos_poisson_load`
+composes phased load with a chaos timeline (kills, stalls, bursts) and a
+control-loop pump.  The prompt builders give the same byte-for-byte prompt
+sets as the reference's for the same seed.
 """
 
 from __future__ import annotations
@@ -22,13 +20,6 @@ import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
-
-
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"loadgen {name} is not ported yet (ROADMAP: Queue 1 item 4 step 7, the fleet, "
-        "the router and the autoscaler)"
-    )
 
 
 def _pct(sorted_vals: List[float], q: float) -> float:
@@ -294,26 +285,24 @@ def http_poisson_load(
     stall_at_s: Optional[Dict[str, float]] = None,
     fleet: Any = None,
 ) -> Dict[str, Any]:
-    """Poisson load over HTTP against a single ``lm_server``.
+    """Poisson load over HTTP against a router or a single ``lm_server``.
 
-    The HTTP analogue of :func:`poisson_load`.  Per-request outcomes are
-    typed, mirroring the server's error model:
+    The fleet analogue of :func:`poisson_load`, plus a seeded FAULT
+    SCHEDULE: ``kill_at_s`` / ``stall_at_s`` map replica name → seconds
+    after load start at which ``fleet.kill_replica`` /
+    ``fleet.stall_replica`` fires — so "one replica dies mid-load" is a
+    reproducible arm, not a flaky race.
+
+    Per-request outcomes are typed, mirroring the router's error model:
 
     - ``completed`` — HTTP 200, all tokens;
-    - ``shed`` — typed 429 (the engine's pool cannot fit the request);
+    - ``shed`` — typed 429 (engine pool or router occupancy ceiling);
     - ``error:<kind>`` — any other typed HTTP error (exactly one per
       request — the zero-silent-drops contract);
     - ``failure`` — connection-level failure reaching the endpoint;
     - ``hang`` — no outcome within ``timeout_s`` (must be ZERO — a hang
       means a request was silently dropped).
-
-    The reference's fault schedule (``kill_at_s``, ``stall_at_s`` against a
-    ``fleet``) raises ``NotImplementedError``: the port has no fleet yet.
     """
-    for name, value in (("kill_at_s", kill_at_s), ("stall_at_s", stall_at_s),
-                        ("fleet", fleet)):
-        if value is not None:
-            raise _not_ported(f"http_poisson_load {name}")
     if rate_rps <= 0:
         raise ValueError(f"rate_rps must be positive, got {rate_rps}")
     rng = np.random.default_rng(seed)
@@ -336,19 +325,34 @@ def http_poisson_load(
         traces[i] = trace
         latencies[i] = time.perf_counter() - t_submit
 
+    # Fault schedule: one timer thread per event, armed relative to load
+    # start so the schedule is part of the (seeded) experiment.
+    timers: List[threading.Timer] = []
+    for name, at_s in (kill_at_s or {}).items():
+        timers.append(threading.Timer(float(at_s), fleet.kill_replica, args=(name,)))
+    for name, at_s in (stall_at_s or {}).items():
+        timers.append(threading.Timer(float(at_s), fleet.stall_replica, args=(name,)))
+
     threads: List[threading.Thread] = []
     t_start = time.perf_counter()
-    for i, prompt in enumerate(prompts):
-        time.sleep(float(gaps[i]))
-        th = threading.Thread(
-            target=fire,
-            args=(i, prompt, time.perf_counter()),
-            daemon=True,
-        )
-        th.start()
-        threads.append(th)
-    for th in threads:
-        th.join(timeout=timeout_s)
+    for t in timers:
+        t.daemon = True
+        t.start()
+    try:
+        for i, prompt in enumerate(prompts):
+            time.sleep(float(gaps[i]))
+            th = threading.Thread(
+                target=fire,
+                args=(i, prompt, time.perf_counter()),
+                daemon=True,
+            )
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(timeout=timeout_s)
+    finally:
+        for t in timers:
+            t.cancel()
     wall = time.perf_counter() - t_start
 
     hangs = sum(1 for th in threads if th.is_alive())
@@ -495,9 +499,179 @@ def chaos_schedule(
     return arrivals
 
 
+def chaos_poisson_load(
+    base_url: str,
+    prompts: Sequence[Sequence[int]],
+    max_new_tokens: int,
+    *,
+    phases: Sequence["tuple[float, float]"],
+    seed: int = 0,
+    events: Sequence[ChaosEvent] = (),
+    fleet: Any = None,
+    pump: Any = None,
+    pump_interval_s: float = 0.05,
+    temperature: float = 0.0,
+    timeout_s: float = 600.0,
+) -> Dict[str, Any]:
+    """Phased Poisson load composed with a seeded chaos timeline.
 
+    The autoscaler's proving ground: ``phases`` shapes offered load
+    over time (ramp → sustain → idle), ``events`` injects
+    kill/stall/resume/burst chaos at fixed offsets, and ``pump`` (e.g.
+    ``fleet.poll``) is called every ``pump_interval_s`` for the whole
+    run — so the thread-free control loop (probes, drain advancement,
+    autoscaler ticks) advances at a steady simulated monitor cadence
+    while traffic flows.  Prompts are consumed round-robin in arrival
+    order.
 
-def chaos_poisson_load(*args: Any, **kwargs: Any) -> Dict[str, Any]:
-    """Phased Poisson load composed with a chaos timeline against a fleet:
-    not ported yet (the port has no fleet)."""
-    raise _not_ported("chaos_poisson_load")
+    Returns the :func:`http_poisson_load` typed-outcome contract
+    (``completed + sheds + errors + failures + hangs == n_requests`` —
+    zero silent drops) plus ``by_phase`` per-phase accounting.
+    """
+    base = base_url.rstrip("/")
+    arrivals = chaos_schedule(phases, seed=seed, events=events)
+    total_s = sum(d for d, _ in phases)
+    n = len(arrivals)
+
+    outcomes: List[Optional[str]] = [None] * n
+    ttfts_by_idx: List[Optional[float]] = [None] * n
+    tokens_out = [0] * n
+    traces: List[Optional[Dict[str, Any]]] = [None] * n
+    latencies: List[Optional[float]] = [None] * n
+    phase_of = [idx for _, idx in arrivals]
+
+    def fire(i: int, prompt: Sequence[int], t_submit: float) -> None:
+        outcome, ttft, n_tok, trace = _fire_one(
+            base, prompt, max_new_tokens, temperature, timeout_s, t_submit
+        )
+        tokens_out[i] = n_tok
+        ttfts_by_idx[i] = ttft
+        outcomes[i] = outcome
+        traces[i] = trace
+        latencies[i] = time.perf_counter() - t_submit
+
+    def apply_event(ev: ChaosEvent) -> None:
+        if fleet is None or ev.action == "burst":
+            return
+        target = ev.target
+        if target is None:
+            picker = getattr(fleet, "chaos_target", None)
+            target = picker() if picker is not None else None
+        if target is None:
+            return
+        try:
+            if ev.action == "kill":
+                fleet.kill_replica(target)
+            elif ev.action == "stall":
+                fleet.stall_replica(target)
+            elif ev.action == "resume":
+                fleet.resume_replica(target)
+        except KeyError:
+            pass  # victim already gone — chaos got there first
+
+    # One merged timeline: arrivals and fault events fire in time
+    # order off the same clock, with the pump ticking in between.
+    timeline: List["tuple[float, int, Any]"] = [
+        (at, 0, (i, prompts[i % len(prompts)])) for i, (at, _) in enumerate(arrivals)
+    ]
+    timeline.extend(
+        (ev.at_s, 1, ev) for ev in events if ev.action != "burst"
+    )
+    timeline.sort(key=lambda item: (item[0], item[1]))
+
+    threads: List[threading.Thread] = []
+    t_start = time.perf_counter()
+    last_pump = 0.0
+
+    def tick_pump() -> None:
+        nonlocal last_pump
+        now = time.perf_counter() - t_start
+        if pump is not None and now - last_pump >= pump_interval_s:
+            last_pump = now
+            try:
+                pump()
+            except Exception:  # pragma: no cover - pump must not kill load
+                pass
+
+    for at_s, _, item in timeline:
+        while True:
+            elapsed = time.perf_counter() - t_start
+            if elapsed >= at_s:
+                break
+            time.sleep(min(pump_interval_s, at_s - elapsed))
+            tick_pump()
+        if isinstance(item, ChaosEvent):
+            apply_event(item)
+        else:
+            i, prompt = item
+            th = threading.Thread(
+                target=fire,
+                args=(i, prompt, time.perf_counter()),
+                daemon=True,
+            )
+            th.start()
+            threads.append(th)
+        tick_pump()
+    # Run out the remaining schedule (idle tail phases still need the
+    # pump — that is where drain-down decisions happen), then wait for
+    # stragglers, still pumping so in-flight control ops can finish.
+    while time.perf_counter() - t_start < total_s:
+        time.sleep(pump_interval_s)
+        tick_pump()
+    join_deadline = time.perf_counter() + timeout_s
+    for th in threads:
+        while th.is_alive() and time.perf_counter() < join_deadline:
+            th.join(timeout=pump_interval_s)
+            tick_pump()
+    wall = time.perf_counter() - t_start
+
+    hangs = sum(1 for th in threads if th.is_alive())
+    completed = sum(1 for o in outcomes if o == "completed")
+    sheds = sum(1 for o in outcomes if o == "shed")
+    errors = sum(1 for o in outcomes if o and o.startswith("error:"))
+    failures = sum(1 for o in outcomes if o and o.startswith("failure:"))
+    total_tokens = sum(tokens_out)
+    ttfts = sorted(t for t in ttfts_by_idx if t is not None)
+    by_phase = []
+    for idx in range(len(phases)):
+        sel = [i for i in range(n) if phase_of[i] == idx]
+        by_phase.append(
+            {
+                "n": len(sel),
+                "completed": sum(
+                    1 for i in sel if outcomes[i] == "completed"
+                ),
+                "sheds": sum(1 for i in sel if outcomes[i] == "shed"),
+                "errors": sum(
+                    1
+                    for i in sel
+                    if outcomes[i] and outcomes[i].startswith("error:")
+                ),
+                "failures": sum(
+                    1
+                    for i in sel
+                    if outcomes[i] and outcomes[i].startswith("failure:")
+                ),
+            }
+        )
+    return {
+        "n_requests": n,
+        "completed": completed,
+        "sheds": sheds,
+        "errors": errors,
+        "failures": failures,
+        "hangs": hangs,
+        "wall_s": round(wall, 3),
+        "tokens_per_s": round(total_tokens / wall, 1) if wall > 0 else 0.0,
+        "total_tokens": total_tokens,
+        "ttft_mean_s": round(float(np.mean(ttfts)), 6) if ttfts else 0.0,
+        "ttft_p50_s": round(_pct(ttfts, 50), 6),
+        "ttft_p95_s": round(_pct(ttfts, 95), 6),
+        "ttft_p99_s": round(_pct(ttfts, 99), 6),
+        "by_phase": by_phase,
+        "outcomes": list(outcomes),
+        "trace_ids": [
+            t.get("trace_id") if t is not None else None for t in traces
+        ],
+        "slow_requests": _slowest_traced(traces, latencies, n=5),
+    }

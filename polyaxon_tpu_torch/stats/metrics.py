@@ -1,13 +1,15 @@
 """Log-bucketed histograms and Prometheus text exposition.
 
-The port's own copy of ``polyaxon_tpu/stats/metrics.py``, for flat keys
-only (the port records no labeled series, so the reference's labeled-key
-helpers are left out, as are ``Histogram.cumulative`` and the deprecated
+The port's own copy of ``polyaxon_tpu/stats/metrics.py`` (less
+``fold_labeled_key``, ``Histogram.cumulative`` and the deprecated
 ``Histogram.reset``): :class:`Histogram` keeps count and sum per
 geometric bucket, so a percentile costs O(buckets) memory for the life of
 the process, and the buckets map 1:1 onto Prometheus histogram exposition.
+Per-series labels ride inside a stats key in exposition syntax
+(:func:`labeled_key`, as the fleet router and autoscaler key their series).
 :func:`render_prometheus` turns a ``MemoryStats.snapshot()`` into text
-exposition v0.0.4, the payload of ``lm_server``'s ``GET /metrics``.
+exposition v0.0.4, the payload of ``lm_server``'s and the router's
+``GET /metrics``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 __all__ = [
     "Histogram",
     "default_buckets",
+    "labeled_key",
+    "split_labeled_key",
     "render_prometheus",
     "render_standard_gauges",
     "PROMETHEUS_CONTENT_TYPE",
@@ -131,6 +135,29 @@ def _escape_label_value(value: Any) -> str:
     return str(value).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
 
 
+# Stats backends key counters and gauges by flat strings; per-series labels
+# (``fleet_replica_state{replica="r0"}``) ride inside the key in exposition
+# syntax, made by :func:`labeled_key` and split back out by the renderer so
+# base labels merge in.  Labels are sorted: one series per (name, labels)
+# whatever the caller's keyword order.
+_LABELED_KEY = re.compile(r"^(?P<name>[^{]+)\{(?P<body>.*)\}$")
+_LABEL_PAIR = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def labeled_key(name: str, **labels: Any) -> str:
+    if not labels:
+        return name
+    body = ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in sorted(labels.items()))
+    return f"{name}{{{body}}}"
+
+
+def split_labeled_key(key: str) -> "tuple[str, Dict[str, str]]":
+    m = _LABELED_KEY.match(key)
+    if not m:
+        return key, {}
+    return m.group("name"), dict(_LABEL_PAIR.findall(m.group("body")))
+
+
 def _labels(pairs: Mapping[str, Any]) -> str:
     if not pairs:
         return ""
@@ -159,42 +186,57 @@ def render_prometheus(
     Counters get a ``_total`` suffix (not doubled on a key already named
     ``*_total``), gauges render verbatim, histograms as cumulative
     ``_bucket{le=...}`` series plus ``_sum`` and ``_count``.  ``labels`` are
-    added to every sample.
+    added to every sample, beside the labels a :func:`labeled_key` carries.
     """
     base_labels = dict(labels or {})
     lines: List[str] = []
 
+    # Labeled keys of one metric sort next to each other, so one TYPE line
+    # per name is "do not repeat the last one".
+    last_typed = ""
     for key in sorted(snapshot.get("counters", {})):
         value = snapshot["counters"][key]
-        name = _metric_name(key, prefix)
+        base, own = split_labeled_key(key)
+        name = _metric_name(base, prefix)
         if not name.endswith("_total"):
             name += "_total"
-        lines.append(f"# TYPE {name} counter")
-        lines.append(f"{name}{_labels(base_labels)} {_fmt(value)}")
+        if name != last_typed:
+            lines.append(f"# TYPE {name} counter")
+            last_typed = name
+        lines.append(f"{name}{_labels(dict(base_labels, **own))} {_fmt(value)}")
 
+    last_typed = ""
     for key in sorted(snapshot.get("gauges", {})):
         value = snapshot["gauges"][key]
-        name = _metric_name(key, prefix)
-        lines.append(f"# TYPE {name} gauge")
-        lines.append(f"{name}{_labels(base_labels)} {_fmt(value)}")
+        base, own = split_labeled_key(key)
+        name = _metric_name(base, prefix)
+        if name != last_typed:
+            lines.append(f"# TYPE {name} gauge")
+            last_typed = name
+        lines.append(f"{name}{_labels(dict(base_labels, **own))} {_fmt(value)}")
 
+    last_typed = ""
     for key in sorted(snapshot.get("histograms", {})):
         state = snapshot["histograms"][key]
-        name = _metric_name(key, prefix)
+        base, own = split_labeled_key(key)
+        name = _metric_name(base, prefix)
         edges: Sequence[float] = state["edges"]
         counts: Sequence[int] = state["counts"]
-        lines.append(f"# TYPE {name} histogram")
+        if name != last_typed:
+            lines.append(f"# TYPE {name} histogram")
+            last_typed = name
+        series = dict(base_labels, **own)
         running = 0
         for edge, n in zip(edges, counts):
             running += n
-            bucket_labels = dict(base_labels)
+            bucket_labels = dict(series)
             bucket_labels["le"] = _fmt(edge)
             lines.append(f"{name}_bucket{_labels(bucket_labels)} {running}")
-        inf_labels = dict(base_labels)
+        inf_labels = dict(series)
         inf_labels["le"] = "+Inf"
         lines.append(f"{name}_bucket{_labels(inf_labels)} {state['count']}")
-        lines.append(f"{name}_sum{_labels(base_labels)} {_fmt(state['sum'])}")
-        lines.append(f"{name}_count{_labels(base_labels)} {state['count']}")
+        lines.append(f"{name}_sum{_labels(series)} {_fmt(state['sum'])}")
+        lines.append(f"{name}_count{_labels(series)} {state['count']}")
 
     return "\n".join(lines) + "\n"
 

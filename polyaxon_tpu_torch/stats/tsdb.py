@@ -3,7 +3,7 @@
 The port's own copy of ``RatioWindow`` (and the ``CounterWindow`` it is made
 of) from ``polyaxon_tpu/stats/tsdb.py``: "events over opportunities in the
 last W seconds" for the engine's windowed prefix-hit and speculative-accept
-rates.
+rates and the fleet autoscaler's shed fraction.
 """
 
 from __future__ import annotations
@@ -67,9 +67,16 @@ class RatioWindow:
         self.num.observe(num, at)
         self.den.observe(den, at)
 
-    def ratio(self, window_s: float, now: float) -> Optional[float]:
+    def deltas(self, window_s: float, now: float) -> Optional[Tuple[float, float]]:
         d_num = self.num.increase(window_s, now)
         d_den = self.den.increase(window_s, now)
         if d_num is None or d_den is None:
             return None
+        return d_num, d_den
+
+    def ratio(self, window_s: float, now: float) -> Optional[float]:
+        d = self.deltas(window_s, now)
+        if d is None:
+            return None
+        d_num, d_den = d
         return d_num / d_den if d_den > 0 else 0.0

@@ -778,3 +778,47 @@ def test_a_collection_inside_a_capture_may_free_the_host_tiers_buffers_and_event
     seen = _capture_under_collection(kind, False)
     assert seen["collections_in_capture"] > 0 and seen["freed_in_capture"], seen
     assert seen["result"] == "ok", seen
+
+
+def test_two_replicas_on_the_card_give_equal_greedy_tokens(cuda, tmp_path):
+    """A fleet of two replica processes on one card (small width, warmup on,
+    so each captures its step family): the same seed makes the same weights
+    in both, so the same greedy prompt gives the same tokens through the
+    router, from each replica directly, and from an in-process engine."""
+    import urllib.request
+
+    from polyaxon_tpu_torch.serving import FleetRouter, LocalServingFleet
+
+    model = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=4, head_dim=64, d_ff=512)
+    seq, slots, new = 128, 4, 24
+    prompts = [[int(t) for t in np.random.default_rng(i).integers(0, 256, 5 + 9 * i)]
+               for i in range(4)]
+    router = FleetRouter(probe_interval_s=0.2, probe_timeout_s=2.0, request_timeout_s=120.0)
+    fleet = LocalServingFleet(tmp_path, model, replicas=2, seq=seq, slots=slots, seed=3,
+                              router=router, env={"POLYAXON_TPU_SERVING_WARMUP": "1"},
+                              device="cuda")
+    fleet.start()
+    try:
+        assert fleet.wait_ready(timeout_s=300), [
+            (tmp_path / f"{n}.log").read_text()[-2000:] for n in fleet._procs]
+        routed = [router.generate([p], max_new_tokens=new)["tokens"][0] for p in prompts]
+        for name in router.replica_names():
+            base = router.replica(name).base_url
+            req = urllib.request.Request(
+                base + "/generate", data=json.dumps({"prompts": prompts,
+                                                     "max_new_tokens": new}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                assert json.load(r)["tokens"] == routed, name
+            with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+                assert json.load(r)["engine"]["steady_state_compiles"] == 0, name
+    finally:
+        fleet.stop()
+    cfg = TransformerConfig(max_seq=seq, **model)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(3))
+    engine = ServingEngine(params, cfg, slots=slots, max_len=seq, seed=3, warmup=True,
+                           device=cuda).start()
+    try:
+        assert [engine.submit(p, new).wait(timeout=120) for p in prompts] == routed
+    finally:
+        engine.stop()

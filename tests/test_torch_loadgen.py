@@ -136,11 +136,34 @@ def test_http_poisson_load_gives_the_jax_server_outcomes(params):
 
 
 def test_fleet_and_chaos_are_not_ported():
-    for kw in ({"kill_at_s": {"r0": 1.0}}, {"stall_at_s": {"r0": 1.0}}, {"fleet": object()}):
-        with pytest.raises(NotImplementedError, match="item 4 step 7"):
-            tlg.http_poisson_load("http://127.0.0.1:1", [[1]], 1, rate_rps=1.0, **kw)
-    with pytest.raises(NotImplementedError, match="item 4 step 7"):
-        tlg.chaos_poisson_load("http://127.0.0.1:1", [[1]], 1, phases=[(1.0, 1.0)])
+    """Once the check that these raised (they waited for the fleet); the
+    fault schedule and the chaos load are ported now, so it holds that they
+    run: a kill and a stall fire against a fleet stand-in, and
+    ``chaos_poisson_load`` accounts for every arrival.  Their parity with the
+    JAX package's is in ``test_torch_loadgen_chaos.py``."""
+
+    class Fleet:
+        def __init__(self):
+            self.calls = []
+
+        def chaos_target(self):
+            return "r0"
+
+        def kill_replica(self, name):
+            self.calls.append(("kill", name))
+
+        def stall_replica(self, name):
+            self.calls.append(("stall", name))
+
+    fleet = Fleet()
+    res = tlg.http_poisson_load("http://127.0.0.1:1", [[1]] * 3, 1, rate_rps=20.0,
+                                kill_at_s={"r0": 0.0}, stall_at_s={"r1": 0.0}, fleet=fleet)
+    assert sorted(fleet.calls) == [("kill", "r0"), ("stall", "r1")]
+    assert res["failures"] == 3 and res["hangs"] == 0  # nothing listens on port 1
+    res = tlg.chaos_poisson_load("http://127.0.0.1:1", [[1]], 1, phases=[(0.3, 10.0)],
+                                 events=[tlg.ChaosEvent(0.1, "kill")], fleet=fleet, seed=3)
+    assert fleet.calls[-1] == ("kill", "r0")
+    assert res["failures"] == res["n_requests"] > 0 and res["hangs"] == 0
 
 
 def test_chaos_schedule_equals_the_jax_schedule():

@@ -141,6 +141,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import polyaxon_tpu_torch.builtins.trainers, polyaxon_tpu_torch.models\n"
+        "import polyaxon_tpu_torch.serving.replica, polyaxon_tpu_torch.serving.fleet\n"
+        "import polyaxon_tpu_torch.serving.router, polyaxon_tpu_torch.serving.autoscaler\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'polyaxon_tpu')]\n"
         "assert not bad, bad\n"
     )
