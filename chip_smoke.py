@@ -40,7 +40,19 @@ the autoscaler under chaos).  Phases:
    dense attention;
 7. the training path: ``lm_train`` at the 671M width (batch 20, seq 1024,
    5 steps, lr 3e-4, no remat, float32 mu), its launch counts per step,
-   tokens/s, MFU and a falling loss; then bench.py's train configuration
+   tokens/s, MFU and a falling loss, with its tracking wired as a worker
+   wires it (a ``Reporter`` on a run dir, the ledger's and the tracer's
+   sinks, a ``FlightRecorder``, a ``ResourceSampler``): its final ledger
+   row's buckets sum to its wall, its step compute is the loop's
+   synchronized wall less checkpoint and drain, its FLOPs the analytic ones,
+   its MFU bench.py's, with the card's name, peak and memory; then the same
+   run without tracking, with it and without (the overhead, recorded); a
+   stalled 2-layer ``lm_train`` under a recorder with a 0.5 s floor (one
+   ``stall`` anomaly, a dump naming the card's memory and the fault
+   injector's frame); ``TrainPipeline`` with ``device_prefetch`` feeding the
+   train step (device batches equal to their host source, the ledger's data
+   wait the pipeline's); whether ``CUDAGraph.debug_dump`` writes without
+   debug mode; then bench.py's train configuration
    (remat ``save_attn``, bf16 mu) through ``build_train_step`` for 3 steps,
    whose first step must give the same loss and grad norm;
 8. where the time goes: device time by kernel over one prefill, over
@@ -62,7 +74,10 @@ the autoscaler under chaos).  Phases:
     ``/v1/stats``, ``/metrics``, no leaked block, and a ``/v1/cancel`` that
     frees its slot; TTFT, queue wait, decode step, tokens/s and peak
     memory; the flash kernels' launch counts over it must stay 0 (the
-    paged steps use plain attention, as the reference's do);
+    paged steps use plain attention, as the reference's do); the engine's
+    final ledger row holds the reference's extras, a step per decode step
+    and prompt, a token per emitted token; the capture agent's registered
+    decode step names a captured graph;
 12. where the serving time goes: one paged decode step with 8 live slots
     and one 256-token prefill chunk under torch.profiler;
 13. the three kernels at the long-context shapes of phases 14 and 15 (d 64,
@@ -169,7 +184,9 @@ Any failed check raises, and the script exits non-zero; an atexit hook
 SIGKILLs any replica left.  On success its last lines are the serving
 figures as JSON (``lm_generate``'s decode rate, ``lm_server``'s, and the
 paged profile), the long-context, the checkpoint, the compiled decode and
-the KV-tier and tracing figures as JSON, the card's name and power limit,
+the KV-tier and tracing figures as JSON, the tracking figures (the
+training and serving ledger rows, the overhead, the watchdog, the dataset
+path) as JSON, the card's name and power limit,
 the kernels' JSON record, the fleet's figures and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
 at once.
@@ -265,6 +282,18 @@ LONG_SHAPE_OPS = {"fwd": 549.8e9, "dq": 824.7e9, "dkv": 1099.6e9}
 # (B, T per rank) and (H, Hkv, d) per case, bf16.
 RING_RANKS, RING_B, RING_TL = 4, 2, 512
 RING_CASES = ((8, 2, 64), (8, 8, 64), (8, 2, 128), (8, 8, 128))
+# Tracking (phase 7's ledger, the watchdog, the dataset path): the stalled
+# lm_train runs 2 layers of the 671M width for 6 steps with a 3 s stall at step
+# 3; the dataset path feeds the 671M train step 6 batches through TrainPipeline.
+WD_LAYERS, WD_STEPS, WD_STALL_AT, WD_STALL_S, DATA_STEPS = 2, 6, 3, 3.0, 6
+# The utilization ledger's final serving row carries the reference engine's
+# extras (polyaxon_tpu/serving/engine.py:1130-1154).
+SERVING_EXTRA = ("decode_busy_frac", "slot_occupancy", "decode_utilization", "block_occupancy",
+                 "prefix_cache_hit_rate", "prefix_cache_hits", "prefix_cache_misses",
+                 "prefix_cache_evictions", "prefix_cache_demotions", "prefix_cache_restores",
+                 "parked_sequences", "requests_shed", "host_spilled_blocks_total",
+                 "host_restored_blocks_total", "prefill_backlog_chunks", "kv_pool_bytes",
+                 "kv_dtype", "spec_proposed_total", "spec_accepted_total", "spec_accept_rate")
 # Checkpoint, preemption and restore (phase 17), at bench.py's 671M
 # configuration (seq 1024, batch 8): 5 steps, a save every 2, a SIGKILL
 # before step 3; lm_generate (batch 2, prompt 128, 16 new tokens) and
@@ -907,18 +936,19 @@ def _mfu(tokens_per_s, seq):
     return tokens_per_s * fpt / H100_PEAK_FLOPS[torch.bfloat16]
 
 
-def _lm_train(label, seq, batch, steps, strategy="ddp", mesh=None, **params):
+def _lm_train(label, seq, batch, steps, strategy="ddp", mesh=None, reporter=None, **params):
     """lm_train at the 671M width, the kernels' counts set to 0 just before
     it and read just after: its loss must be finite (and fall, over more
     than one step) and each kernel must launch once per layer and step.
-    Returns the launch counts, the first step's and the final metrics."""
+    ``reporter`` goes on the run's Context.  Returns the launch counts, the
+    first step's and the final metrics."""
     from polyaxon_tpu_torch.builtins.trainers import lm_train
     from polyaxon_tpu_torch.tracking.context import Context
 
     records = []
     ctx = Context(params=dict(BENCH_MODEL, seq=seq, batch=batch, steps=steps, lr=LR,
                               device="cuda", **params),
-                  strategy=strategy, mesh=mesh, seed=SEED, records=records)
+                  strategy=strategy, mesh=mesh, seed=SEED, records=records, reporter=reporter)
     _free()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -947,11 +977,309 @@ def _lm_train(label, seq, batch, steps, strategy="ddp", mesh=None, **params):
     return launches, first, final
 
 
+@contextlib.contextmanager
+def _tracking(run_dir, **recorder):
+    """Wire a run's tracking as a worker does: a Reporter on
+    ``<run_dir>/reports/proc0.jsonl`` (heartbeat every second), the ledger's
+    and the tracer's sinks on it, a FlightRecorder (``recorder`` overrides its
+    knobs) and a ResourceSampler (every second); all undone on exit."""
+    from polyaxon_tpu_torch.monitor.resources import ResourceSampler
+    from polyaxon_tpu_torch.tracking import ledger, trace
+    from polyaxon_tpu_torch.tracking.flightrec import FlightRecorder, get_progress
+    from polyaxon_tpu_torch.tracking.reporter import Reporter, report_file
+
+    reporter = Reporter(report_file(run_dir, 0))
+    ledger.configure(sink=reporter.ledger)
+    trace.configure(sink=reporter.span)
+    get_progress().reset()
+    flight = FlightRecorder(get_progress(), reporter=reporter, out_dir=Path(run_dir) / "reports",
+                            **recorder)
+    sampler = ResourceSampler(reporter, interval=1.0)
+    reporter.start_heartbeat(1.0)
+    flight.start()
+    sampler.start()
+    try:
+        yield reporter
+    finally:
+        sampler.stop()
+        flight.stop()
+        ledger.configure(sink=None)
+        trace.configure(sink=None)
+        get_progress().reset()
+        reporter.close()
+
+
+def _report_lines(run_dir):
+    from polyaxon_tpu_torch.tracking.reporter import report_file
+
+    return [json.loads(line) for line in report_file(run_dir, 0).read_text().splitlines()]
+
+
+def _train_flops_per_step(seq, batch, n_layers=None):
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig
+    from polyaxon_tpu_torch.tracking.ledger import transformer_flops_per_token
+
+    model = dict(BENCH_MODEL, n_layers=n_layers or BENCH_MODEL["n_layers"])
+    cfg = TransformerConfig(max_seq=seq, **model)
+    return transformer_flops_per_token(cfg.n_params, cfg.n_layers, cfg.n_heads, cfg.head_dim,
+                                       seq) * batch * seq
+
+
+def _check_train_ledger(lines, steps, batch, seq, final):
+    """lm_train's final ledger row against the run: its buckets sum to its
+    wall (5%, the bound of tests/test_e2e/test_goodput_flow.py), its step
+    compute is the loop's synchronized wall less checkpoint and drain (5%),
+    its FLOPs are steps x the analytic FLOPs a step, its MFU over the loop's
+    wall is bench.py's (_mfu, 5%), the card's name, peak and memory."""
+    rows = [e for e in lines if e["type"] == "ledger"]
+    finals = [e for e in rows if e["final"]]
+    if len(finals) != 1:
+        raise AssertionError(f"lm_train: {len(finals)} final ledger rows in {len(rows)}")
+    row = finals[0]
+    b = row["buckets"]
+    loop_wall = steps * batch * seq / final["tokens_per_s"]
+    want_compute = loop_wall - b["ckpt_block_s"] - b["metric_drain_s"]
+    in_band = row["mfu"] * row["wall_s"] / loop_wall
+    bench = _mfu(final["tokens_per_s"], seq)
+    kind = torch.cuda.get_device_name(0)
+    out = {
+        "wall_s": row["wall_s"], "buckets": b, "buckets_sum_s": sum(b.values()),
+        "loop_wall_s": loop_wall, "goodput": row["goodput"], "mfu": row["mfu"],
+        "mfu_over_loop_wall": in_band, "bench_mfu": bench, "flops": row["flops"],
+        "steps": row["steps"], "tokens": row["tokens"], "hbm_peak_bytes": row["hbm_peak_bytes"],
+        "device_kind": row["device_kind"], "peak_flops_per_s": row["peak_flops_per_s"],
+        "compile_events": row["compile_events"], "compile_cache_hits": row["compile_cache_hits"],
+        "ledger_rows": len(rows),
+        "lines": {t: sum(e["type"] == t for e in lines)
+                  for t in ("metric", "log", "span", "progress", "heartbeat", "resources",
+                            "anomaly")},
+    }
+    log(f"lm_train ledger: {out}")
+    if abs(out["buckets_sum_s"] - row["wall_s"]) > 0.05 * row["wall_s"]:
+        raise AssertionError("the ledger's buckets do not sum to its wall")
+    if abs(b["step_compute_s"] - want_compute) > 0.05 * want_compute:
+        raise AssertionError(f"step_compute_s {b['step_compute_s']} is not the loop's "
+                             f"synchronized wall less checkpoint and drain {want_compute}")
+    if not np.isclose(row["flops"], steps * _train_flops_per_step(seq, batch), rtol=1e-9):
+        raise AssertionError("the ledger's FLOPs are not steps x the analytic FLOPs a step")
+    if abs(in_band - bench) > 0.05 * bench:
+        raise AssertionError(f"the ledger's MFU over the loop wall {in_band} is not _mfu {bench}")
+    if row["device_kind"] != kind or row["devices"] != 1 or (
+            kind == "NVIDIA H100 80GB HBM3" and row["peak_flops_per_s"] != 989e12):
+        raise AssertionError(f"the ledger's device: {row['device_kind']}, "
+                             f"{row['peak_flops_per_s']}")
+    if not row["hbm_peak_bytes"] > 0 or not out["lines"]["progress"] or \
+            not out["lines"]["span"]:
+        raise AssertionError("the ledger saw no card memory, or no progress or span line")
+    return out
+
+
 def phase_train():
-    """The training path: lm_train at the 671M width.  Returns the launch
-    counts of the run and the first step's metrics."""
-    launches, first, _ = _lm_train("lm_train 671M", TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS)
-    return launches, first
+    """The training path: lm_train at the 671M width, its tracking wired as
+    a worker wires it, and its final ledger row checked against the run.
+    Returns the launch counts of the run, the first step's metrics and the
+    ledger's figures."""
+    run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        with _tracking(run_dir) as reporter:
+            launches, first, final = _lm_train("lm_train 671M", TRAIN_SEQ, TRAIN_BATCH,
+                                               TRAIN_STEPS, reporter=reporter)
+        ledger = _check_train_ledger(_report_lines(run_dir), TRAIN_STEPS, TRAIN_BATCH,
+                                     TRAIN_SEQ, final)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    ledger["tokens_per_s"] = final["tokens_per_s"]
+    return launches, first, ledger
+
+
+def phase_tracking_overhead():
+    """lm_train at the 671M width as phase 7 ran it, in turns without and
+    with the reporter, the ledger's sink, the recorder and the sampler
+    (three pairs, each side first in turn): tokens/s of each and the
+    overhead of the medians (recorded, not gated: on one H100 the rate at
+    T 1024 has spread from 58k to 78k tokens/s across calls without any
+    tracking)."""
+    rates = {"wired": [], "unwired": []}
+    for wired in (False, True, True, False, False, True):
+        _free()
+        if wired:
+            run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_overhead_"))
+            try:
+                with _tracking(run_dir) as reporter:
+                    _, _, final = _lm_train("lm_train 671M, tracking wired", TRAIN_SEQ,
+                                            TRAIN_BATCH, TRAIN_STEPS, reporter=reporter)
+            finally:
+                shutil.rmtree(run_dir, ignore_errors=True)
+        else:
+            _, _, final = _lm_train("lm_train 671M, no tracking", TRAIN_SEQ, TRAIN_BATCH,
+                                    TRAIN_STEPS)
+        rates["wired" if wired else "unwired"].append(final["tokens_per_s"])
+    out = {"tokens_per_s": rates,
+           "overhead_pct": 100.0 * (1 - statistics.median(rates["wired"]) /
+                                    statistics.median(rates["unwired"]))}
+    log(f"tracking overhead at T {TRAIN_SEQ}: {out}")
+    return out
+
+
+def phase_watchdog():
+    """A stalled lm_train on the card (2 layers of the 671M width, a 3 s stall
+    at step 3) under a FlightRecorder with a 0.5 s floor polling every 0.1 s:
+    exactly one stall anomaly, its dump flightrec-0-1.json with the card's
+    memory and the main thread's stack inside the fault injector."""
+    import inspect
+
+    from polyaxon_tpu_torch.builtins import trainers
+    from polyaxon_tpu_torch.tracking.context import Context
+
+    run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_watchdog_"))
+    try:
+        with _tracking(run_dir, floor_s=0.5, interval_s=0.1) as reporter:
+            trainers.lm_train(Context(
+                params=dict(BENCH_MODEL, n_layers=WD_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                            steps=WD_STEPS, lr=LR, stall_at_step=WD_STALL_AT,
+                            stall_s=WD_STALL_S, device="cuda"),
+                seed=SEED, reporter=reporter, records=[]))
+        lines = _report_lines(run_dir)
+        dump = run_dir / "reports" / "flightrec-0-1.json"
+        doc = json.loads(dump.read_text()) if dump.exists() else {}
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    anomalies = [e for e in lines if e["type"] == "anomaly"]
+    main = "".join(next((v for k, v in doc.get("threads", {}).items()
+                         if k.startswith("MainThread")), []))
+    src, first = inspect.getsourcelines(trainers._fault_injection)
+    frames = [int(ln.split("line ")[1].split(",")[0]) for ln in main.splitlines()
+              if "trainers.py" in ln and "in on_step" in ln]
+    card = f"sys/hbm{torch.cuda.current_device()}_mb"
+    out = {"anomalies": [(e["kind"], e.get("step"), e.get("dump_artifact")) for e in anomalies],
+           "devices": doc.get("devices"),
+           "time_to_dump_s": doc["ts"] - doc["progress"]["last_beat_at"] if doc else None,
+           "deadline_s": anomalies[0].get("deadline_s") if anomalies else None,
+           "on_step_lines": frames, "fault_injection_lines": [first, first + len(src) - 1]}
+    log(f"watchdog: {out}")
+    if [e["kind"] for e in anomalies] != ["stall"] or not doc:
+        raise AssertionError(f"the stalled lm_train did not leave one stall and its dump: {out}")
+    if not doc["devices"].get(card, 0) > 0:
+        raise AssertionError(f"the dump does not name the card's memory ({card}): {out}")
+    if not any(first <= n < first + len(src) for n in frames):
+        raise AssertionError(f"no stack of the dump is inside _fault_injection: {main[-2000:]}")
+    if not 0.5 <= out["time_to_dump_s"] < WD_STALL_S:
+        raise AssertionError(f"the dump came {out['time_to_dump_s']} s after the last beat")
+    return out
+
+
+def phase_dataset_path():
+    """TrainPipeline over synthetic_token_batches, placed on the card through
+    device_prefetch (pinned buffers, a copy stream), feeding the 671M train
+    step for DATA_STEPS steps with the ledger fed as the reference's image
+    trainer feeds it: every device batch equals its host source, as every
+    batch of the synchronous pipeline (prefetch=0) does; the ledger's
+    data_wait_s is the sum of the pipeline's pop_data_wait_s; the loss is
+    finite."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig
+    from polyaxon_tpu_torch.runtime.data import synthetic_token_batches
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+    from polyaxon_tpu_torch.runtime.pipeline import TrainPipeline
+    from polyaxon_tpu_torch.tracking.ledger import get_ledger
+
+    V = BENCH_MODEL["vocab_size"]
+
+    def host():
+        return synthetic_token_batches(vocab_size=V, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                       seed=SEED)
+
+    want = [b for _, b in zip(range(DATA_STEPS), host())]
+    cfg = TransformerConfig(max_seq=TRAIN_SEQ, **BENCH_MODEL)
+    ts, params, opt_state, _ = _train_setup(cfg, AdamW(LR))
+    rows = []
+    led = get_ledger()
+    led.configure(sink=rows.append)
+    try:
+        led.start(source="train", device="cuda")
+        led.set_flops_per_step(_train_flops_per_step(TRAIN_SEQ, TRAIN_BATCH))
+        got, waits, walls, losses = [], [], [], []
+        with TrainPipeline(host(), "cuda", prefetch=2, tasks=False) as pipe:
+            torch.cuda.synchronize()
+            led.mark_loop_start()
+            t0 = last = time.perf_counter()
+            for _ in range(DATA_STEPS):
+                batch = next(pipe)
+                params, opt_state, m = ts.step(params, opt_state, batch)
+                got.append(batch)
+                losses.append(m["loss"])
+                now = time.perf_counter()
+                walls.append(now - last)
+                last = now
+                waits.append(pipe.pop_data_wait_s())
+                led.account("data_wait_s", waits[-1])
+                led.step(walls[-1], tokens=TRAIN_BATCH * TRAIN_SEQ)
+            torch.cuda.synchronize()
+            loop_wall = time.perf_counter() - t0
+            data_wait_s = pipe.data_wait_s
+        row = led.flush(final=True)
+    finally:
+        led.configure(sink=None)
+    with TrainPipeline(host(), "cuda", prefetch=0, tasks=False) as pipe:
+        sync = [next(pipe) for _ in range(DATA_STEPS)]
+    equal = [all(np.array_equal(g[k].cpu().numpy(), w[k]) and
+                 np.array_equal(y[k].cpu().numpy(), w[k]) for k in ("tokens", "targets"))
+             for g, y, w in zip(got, sync, want)]
+    losses = [float(x) for x in losses]
+    out = {"steps": DATA_STEPS, "loop_wall_s": loop_wall, "step_walls_s": walls,
+           "data_wait_s": waits, "pipeline_data_wait_s": data_wait_s,
+           "ledger_data_wait_s": row["buckets"]["data_wait_s"], "ledger_goodput": row["goodput"],
+           "tokens_per_s": DATA_STEPS * TRAIN_BATCH * TRAIN_SEQ / loop_wall,
+           "losses": losses, "batches_equal": equal}
+    log(f"dataset path: {out}")
+    if not all(equal):
+        raise AssertionError(f"device batches differ from their host source: {equal}")
+    if not np.isclose(row["buckets"]["data_wait_s"], sum(waits), rtol=1e-9, atol=1e-12) or \
+            not np.isclose(sum(waits), data_wait_s, rtol=1e-9, atol=1e-12):
+        raise AssertionError("the ledger's data_wait_s is not the pipeline's")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"dataset path: non-finite loss {losses}")
+    return out
+
+
+def _graph_debug_dump():
+    """Whether CUDAGraph.debug_dump writes a graph captured as the engine
+    captures its steps, after enable_debug_mode(), and one built with
+    keep_graph=True (what the capture agent could register for the captured
+    decode step)."""
+    import warnings
+
+    x = torch.ones(16, device="cuda")
+    out = {}
+    for mode in ("default", "enable_debug_mode", "keep_graph"):
+        try:
+            g = torch.cuda.CUDAGraph(keep_graph=True) if mode == "keep_graph" \
+                else torch.cuda.CUDAGraph()
+        except TypeError as e:
+            out[mode] = {"error": f"{type(e).__name__}: {e}"}
+            continue
+        if mode == "enable_debug_mode":
+            g.enable_debug_mode()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            x * 2
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(g):
+            x * 2
+        path = Path(tempfile.mkdtemp(prefix="chip_smoke_graph_")) / "graph.dot"
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                g.debug_dump(str(path))
+                err = None
+            except Exception as e:
+                err = f"{type(e).__name__}: {e}"
+        out[mode] = {
+            "written": path.exists(), "bytes": path.stat().st_size if path.exists() else 0,
+            "warnings": [str(w.message)[:200] for w in caught], "error": err}
+        shutil.rmtree(path.parent, ignore_errors=True)
+    log(f"CUDAGraph.debug_dump: {out}")
+    return out
 
 
 def phase_bench_config(first):
@@ -1230,6 +1558,8 @@ def phase_lm_server():
     the block count and a cancel.  Returns the flash kernels' launch counts
     over the run and the run's figures."""
     from polyaxon_tpu_torch.builtins.services import lm_server
+    from polyaxon_tpu_torch.tracking import ledger
+    from polyaxon_tpu_torch.tracking.capture import get_capture_agent
     from polyaxon_tpu_torch.tracking.context import Context
 
     V = BENCH_MODEL["vocab_size"]
@@ -1250,6 +1580,8 @@ def phase_lm_server():
 
     _free()
     torch.cuda.reset_peak_memory_stats()
+    ledger_rows = []
+    ledger.configure(sink=ledger_rows.append)
     _reset_counts()
     t0 = time.perf_counter()
     server = threading.Thread(target=serve, name="lm_server", daemon=True)
@@ -1358,13 +1690,39 @@ def phase_lm_server():
                 long_result[0][0] != 503 or long_result[0][1]["error"]["kind"] != "cancelled" or \
                 used != after["prefix_cache_blocks"]:
             raise AssertionError("lm_server: the cancel did not free the request's slot and blocks")
+        family = get_capture_agent()._executables["serving_decode_step"].as_text()
     finally:
         ctx.stop.set()
         server.join(timeout=120)
+        ledger.configure(sink=None)
     if server.is_alive() or errors:
         raise AssertionError(f"lm_server did not stop cleanly: {errors}")
     torch.cuda.synchronize()
     launches = _counts()
+    # The engine's final ledger row (stop()): the reference's extras, and one
+    # step a decode step and a prompt's last chunk, one token an emitted one.
+    finals = [r for r in ledger_rows if r["final"] and r["source"] == "serving"]
+    row = finals[-1] if finals else {}
+    extra = row.get("extra", {})
+    summary["ledger"] = {k: row.get(k) for k in ("wall_s", "buckets", "steps", "tokens",
+                                                  "goodput", "device_kind", "hbm_peak_bytes")}
+    summary["ledger"].update(rows=len(ledger_rows), finals=len(finals),
+                             **{k: extra.get(k) for k in ("decode_busy_frac", "slot_occupancy",
+                                                          "decode_utilization")})
+    summary["family_text_lines"] = family.splitlines()[:3]
+    log(f"lm_server ledger: {summary['ledger']}; the registered decode step: "
+        f"{family.splitlines()[:3]}")
+    if len(finals) != 1 or set(SERVING_EXTRA) - set(extra):
+        raise AssertionError(f"lm_server's final serving row lacks the reference's extras: "
+                             f"{sorted(set(SERVING_EXTRA) - set(extra))}, {len(finals)} rows")
+    if row["tokens"] != after["tokens_generated"] or \
+            row["steps"] != after["decode_steps"] + after["requests_submitted"]:
+        raise AssertionError(f"the serving row's steps {row['steps']} and tokens {row['tokens']}"
+                             f" are not the engine's ({after['decode_steps']} decode steps, "
+                             f"{after['requests_submitted']} prompts, "
+                             f"{after['tokens_generated']} tokens)")
+    if "decode: cuda graph" not in family:
+        raise AssertionError(f"the registered decode step is not a captured graph: {family}")
     summary["peak_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     log(f"lm_server peak_memory_allocated {summary['peak_memory_allocated_bytes']} B; flash "
         f"launches fwd/dq/dkv {launches} (expected (0, 0, 0))")
@@ -3159,7 +3517,15 @@ def main() -> int:
     gen_launches, gen_metrics = phase_main_path()
     static_decode = phase_profile(*phase_prefill_parity())
     _free()
-    train_launches, first = phase_train()
+    train_launches, first, train_ledger = phase_train()
+    tracking = {"train_ledger": train_ledger}
+    tracking["overhead"] = phase_tracking_overhead()
+    _free()
+    tracking["watchdog"] = phase_watchdog()
+    _free()
+    tracking["dataset_path"] = phase_dataset_path()
+    _free()
+    tracking["graph_debug_dump"] = _graph_debug_dump()
     _free()
     phase_bench_config(first)
     _free()
@@ -3170,6 +3536,7 @@ def main() -> int:
     paged_profile = phase_profile_paged(*phase_paged_parity())
     _free()
     server_launches, server = phase_lm_server()
+    tracking["serving_ledger"] = server["ledger"]
     _free()
     long_kernels = phase_long_kernels()
     _free()
@@ -3226,6 +3593,7 @@ def main() -> int:
     print(json.dumps({"checkpoint": ckpt}))
     print(json.dumps({"compiled_decode": compiled}))
     print(json.dumps({"kv_tiers_and_tracing": tiers}))
+    print(json.dumps({"tracking": tracking}))
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd["dq"], bwd["dkv"]]}))
     print(json.dumps({"fleet": fleet}))

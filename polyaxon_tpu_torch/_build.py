@@ -6,7 +6,10 @@ such a build takes seconds, not minutes).  Builds happen at first use, from
 the sources in the package, into ``_build/`` beside them; the library name
 carries a hash of the sources, so an edited kernel is rebuilt and a stale
 one is never loaded.  A build failure raises: nothing falls back to the
-plain PyTorch versions.
+plain PyTorch versions.  Builds and loads are the utilization ledger's
+compile events (``tracking/ledger.py:record_compile``): a build's wall
+seconds, one event and one cache miss a source built, one cache hit a
+library found built.
 """
 
 from __future__ import annotations
@@ -16,10 +19,12 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List
 
 from polyaxon_tpu_torch._device import find_nvcc
+from polyaxon_tpu_torch.tracking.ledger import record_compile
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -58,6 +63,7 @@ def build(names: Iterable[str] = ()) -> Dict[str, str]:
     built from the same sources is kept and reports ``"cached"``."""
     names = list(names) or sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     running = {}
     reports = {}
     for name in names:
@@ -80,6 +86,8 @@ def build(names: Iterable[str] = ()) -> Dict[str, str]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    record_compile(time.perf_counter() - t0 if running else 0.0, events=len(running),
+                   hits=len(names) - len(running), misses=len(running))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
@@ -91,7 +99,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             path = library_path(name)
-            if not path.exists():
+            if path.exists():
+                record_compile(hits=1)
+            else:
                 build([name])
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib

@@ -2,8 +2,9 @@
 
 Counterpart of ``polyaxon_tpu/builtins/trainers.py``; so far ``lm_generate``
 and ``lm_train`` (``ddp`` and ``sp_ring`` on one rank), with checkpoint
-save, resume and restore, and the fault injection the platform's
-preemption tests drive.
+save, resume and restore, the fault injection the platform's preemption
+tests drive, and ``lm_train``'s run accounting (the utilization ledger, the
+progress beacon, tracer spans and step-wall percentiles).
 """
 
 from __future__ import annotations
@@ -24,14 +25,30 @@ from polyaxon_tpu_torch.runtime.mesh import build_mesh
 from polyaxon_tpu_torch.runtime.optim import AdamW
 from polyaxon_tpu_torch.runtime.pipeline import MetricsDrain
 from polyaxon_tpu_torch.runtime.train import build_train_step
+from polyaxon_tpu_torch.stats import get_stats
 from polyaxon_tpu_torch.tracking.capture import get_capture_agent
 from polyaxon_tpu_torch.tracking.context import Context
+from polyaxon_tpu_torch.tracking.flightrec import get_progress
+from polyaxon_tpu_torch.tracking.ledger import get_ledger, transformer_flops_per_token
 from polyaxon_tpu_torch.tracking.profiling import StepClock, StepProfiler
+from polyaxon_tpu_torch.tracking.trace import get_tracer
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _percentile_metrics(run_stats, key: str, out_prefix: str) -> dict:
+    """Histogram percentiles for ``key`` as flat metric fields."""
+    summary = run_stats.summaries().get(key)
+    if not summary or not summary["count"]:
+        return {}
+    return {
+        f"{out_prefix}_p50": summary["p50"],
+        f"{out_prefix}_p95": summary["p95"],
+        f"{out_prefix}_p99": summary["p99"],
+    }
 
 
 def _int_params(ctx: Context, names) -> dict:
@@ -211,14 +228,26 @@ def lm_train(ctx: Context) -> None:
     Logs ``loss`` and ``grad_norm`` at every tenth step and the last (read
     off the loop by a ``MetricsDrain``), then ``tokens_per_s``,
     ``first_step_s`` (the first step's wall, synchronized, kernel loading
-    included) and the ``StepClock`` means (``ckpt_block_s`` among them when
-    saving), one record per save (``ckpt_save_block_s``, ``ckpt_write_s``,
-    ``ckpt_bytes``), and names the strategy in its last line.
+    included), the ``StepClock`` means (``ckpt_block_s`` among them when
+    saving) and ``step_wall_s_p50/p95/p99``, one record per save
+    (``ckpt_save_block_s``, ``ckpt_write_s``, ``ckpt_bytes``), and names the
+    strategy in its last line.
 
-    Not ported yet, each named in ROADMAP: the utilization ledger and the
-    progress beat; ``aot_compile_s`` has no counterpart in eager mode.
+    The run is accounted as the reference accounts it: the process-wide
+    utilization ledger (``tracking/ledger.py``) is armed first, gets the
+    analytic FLOPs of a step, a step record a step, the checkpoint's blocking
+    and the metric drain's backlog, and flushes a final row to its sink (the
+    reporter's ``ledger`` lines, where one is configured); each step beats
+    the progress beacon (``tracking/flightrec.py``) and records its wall in
+    ``get_stats()``'s ``train.step_wall_s``.  One ordering differs: the host
+    dispatches steps ahead of the card and the loop synchronizes once, after
+    its last step, so the last step's ledger wall runs to the end of that
+    synchronize and the steps' walls together cover the card's work.
+    ``aot_compile_s`` has no counterpart in eager mode.
     """
     device = resolve_device(ctx.get_param("device", "cuda"))
+    # Armed first: model build, weight init and data setup belong to the run.
+    led = get_ledger().start(source="train", device=device)
     steps = int(ctx.get_param("steps", 10))
     batch_size = int(ctx.get_param("batch", 8))
     seq = int(ctx.get_param("seq", 128))
@@ -276,36 +305,66 @@ def lm_train(ctx: Context) -> None:
     # Losses leave the loop as device scalars; the drain thread reads them.
     drain = MetricsDrain(lambda step, vals: ctx.log_metrics(step=step, **vals))
     clock = StepClock()
+    tracer = get_tracer()
+    run_stats = get_stats()
+    progress = get_progress()
+    step_tokens = batch_size * seq
+    led.set_flops_per_step(transformer_flops_per_token(
+        cfg.n_params, cfg.n_layers, cfg.n_heads, cfg.head_dim, seq) * step_tokens)
     metrics = None
     first_step_s = None
+    last_dt = None
     t0 = time.perf_counter()
     clock.start()
+    led.mark_loop_start()
     try:
-        for i in range(start_step, steps):
-            profiler.on_step(i)
-            capture.on_step(i)
-            if inject is not None:
-                inject(i)
-            params, opt_state, metrics = ts.step(params, opt_state, batch)
-            if ctx.is_leader and (i % 10 == 0 or i == steps - 1):
-                drain.push(i, {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"]})
-            if ckpt is not None:
-                ckpt.save(i, params, opt_state)  # async; fenced below
-            if ckpt_now is not None:
-                ckpt_now.maybe_save(i, params, opt_state)
-            if i == start_step:
-                _sync(device)  # the cold-start metric is the first step's full time
-                first_step_s = clock.tick()
-            else:
-                clock.tick()
-        _sync(device)
-        dt = time.perf_counter() - t0
+        with tracer.span("train.loop", steps=steps - start_step):
+            for i in range(start_step, steps):
+                profiler.on_step(i)
+                capture.on_step(i)
+                if inject is not None:
+                    inject(i)
+                with tracer.span("train.step", sample=tracer.hot_sample, step=i):
+                    params, opt_state, metrics = ts.step(params, opt_state, batch)
+                if ctx.is_leader and (i % 10 == 0 or i == steps - 1):
+                    drain.push(i, {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"]})
+                if ckpt is not None:
+                    ckpt.save(i, params, opt_state)  # async; fenced below
+                if ckpt_now is not None:
+                    ckpt_now.maybe_save(i, params, opt_state)
+                if i == start_step:
+                    _sync(device)  # the cold-start metric is the first step's full time
+                    first_step_s = step_dt = clock.tick()
+                else:
+                    step_dt = clock.tick()
+                ticked = time.perf_counter()
+                if i < steps - 1:
+                    run_stats.timing("train.step_wall_s", step_dt)
+                    led.step(step_dt, tokens=step_tokens)
+                    led.maybe_flush()
+                else:
+                    last_dt = step_dt
+                progress.beat(step=i)
+            _sync(device)
+            dt = time.perf_counter() - t0
+        if last_dt is not None:
+            # The steps still queued on the card when the host left the loop
+            # finish inside the synchronize: the last step's wall runs to its end.
+            last_dt += time.perf_counter() - ticked
+            run_stats.timing("train.step_wall_s", last_dt)
+            led.step(last_dt, tokens=step_tokens)
     finally:
         profiler.close()
         drain.close()
         if ckpt is not None:
             ckpt.wait_until_finished()
             ckpt.close()
+    # Ledger finalization: checkpoint write blocks, the drain backlog paid
+    # at close, then the final row.
+    if ckpt is not None:
+        led.account("ckpt_block_s", ckpt.save_block_s)
+    led.account("metric_drain_s", drain.close_wait_s)
+    led.flush(final=True)
     steps_run = steps - start_step
     if steps_run <= 0:
         if ctx.is_leader:
@@ -316,10 +375,13 @@ def lm_train(ctx: Context) -> None:
     tps = steps_run * batch_size * seq / dt
     if ckpt is not None:
         clock.add("ckpt_block_s", ckpt.save_block_s)
+        run_stats.timing("train.ckpt_block_s", ckpt.save_block_s)
         for save in ckpt.history:
             ctx.log_metrics(step=save["step"], ckpt_save_block_s=save["block_s"],
                             ckpt_write_s=save["write_s"], ckpt_bytes=save["bytes"])
-    ctx.log_metrics(step=steps, tokens_per_s=tps, first_step_s=first_step_s, **clock.summary())
+    stats = clock.summary()
+    stats.update(_percentile_metrics(run_stats, "train.step_wall_s", "step_wall_s"))
+    ctx.log_metrics(step=steps, tokens_per_s=tps, first_step_s=first_step_s, **stats)
     ctx.log_text(
         f"lm_train done: {steps} steps, strategy={template.name}, "
         f"final loss {float(metrics['loss']):.4f}, "

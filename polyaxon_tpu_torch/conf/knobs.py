@@ -1,8 +1,9 @@
 """The environment knobs the port reads, with the reference's names and defaults.
 
 The port's own copy of the part of ``polyaxon_tpu/conf/knobs.py`` its
-serving engine, its KV tiers, its tracer and its serving fleet (router,
-fleet, autoscaler) use: the same ``POLYAXON_TPU_*`` variables,
+serving engine, its KV tiers, its tracer, its serving fleet (router,
+fleet, autoscaler), its utilization ledger, its stall watchdog and its
+resource sampler use: the same ``POLYAXON_TPU_*`` variables,
 the same defaults, the same parsing (a bool is false for ``0``, ``false``,
 ``off``, ``no`` and the empty string; an unparsable number keeps the
 default).  Reading a knob that is not in :data:`KNOBS` raises ``KeyError``.
@@ -28,6 +29,16 @@ KNOBS: Dict[str, Any] = {
     "POLYAXON_TPU_TRACE_REQUESTS": True,
     "POLYAXON_TPU_TRACE_EXEMPLARS": 5,
     "POLYAXON_TPU_TRACE_EXEMPLAR_WINDOW_S": 300.0,
+    # the utilization ledger
+    "POLYAXON_TPU_LEDGER_INTERVAL_S": 30.0,
+    # the stall watchdog (tracking/flightrec.py)
+    "POLYAXON_TPU_WATCHDOG_K": 8.0,
+    "POLYAXON_TPU_WATCHDOG_FLOOR_S": 30.0,
+    "POLYAXON_TPU_WATCHDOG_CEILING_S": 600.0,
+    "POLYAXON_TPU_WATCHDOG_INTERVAL_S": 1.0,
+    "POLYAXON_TPU_PROGRESS_INTERVAL_S": 2.0,
+    # the resource sampler (monitor/resources.py)
+    "POLYAXON_TPU_RESOURCE_INTERVAL": 10.0,
     # the host KV tier and the persistent prefix store
     "POLYAXON_TPU_KV_OFFLOAD": False,
     "POLYAXON_TPU_KV_OFFLOAD_BLOCKS": 0,

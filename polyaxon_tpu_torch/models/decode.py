@@ -36,6 +36,7 @@ otherwise cast every float32 weight again.
 from __future__ import annotations
 
 import gc
+import time
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -48,6 +49,7 @@ from polyaxon_tpu_torch.models.transformer import (
     _rope,
     forward,
 )
+from polyaxon_tpu_torch.tracking.ledger import record_compile
 
 
 def _on(x: Union[int, torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -70,7 +72,10 @@ def capture_step(fn: Callable[[], Any], pool=None, warmup: int = 2):
     collection there that frees an unreachable CUDA graph (a stopped
     engine's step entries sit in reference cycles with their engine)
     destroys it on the capturing thread, and that invalidates the capture.
+    The warm-up and the capture are one compile event of the utilization
+    ledger (``tracking/ledger.py:record_compile``), with their seconds.
     """
+    t0 = time.perf_counter()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -86,6 +91,7 @@ def capture_step(fn: Callable[[], Any], pool=None, warmup: int = 2):
     finally:
         if collecting:
             gc.enable()
+    record_compile(time.perf_counter() - t0, events=1)
     return graph, out
 
 

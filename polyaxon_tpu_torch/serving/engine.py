@@ -45,7 +45,18 @@ meets the error.
 
 After the ready gate, each decode iteration calls the capture agent's
 ``on_step``, so a ``profile`` command on the bus traces a window of decode
-steps.
+steps, and the capture's ``hlo.txt`` holds the registered
+``serving_decode_step``: a text naming the family's entries, whether each is
+a graph, and the shapes of its static inputs and logits.
+
+Run accounting, as the reference's: ``start()`` arms the process-wide
+utilization ledger (``tracking/ledger.py``, source ``serving``); each
+prefill chunk and decode step adds its wall to ``step_compute_s`` and its
+emitted tokens (one on a prompt's last chunk) to the ledger's steps, and
+beats the progress beacon (``tracking/flightrec.py``); ``stop()`` merges the
+reference's extras (occupancy, prefix-cache and host-tier counters, sheds,
+backlog, the pool's bytes and dtype, the speculation counters) and flushes
+the final row.
 
 The KV tiers.  With ``kv_offload`` a parked sequence spills its private
 blocks to the host tier (:class:`~polyaxon_tpu_torch.serving.paging.HostKVTier`)
@@ -69,8 +80,8 @@ any path (finished, shed, cancelled, stopped).  Phases are intervals of one
 host clock read where the scheduler has already read the step's tokens
 back, so a request's waterfall sums to its server-side total.
 
-Not ported yet (ROADMAP Queue 1 items 4 and 5): meshes and sharded weights
-(raising), the utilization ledger and the progress beat.
+Not ported yet (ROADMAP Queue 1 item 7, its step 4): meshes and sharded
+weights (raising).
 """
 
 from __future__ import annotations
@@ -84,6 +95,7 @@ import random
 import threading
 import time
 from collections import deque
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -101,6 +113,8 @@ from polyaxon_tpu_torch.serving.paging import (
 )
 from polyaxon_tpu_torch.stats import MemoryStats, RatioWindow
 from polyaxon_tpu_torch.tracking.capture import get_capture_agent
+from polyaxon_tpu_torch.tracking.flightrec import get_progress
+from polyaxon_tpu_torch.tracking.ledger import get_ledger
 from polyaxon_tpu_torch.tracking.trace import TraceContext, get_tracer
 
 logger = logging.getLogger(__name__)
@@ -607,6 +621,9 @@ class ServingEngine:
         # On-demand capture (`profile` commands): a window of decode steps,
         # gated on the ready event so warmup steps never open one.
         self._capture = get_capture_agent()
+        self._progress = get_progress()
+        #: The utilization ledger while started (armed by start()).
+        self._ledger: Optional[Any] = None
         self._n_parks = 0
         self._n_cow = 0
         self._backlog_chunks = 0
@@ -1000,8 +1017,30 @@ class ServingEngine:
         finally:
             self._warmup_s = time.perf_counter() - t0
             self._compiled_baseline = self._compiled_count()
+            # Rendered only if a profile command fires.
+            self._capture.register_executable(
+                "serving_decode_step", SimpleNamespace(as_text=self._family_text))
             self._ready.set()
             gauge("serving.warmup_progress", 1.0)
+
+    def _family_text(self) -> str:
+        """The step family as text (a capture's ``hlo.txt``): each entry, a
+        CUDA graph or eager, with its static inputs' and logits' shapes."""
+        entries = [("decode", self._step_fn)]
+        entries += [(f"chunk[{c}]", e) for c, e in sorted(self._chunk_fns.items())]
+        entries += [(f"verify[{w}]", e) for w, e in sorted(self._verify_fns.items())]
+        lines = [f"// serving step family on {self.device}: {self.slots} slots, "
+                 f"{self.block_allocator.num_blocks} blocks of {self.block_size}, "
+                 f"kv {self.kv_dtype}"]
+        for name, entry in entries:
+            if entry is None:
+                continue
+            ins = ", ".join(f"{k} {list(t.shape)} {str(t.dtype).replace('torch.', '')}"
+                            for k, t in entry.inputs.items())
+            kind = "cuda graph" if entry.graph is not None else "eager"
+            out = f"logits {list(entry.out.shape)}" if entry.out is not None else ""
+            lines.append(f"{name}: {kind}; inputs {ins}; {out}".rstrip("; "))
+        return "\n".join(lines)
 
     # -- public API ------------------------------------------------------------
 
@@ -1011,6 +1050,7 @@ class ServingEngine:
 
     def start(self) -> "ServingEngine":
         if self._thread is None:
+            self._ledger = get_ledger().start(source="serving", device=self.device)
             self._started_at = time.time()
             self._thread = threading.Thread(target=self._loop, name="serving-engine", daemon=True)
             self._thread.start()
@@ -1029,6 +1069,22 @@ class ServingEngine:
         # The final prefix-store snapshot (the scheduler is down, the pool is
         # this thread's): whatever this replica learned, the next one boots with.
         self._maybe_persist(force=True)
+        if self._ledger is not None:
+            paging = self._paging_snapshot()
+            spec = self._spec_snapshot()
+            self._ledger.merge_extra(
+                **self._utilization_snapshot(),
+                **{k: paging[k] for k in (
+                    "block_occupancy", "prefix_cache_hit_rate", "prefix_cache_hits",
+                    "prefix_cache_misses", "prefix_cache_evictions", "prefix_cache_demotions",
+                    "prefix_cache_restores", "parked_sequences", "requests_shed",
+                    "host_spilled_blocks_total", "host_restored_blocks_total",
+                    "prefill_backlog_chunks", "kv_pool_bytes", "kv_dtype")},
+                **{k: spec[k] for k in (
+                    "spec_proposed_total", "spec_accepted_total", "spec_accept_rate")},
+            )
+            self._ledger.flush(final=True)
+            self._ledger = None
         with self._cv:
             pending = list(self._queue)
             self._queue.clear()
@@ -1212,10 +1268,19 @@ class ServingEngine:
             ),
         }
 
-    def _account(self, dt: float, occ_frac: float) -> None:
+    def _ledger_account(self, dt: float, occ_frac: float, tokens: int) -> None:
+        """Fold one device-busy interval into the stats and the ledger."""
         with self._stats_lock:
             self._busy_s += dt
             self._occ_weighted_s += dt * occ_frac
+        led = self._ledger
+        if led is None:
+            return
+        led.account("step_compute_s", dt)
+        if tokens:
+            led.step(tokens=tokens)
+        led.merge_extra(**self._utilization_snapshot())
+        led.maybe_flush()
 
     def stats(self) -> Dict[str, Any]:
         util = self._utilization_snapshot()
@@ -1561,11 +1626,15 @@ class ServingEngine:
             t1 = time.perf_counter()
             self._trace_span(req, "serving.prefill.chunk", time.time() - (t1 - t0), t1 - t0,
                              tokens=n, pos=job.next_pos)
-        if job.next_pos >= t:
+        done = job.next_pos >= t
+        # Chunk compute is device-busy time serving one request; only the
+        # final chunk emits a token.
+        self._ledger_account(time.perf_counter() - t0, 1.0 / self.slots, tokens=1 if done else 0)
+        if done:
             self._prefill.popleft()
             self._finalize_prefill(job, logits)
-        self._account(time.perf_counter() - t0, 1.0 / self.slots)
         self._record_gauges()
+        self._progress.beat(step=self._n_steps)
         return True
 
     def _finalize_prefill(self, job: _PrefillJob, logits: torch.Tensor) -> None:
@@ -1797,10 +1866,11 @@ class ServingEngine:
         for req in participants:
             self._trace_hot(req, "serving.decode.step", time.time() - step_dt, step_dt,
                             batch=n_live)
-        self._account(step_dt, n_live / self.slots)
+        self._ledger_account(step_dt, n_live / self.slots, tokens=emitted)
         self._record_gauges()
         if self._ready.is_set():
             self._capture.on_step(self._n_steps)
+        self._progress.beat(step=self._n_steps)
 
     def _collect_drafts(self) -> Dict[int, List[int]]:
         """Each active greedy lane's proposal, clipped to the request's

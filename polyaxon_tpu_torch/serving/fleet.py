@@ -12,7 +12,7 @@ The fleet implements the resize protocol :class:`FleetAutoscaler` drives
 
 The control plane's ``ServingFleet`` (replicas as ``kind: service`` registry
 runs, drain-and-replace remediation, exemplar harvest) is not ported yet: it
-needs the port's worker and tracking (ROADMAP Queue 1 items 5 and 7).
+needs the port's worker (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -3,18 +3,21 @@
 The port's copy of ``polyaxon_tpu/tracking/capture.py``.  The control plane
 drops ``<uuid>.json`` command files into this process's mailbox
 (``commands/proc<N>/`` next to the report dir); :meth:`CaptureAgent.poll`
-drains it (idle cost: one listdir of an empty dir).  The JAX package polls
-from its reporter's heartbeat; the port has no reporter yet, so its callers
-poll.  On a ``profile`` command the agent arms a windowed capture that the
-workload's step loop drives through :meth:`CaptureAgent.on_step` — the
-same hook trainers give :class:`~polyaxon_tpu_torch.tracking.profiling.
-StepProfiler`, and the serving engine gives its decode iterations:
+drains it (idle cost: one listdir of an empty dir).  Configured with a
+:class:`~polyaxon_tpu_torch.tracking.reporter.Reporter`, the agent's poll
+rides that reporter's heartbeat thread (``add_beat_hook``), as the
+reference's worker wires it; without one, callers poll.  On a ``profile``
+command the agent arms a windowed capture that the workload's step loop
+drives through :meth:`CaptureAgent.on_step` — the same hook trainers give
+:class:`~polyaxon_tpu_torch.tracking.profiling.StepProfiler`, and the
+serving engine gives its decode iterations:
 
 - a ``torch.profiler`` trace (:data:`~polyaxon_tpu_torch.tracking.profiling.
   profiler`) over the requested step window, with the card's kernels;
 - the card's allocator state (``torch.cuda.memory_snapshot()``) as JSON;
-- the text of any executables the workload registered (the port runs
-  eagerly and registers none).
+- the text of any executables the workload registered (the serving
+  engine registers its captured decode step, described by its entries and
+  their shapes).
 
 Everything lands under ``profiles/<capture_id>/proc<N>/`` in the run dir,
 and the lifecycle is reported as typed ``capture``/``command`` records to
@@ -70,6 +73,8 @@ class CaptureAgent:
             "profile": self._handle_profile,
         }
         self._closed = False
+        #: Reporters whose heartbeat already runs :meth:`poll`.
+        self._hooked: List[Any] = []
 
     def configure(
         self,
@@ -82,6 +87,9 @@ class CaptureAgent:
         with self._lock:
             if reporter is not _UNSET:
                 self.reporter = reporter
+                if hasattr(reporter, "add_beat_hook") and reporter not in self._hooked:
+                    reporter.add_beat_hook(self.poll)
+                    self._hooked.append(reporter)
             if mailbox is not _UNSET:
                 self.mailbox = Path(mailbox) if mailbox is not None else None
             if profiles_root is not _UNSET:
@@ -97,7 +105,7 @@ class CaptureAgent:
     def register_executable(self, name: str, compiled: Any) -> None:
         """Remember a compiled executable so captures can dump its text
         (``hlo.txt``).  Anything without ``as_text()`` is ignored at dump
-        time; the port runs eagerly and registers none."""
+        time."""
         if compiled is None:
             return
         with self._lock:

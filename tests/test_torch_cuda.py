@@ -822,3 +822,48 @@ def test_two_replicas_on_the_card_give_equal_greedy_tokens(cuda, tmp_path):
         assert [engine.submit(p, new).wait(timeout=120) for p in prompts] == routed
     finally:
         engine.stop()
+
+
+def test_a_graph_capture_is_one_compile_event_of_the_ledger(cuda):
+    from polyaxon_tpu_torch.tracking.ledger import compile_telemetry
+
+    x = torch.ones(64, device=cuda)
+    seconds, events = compile_telemetry()
+    graph, out = decode.capture_step(lambda: x * 2)
+    s1, e1 = compile_telemetry()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert e1 == events + 1 and s1 > seconds and torch.equal(out, x * 2)
+
+
+def test_device_prefetch_on_the_card_is_the_host_stream_byte_for_byte(cuda):
+    """Pinned staging and a copy stream: each device batch equals its host
+    source, with more batches than pinned slots (every slot refilled), while
+    the consumer's stream is kept busy so copies overlap its work."""
+    from polyaxon_tpu_torch.runtime.data import synthetic_token_batches
+    from polyaxon_tpu_torch.runtime.pipeline import TrainPipeline
+
+    def host():
+        return synthetic_token_batches(vocab_size=32768, global_batch=8, seq=1024, seed=4)
+
+    want = [b for _, b in zip(range(12), host())]
+    busy = torch.randn(2048, 2048, device=cuda)
+    for prefetch in (0, 2):
+        with TrainPipeline(host(), cuda, prefetch=prefetch, tasks=False, device_depth=2) as pipe:
+            for w in want:
+                got = next(pipe)
+                busy = busy @ busy / 2048  # work on the consumer's stream
+                for k in ("tokens", "targets"):
+                    assert got[k].device.type == "cuda" and got[k].dtype == torch.int32
+                    assert np.array_equal(got[k].cpu().numpy(), w[k]), (prefetch, k)
+
+
+def test_sample_devices_reads_the_card_s_memory(cuda):
+    from polyaxon_tpu_torch.monitor.resources import sample_devices
+
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    got = sample_devices()
+    i = cuda.index or torch.cuda.current_device()
+    assert got[f"sys/hbm{i}_mb"] >= 64 * 1.048 and got[f"sys/hbm{i}_peak_mb"] >= got[f"sys/hbm{i}_mb"]
+    assert 0 < got[f"sys/hbm{i}_frac"] < 1 and got["sys/hbm_peak_mb"] >= got[f"sys/hbm{i}_peak_mb"]
+    del x

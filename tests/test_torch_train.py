@@ -266,8 +266,10 @@ def test_lm_train_logs_loss_then_throughput():
         assert set(values) == {"loss", "grad_norm"} and np.isfinite(values["loss"])
     assert metrics[2][1]["loss"] < metrics[0][1]["loss"]  # the same batch every step
     final = metrics[3][1]
-    assert set(final) == {"tokens_per_s", "first_step_s", "step_wall_s"}
+    assert set(final) == {"tokens_per_s", "first_step_s", "step_wall_s", "step_wall_s_p50",
+                          "step_wall_s_p95", "step_wall_s_p99"}
     assert final["tokens_per_s"] > 0 and final["first_step_s"] > 0
+    assert 0 < final["step_wall_s_p50"] <= final["step_wall_s_p95"] <= final["step_wall_s_p99"]
     assert any("lm_train done: 12 steps" in r["line"] for r in records if r["kind"] == "log")
 
 

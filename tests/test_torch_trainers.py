@@ -143,6 +143,10 @@ def test_importing_the_port_loads_no_jax():
         "import polyaxon_tpu_torch.builtins.trainers, polyaxon_tpu_torch.models\n"
         "import polyaxon_tpu_torch.serving.replica, polyaxon_tpu_torch.serving.fleet\n"
         "import polyaxon_tpu_torch.serving.router, polyaxon_tpu_torch.serving.autoscaler\n"
+        "import polyaxon_tpu_torch.tracking.reporter, polyaxon_tpu_torch.tracking.flightrec\n"
+        "import polyaxon_tpu_torch.tracking.ledger, polyaxon_tpu_torch.monitor.resources\n"
+        "import polyaxon_tpu_torch.runtime.datasets, polyaxon_tpu_torch.runtime.data\n"
+        "import polyaxon_tpu_torch.runtime.pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'polyaxon_tpu')]\n"
         "assert not bad, bad\n"
     )
