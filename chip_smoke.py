@@ -18,7 +18,8 @@ pinned host tier and the persistent prefix store) and request tracing;
 then the serving fleet (replica processes behind the router, failover,
 the autoscaler under chaos); then the gang layer (the port's spawner and
 worker running ``lm_train`` and ``lm_server`` from specs, and the train
-step across ranks).  Phases:
+step across ranks); then the image classifiers (``cnn_train``,
+``vit_train``) and ``lm_train`` with switch-MoE experts.  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -204,7 +205,28 @@ step across ranks).  Phases:
     2 steps on a global batch of 4: the 671M width cut to 2 layers in bf16
     (each rank's loss and grad norm within 1e-2 of one rank's step on the
     whole batch; the kernels launch on both ranks) and the small float32
-    model (within 1e-5); the all-reduce's wall a step, over gloo, not NCCL.
+    model (within 1e-5); the all-reduce's wall a step, over gloo, not NCCL;
+31. ``cnn_train`` at the CIFAR-10 guide's shape (32 px, channels (64, 128,
+    256), dense 256, 10 classes, batch 256): 50 steps on synthetic images (a
+    falling loss, the fixed batch's accuracy above chance), then 20 through
+    the dataset path (``TrainPipeline`` with ``device_prefetch``) on a
+    4096-image ``make_image_fixture`` store; one bf16 step's loss, logits and
+    grads on the card against the port's CPU step on the same weights and
+    images (the layout and flatten order); images/s, step wall, data wait,
+    the ledger's MFU and a profiled step's idle share;
+32. ``vit_train`` at ViT-B/16's widths (224 px, patch 16, d 768, 12 layers,
+    12 heads x 64, d_ff 3072, batch 128, 20 synthetic steps): a falling
+    loss, images/s, MFU, peak memory, the card-vs-CPU step at 2 layers, and
+    a profiled step's top device ops;
+33. ``lm_train`` with 4 experts at the 671M widths (capacity factor 1.25,
+    batch 8 x 1024, bf16, 5 steps): a falling loss, each flash kernel once
+    a layer a step (its counts, and the trace of the profiled last step),
+    tokens/s, MFU (counting every expert's params), peak memory, the share
+    of tokens each layer drops at capacity, the MoE MLP's share of a step's
+    device time; a small float32 ``_moe_mlp`` on the card routes as on the
+    CPU (but for near-ties) and gives its output within 1e-4, and a small
+    bf16 MoE model's grads with remat on match those with it off (the
+    recompute routes as the forward did).
 
 Any failed check raises, and the script exits non-zero; an atexit hook
 SIGKILLs any replica or gang worker left.  On success its last lines are the serving
@@ -213,8 +235,8 @@ paged profile), the long-context, the checkpoint, the compiled decode and
 the KV-tier and tracing figures as JSON, the tracking figures (the
 training and serving ledger rows, the overhead, the watchdog, the dataset
 path) as JSON, the card's name and power limit,
-the kernels' JSON record, the fleet's figures, the gang layer's and
-``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
+the kernels' JSON record, the fleet's figures, the gang layer's, the image
+classifiers' and the MoE run's, and ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
 at once.
 """
 
@@ -397,6 +419,43 @@ GANG_TOPOLOGY = {"accelerator": "h100", "num_devices": 1, "num_hosts": 1}
 GANG_STEPS = TRAIN_STEPS
 STEP_RANKS_LAYERS, STEP_RANKS_BATCH, STEP_RANKS_STEPS = 2, 4, 2
 STEP_RANKS_BF16_RTOL, STEP_RANKS_F32_ATOL = 1e-2, 1e-5
+# The image classifiers (phases 31-32).  cnn_train at the CIFAR-10 guide's shape
+# (docs/training-cifar10.md: 32 px, the default channels (64, 128, 256), dense
+# 256, 10 classes, global batch 256, lr 1e-3): 50 steps on synthetic images,
+# then 20 through the dataset path on a 4096-example make_image_fixture store
+# (the real archive is not in the repository).  vit_train at ViT-B/16's widths
+# (Dosovitskiy et al. 2020: 224 px, patch 16, d 768, 12 layers, 12 heads x 64,
+# d_ff 3072) on the repo's RMSNorm/SwiGLU block, 10 classes, batch 128, 20
+# synthetic steps.  Each model's loss, logits and grads of one bf16 step on the
+# card against the port's own CPU step on the same weights and IMAGE_CHECK_BATCH
+# images (the ViT cut to VIT_CHECK_LAYERS layers): the whole bf16 model runs on
+# two devices, so the loss may differ by 1e-2 relative, the logits by 2e-2 of
+# the largest and each grad by BF16_MODEL_GRAD_RTOL of its norm; a layout or
+# flatten-order error moves them by their own size.
+CNN_MODEL = dict(image_size=32, channels=(64, 128, 256), classes=10)
+CNN_BATCH, CNN_STEPS, CNN_DATA_STEPS, CNN_DATA_EXAMPLES = 256, 50, 20, 4096
+VIT_B16 = dict(image_size=224, patch_size=16, d_model=768, n_layers=12, n_heads=12, head_dim=64,
+               d_ff=3072, classes=10)
+VIT_BATCH, VIT_STEPS, VIT_CHECK_LAYERS = 128, 20, 2
+IMAGE_CHECK_BATCH, IMAGE_LOSS_RTOL, IMAGE_LOGITS_RTOL = 8, 1e-2, 2e-2
+# lm_train with experts (phase 33): bench.py's 671M widths with 4 experts
+# (about 1.88 B parameters, 1.61 B of them in the experts), capacity factor
+# 1.25, batch 8 x 1024, bf16, 5 steps, a profiler window on the last.  The
+# small float32 _moe_mlp on the card against the CPU (TF32 off, main() sets
+# it): the same expert for every token whose top two gates differ by more
+# than MOE_TIE, and the output within MOE_OUT_ATOL where both route a token to
+# the same expert slot.
+MOE_EXPERTS, MOE_CAPACITY, MOE_BATCH, MOE_STEPS = 4, 1.25, 8, 5
+MOE_SMALL = dict(vocab_size=256, d_model=256, n_layers=1, n_heads=4, head_dim=64, d_ff=512,
+                 n_experts=4, capacity_factor=1.0)
+MOE_SMALL_TOKENS, MOE_TIE, MOE_OUT_ATOL = (4, 256), 1e-6, 1e-4
+# A checkpointed layer recomputes its forward in the backward: its routing
+# must be the same, or the grads are wrong.  A small bf16 MoE model (2
+# layers, 4 experts, capacity factor 1.0, so tokens drop; the flash kernels
+# run its attention) gives its loss_fn grads with remat on and off on the
+# card, within BF16_BWD_GRAD_RTOL of each grad's norm (equal bits reported):
+# another expert for a token moves a grad by its own size.
+MOE_REMAT_BATCH, MOE_REMAT_SEQ = 4, 128
 
 
 def log(*args) -> None:
@@ -469,11 +528,16 @@ def attention_bound(BH, Tq, Tk, d, dtype, causal, kind="fwd"):
     return (*bound, moved, ops)
 
 
-def phase_device():
-    smi = subprocess.run(
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    smi = _card()
     from polyaxon_tpu_torch import kernels_available
 
     avail = kernels_available()
@@ -3862,6 +3926,399 @@ def phase_train_step_ranks():
     return out
 
 
+def _fresh_step_walls():
+    """Drop the process's train step-wall and data-wait histograms, so that
+    the next trainer's percentiles hold its own steps alone (``get_stats()``
+    is process-wide, as the reference's is)."""
+    from polyaxon_tpu_torch.stats import get_stats
+
+    for key in ("train.step_wall_s", "train.data_wait_s", "train.ckpt_block_s"):
+        get_stats().histograms.pop(key, None)
+
+
+def _image_run(trainer, params, data_path=None):
+    """``trainer`` on the card from a Context, the ledger's rows caught: its
+    metrics by step, its final ledger row and the card's peak memory."""
+    from polyaxon_tpu_torch.tracking import ledger
+    from polyaxon_tpu_torch.tracking.context import Context
+
+    records, rows = [], []
+    _free()
+    _fresh_step_walls()
+    torch.cuda.reset_peak_memory_stats()
+    ledger.configure(sink=rows.append)
+    try:
+        trainer(Context(params=dict(params, device="cuda"), seed=SEED, records=records,
+                        data_path=data_path))
+    finally:
+        ledger.configure(sink=None)
+    torch.cuda.synchronize()
+    metrics = {}
+    for r in records:
+        if r["kind"] == "metric":
+            metrics.setdefault(r["step"], {}).update(r["values"])
+        else:
+            log(r["line"])
+    (row,) = [r for r in rows if r["final"]]
+    if row["device_kind"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the trainer's ledger row is not the card's: {row['device_kind']}")
+    return metrics, row, torch.cuda.max_memory_allocated()
+
+
+def _falls(label, metrics, steps):
+    first, last = metrics[0]["loss"], metrics[steps - 1]["loss"]
+    if not (np.isfinite(first) and np.isfinite(last) and last < first):
+        raise AssertionError(f"{label}: the loss is not finite and falling: {first} -> {last}")
+    return [first, last]
+
+
+def _card_vs_cpu(label, init, loss, forward, batch):
+    """One bf16 step of an image model on the card against the port's own
+    CPU step, from the same weights (made on the CPU from the seed) and the
+    same batch: the loss, the logits and every parameter grad."""
+    from polyaxon_tpu_torch.runtime.optim import tree_leaves
+
+    weights = init(torch.Generator().manual_seed(SEED))
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = _to(weights, device)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        placed = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            logits = forward(params, placed["images"], device).cpu()
+        value = loss(params, placed, device)
+        grads = [g.float().cpu() for g in torch.autograd.grad(value, leaves)]
+        out[device] = (value.item(), logits, grads)
+    (cpu_loss, cpu_logits, cpu_grads), (loss_card, logits_card, grads_card) = out["cpu"], out["cuda"]
+    figures = {
+        "loss_cpu": cpu_loss, "loss_card": loss_card,
+        "loss_rel": abs(loss_card - cpu_loss) / abs(cpu_loss),
+        "logits_rel": ((logits_card - cpu_logits).abs().max() / cpu_logits.abs().max()).item(),
+        "grads_rel": max(((a - b).norm() / b.norm()).item() for a, b in zip(grads_card, cpu_grads)),
+    }
+    log(f"{label}, one bf16 step on the card vs the CPU ({len(batch['labels'])} images): "
+        f"{figures} (limits: loss {IMAGE_LOSS_RTOL}, logits {IMAGE_LOGITS_RTOL} of the largest, "
+        f"each grad {BF16_MODEL_GRAD_RTOL} of its norm)")
+    if not (figures["loss_rel"] <= IMAGE_LOSS_RTOL and figures["logits_rel"] <= IMAGE_LOGITS_RTOL
+            and figures["grads_rel"] <= BF16_MODEL_GRAD_RTOL):
+        raise AssertionError(f"{label}: the card's step disagrees with the CPU's")
+    return figures
+
+
+def _image_batch(batch, size, classes):
+    from polyaxon_tpu_torch.runtime.datasets import synthetic_class_images
+
+    images, labels = synthetic_class_images(np.random.default_rng(SEED + 31), batch, size, classes)
+    return {"images": images, "labels": labels}
+
+
+def _profiled_image_step(label, loss, init, optimizer, batch, top=8):
+    """One train step of an image model at the trainer's batch under
+    torch.profiler (``_profile``), its weights from the seed on the card."""
+    from polyaxon_tpu_torch.runtime.train import build_train_step
+
+    ts = build_train_step(loss_fn=lambda p, b: loss(p, b, "cuda"), init_fn=init,
+                          optimizer=optimizer)
+    params, opt_state = ts.init(torch.Generator(device="cuda").manual_seed(SEED))
+    placed = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    figures = _profile(label, lambda: ts.step(params, opt_state, placed), 1, top=top)
+    del ts, params, opt_state, placed
+    _free()
+    return figures
+
+
+def phase_cnn_train():
+    """cnn_train at the CIFAR-10 guide's shape: CNN_STEPS steps on synthetic
+    images (the loss falls, the fixed batch's accuracy above chance), then
+    CNN_DATA_STEPS through the dataset path on a make_image_fixture store of
+    CNN_DATA_EXAMPLES images (TrainPipeline with device_prefetch); one bf16
+    step on the card against the CPU; a profiled step's idle share."""
+    from polyaxon_tpu_torch.builtins.trainers import cnn_train
+    from polyaxon_tpu_torch.models import cnn
+    from polyaxon_tpu_torch.runtime.datasets import make_image_fixture
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+
+    params = dict(CNN_MODEL, batch=CNN_BATCH)
+    synth, synth_row, synth_peak = _image_run(cnn_train, dict(params, steps=CNN_STEPS))
+    final = synth[CNN_STEPS]
+    losses = _falls("cnn_train (synthetic)", synth, CNN_STEPS)
+    chance = 1.0 / CNN_MODEL["classes"]
+    if not final["accuracy"] > chance:
+        raise AssertionError(f"cnn_train: accuracy {final['accuracy']} on its fixed batch is not "
+                             f"above chance {chance}")
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_cifar_"))
+    try:
+        make_image_fixture(store, "cifar-fixture", num_examples=CNN_DATA_EXAMPLES,
+                           image_size=CNN_MODEL["image_size"], n_classes=CNN_MODEL["classes"])
+        data, data_row, _ = _image_run(cnn_train, dict(params, steps=CNN_DATA_STEPS,
+                                                       dataset="cifar-fixture"), str(store))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    data_losses = _falls("cnn_train (dataset path)", data, CNN_DATA_STEPS)
+    cfg = cnn.CNNConfig(image_size=CNN_MODEL["image_size"], channels=CNN_MODEL["channels"],
+                        n_classes=CNN_MODEL["classes"])
+
+    def normalized(images):  # cnn_train's: in the compute dtype, on the device
+        return images.to(cfg.dtype) / 255.0 - 0.5
+
+    def loss(p, b, device):
+        return cnn.loss_fn(p, dict(b, images=normalized(b["images"])), cfg, device=device)
+
+    agreement = _card_vs_cpu(
+        "cnn (CIFAR-10 guide shape)", lambda g: cnn.init_params(cfg, g), loss,
+        lambda p, images, device: cnn.forward(p, normalized(images), cfg, device=device),
+        _image_batch(IMAGE_CHECK_BATCH, cfg.image_size, cfg.n_classes))
+    profiled = _profiled_image_step(
+        f"cnn_train step (batch {CNN_BATCH})", loss, lambda g: cnn.init_params(cfg, g),
+        AdamW(1e-3), _image_batch(CNN_BATCH, cfg.image_size, cfg.n_classes))
+    out = {"synthetic": {"loss": losses, "accuracy": final["accuracy"],
+                         "images_per_s": final["images_per_s"],
+                         "first_step_s": final["first_step_s"],
+                         "step_wall_s_p50": final["step_wall_s_p50"],
+                         "ledger_mfu": synth_row["mfu"], "ledger_goodput": synth_row["goodput"],
+                         "hbm_peak_bytes": synth_row["hbm_peak_bytes"],
+                         "peak_memory_allocated": synth_peak},
+           "dataset": {"loss": data_losses, "accuracy": data[CNN_DATA_STEPS]["accuracy"],
+                       "images_per_s": data[CNN_DATA_STEPS]["images_per_s"],
+                       "step_wall_s_p50": data[CNN_DATA_STEPS]["step_wall_s_p50"],
+                       "data_wait_s_per_step": data[CNN_DATA_STEPS]["data_wait_s"],
+                       "ledger_mfu": data_row["mfu"],
+                       "ledger_data_wait_s": data_row["buckets"]["data_wait_s"]},
+           "card_vs_cpu": agreement, "profiled_step": profiled, "card": _card()}
+    log(f"cnn_train (32 px, channels {CNN_MODEL['channels']}, batch {CNN_BATCH}): {out}")
+    return out
+
+
+def phase_vit_train():
+    """vit_train at ViT-B/16's widths: VIT_STEPS synthetic steps (the loss
+    falls), images/s, MFU and peak memory; one bf16 step on the card against
+    the CPU at VIT_CHECK_LAYERS layers; a profiled step's top device ops."""
+    from polyaxon_tpu_torch.builtins.trainers import vit_train
+    from polyaxon_tpu_torch.models import vit
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+
+    metrics, row, peak = _image_run(vit_train, dict(VIT_B16, batch=VIT_BATCH, steps=VIT_STEPS))
+    final = metrics[VIT_STEPS]
+    losses = _falls("vit_train", metrics, VIT_STEPS)
+    widths = {k: VIT_B16[k] for k in ("image_size", "patch_size", "d_model", "n_layers",
+                                      "n_heads", "head_dim", "d_ff")}
+    cfg = vit.ViTConfig(n_classes=VIT_B16["classes"], **widths)
+
+    def loss(p, b, device, cfg=cfg):
+        return vit.loss_fn(p, b, cfg, device=device)
+
+    check = cfg.scaled(n_layers=VIT_CHECK_LAYERS)
+    agreement = _card_vs_cpu(
+        f"vit (ViT-B/16 widths, {VIT_CHECK_LAYERS} layers)", lambda g: vit.init_params(check, g),
+        lambda p, b, device: vit.loss_fn(p, b, check, device=device),
+        lambda p, images, device: vit.forward(p, images, check, device=device),
+        _image_batch(IMAGE_CHECK_BATCH, cfg.image_size, cfg.n_classes))
+    profiled = _profiled_image_step(
+        f"vit_train step (ViT-B/16 widths, batch {VIT_BATCH})", loss,
+        lambda g: vit.init_params(cfg, g), AdamW(1e-3, mu_dtype=torch.bfloat16),
+        _image_batch(VIT_BATCH, cfg.image_size, cfg.n_classes), top=12)
+    loop_mfu = final["images_per_s"] * row["flops"] / (row["steps"] * VIT_BATCH) / \
+        H100_PEAK_FLOPS[torch.bfloat16]
+    out = {"loss": losses, "accuracy": final["accuracy"], "images_per_s": final["images_per_s"],
+           "first_step_s": final["first_step_s"], "step_wall_s_p50": final["step_wall_s_p50"],
+           "ledger_mfu": row["mfu"], "mfu_over_loop_wall": loop_mfu,
+           "hbm_peak_bytes": row["hbm_peak_bytes"], "peak_memory_allocated": peak,
+           "n_params": cfg.n_params, "card_vs_cpu": agreement, "profiled_step": profiled,
+           "card": _card()}
+    log(f"vit_train (ViT-B/16 widths, batch {VIT_BATCH}): {out}")
+    return out
+
+
+def _moe_routing_on_card_vs_cpu():
+    """A small float32 _moe_mlp on the card and on the CPU on the same
+    inputs and weights (TF32 off): the same expert wherever the top two
+    gates differ by more than MOE_TIE, the output within MOE_OUT_ATOL
+    wherever both put a token in the same expert slot."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig, _moe_mlp, init_params
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the float32 MoE comparison needs TF32 off")
+    cfg = TransformerConfig(dtype=torch.float32, **MOE_SMALL)
+    layer = {k: w[0] for k, w in init_params(cfg, torch.Generator().manual_seed(SEED))[
+        "block"].items() if k in ("router", "wi", "wg", "wd")}
+    x = torch.randn(*MOE_SMALL_TOKENS, cfg.d_model, generator=torch.Generator().manual_seed(33))
+    got = {}
+    for device in ("cpu", "cuda"):
+        with torch.no_grad():
+            y, gates, idx = _moe_mlp(x.to(device), _to(layer, device), cfg)
+        got[device] = (y.cpu(), gates.cpu().reshape(-1, cfg.n_experts), idx.cpu().reshape(-1))
+    (y_cpu, gates_cpu, idx_cpu), (y_card, _, idx_card) = got["cpu"], got["cuda"]
+    top2 = gates_cpu.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > MOE_TIE
+    capacity = max(1, int(cfg.capacity_factor * idx_cpu.numel() / cfg.n_experts))
+
+    def slots(idx):
+        rank = torch.nn.functional.one_hot(idx, cfg.n_experts).cumsum(0).gather(
+            1, idx[:, None])[:, 0] - 1
+        return torch.where(rank < capacity, idx * capacity + rank, -1)
+
+    same_slot = slots(idx_cpu) == slots(idx_card)
+    y_cpu, y_card = y_cpu.reshape(-1, cfg.d_model), y_card.reshape(-1, cfg.d_model)
+    out_err = (y_card[same_slot] - y_cpu[same_slot]).abs().max().item()
+    figures = {"tokens": idx_cpu.numel(), "near_ties": int((~clear).sum()),
+               "expert_mismatches_off_ties": int((idx_card != idx_cpu)[clear].sum()),
+               "dropped_cpu": int((slots(idx_cpu) < 0).sum()), "same_slot": int(same_slot.sum()),
+               "out_max_abs_err": out_err}
+    log(f"_moe_mlp float32 on the card vs the CPU: {figures} (limit {MOE_OUT_ATOL})")
+    if figures["expert_mismatches_off_ties"] or not out_err <= MOE_OUT_ATOL or \
+            not figures["dropped_cpu"]:
+        raise AssertionError("the card's MoE routing or output disagrees with the CPU's")
+    return figures
+
+
+def _moe_remat_grads_on_card():
+    """``loss_fn``'s grads of a small bf16 MoE model on the card with remat
+    on and with it off (see MOE_REMAT_BATCH): the largest grad difference
+    over that grad's norm, and whether every grad is bit for bit equal."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
+    from polyaxon_tpu_torch.runtime.optim import tree_leaves
+
+    cfg = TransformerConfig(**dict(MOE_SMALL, n_layers=2, max_seq=MOE_REMAT_SEQ))
+    weights = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    tok = torch.as_tensor(np.random.default_rng(SEED + 33).integers(
+        0, cfg.vocab_size, (MOE_REMAT_BATCH, MOE_REMAT_SEQ + 1)), device="cuda")
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    grads = {}
+    _reset_counts()
+    for remat in (False, True):
+        params = _to(weights, "cuda")
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(params, batch, cfg.scaled(remat=remat), device="cuda")
+        grads[remat] = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    launches = _counts()
+    rel = max(((a.float() - b.float()).norm() / b.float().norm()).item()
+              for a, b in zip(grads[True], grads[False]))
+    figures = {"grads_rel": rel, "bitwise_equal": all(
+        torch.equal(a, b) for a, b in zip(grads[True], grads[False])), "launches": launches}
+    log(f"small bf16 MoE model, loss_fn grads with remat on vs off on the card: {figures} "
+        f"(limit {BF16_BWD_GRAD_RTOL}; fwd launches 2 a layer with remat)")
+    if not rel <= BF16_BWD_GRAD_RTOL or launches != (6, 4, 4):
+        raise AssertionError("the MoE model's grads with remat differ from those without")
+    return figures
+
+
+def phase_moe_train():
+    """lm_train with MOE_EXPERTS experts at bench.py's 671M widths (batch
+    MOE_BATCH x 1024, bf16, MOE_STEPS steps, a profiler window on the last):
+    the loss falls, each flash kernel launches once a layer a step, and the
+    profiled step's trace names each n_layers times.  Then, on the run's
+    initial weights and batch: the share of tokens each layer drops at
+    capacity, one step under torch.profiler and the MoE MLP's share of its
+    device time (n_layers x the MLP's forward and backward, timed alone by
+    CUDA events, over the step's device-busy time); the small float32
+    _moe_mlp on the card against the CPU; and a small bf16 MoE model's
+    grads with remat on and off.  Returns the kernels' launches over the
+    run and the figures."""
+    from polyaxon_tpu_torch.builtins.trainers import lm_train
+    from polyaxon_tpu_torch.models.transformer import (
+        TransformerConfig, _moe_mlp, _rmsnorm, forward)
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+    from polyaxon_tpu_torch.tracking import ledger
+    from polyaxon_tpu_torch.tracking.context import Context
+
+    n, seq = BENCH_MODEL["n_layers"], TRAIN_SEQ
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_"))
+    records, rows = [], []
+    ctx = Context(params=dict(BENCH_MODEL, n_experts=MOE_EXPERTS, seq=seq, batch=MOE_BATCH,
+                              steps=MOE_STEPS, lr=LR, device="cuda", profile_start=MOE_STEPS - 1,
+                              profile_steps=1),
+                  seed=SEED, records=records, outputs_path=str(out_dir))
+    _free()
+    _fresh_step_walls()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    ledger.configure(sink=rows.append)
+    try:
+        lm_train(ctx)
+    finally:
+        ledger.configure(sink=None)
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    (trace,) = (out_dir / "profile").glob("*.pt.trace.json")
+    in_trace = kernel_launches_in_trace(trace)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    metrics = {}
+    for r in records:
+        if r["kind"] == "metric":
+            metrics.setdefault(r["step"], {}).update(r["values"])
+        else:
+            log(r["line"])
+    final = metrics[MOE_STEPS]
+    losses = _falls("lm_train with experts", metrics, MOE_STEPS)
+    (row,) = [r for r in rows if r["final"]]
+    cfg = TransformerConfig(max_seq=seq, n_experts=MOE_EXPERTS, capacity_factor=MOE_CAPACITY,
+                            **BENCH_MODEL)
+    per_step = tuple(c / MOE_STEPS for c in launches)
+    if per_step != (n, n, n) or tuple(in_trace[k] for k in KERNEL_NAMES) != (n, n, n):
+        raise AssertionError(f"lm_train with experts: launches {launches} over {MOE_STEPS} "
+                             f"steps, the profiled step names {in_trace}; expected {n} each a step")
+
+    _free()
+    ts, params, opt_state, batch = _train_setup(cfg, AdamW(LR), batch_size=MOE_BATCH, seq=seq)
+    capacity = max(1, int(cfg.capacity_factor * MOE_BATCH * seq / cfg.n_experts))
+    with torch.no_grad():
+        _, (_, expert_idx) = forward(params, batch["tokens"], cfg, device="cuda")
+        flat = expert_idx.reshape(n, -1)
+        rank = torch.nn.functional.one_hot(flat, cfg.n_experts).cumsum(1).gather(
+            2, flat[..., None])[..., 0] - 1
+        dropped = (rank >= capacity).float().mean(dim=1).tolist()
+        routed = [torch.bincount(f, minlength=cfg.n_experts).tolist() for f in flat]
+    step = _profile(f"lm_train step with {MOE_EXPERTS} experts (batch {MOE_BATCH} x {seq})",
+                    lambda: ts.step(params, opt_state, batch), 1, top=12)
+    layer = {k: params["block"][k][0].detach().requires_grad_(True)
+             for k in ("router", "wi", "wg", "wd")}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    h = _rmsnorm(torch.randn(MOE_BATCH, seq, cfg.d_model, device="cuda", generator=g),
+                 params["block"]["mlp_norm"][0].detach()).to(cfg.dtype).requires_grad_(True)
+    dy = torch.randn(MOE_BATCH, seq, cfg.d_model, device="cuda", generator=g).to(cfg.dtype)
+
+    def moe_fwd_bwd():
+        y, _, _ = _moe_mlp(h, layer, cfg)
+        torch.autograd.grad(y, [h, *layer.values()], grad_outputs=dy)
+
+    moe_ms = time_ms(moe_fwd_bwd, reps=10, warmup=2)
+    del ts, params, opt_state, batch, layer, h, dy
+    _free()
+    active = cfg.n_params - (cfg.n_experts - 1) * n * 3 * cfg.d_model * cfg.d_ff
+    out = {"loss": losses, "tokens_per_s": final["tokens_per_s"],
+           "first_step_s": final["first_step_s"], "step_wall_s_p50": final["step_wall_s_p50"],
+           "ledger_mfu_all_experts": row["mfu"],
+           "mfu_all_experts_over_loop_wall": _moe_mfu(final["tokens_per_s"], cfg),
+           "n_params_all_experts": cfg.n_params, "n_params_active_per_token": active,
+           "hbm_peak_bytes": row["hbm_peak_bytes"], "peak_memory_allocated": peak,
+           "capacity": capacity, "dropped_share_by_layer_at_init": dropped,
+           "tokens_by_expert_at_init": routed, "launches": launches,
+           "launches_in_profiled_step": in_trace, "profiled_step": step,
+           "moe_mlp_fwd_bwd_ms_per_layer": moe_ms,
+           "moe_mlp_share_of_device_time": (n * moe_ms / step["device_busy_ms"]) if step else None,
+           "small_f32_card_vs_cpu": _moe_routing_on_card_vs_cpu(),
+           "remat_grads_on_card": _moe_remat_grads_on_card(), "card": _card()}
+    log(f"lm_train with {MOE_EXPERTS} experts (671M widths, capacity factor {MOE_CAPACITY}, "
+        f"batch {MOE_BATCH} x {seq}; MFU counts every expert's params): {out}")
+    return launches, out
+
+
+def _moe_mfu(tokens_per_s, cfg):
+    """bench.py's MFU formula on an MoE config: 6N + 12·L·H·hd·T with N
+    counting every expert (as the reference's lm_train counts it)."""
+    from polyaxon_tpu_torch.tracking.ledger import transformer_flops_per_token
+
+    fpt = transformer_flops_per_token(cfg.n_params, cfg.n_layers, cfg.n_heads, cfg.head_dim,
+                                      cfg.max_seq)
+    return tokens_per_s * fpt / H100_PEAK_FLOPS[torch.bfloat16]
+
+
 def _tracing_in_a_process_of_its_own():
     """Phase 24 in a child process of this script: a serving process holds
     one engine, not the objects, threads and heap of the 23 phases before,
@@ -3960,11 +4417,18 @@ def main() -> int:
     _free()
     gang["train_step_ranks"] = phase_train_step_ranks()
     ranks_launches = gang["train_step_ranks"]["bf16, the 671M width with 2 layers"]["launches"]
+    _free()
+    images = {"cnn_train": phase_cnn_train()}
+    _free()
+    images["vit_train"] = phase_vit_train()
+    _free()
+    moe_launches, images["lm_train_moe"] = phase_moe_train()
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
                "lm_train_sp_ring_t16384": ring_launches, "lm_train_resumed": ckpt_launches,
-               "lm_train_gang": gang_launches, "train_step_2_ranks": ranks_launches}
+               "lm_train_gang": gang_launches, "train_step_2_ranks": ranks_launches,
+               "lm_train_moe": moe_launches}
     for i, (kind, record) in enumerate((("fwd", fwd), ("dq", bwd["dq"]), ("dkv", bwd["dkv"]))):
         record["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -3988,6 +4452,7 @@ def main() -> int:
     print(json.dumps({"kernels": [fwd, bwd["dq"], bwd["dkv"]]}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"gang": gang}))
+    print(json.dumps({"image_classifiers_and_moe": images}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

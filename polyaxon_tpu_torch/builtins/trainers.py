@@ -4,37 +4,48 @@ Counterpart of ``polyaxon_tpu/builtins/trainers.py``: the probe entry points
 the platform's gang tests drive (``noop``, ``failing``, ``sleepy``,
 ``flaky_once``, ``stalling``, ``resume_counter``, ``metric_probe``, :33-112
 and :667-678 there), ``synthetic_regression`` (the quickstart's job,
-:904-958), ``lm_generate``, and ``lm_train`` (``ddp`` and ``sp_ring``, on
-one rank or across a gang's ranks), with checkpoint save, resume and
-restore, the fault injection the platform's preemption tests drive, and
-``lm_train``'s run accounting (the utilization ledger, the progress beacon,
-tracer spans and step-wall percentiles).  Metrics are logged by the leader
-(process 0), as the reference's are.
+:904-958), the image classifiers ``cnn_train`` and ``vit_train`` (:469-563,
+over ``_train_image_classifier`` :175-466), ``lm_generate``, and
+``lm_train`` (``ddp`` and ``sp_ring``, on one rank or across a gang's ranks;
+dense or switch-MoE), with checkpoint save, resume and restore, the fault
+injection the platform's preemption tests drive, and the trainers' run
+accounting (the utilization ledger, the progress beacon, tracer spans and
+step-wall percentiles).  Metrics are logged by the leader (process 0), as
+the reference's are.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 import os
 import signal
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from polyaxon_tpu_torch._device import resolve_device
-from polyaxon_tpu_torch.models import decode
+from polyaxon_tpu_torch.models import cnn, decode, vit
 from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
 from polyaxon_tpu_torch.parallel.templates import template_for
 from polyaxon_tpu_torch.runtime.checkpoint import CheckpointManager, CheckpointNowService
+from polyaxon_tpu_torch.runtime.data import global_batch_from_host_data
+from polyaxon_tpu_torch.runtime.datasets import DatasetReader, synthetic_class_images
 from polyaxon_tpu_torch.runtime.mesh import build_mesh
 from polyaxon_tpu_torch.runtime.optim import SGD, AdamW
-from polyaxon_tpu_torch.runtime.pipeline import MetricsDrain
+from polyaxon_tpu_torch.runtime.pipeline import MetricsDrain, TrainPipeline
 from polyaxon_tpu_torch.runtime.train import build_train_step
 from polyaxon_tpu_torch.stats import get_stats
 from polyaxon_tpu_torch.tracking.capture import get_capture_agent
 from polyaxon_tpu_torch.tracking.context import Context
 from polyaxon_tpu_torch.tracking.flightrec import get_progress
-from polyaxon_tpu_torch.tracking.ledger import get_ledger, transformer_flops_per_token
+from polyaxon_tpu_torch.tracking.ledger import (
+    conv_classifier_flops_per_image,
+    get_ledger,
+    transformer_flops_per_token,
+)
 from polyaxon_tpu_torch.tracking.profiling import StepClock, StepProfiler
 from polyaxon_tpu_torch.tracking.trace import get_tracer
 
@@ -259,6 +270,293 @@ def _fault_injection(ctx: Context):
     return on_step
 
 
+def _open_checkpoints(ctx: Context, save_every: int, params, opt_state):
+    """The run's checkpoint manager and the step to start at (the reference
+    ``lm_train``'s :752-762 and ``_train_image_classifier``'s :250-262): with
+    ``save_every`` > 0 and a checkpoints dir, restore the newest complete
+    step there into ``params`` and ``opt_state`` (a resumed clone inherits
+    the original's) and start after it.  Every rank restores (the params are
+    replicated); only the leader keeps the manager and saves.  Returns
+    ``(ckpt or None, params, opt_state, start_step)``."""
+    if save_every <= 0 or ctx.checkpoints_path is None:
+        return None, params, opt_state, 0
+    ckpt = CheckpointManager(ctx.checkpoints_path, save_interval_steps=save_every)
+    start_step = 0
+    restored = ckpt.restore(params, opt_state)
+    if restored is not None:
+        params, opt_state = restored["params"], restored["opt_state"]
+        start_step = restored["step"] + 1
+        ctx.log_text(f"restored checkpoint at step {restored['step']}")
+    if not ctx.is_leader:
+        ckpt.close()
+        ckpt = None
+    return ckpt, params, opt_state, start_step
+
+
+def _train_image_classifier(
+    ctx: Context,
+    *,
+    label: str,
+    loss_fn,
+    accuracy_fn,
+    init_fn,
+    optimizer,
+    flops_per_example: float,
+    device: torch.device,
+) -> None:
+    """The image classifiers' shared train loop (``cnn_train``,
+    ``vit_train``): the JAX ``_train_image_classifier`` (reference
+    :175-466), eager.
+
+    ``loss_fn(params, batch)`` and ``accuracy_fn(params, batch)`` take a
+    batch of uint8 NHWC ``images`` and int ``labels`` on ``device``.  Params:
+    ``steps``, ``batch`` (global), ``image_size``, ``classes``, ``dataset``,
+    ``save_every``, ``prefetch``, ``prefetch_workers``, ``profile_start``,
+    ``profile_steps`` and the fault injection's (``_fault_injection``).  The
+    template comes from ``ctx.strategy`` over ``ctx.mesh`` (default
+    ``build_mesh({"data": 1})``): ``ddp`` on one rank or across a gang's
+    ranks.  Two data paths, one loop:
+
+    - ``dataset: <name>``, a registered dataset (``runtime/datasets.py``):
+      each rank reads its own rows of every global batch
+      (``DatasetReader(num_processes=, process_id=)``, uint8 on the wire,
+      per-epoch shuffles), and a resumed run's stream fast-forwards to its
+      restored step, position for position.  With ``prefetch`` > 0 a
+      ``TrainPipeline`` gathers rows on ``prefetch_workers`` threads and
+      places batches ahead through ``device_prefetch`` (pinned buffers and a
+      copy stream on a card); ``prefetch: 0`` gathers inline and places each
+      rank's rows with ``global_batch_from_host_data`` (the same stream).
+    - no dataset: synthetic class-conditional images from the seed
+      (``synthetic_class_images``), one fixed batch every step, each rank on
+      its rows (``TrainStep.place_batch``): compute apart from input.
+
+    With ``save_every`` the run saves, resumes and answers ``checkpoint-now``
+    as ``lm_train`` does.  Logs ``loss`` at every tenth step and the last,
+    then ``accuracy`` (on the last batch, over every rank's rows),
+    ``images_per_s`` (the global batch), ``first_step_s`` (the first step's
+    wall, synchronized, kernel loading included), the ``StepClock`` means
+    (``data_wait_s`` among them) and ``step_wall_s_p50/p95/p99``; the leader
+    logs the final line.  The ledger is fed as ``lm_train`` feeds it (this
+    rank's images as its tokens, the last step's wall running to the end of
+    the loop's synchronize), with each step's data wait in ``data_wait_s``.
+    No counterpart, as in ``lm_train``: ``aot_compile_s`` (an eager step
+    compiles nothing ahead) and ``_should_measure_flops`` (no XLA cost
+    analysis): the FLOPs are the caller's analytic ``flops_per_example``.
+    """
+    led = get_ledger().start(source="train", device=device)
+    steps = int(ctx.get_param("steps", 20))
+    batch_size = int(ctx.get_param("batch", 64))
+    image_size = int(ctx.get_param("image_size", 32))
+    n_classes = int(ctx.get_param("classes", 10))
+    dataset = ctx.get_param("dataset")
+    save_every = int(ctx.get_param("save_every", 0))
+    prefetch = int(ctx.get_param("prefetch", 2))
+    prefetch_workers = int(ctx.get_param("prefetch_workers", 2))
+    seed = ctx.seed or 0
+
+    mesh = ctx.mesh if ctx.mesh is not None else build_mesh({"data": 1})
+    template = template_for(ctx.strategy, dict(mesh.shape), ctx.strategy_options)
+    ts = build_train_step(loss_fn=loss_fn, init_fn=init_fn, optimizer=optimizer, mesh=mesh,
+                          template=template)
+    params, opt_state = ts.init(torch.Generator(device=device).manual_seed(seed))
+    ckpt, params, opt_state, start_step = _open_checkpoints(ctx, save_every, params, opt_state)
+    _, ranks = mesh.shard(template.batch_axes)
+    local_rows = batch_size // ranks
+
+    if dataset is not None:
+        reader = DatasetReader(ctx.data_path, str(dataset), global_batch=batch_size, seed=seed,
+                               num_processes=ctx.num_processes, process_id=ctx.process_id)
+        place = device if prefetch > 0 else functools.partial(
+            global_batch_from_host_data, device=device, num_processes=ctx.num_processes)
+        pipe = TrainPipeline(reader.batch_tasks(start_step), place, prefetch=prefetch,
+                             workers=prefetch_workers)
+    else:
+        images, labels = synthetic_class_images(np.random.default_rng(seed), batch_size,
+                                                image_size, n_classes)
+        fixed = ts.place_batch({"images": torch.from_numpy(images).to(device),
+                                "labels": torch.from_numpy(labels).to(device)})
+        pipe = TrainPipeline(itertools.repeat(fixed), prefetch=0, tasks=False)
+
+    profiler = StepProfiler(
+        ctx.outputs_path or ".",
+        start_step=int(ctx.get_param("profile_start", -1)),
+        num_steps=int(ctx.get_param("profile_steps", 0)),
+    )
+    capture = get_capture_agent()
+    ckpt_now = CheckpointNowService(ckpt, capture) if ckpt is not None else None
+    inject = _fault_injection(ctx)
+    drain = MetricsDrain(lambda step, vals: ctx.log_metrics(step=step, **vals))
+    clock = StepClock()
+    tracer = get_tracer()
+    run_stats = get_stats()
+    progress = get_progress()
+    led.set_flops_per_step(flops_per_example * local_rows)
+    metrics = batch = first_step_s = last_dt = None
+    data_wait_accounted = 0.0
+    t0 = time.perf_counter()
+    clock.start()
+    led.mark_loop_start()
+    try:
+        with tracer.span("train.loop", steps=steps - start_step):
+            for i in range(start_step, steps):
+                profiler.on_step(i)
+                capture.on_step(i)
+                if inject is not None:
+                    inject(i)
+                with tracer.span("train.step", sample=tracer.hot_sample, step=i):
+                    batch = next(pipe)
+                    params, opt_state, metrics = ts.step(params, opt_state, batch)
+                if ctx.is_leader and (i % 10 == 0 or i == steps - 1):
+                    drain.push(i, {"loss": metrics["loss"]})
+                if ckpt is not None:
+                    ckpt.save(i, params, opt_state)  # async; fenced below
+                if ckpt_now is not None:
+                    ckpt_now.maybe_save(i, params, opt_state)
+                if i == start_step:
+                    _sync(device)  # the cold-start metric is the first step's full time
+                    first_step_s = step_dt = clock.tick()
+                else:
+                    step_dt = clock.tick()
+                ticked = time.perf_counter()
+                dwait = pipe.pop_data_wait_s()
+                run_stats.timing("train.data_wait_s", dwait)
+                led.account("data_wait_s", dwait)
+                data_wait_accounted += dwait
+                if i < steps - 1:
+                    run_stats.timing("train.step_wall_s", step_dt)
+                    led.step(step_dt, tokens=local_rows)
+                    led.maybe_flush()
+                else:
+                    last_dt = step_dt
+                progress.beat(step=i)
+            _sync(device)
+            dt = time.perf_counter() - t0
+        if last_dt is not None:
+            # The steps still queued on the card when the host left the loop
+            # finish inside the synchronize: the last step's wall runs to its end.
+            last_dt += time.perf_counter() - ticked
+            run_stats.timing("train.step_wall_s", last_dt)
+            led.step(last_dt, tokens=local_rows)
+    finally:
+        profiler.close()
+        pipe.close()
+        drain.close()
+        if ckpt is not None:
+            ckpt.wait_until_finished()
+            ckpt.close()
+    led.account("data_wait_s", max(0.0, pipe.data_wait_s - data_wait_accounted))
+    if ckpt is not None:
+        led.account("ckpt_block_s", ckpt.save_block_s)
+    led.account("metric_drain_s", drain.close_wait_s)
+    led.flush(final=True)
+    steps_run = steps - start_step
+    if steps_run <= 0 or batch is None:
+        if ctx.is_leader:
+            ctx.log_text(f"{label}: nothing to do (checkpoint already at end)")
+        return
+    with torch.no_grad():
+        acc = accuracy_fn(params, batch)
+    if ranks > 1:  # every rank holds as many rows: the mean of the ranks' shares
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=mesh.world)
+        acc = acc / ranks
+    acc = float(acc)
+    if not ctx.is_leader:
+        return
+    ips = steps_run * batch_size / dt
+    clock.add("data_wait_s", pipe.data_wait_s)
+    if ckpt is not None:
+        clock.add("ckpt_block_s", ckpt.save_block_s)
+        run_stats.timing("train.ckpt_block_s", ckpt.save_block_s)
+    stats = clock.summary()
+    stats.update(_percentile_metrics(run_stats, "train.step_wall_s", "step_wall_s"))
+    ctx.log_metrics(step=steps, accuracy=acc, images_per_s=ips, first_step_s=first_step_s,
+                    **stats)
+    ctx.log_text(
+        f"{label} done: {steps} steps, strategy={template.name}, "
+        f"loss {float(metrics['loss']):.4f}, acc {acc:.3f}, {ips:.0f} img/s "
+        f"(data wait {pipe.data_wait_s * 1e3 / steps_run:.1f} ms/step, "
+        f"prefetch={'off' if prefetch <= 0 else prefetch})"
+    )
+
+
+def cnn_train(ctx: Context) -> None:
+    """Train the CNN image classifier (the CIFAR-10 quick-start shape).
+
+    Counterpart of the JAX ``cnn_train`` (reference :469-511).  Params:
+    ``steps``, ``batch`` (global), ``image_size``, ``classes``, ``lr``,
+    ``channels``, ``dataset``, ``save_every`` and ``device`` (default
+    ``cuda``; ``cpu`` only when asked); the data and checkpoint contracts
+    are :func:`_train_image_classifier`'s.  uint8 images ride to the device
+    and are normalized there in the compute dtype (``images / 255 - 0.5``,
+    as the reference's trainer does); ``AdamW(lr)`` with a float32 first
+    moment.
+    """
+    device = resolve_device(ctx.get_param("device", "cuda"))
+    cfg = cnn.CNNConfig(
+        image_size=int(ctx.get_param("image_size", 32)),
+        n_classes=int(ctx.get_param("classes", 10)),
+        channels=tuple(int(c) for c in ctx.get_param("channels", (64, 128, 256))),
+    )
+
+    def normalized(fn):
+        def wrapped(p, b):
+            images = b["images"].to(cfg.dtype) / 255.0 - 0.5
+            return fn(p, {**b, "images": images}, cfg, device=device)
+
+        return wrapped
+
+    _train_image_classifier(
+        ctx,
+        label="cnn_train",
+        loss_fn=normalized(cnn.loss_fn),
+        accuracy_fn=normalized(cnn.accuracy),
+        init_fn=lambda g: cnn.init_params(cfg, g),
+        optimizer=AdamW(float(ctx.get_param("lr", 1e-3))),
+        flops_per_example=conv_classifier_flops_per_image(
+            cfg.image_size, cfg.in_channels, cfg.channels, cfg.dense_dim, cfg.n_classes),
+        device=device,
+    )
+
+
+def vit_train(ctx: Context) -> None:
+    """Train the Vision Transformer image classifier.
+
+    Counterpart of the JAX ``vit_train`` (reference :514-563).  Params:
+    ``steps``, ``batch``, ``image_size``, ``patch_size``, ``classes``,
+    ``lr``, ``d_model``, ``n_layers``, ``n_heads``, ``head_dim``, ``d_ff``,
+    ``dataset``, ``save_every`` and ``device`` (default ``cuda``); the data
+    and checkpoint contracts are :func:`_train_image_classifier`'s.
+    ``AdamW(lr)`` keeps its first moment in bf16, as the reference's optax
+    ``adamw(mu_dtype=bfloat16)``.  FLOPs: an image is a ``num_patches``-token
+    sequence (``transformer_flops_per_token``).
+    """
+    device = resolve_device(ctx.get_param("device", "cuda"))
+    d_model = int(ctx.get_param("d_model", 192))
+    n_heads = int(ctx.get_param("n_heads", 6))
+    cfg = vit.ViTConfig(
+        image_size=int(ctx.get_param("image_size", 32)),
+        patch_size=int(ctx.get_param("patch_size", 4)),
+        n_classes=int(ctx.get_param("classes", 10)),
+        d_model=d_model,
+        n_layers=int(ctx.get_param("n_layers", 6)),
+        n_heads=n_heads,
+        head_dim=int(ctx.get_param("head_dim", max(8, d_model // n_heads))),
+        d_ff=int(ctx.get_param("d_ff", 4 * d_model)),
+    )
+    _train_image_classifier(
+        ctx,
+        label="vit_train",
+        loss_fn=lambda p, b: vit.loss_fn(p, b, cfg, device=device),
+        accuracy_fn=lambda p, b: vit.accuracy(p, b, cfg, device=device),
+        init_fn=lambda g: vit.init_params(cfg, g),
+        optimizer=AdamW(float(ctx.get_param("lr", 1e-3)), mu_dtype=torch.bfloat16),
+        flops_per_example=transformer_flops_per_token(
+            cfg.n_params, cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.num_patches)
+        * cfg.num_patches,
+        device=device,
+    )
+
+
 def lm_generate(ctx: Context) -> torch.Tensor:
     """Autoregressive generation from the flagship LM (the serving story).
 
@@ -350,7 +648,11 @@ def lm_train(ctx: Context) -> None:
     ``TransformerConfig`` fields ``vocab_size``, ``d_model``, ``n_layers``,
     ``n_heads``, ``head_dim``, ``d_ff``, ``n_experts``, ``n_kv_heads``,
     ``ce_chunk``), plus ``device`` (default ``cuda``; ``cpu`` only when
-    asked).  The template comes from ``ctx.strategy`` over ``ctx.mesh``
+    asked).  With ``n_experts`` the MLP is the switch MoE, on one rank only
+    (``models/transformer.py:forward``), and the loss carries its balance
+    term; the ledger's FLOPs stay the reference's ``6·n_params + ...``, and
+    ``n_params`` counts every expert, so a top-1 MoE's MFU counts FLOPs its
+    tokens do not spend.  The template comes from ``ctx.strategy`` over ``ctx.mesh``
     (default ``build_mesh({"data": 1})``): ``ddp``, or ``sp_ring`` (ring
     attention; on a ``{"sequence": 1}`` mesh one causal block over the whole
     sequence, as bench.py runs T = 16384), on one rank or across a gang's
@@ -416,23 +718,8 @@ def lm_train(ctx: Context) -> None:
     )
     params, opt_state = ts.init(torch.Generator(device=device).manual_seed(seed))
 
-    # Checkpoint/resume: restore whatever the checkpoints/ dir holds (a
-    # resumed clone inherits the original's checkpoints), save every
-    # `save_every` steps.
-    save_every = int(ctx.get_param("save_every", 0))
-    start_step = 0
-    ckpt = None
-    if save_every > 0 and ctx.checkpoints_path is not None:
-        ckpt = CheckpointManager(ctx.checkpoints_path, save_interval_steps=save_every)
-        restored = ckpt.restore(params, opt_state)
-        if restored is not None:
-            params, opt_state = restored["params"], restored["opt_state"]
-            start_step = restored["step"] + 1
-            ctx.log_text(f"restored checkpoint at step {restored['step']}")
-        if not ctx.is_leader:
-            # The params are replicated: every rank restores, the leader saves.
-            ckpt.close()
-            ckpt = None
+    ckpt, params, opt_state, start_step = _open_checkpoints(
+        ctx, int(ctx.get_param("save_every", 0)), params, opt_state)
 
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch_size, seq + 1)), device=device)

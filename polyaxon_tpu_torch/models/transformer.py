@@ -6,14 +6,15 @@ fields, the same stacked ``[L, ...]`` parameter layouts (``wq [L,D,H,hd]``,
 block arithmetic, so a JAX parameter tree carries over leaf by leaf
 (:mod:`polyaxon_tpu_torch.models.weights`).  The layer scan is a Python loop.
 
-Ported: the plain single-device forward, dense MLP, GQA, flash or dense
-attention, the remat policies (per-layer ``torch.utils.checkpoint``,
-selective for the named policies), the training loss with its blockwise
-cross-entropy, and two strategy templates: ``ddp`` (the plain path on
-each rank's rows of the batch) and ``sp_ring`` (ring attention over the
-sequence axis, each rank on its shard of its rows).  Other strategies,
-meshes with another axis above 1 (``parallel.templates.check_mesh``), and
-MoE raise ``NotImplementedError`` naming their ROADMAP item.
+Ported: the plain single-device forward, the dense MLP and the top-1
+(switch) MoE MLP with its balance loss, GQA, flash or dense attention, the
+remat policies (per-layer ``torch.utils.checkpoint``, selective for the
+named policies), the training loss with its blockwise cross-entropy, and
+two strategy templates: ``ddp`` (the plain path on each rank's rows of the
+batch) and ``sp_ring`` (ring attention over the sequence axis, each rank on
+its shard of its rows).  Other strategies, meshes with another axis above 1
+(``parallel.templates.check_mesh``), and MoE on a mesh above one rank raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ _SAVED_NAMES = {
     "save_qkv_attn": ("q_proj", "k_proj", "v_proj", "attn_out"),
 }
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+#: The MoE balance loss's weight in :func:`loss_fn` (the JAX ``loss_fn``'s
+#: ``aux_weight`` default, which every caller there takes).
+MOE_AUX_WEIGHT = 0.01
 
 
 @dataclass(frozen=True)
@@ -61,8 +65,9 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    #: 0 = dense MLP; >0 = MoE (not ported yet).
+    #: 0 = dense MLP; >0 = MoE with this many experts (top-1 switch routing).
     n_experts: int = 0
+    #: Per-expert capacity = capacity_factor * tokens / n_experts.
     capacity_factor: float = 1.25
     #: Activation checkpointing of each layer (see :class:`_SavePolicy`).
     remat: bool = False
@@ -128,10 +133,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator) -> Dict[str,
     :func:`~polyaxon_tpu_torch.models.weights.params_from_jax` instead.
     """
     c = cfg
-    if c.n_experts:
-        raise NotImplementedError(
-            "MoE is not ported yet (ROADMAP item 7: MoE / expert parallelism)"
-        )
     dev, dt = generator.device, c.param_dtype
 
     def norm(*shape, scale):
@@ -146,10 +147,21 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator) -> Dict[str,
         "wv": norm(L, D, Hkv, hd, scale=D**-0.5),
         "wo": norm(L, H, hd, D, scale=(H * hd) ** -0.5),
         "mlp_norm": torch.ones((L, D), device=dev, dtype=dt),
-        "wi": norm(L, D, Fd, scale=D**-0.5),
-        "wg": norm(L, D, Fd, scale=D**-0.5),
-        "wd": norm(L, Fd, D, scale=Fd**-0.5),
     }
+    if c.n_experts:
+        E = c.n_experts
+        block.update(
+            router=norm(L, D, E, scale=D**-0.5),
+            wi=norm(L, E, D, Fd, scale=D**-0.5),
+            wg=norm(L, E, D, Fd, scale=D**-0.5),
+            wd=norm(L, E, Fd, D, scale=Fd**-0.5),
+        )
+    else:
+        block.update(
+            wi=norm(L, D, Fd, scale=D**-0.5),
+            wg=norm(L, D, Fd, scale=D**-0.5),
+            wd=norm(L, Fd, D, scale=Fd**-0.5),
+        )
     return {
         "embed": norm(c.vocab_size, D, scale=1.0),
         "unembed": norm(D, c.vocab_size, scale=D**-0.5),
@@ -244,9 +256,63 @@ class _SavePolicy:
         return {"context_fn": functools.partial(create_selective_checkpoint_contexts, self)}
 
 
+def _moe_mlp(x: torch.Tensor, layer: Dict[str, torch.Tensor], cfg: TransformerConfig):
+    """Top-1 (switch) MoE MLP of x [B,T,D]: ``(y, gates [B,T,E] float32,
+    expert_idx [B,T])``.
+
+    Counterpart of the JAX ``_moe_mlp`` (``transformer.py:269-306``), token
+    for token: the router's softmax in float32, each token's expert its
+    argmax (the first on ties), its slot its rank among its expert's tokens
+    in flattened ``[B·T]`` order, and tokens ranked at or past
+    ``capacity = max(1, int(capacity_factor · tokens / E))`` dropped (their
+    output 0, so the residual carries them); each kept token's expert
+    output times its gate, the gate cast to the compute dtype.
+
+    The reference dispatches and combines by einsums over a ``[tokens, E,
+    C]`` one-hot.  Each of its rows holds at most one 1, so copying each
+    kept token into its slot of ``[E, C, D]`` and gathering each token's
+    slot back computes the same function, without those one-hots (335 MB
+    each in float32 at 8 × 1024 tokens, E 4, C 2560) or their products.
+    """
+    B, T, D = x.shape
+    E = cfg.n_experts
+    tokens = B * T
+    capacity = max(1, int(cfg.capacity_factor * tokens / E))
+    logits = torch.einsum("btd,de->bte", x, layer["router"].to(x.dtype))
+    gates = torch.softmax(logits.float(), dim=-1)
+    flat_gates = gates.reshape(tokens, E)
+    expert_idx = flat_gates.argmax(dim=-1)
+    gate_val = flat_gates.gather(1, expert_idx[:, None])[:, 0]
+    # [E, tokens]: each expert's running count along the tokens.
+    counts = (expert_idx == torch.arange(E, device=x.device)[:, None]).long().cumsum(dim=1)
+    rank = counts.gather(0, expert_idx[None])[0] - 1
+    # Slot e·C + rank of each kept token; dropped tokens go to a trash slot
+    # E·C, which the dispatch cuts off and the combine reads as zeros.
+    slot = torch.where(rank < capacity, expert_idx * capacity + rank, E * capacity)
+    expert_in = x.new_zeros(E * capacity + 1, D).index_copy(0, slot, x.reshape(tokens, D))
+    expert_in = expert_in[:-1].view(E, capacity, D)
+    h = torch.einsum("ecd,edf->ecf", expert_in, layer["wi"].to(x.dtype))
+    g = torch.einsum("ecd,edf->ecf", expert_in, layer["wg"].to(x.dtype))
+    out = torch.einsum("ecf,efd->ecd", F.silu(g) * h, layer["wd"].to(x.dtype))
+    out = torch.cat([out.reshape(E * capacity, D), out.new_zeros(1, D)])
+    y = out.index_select(0, slot) * gate_val.to(x.dtype)[:, None]
+    return y.reshape(B, T, D), gates, expert_idx.reshape(B, T)
+
+
+def moe_aux_loss(gates: torch.Tensor, expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Switch-transformer load-balancing loss of one layer (JAX
+    ``moe_aux_loss``, ``transformer.py:309-315``; :func:`loss_fn` takes the
+    mean over layers): ``E · Σ_e mean gate_e · share of tokens routed to e``."""
+    me = gates.reshape(-1, n_experts).mean(dim=0)
+    ce = F.one_hot(expert_idx.reshape(-1), n_experts).float().mean(dim=0)
+    return n_experts * (me * ce).sum()
+
+
 def _layer(x, positions, layer, cfg: TransformerConfig, use_flash: bool,
            policy: _SavePolicy, want_kv: bool, mesh=None, ring_axis: Optional[str] = None):
-    """One decoder block (JAX ``forward.block``): ``(x, (k, v) or None)``."""
+    """One decoder block (JAX ``forward.block``): ``(x, aux)``, aux the
+    layer's ``(k, v)`` when ``want_kv``, its MoE ``(gates, expert_idx)`` when
+    ``cfg.n_experts``, else None."""
     c = cfg
     h = _rmsnorm(x, layer["attn_norm"])
     wq, wk, wv = (layer[n].to(h.dtype) for n in ("wq", "wk", "wv"))
@@ -273,6 +339,9 @@ def _layer(x, positions, layer, cfg: TransformerConfig, use_flash: bool,
     x = x + torch.einsum("bthk,hkd->btd", attn, layer["wo"].to(h.dtype))
 
     h = _rmsnorm(x, layer["mlp_norm"])
+    if c.n_experts:
+        y, gates, expert_idx = _moe_mlp(h, layer, c)
+        return x + y, (gates, expert_idx)
     up = torch.einsum("btd,df->btf", h, layer["wi"].to(h.dtype))
     gate = torch.einsum("btd,df->btf", h, layer["wg"].to(h.dtype))
     act = F.silu(gate)
@@ -298,7 +367,12 @@ def forward(
 
     ``return_kv`` also returns the per-layer post-rope, unexpanded (GQA)
     key/value stacks ``(k, v)``, each ``[L,B,T,Hkv,d]`` — the decode
-    prefill fills its cache from them (plain path only: no template).
+    prefill fills its cache from them (plain path only: no template, no
+    MoE).  With ``cfg.n_experts`` the result is ``(logits or hidden, (gates
+    [L,B,T,E], expert_idx [L,B,T]))``, the per-layer routing that
+    :func:`loss_fn`'s balance loss reads; MoE runs on one rank only (a mesh
+    above one rank raises: the reference routes the global batch, ROADMAP
+    item 7).
     ``return_hidden`` returns the final-norm hidden states [B,T,D] in the
     compute dtype instead of the logits, for :func:`loss_fn`'s blockwise
     cross-entropy.  With ``cfg.remat`` each layer is checkpointed while
@@ -317,13 +391,16 @@ def forward(
     c = cfg
     dev = resolve_device(device)
     ring_axis = check_mesh(template, mesh)
-    if return_kv and template is not None:
+    if return_kv and (template is not None or c.n_experts):
         raise NotImplementedError(
-            "return_kv supports the plain-scan dense path only (no parallelism template)"
+            "return_kv supports the plain-scan dense path only (no parallelism "
+            "template, no MoE)"
         )
-    if c.n_experts:
+    if c.n_experts and mesh is not None and mesh.size > 1:
         raise NotImplementedError(
-            "MoE is not ported yet (ROADMAP item 7: MoE / expert parallelism)"
+            f"MoE on a mesh {dict(mesh.shape)} above one rank is not ported yet: the "
+            "reference takes capacity, in-expert ranks and the balance loss over the global "
+            "batch (ROADMAP item 7: MoE across ranks, the ep strategy)"
         )
     require_on(dev, embed=params["embed"])
     tokens = tokens.to(dev)
@@ -339,24 +416,25 @@ def forward(
     remat = c.remat and torch.is_grad_enabled()
     # unbind, not w[i]: its backward stacks the per-layer grads once.
     per_layer = {name: w.unbind(0) for name, w in params["block"].items()}
-    ks, vs = [], []
+    auxes = []
     for i in range(c.n_layers):
         layer = {name: ws[i] for name, ws in per_layer.items()}
         args = (x, positions, layer, c, use_flash, policy, return_kv, mesh, ring_axis)
         if remat:
-            x, kv = checkpoint(_layer, *args, use_reentrant=False, **policy.checkpoint_kwargs())
+            x, aux = checkpoint(_layer, *args, use_reentrant=False, **policy.checkpoint_kwargs())
         else:
-            x, kv = _layer(*args)
-        if return_kv:
-            ks.append(kv[0])
-            vs.append(kv[1])
+            x, aux = _layer(*args)
+        auxes.append(aux)
+    stacked = None  # the layers' aux on a leading layer axis: (k, v) or (gates, expert_idx)
+    if return_kv or c.n_experts:
+        stacked = tuple(torch.stack(parts) for parts in zip(*auxes))
 
     x = _rmsnorm(x, params["final_norm"])
     if return_hidden:
-        return x
+        return (x, stacked) if c.n_experts else x
     logits = torch.einsum("btd,dv->btv", x, params["unembed"].to(x.dtype)).float()
-    if return_kv:
-        return logits, (torch.stack(ks), torch.stack(vs))
+    if stacked is not None:
+        return logits, stacked
     return logits
 
 
@@ -406,11 +484,12 @@ def loss_fn(
     device: DeviceLike = "cuda",
 ) -> torch.Tensor:
     """Next-token cross-entropy of ``batch`` (``tokens``, ``targets``, and
-    optional ``mask`` and ``positions``), a float32 scalar.
+    optional ``mask`` and ``positions``), a float32 scalar; with
+    ``cfg.n_experts`` plus :data:`MOE_AUX_WEIGHT` times the mean over layers
+    of :func:`moe_aux_loss` (JAX ``loss_fn``, ``transformer.py:632-681``).
 
     With ``cfg.ce_chunk`` dividing the sequence it goes through
-    :func:`_blockwise_ce`.  Dense MLP only: MoE (and its balance loss)
-    raises in :func:`forward`.  Across ranks the batch is this rank's shard
+    :func:`_blockwise_ce`.  Across ranks the batch is this rank's shard
     (its rows, and under ``sp_ring`` its sequence shard of them) and the
     loss its mean; ``runtime.train.build_train_step`` weighs the ranks' means
     into the global one.
@@ -422,11 +501,19 @@ def loss_fn(
     chunked = bool(cfg.ce_chunk and targets.shape[-1] % cfg.ce_chunk == 0)
     out = forward(params, batch["tokens"], cfg, template=template, mesh=mesh,
                   positions=batch.get("positions"), return_hidden=chunked, device=dev)
+    if cfg.n_experts:
+        out, (gates, expert_idx) = out
     if chunked:
-        return _blockwise_ce(out, params["unembed"], targets, mask, cfg.ce_chunk)
-    logp = torch.log_softmax(out, dim=-1)
-    nll = -logp.gather(-1, targets[..., None])[..., 0]
-    if mask is None:
-        return nll.mean()
-    mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        loss = _blockwise_ce(out, params["unembed"], targets, mask, cfg.ce_chunk)
+    else:
+        logp = torch.log_softmax(out, dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        if mask is None:
+            loss = nll.mean()
+        else:
+            mask = mask.float()
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if cfg.n_experts:
+        aux = torch.stack([moe_aux_loss(g, i, cfg.n_experts) for g, i in zip(gates, expert_idx)])
+        loss = loss + MOE_AUX_WEIGHT * aux.mean()
+    return loss

@@ -116,8 +116,16 @@ def test_flash_fwd_kernel_refuses_what_it_does_not_take(cuda):
     assert (flash.flash_block_fwd.launches, flash.flash_block_dq.launches,
             flash.flash_block_dkv.launches) == tuple(n + 1 for n in before)
     qc, kc, vc = (x.detach().cpu().requires_grad_(True) for x in (q, k, v))
-    ref = torch.autograd.grad(flash.flash_attention(qc, kc, vc, 0.125, device="cpu")
-                              .square().sum(), (qc, kc, vc))
+    # The reference on one CPU thread: under a cap of two its float32 sums
+    # split by thread and take one of two orders, whose grads differ by up to
+    # 8.4e-4 here; one thread sums in one order in every process.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref = torch.autograd.grad(flash.flash_attention(qc, kc, vc, 0.125, device="cpu")
+                                  .square().sum(), (qc, kc, vc))
+    finally:
+        torch.set_num_threads(threads)
     for got, want in zip(grads, ref):
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
 

@@ -19,6 +19,7 @@ from polyaxon_tpu_torch.models import transformer as ttr
 from polyaxon_tpu_torch.models.weights import params_from_jax
 from polyaxon_tpu_torch.parallel.templates import template_for
 from polyaxon_tpu_torch.runtime.mesh import build_mesh
+from tests.torch_parity import assert_tree_close, carried, grads_of
 
 SMALL = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, head_dim=16, d_ff=128, max_seq=64)
 VARIANTS = {"mha": {}, "gqa": {"n_kv_heads": 2}}
@@ -185,13 +186,31 @@ def test_unported_paths_raise(kwargs, match):
 @pytest.mark.parametrize(
     "override, match",
     [({"n_experts": 4}, "MoE"), ({"n_experts": 4, "remat": True}, "MoE")],
-    ids=["override0-MoE", "override1-remat"],  # remat is ported; it must not skip the MoE refusal
+    ids=["override0-MoE", "override1-remat"],
 )
 def test_unported_config_raises(override, match):
-    _, tcfg = configs("mha", "dense")
-    tp = ttr.init_params(tcfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=match):
-        ttr.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg.scaled(**override), device="cpu")
+    """The two MoE configs this test once held to a refusal are ported: the
+    model with 4 experts gives JAX's logits and routing (atol 1e-4, indices
+    equal), and its loss with the balance term (atol 1e-5) and grads (atol
+    1e-5), with ``remat`` off and on."""
+    jcfg, tcfg = configs("mha", "dense")
+    jcfg, tcfg = jcfg.scaled(**override), tcfg.scaled(**override)
+    assert match == "MoE" and tcfg.n_experts == 4
+    jp, tp = jax_params(jcfg)
+    toks = tokens(4, T=17)
+    jl, (jgates, jidx) = jtr.forward(jp, jnp.asarray(toks[:, :-1]), jcfg)
+    tl, (tgates, tidx) = ttr.forward(tp, torch.from_numpy(toks[:, :-1]).long(), tcfg, device="cpu")
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(tgates.numpy(), np.asarray(jgates), atol=1e-6)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    jloss, jgrads = jax.value_and_grad(jtr.loss_fn)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+    tp = carried(jp)
+    tloss = ttr.loss_fn(tp, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg,
+                        device="cpu")
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), atol=1e-5)
+    assert_tree_close(grads_of(tloss, tp), jgrads, atol=1e-5)
 
 
 def test_forward_raises_without_cuda_by_default():
