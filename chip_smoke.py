@@ -19,7 +19,9 @@ then the serving fleet (replica processes behind the router, failover,
 the autoscaler under chaos); then the gang layer (the port's spawner and
 worker running ``lm_train`` and ``lm_server`` from specs, and the train
 step across ranks); then the image classifiers (``cnn_train``,
-``vit_train``) and ``lm_train`` with switch-MoE experts.  Phases:
+``vit_train``) and ``lm_train`` with switch-MoE experts; then the sharded
+strategies without a pipeline (``fsdp``, ``tp``, ``tp_dp``, ``ulysses``)
+across rank processes on the one card.  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -226,7 +228,24 @@ step across ranks); then the image classifiers (``cnn_train``,
     device time; a small float32 ``_moe_mlp`` on the card routes as on the
     CPU (but for near-ties) and gives its output within 1e-4, and a small
     bf16 MoE model's grads with remat on match those with it off (the
-    recompute routes as the forward did).
+    recompute routes as the forward did);
+34. the sharded train step across rank processes of this script
+    (``--sharded-rank``) on the one card, over gloo: ``fsdp {data: 2}``,
+    ``tp {tensor: 2}`` and ``tp_dp {data: 2, tensor: 2}`` (4 processes) at
+    the 671M width cut to 2 layers, global batch 4 x 1024, bf16, 2 steps:
+    each rank's loss and grad norm within 1e-2 of one rank's step on the
+    whole batch, the kernels launched on every rank, each rank's param and
+    AdamW bytes beside one rank's (half of them under fsdp), and the walls
+    of the gathers, reduce-scatters, all-reduces and all-to-alls (over gloo,
+    which copies through the host: nothing of NCCL);
+35. ``ulysses {sequence: 2}`` at T 8192, batch 1, ``attention_impl``
+    ``auto`` (the kernels at the rank's 16 heads over the whole sequence):
+    the same checks;
+36. the three kernels at the Ulysses rank's shape (BH 16, T 8192, d 64,
+    bf16 causal) against their plain versions on two heads, with their
+    times beside SDPA's and their bounds;
+37. ``vit_train`` (ViT-B/16) under ``fsdp {data: 2}`` through the entry
+    point, 2 steps: its losses within 1e-2 relative of one rank's.
 
 Any failed check raises, and the script exits non-zero; an atexit hook
 SIGKILLs any replica or gang worker left.  On success its last lines are the serving
@@ -236,7 +255,8 @@ the KV-tier and tracing figures as JSON, the tracking figures (the
 training and serving ledger rows, the overhead, the watchdog, the dataset
 path) as JSON, the card's name and power limit,
 the kernels' JSON record, the fleet's figures, the gang layer's, the image
-classifiers' and the MoE run's, and ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
+classifiers' and the MoE run's, the sharded strategies', and ``{"ok": true,
+"device": {...}}``.  Without CUDA it exits 1
 at once.
 """
 
@@ -1013,15 +1033,17 @@ def phase_profile(params, cfg, prompt, steps: int = 8):
 
 
 def _train_setup(cfg, optimizer, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ, template=None,
-                 mesh=None):
+                 mesh=None, axes_tree=None):
     """A train step for ``cfg`` on lm_train's weights (seeded init on the
-    card) and lm_train's batch, under ``template`` over ``mesh`` if given."""
+    card) and lm_train's batch, under ``template`` over ``mesh`` if given
+    (this rank's shards of the params by ``axes_tree``)."""
     from polyaxon_tpu_torch.models.transformer import init_params, loss_fn
     from polyaxon_tpu_torch.runtime.train import build_train_step
 
     ts = build_train_step(
         loss_fn=lambda p, b: loss_fn(p, b, cfg, template=template, mesh=mesh, device="cuda"),
-        init_fn=lambda g: init_params(cfg, g), optimizer=optimizer, mesh=mesh, template=template)
+        init_fn=lambda g: init_params(cfg, g), optimizer=optimizer, mesh=mesh, template=template,
+        axes_tree=axes_tree)
     params, opt_state = ts.init(torch.Generator(device="cuda").manual_seed(SEED))
     rng = np.random.default_rng(SEED)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch_size, seq + 1)), device="cuda")
@@ -1837,16 +1859,17 @@ def phase_lm_server():
     return launches, summary
 
 
-def _long_shape(batch, T, heads, want_ops=None):
-    """The three kernels at one long causal shape (B ``batch`` x H 32, T,
-    d 64, bf16): the kernels on every head, the heads ``heads`` held
+def _long_shape(batch, T, heads, want_ops=None, n_heads=None):
+    """The three kernels at one long causal shape (B ``batch`` x H, T, d 64,
+    bf16; H the bench model's 32 heads, or ``n_heads``): the kernels on every
+    head, the heads ``heads`` held
     against the plain version on those heads (the kernels' limits), and
     each kernel's time beside SDPA's on every head and its bound, which must
     be set by operations at this length (and give ``want_ops`` FLOP, where
     given).  Returns each kernel's figures, keyed fwd, dq, dkv."""
     from polyaxon_tpu_torch.parallel import flash
 
-    H, d = BENCH_MODEL["n_heads"], BENCH_MODEL["head_dim"]
+    H, d = n_heads or BENCH_MODEL["n_heads"], BENCH_MODEL["head_dim"]
     BH, dtype = batch * H, torch.bfloat16
     idx = torch.tensor(heads, device="cuda")
     named = f"{heads[0]}-{heads[-1]}" if list(heads) == list(range(heads[0], heads[-1] + 1)) \
@@ -4131,6 +4154,265 @@ def phase_vit_train():
     return out
 
 
+# The sharded strategies without a pipeline (phases 34-37).  Each rank is a
+# process of this script (SHARDED_RANK) on the one card, joined over gloo by
+# init_process_group at tcp://127.0.0.1: the collectives of these strategies
+# run inside the backward, which the autograd engine runs on one thread a
+# device, so thread ranks of one process on one card would wait for each
+# other there (phase 30's thread ranks all-reduce after the backward), and
+# NCCL takes one rank a device.  Gloo copies every CUDA tensor through the
+# host, so no wall here says anything of NCCL.
+SHARDED_RANK = "--sharded-rank"
+SHARDED_LM = {"fsdp": ("fsdp", {"data": 2}), "tp": ("tp", {"tensor": 2}),
+              "tp_dp": ("tp_dp", {"data": 2, "tensor": 2}),
+              "ulysses": ("ulysses", {"sequence": 2})}
+ULYSSES_BATCH, ULYSSES_SEQ = 1, 8192
+VIT_FSDP_BATCH, VIT_FSDP_STEPS = 32, 2
+SHARDED_TIMEOUT_S = 420
+COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all")
+
+
+@contextlib.contextmanager
+def _timed_collectives():
+    """Each list-form collective synchronized before and after and timed:
+    yields ``{name: [(seconds, bytes sent by this rank), ...]}``."""
+    import torch.distributed as dist
+
+    walls = {name: [] for name in COLLECTIVES}
+    real = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def timed(name):
+        def call(*args, **kw):
+            sent = args[1] if name != "all_reduce" else args[0]
+            sent = sent if isinstance(sent, (list, tuple)) else [sent]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            work = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t,
+                                sum(x.numel() * x.element_size() for x in sent)))
+            return work
+        return call
+
+    for name in COLLECTIVES:
+        setattr(dist, name, timed(name))
+    try:
+        yield walls
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def _state_bytes(params, opt_state):
+    from polyaxon_tpu_torch.runtime.optim import tree_leaves
+
+    return (sum(p.numel() * p.element_size() for p in tree_leaves(params)),
+            sum(m.numel() * m.element_size() for m in opt_state.mu + opt_state.nu))
+
+
+def _sharded_lm_shape(strategy):
+    """(config, global batch, seq) of a sharded LM case."""
+    from polyaxon_tpu_torch.models.transformer import TransformerConfig
+
+    batch, seq = ((ULYSSES_BATCH, ULYSSES_SEQ) if strategy == "ulysses"
+                  else (STEP_RANKS_BATCH, TRAIN_SEQ))
+    cfg = TransformerConfig(max_seq=seq, **dict(BENCH_MODEL, n_layers=STEP_RANKS_LAYERS))
+    return cfg, batch, seq
+
+
+def _sharded_lm_rank(name):
+    """This rank's run of SHARDED_LM[name]: the kernels' counts set to 0 just
+    before its steps and read just after, (loss, grad_norm) a step, its
+    state's bytes and the collectives' walls."""
+    from polyaxon_tpu_torch.models.transformer import param_axes
+    from polyaxon_tpu_torch.parallel.templates import template_for
+    from polyaxon_tpu_torch.runtime.mesh import mesh_from_world
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+
+    strategy, axes = SHARDED_LM[name]
+    cfg, batch, seq = _sharded_lm_shape(strategy)
+    mesh = mesh_from_world(axes)
+    ts, params, opt_state, local = _train_setup(
+        cfg, AdamW(LR), batch_size=batch, seq=seq, template=template_for(strategy, axes),
+        mesh=mesh, axes_tree=param_axes(cfg))
+    state = _state_bytes(params, opt_state)
+    torch.cuda.synchronize()
+    _reset_counts()
+    hist = []
+    with _timed_collectives() as walls:
+        for _ in range(STEP_RANKS_STEPS):
+            params, opt_state, m = ts.step(params, opt_state, local)
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+    launches = _counts()
+    del ts, params, opt_state, local
+    _free()
+    return {"history": hist, "launches": launches, "param_bytes": state[0],
+            "adam_bytes": state[1],
+            "walls": {k: {"calls": len(v), "s": sum(w for w, _ in v), "bytes": sum(b for _, b in v)}
+                      for k, v in walls.items()}}
+
+
+def _vit_fsdp_run(mesh=None, rank=0, world=1):
+    """vit_train at ViT-B/16's widths through the entry point, under fsdp on
+    ``mesh`` (or on one rank): the leader's [step, loss] pairs and log lines."""
+    from polyaxon_tpu_torch.builtins.trainers import vit_train
+    from polyaxon_tpu_torch.tracking.context import Context
+
+    records = []
+    _free()
+    vit_train(Context(params=dict(VIT_B16, batch=VIT_FSDP_BATCH, steps=VIT_FSDP_STEPS,
+                                  device="cuda"),
+                      seed=SEED, records=records, mesh=mesh, strategy="fsdp" if mesh else "ddp",
+                      process_id=rank, num_processes=world))
+    torch.cuda.synchronize()
+    lines = [r["line"] for r in records if r["kind"] == "log"]
+    return {"losses": [[r["step"], r["values"]["loss"]] for r in records
+                       if r["kind"] == "metric" and "loss" in r["values"]], "lines": lines}
+
+
+def _sharded_rank_main(world, rank, port, out_dir, cases):
+    """One rank process of phases 34-37: join the gloo world, run ``cases``
+    (names of SHARDED_LM, or ``vit_fsdp``) in order, write their results
+    to ``<out_dir>/rank<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from polyaxon_tpu_torch.runtime.mesh import mesh_from_world
+
+    world, rank = int(world), int(rank)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=180))
+    try:
+        out = {}
+        for case in cases.split(","):
+            t = time.perf_counter()
+            if case == "vit_fsdp":
+                out[case] = _vit_fsdp_run(mesh_from_world({"data": world}), rank, world)
+            else:
+                out[case] = _sharded_lm_rank(case)
+            out[case]["wall_s"] = time.perf_counter() - t
+            log(f"rank {rank}: {case} done in {out[case]['wall_s']:.1f} s")
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_rank_processes(world, cases):
+    """Start ``world`` rank processes of this script on the card, wait for
+    them (a failed one stops the others), and return each rank's results.
+    Their logs are printed."""
+    out = Path(tempfile.mkdtemp(prefix="sharded-ranks-"))
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            logs.append(open(out / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), SHARDED_RANK, str(world), str(r),
+                 str(port), str(out), ",".join(cases)],
+                stdout=logs[-1], stderr=subprocess.STDOUT,
+                cwd=str(Path(__file__).resolve().parent)))
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r in range(world):
+        for line in (out / f"rank{r}.log").read_text().splitlines()[-40:]:
+            log(f"  [rank {r}] {line}")
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        raise AssertionError(f"the rank processes of {cases} ended with {rcs}")
+    results = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"{world} rank processes ran {cases} in {wall:.1f} s (launch to exit)")
+    return results, wall
+
+
+def phase_sharded_strategies():
+    """Phases 34-37 (see the module docstring).  Returns the figures by
+    case and each case's kernel launches summed over its ranks."""
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+
+    two, wall2 = _run_rank_processes(2, ["fsdp", "tp", "ulysses", "vit_fsdp"])
+    four, wall4 = _run_rank_processes(4, ["tp_dp"])
+    out = {"rank_processes_wall_s": {"2 ranks": wall2, "4 ranks": wall4},
+           "backend": "gloo across processes on one card", "card": _card()}
+    launches = {}
+    for name, ranks in (("fsdp", two), ("tp", two), ("ulysses", two), ("tp_dp", four)):
+        strategy, axes = SHARDED_LM[name]
+        cfg, batch, seq = _sharded_lm_shape(strategy)
+        _free()
+        ts, params, opt_state, whole = _train_setup(cfg, AdamW(LR), batch_size=batch, seq=seq)
+        one_bytes = _state_bytes(params, opt_state)
+        torch.cuda.synchronize()
+        _reset_counts()
+        one = []
+        for _ in range(STEP_RANKS_STEPS):
+            params, opt_state, m = ts.step(params, opt_state, whole)
+            one.append((float(m["loss"]), float(m["grad_norm"])))
+        one_launches = _counts()
+        del ts, params, opt_state, whole
+        _free()
+        got = [r[name] for r in ranks]
+        ok = all(abs(a - b) <= STEP_RANKS_BF16_RTOL * abs(b) for g in got
+                 for pair in zip(g["history"], one) for a, b in zip(*pair))
+        log(f"{strategy} {axes} on {len(got)} rank processes over gloo (not NCCL), bf16, the "
+            f"671M width with {STEP_RANKS_LAYERS} layers, batch {batch} x {seq}, "
+            f"{STEP_RANKS_STEPS} steps: (loss, grad_norm) per step "
+            + "; ".join(f"rank {i} {g['history']}" for i, g in enumerate(got))
+            + f"; one rank on the whole batch {one}")
+        for i, g in enumerate(got):
+            log(f"  rank {i}: kernels fwd/dq/dkv {g['launches']} (one rank alone: "
+                f"{one_launches}); params {g['param_bytes']} B, AdamW {g['adam_bytes']} B "
+                f"(one rank: {one_bytes[0]} B, {one_bytes[1]} B); collectives over "
+                f"{STEP_RANKS_STEPS} steps, synchronized before and after, host copies "
+                f"through gloo: {g['walls']}; case wall {g['wall_s']:.1f} s")
+        if not ok:
+            raise AssertionError(f"{strategy} across ranks disagrees with one rank's step")
+        if not all(c > 0 for g in got for c in g["launches"]):
+            raise AssertionError(f"{strategy}: a kernel did not launch on every rank: "
+                                 f"{[g['launches'] for g in got]}")
+        if strategy == "fsdp" and not all(2 * g["param_bytes"] == one_bytes[0] and
+                                          2 * g["adam_bytes"] == one_bytes[1] for g in got):
+            raise AssertionError("fsdp {data: 2}: a rank does not hold half of the state")
+        launches[f"train_step_{strategy}"] = tuple(sum(g["launches"][i] for g in got)
+                                                   for i in range(3))
+        out[strategy] = {"axes": axes, "ranks": got, "one_rank": one,
+                         "one_rank_launches": one_launches, "one_rank_param_bytes": one_bytes[0],
+                         "one_rank_adam_bytes": one_bytes[1]}
+    _free()
+    H = BENCH_MODEL["n_heads"] // SHARDED_LM["ulysses"][1]["sequence"]
+    out["ulysses_kernels"] = _long_shape(ULYSSES_BATCH, ULYSSES_SEQ, (0, H - 1), n_heads=H)
+    _free()
+    vit_ranks = two[0]["vit_fsdp"]
+    vit_one = _vit_fsdp_run()
+    steps = [s for s, _ in vit_one["losses"]]
+    pairs = [(a, b) for (_, a), (_, b) in zip(vit_ranks["losses"], vit_one["losses"])]
+    log(f"vit_train (ViT-B/16 widths) under fsdp {{data: 2}} on 2 rank processes, batch "
+        f"{VIT_FSDP_BATCH}, {VIT_FSDP_STEPS} steps: losses (2 ranks, one rank) {pairs}; "
+        f"{vit_ranks['lines'][-1] if vit_ranks['lines'] else ''}")
+    if [s for s, _ in vit_ranks["losses"]] != steps or not steps or not all(
+            abs(a - b) <= IMAGE_LOSS_RTOL * abs(b) for a, b in pairs):
+        raise AssertionError("vit_train under fsdp disagrees with one rank's")
+    if "strategy=fsdp" not in vit_ranks["lines"][-1]:
+        raise AssertionError("vit_train's done-line does not name fsdp")
+    out["vit_fsdp"] = {"losses": pairs, "wall_s": vit_ranks["wall_s"]}
+    return launches, out
+
+
 def _moe_routing_on_card_vs_cpu():
     """A small float32 _moe_mlp on the card and on the CPU on the same
     inputs and weights (TF32 off): the same expert wherever the top two
@@ -4342,6 +4624,8 @@ def main() -> int:
     if sys.argv[1:] == [TRACING_ONLY]:  # the child of _tracing_in_a_process_of_its_own
         print(json.dumps(phase_tracing()))
         return 0
+    if sys.argv[1:2] == [SHARDED_RANK]:  # a child of _run_rank_processes
+        return _sharded_rank_main(*sys.argv[2:])
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -4423,12 +4707,14 @@ def main() -> int:
     images["vit_train"] = phase_vit_train()
     _free()
     moe_launches, images["lm_train_moe"] = phase_moe_train()
+    _free()
+    sharded_launches, sharded = phase_sharded_strategies()
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
                "lm_train_sp_ring_t16384": ring_launches, "lm_train_resumed": ckpt_launches,
                "lm_train_gang": gang_launches, "train_step_2_ranks": ranks_launches,
-               "lm_train_moe": moe_launches}
+               "lm_train_moe": moe_launches, **sharded_launches}
     for i, (kind, record) in enumerate((("fwd", fwd), ("dq", bwd["dq"]), ("dkv", bwd["dkv"]))):
         record["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -4436,6 +4722,9 @@ def main() -> int:
                                launches_per_step=long_launches[i] / LONG_STEPS)
         record["t16384"] = dict(long_kernels["t16384"][kind],
                                 launches_per_step=ring_launches[i] / RING_STEPS)
+        record["ulysses_t8192"] = dict(sharded["ulysses_kernels"][kind],
+                                       launches_per_step_per_rank=sharded_launches[
+                                           "train_step_ulysses"][i] / (2 * STEP_RANKS_STEPS))
     script_s = time.perf_counter() - t0
     log(f"chip_smoke: all phases passed in {script_s:.1f} s")
     # The serving and long-context figures of this run, on lines of their
@@ -4453,6 +4742,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"gang": gang}))
     print(json.dumps({"image_classifiers_and_moe": images}))
+    print(json.dumps({"sharded_strategies": sharded}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,8 +6,9 @@ the platform's gang tests drive (``noop``, ``failing``, ``sleepy``,
 and :667-678 there), ``synthetic_regression`` (the quickstart's job,
 :904-958), the image classifiers ``cnn_train`` and ``vit_train`` (:469-563,
 over ``_train_image_classifier`` :175-466), ``lm_generate``, and
-``lm_train`` (``ddp`` and ``sp_ring``, on one rank or across a gang's ranks;
-dense or switch-MoE), with checkpoint save, resume and restore, the fault
+``lm_train`` (every ported template: ``ddp``, ``fsdp``, ``tp``, ``tp_dp``,
+``sp_ring`` and ``ulysses``, on one rank or across a gang's ranks; dense or
+switch-MoE), with checkpoint save, resume and restore, the fault
 injection the platform's preemption tests drive, and the trainers' run
 accounting (the utilization ledger, the progress beacon, tracer spans and
 step-wall percentiles).  Metrics are logged by the leader (process 0), as
@@ -28,7 +29,12 @@ import torch.distributed as dist
 
 from polyaxon_tpu_torch._device import resolve_device
 from polyaxon_tpu_torch.models import cnn, decode, vit
-from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
+from polyaxon_tpu_torch.models.transformer import (
+    TransformerConfig,
+    init_params,
+    loss_fn,
+    param_axes,
+)
 from polyaxon_tpu_torch.parallel.templates import template_for
 from polyaxon_tpu_torch.runtime.checkpoint import CheckpointManager, CheckpointNowService
 from polyaxon_tpu_torch.runtime.data import global_batch_from_host_data
@@ -270,27 +276,69 @@ def _fault_injection(ctx: Context):
     return on_step
 
 
-def _open_checkpoints(ctx: Context, save_every: int, params, opt_state):
-    """The run's checkpoint manager and the step to start at (the reference
-    ``lm_train``'s :752-762 and ``_train_image_classifier``'s :250-262): with
-    ``save_every`` > 0 and a checkpoints dir, restore the newest complete
-    step there into ``params`` and ``opt_state`` (a resumed clone inherits
-    the original's) and start after it.  Every rank restores (the params are
-    replicated); only the leader keeps the manager and saves.  Returns
-    ``(ckpt or None, params, opt_state, start_step)``."""
+def _open_checkpoints(ctx: Context, save_every: int, ts, params, opt_state):
+    """The run's checkpoint manager, its save hook and the step to start at
+    (the reference ``lm_train``'s :752-762 and ``_train_image_classifier``'s
+    :250-262): with ``save_every`` > 0 and a checkpoints dir, restore the
+    newest complete step there into ``params`` and ``opt_state`` (a resumed
+    clone inherits the original's) and start after it.  Every rank
+    restores; only the leader keeps the manager and saves.
+
+    A step holds the whole state, the one-rank layout, whatever the
+    template.  Under a template that shards the params (``ts.sharded``)
+    every rank reads the whole tensors and keeps its shard
+    (``TrainStep.load_shards``), as orbax restores onto the target mesh, and
+    at each step ``save_every`` divides every rank joins the gathers of the
+    whole state (``TrainStep.full_state``) that the leader then saves; so a
+    checkpoint moves between one rank and a sharded run either way.
+    Returns ``(ckpt or None, save hook or None, params, opt_state,
+    start_step)``; the hook is ``save(step, params, opt_state)``."""
     if save_every <= 0 or ctx.checkpoints_path is None:
-        return None, params, opt_state, 0
+        return None, None, params, opt_state, 0
     ckpt = CheckpointManager(ctx.checkpoints_path, save_interval_steps=save_every)
     start_step = 0
-    restored = ckpt.restore(params, opt_state)
+    if ts.sharded:
+        restored = ckpt.restore(*ts.empty_full_state(params, opt_state))
+        if restored is not None:
+            ts.load_shards((restored["params"], restored["opt_state"]), params, opt_state)
+    else:
+        restored = ckpt.restore(params, opt_state)
+        if restored is not None:
+            params, opt_state = restored["params"], restored["opt_state"]
     if restored is not None:
-        params, opt_state = restored["params"], restored["opt_state"]
         start_step = restored["step"] + 1
         ctx.log_text(f"restored checkpoint at step {restored['step']}")
     if not ctx.is_leader:
         ckpt.close()
         ckpt = None
-    return ckpt, params, opt_state, start_step
+
+    def save(step: int, params, opt_state) -> None:
+        if not ts.sharded:
+            ckpt.save(step, params, opt_state)  # async; fenced at the loop's end
+        elif step % save_every == 0:  # the manager's interval, decided alike on every rank
+            full = ts.full_state(params, opt_state)
+            if ckpt is not None:
+                ckpt.save(step, *full)
+
+    return ckpt, (save if ckpt is not None or ts.sharded else None), params, opt_state, start_step
+
+
+def _checkpoint_now(ckpt, capture, ts):
+    """The ``checkpoint-now`` service of the leader's manager.  Under a
+    template that shards the params a save needs every rank, and the
+    command reaches one: the command fails, naming ROADMAP item 7, and the
+    saves at ``save_every`` go on."""
+    if ckpt is None:
+        return None
+    if ts.sharded:
+        def refuse(cmd):
+            raise NotImplementedError(
+                "checkpoint-now under a template that shards the params across ranks is not "
+                "ported yet (ROADMAP item 7: multi-process and parallelism)")
+
+        capture.register_handler("checkpoint-now", refuse)
+        return None
+    return CheckpointNowService(ckpt, capture)
 
 
 def _train_image_classifier(
@@ -300,6 +348,7 @@ def _train_image_classifier(
     loss_fn,
     accuracy_fn,
     init_fn,
+    axes_tree,
     optimizer,
     flops_per_example: float,
     device: torch.device,
@@ -308,14 +357,15 @@ def _train_image_classifier(
     ``vit_train``): the JAX ``_train_image_classifier`` (reference
     :175-466), eager.
 
-    ``loss_fn(params, batch)`` and ``accuracy_fn(params, batch)`` take a
-    batch of uint8 NHWC ``images`` and int ``labels`` on ``device``.  Params:
+    ``loss_fn(params, batch, template, mesh)`` and ``accuracy_fn(params,
+    batch, template, mesh)`` take a batch of uint8 NHWC ``images`` and int
+    ``labels`` on ``device``; ``axes_tree`` is the model's ``param_axes``.  Params:
     ``steps``, ``batch`` (global), ``image_size``, ``classes``, ``dataset``,
     ``save_every``, ``prefetch``, ``prefetch_workers``, ``profile_start``,
     ``profile_steps`` and the fault injection's (``_fault_injection``).  The
     template comes from ``ctx.strategy`` over ``ctx.mesh`` (default
-    ``build_mesh({"data": 1})``): ``ddp`` on one rank or across a gang's
-    ranks.  Two data paths, one loop:
+    ``build_mesh({"data": 1})``): ``ddp`` or ``fsdp`` on one rank or across
+    a gang's ranks.  Two data paths, one loop:
 
     - ``dataset: <name>``, a registered dataset (``runtime/datasets.py``):
       each rank reads its own rows of every global batch
@@ -356,10 +406,11 @@ def _train_image_classifier(
 
     mesh = ctx.mesh if ctx.mesh is not None else build_mesh({"data": 1})
     template = template_for(ctx.strategy, dict(mesh.shape), ctx.strategy_options)
-    ts = build_train_step(loss_fn=loss_fn, init_fn=init_fn, optimizer=optimizer, mesh=mesh,
-                          template=template)
+    ts = build_train_step(loss_fn=lambda p, b: loss_fn(p, b, template, mesh), init_fn=init_fn,
+                          optimizer=optimizer, mesh=mesh, template=template, axes_tree=axes_tree)
     params, opt_state = ts.init(torch.Generator(device=device).manual_seed(seed))
-    ckpt, params, opt_state, start_step = _open_checkpoints(ctx, save_every, params, opt_state)
+    ckpt, save, params, opt_state, start_step = _open_checkpoints(
+        ctx, save_every, ts, params, opt_state)
     _, ranks = mesh.shard(template.batch_axes)
     local_rows = batch_size // ranks
 
@@ -383,7 +434,7 @@ def _train_image_classifier(
         num_steps=int(ctx.get_param("profile_steps", 0)),
     )
     capture = get_capture_agent()
-    ckpt_now = CheckpointNowService(ckpt, capture) if ckpt is not None else None
+    ckpt_now = _checkpoint_now(ckpt, capture, ts)
     inject = _fault_injection(ctx)
     drain = MetricsDrain(lambda step, vals: ctx.log_metrics(step=step, **vals))
     clock = StepClock()
@@ -408,8 +459,8 @@ def _train_image_classifier(
                     params, opt_state, metrics = ts.step(params, opt_state, batch)
                 if ctx.is_leader and (i % 10 == 0 or i == steps - 1):
                     drain.push(i, {"loss": metrics["loss"]})
-                if ckpt is not None:
-                    ckpt.save(i, params, opt_state)  # async; fenced below
+                if save is not None:
+                    save(i, params, opt_state)
                 if ckpt_now is not None:
                     ckpt_now.maybe_save(i, params, opt_state)
                 if i == start_step:
@@ -455,7 +506,7 @@ def _train_image_classifier(
             ctx.log_text(f"{label}: nothing to do (checkpoint already at end)")
         return
     with torch.no_grad():
-        acc = accuracy_fn(params, batch)
+        acc = accuracy_fn(params, batch, template, mesh)
     if ranks > 1:  # every rank holds as many rows: the mean of the ranks' shares
         dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=mesh.world)
         acc = acc / ranks
@@ -499,9 +550,9 @@ def cnn_train(ctx: Context) -> None:
     )
 
     def normalized(fn):
-        def wrapped(p, b):
+        def wrapped(p, b, template, mesh):
             images = b["images"].to(cfg.dtype) / 255.0 - 0.5
-            return fn(p, {**b, "images": images}, cfg, device=device)
+            return fn(p, {**b, "images": images}, cfg, template, mesh, device=device)
 
         return wrapped
 
@@ -511,6 +562,7 @@ def cnn_train(ctx: Context) -> None:
         loss_fn=normalized(cnn.loss_fn),
         accuracy_fn=normalized(cnn.accuracy),
         init_fn=lambda g: cnn.init_params(cfg, g),
+        axes_tree=cnn.param_axes(cfg),
         optimizer=AdamW(float(ctx.get_param("lr", 1e-3))),
         flops_per_example=conv_classifier_flops_per_image(
             cfg.image_size, cfg.in_channels, cfg.channels, cfg.dense_dim, cfg.n_classes),
@@ -546,9 +598,12 @@ def vit_train(ctx: Context) -> None:
     _train_image_classifier(
         ctx,
         label="vit_train",
-        loss_fn=lambda p, b: vit.loss_fn(p, b, cfg, device=device),
-        accuracy_fn=lambda p, b: vit.accuracy(p, b, cfg, device=device),
+        loss_fn=lambda p, b, template, mesh: vit.loss_fn(p, b, cfg, template, mesh,
+                                                         device=device),
+        accuracy_fn=lambda p, b, template, mesh: vit.accuracy(p, b, cfg, template, mesh,
+                                                              device=device),
         init_fn=lambda g: vit.init_params(cfg, g),
+        axes_tree=vit.param_axes(cfg),
         optimizer=AdamW(float(ctx.get_param("lr", 1e-3)), mu_dtype=torch.bfloat16),
         flops_per_example=transformer_flops_per_token(
             cfg.n_params, cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.num_patches)
@@ -653,15 +708,17 @@ def lm_train(ctx: Context) -> None:
     term; the ledger's FLOPs stay the reference's ``6·n_params + ...``, and
     ``n_params`` counts every expert, so a top-1 MoE's MFU counts FLOPs its
     tokens do not spend.  The template comes from ``ctx.strategy`` over ``ctx.mesh``
-    (default ``build_mesh({"data": 1})``): ``ddp``, or ``sp_ring`` (ring
+    (default ``build_mesh({"data": 1})``): ``ddp``, ``fsdp``, ``tp``,
+    ``tp_dp`` (the params sharded by ``param_axes``), ``sp_ring`` (ring
     attention; on a ``{"sequence": 1}`` mesh one causal block over the whole
-    sequence, as bench.py runs T = 16384), on one rank or across a gang's
-    ranks (the worker's ``ctx.mesh``).  Data is the same synthetic
+    sequence, as bench.py runs T = 16384) or ``ulysses``, on one rank or
+    across a gang's ranks (the worker's ``ctx.mesh``).  Data is the same synthetic
     next-token batch, drawn once from ``np.random.default_rng(seed)`` on
     every rank (as the reference draws it on the host) and fed every step;
     each rank takes its rows and sequence shard (``TrainStep.place_batch``).
     The optimizer is ``AdamW(lr)``.  ``tokens_per_s`` counts the global
-    batch; each rank's ledger counts its own shard.
+    batch; each rank's ledger counts its share, the global step's tokens
+    and FLOPs over ``mesh.size``.
 
     With ``save_every`` > 0 and ``ctx.checkpoints_path`` set, the run
     resumes from the newest complete checkpoint there (``start_step`` = its
@@ -715,11 +772,12 @@ def lm_train(ctx: Context) -> None:
         optimizer=AdamW(lr),
         mesh=mesh,
         template=template,
+        axes_tree=param_axes(cfg),
     )
     params, opt_state = ts.init(torch.Generator(device=device).manual_seed(seed))
 
-    ckpt, params, opt_state, start_step = _open_checkpoints(
-        ctx, int(ctx.get_param("save_every", 0)), params, opt_state)
+    ckpt, save, params, opt_state, start_step = _open_checkpoints(
+        ctx, int(ctx.get_param("save_every", 0)), ts, params, opt_state)
 
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch_size, seq + 1)), device=device)
@@ -735,7 +793,7 @@ def lm_train(ctx: Context) -> None:
     capture = get_capture_agent()
     # checkpoint-now lands on the bus thread but must save from the loop
     # thread (the optimizer updates the state in place).
-    ckpt_now = CheckpointNowService(ckpt, capture) if ckpt is not None else None
+    ckpt_now = _checkpoint_now(ckpt, capture, ts)
     inject = _fault_injection(ctx)
     # Losses leave the loop as device scalars; the drain thread reads them.
     drain = MetricsDrain(lambda step, vals: ctx.log_metrics(step=step, **vals))
@@ -743,10 +801,12 @@ def lm_train(ctx: Context) -> None:
     tracer = get_tracer()
     run_stats = get_stats()
     progress = get_progress()
-    # This rank's ledger accounts this rank's card: its own tokens and FLOPs.
-    step_tokens = batch["tokens"].numel()
+    # This rank's ledger accounts this rank's card: its share of the global
+    # step's tokens and FLOPs (under tp its ranks hold the same rows, and
+    # each does its share of their work).
+    step_tokens = batch_size * seq // mesh.size
     led.set_flops_per_step(transformer_flops_per_token(
-        cfg.n_params, cfg.n_layers, cfg.n_heads, cfg.head_dim, seq) * step_tokens)
+        cfg.n_params, cfg.n_layers, cfg.n_heads, cfg.head_dim, seq) * batch_size * seq / mesh.size)
     metrics = None
     first_step_s = None
     last_dt = None
@@ -764,8 +824,8 @@ def lm_train(ctx: Context) -> None:
                     params, opt_state, metrics = ts.step(params, opt_state, batch)
                 if ctx.is_leader and (i % 10 == 0 or i == steps - 1):
                     drain.push(i, {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"]})
-                if ckpt is not None:
-                    ckpt.save(i, params, opt_state)  # async; fenced below
+                if save is not None:
+                    save(i, params, opt_state)
                 if ckpt_now is not None:
                     ckpt_now.maybe_save(i, params, opt_state)
                 if i == start_step:

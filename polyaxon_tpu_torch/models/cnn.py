@@ -9,7 +9,10 @@ takes NHWC images, as the reference does, and runs its convolutions in
 NCHW (``F.conv2d`` for ``lax.conv_general_dilated``, ``F.max_pool2d`` for
 ``lax.reduce_window``); it permutes back to NHWC before it flattens, so the
 dense layer reads its rows in the reference's (h, w, c) order.
-``param_axes`` waits for the port's ``parallel/axes.py`` (ROADMAP item 7).
+``param_axes`` is the reference's: under ``fsdp`` each rank holds its shard
+of every weight (``runtime.train.build_train_step``) and the forward
+gathers each at its use; ``tp``, ``tp_dp`` and ``ulysses`` raise
+(``vit.image_placement``, ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
+from polyaxon_tpu_torch.models.vit import image_placement
 
 
 @dataclass(frozen=True)
@@ -53,6 +57,18 @@ class CNNConfig:
         return total
 
 
+def param_axes(cfg: CNNConfig) -> Dict[str, Any]:
+    """Logical axes (reference ``param_axes``, ``cnn.py:45-53``): conv output
+    channels and the dense hidden map to ``embed``, so the fsdp template
+    shards them; everything else replicates."""
+    axes: Dict[str, Any] = {}
+    for i in range(len(cfg.channels)):
+        axes[f"conv{i}"] = {"w": (None, None, None, "embed"), "b": ("embed",)}
+    axes["dense"] = {"w": (None, "embed"), "b": ("embed",)}
+    axes["head"] = {"w": ("embed", "vocab"), "b": ("vocab",)}
+    return axes
+
+
 def init_params(cfg: CNNConfig, generator: torch.Generator) -> Dict[str, Any]:
     """Random parameters on ``generator``'s device (reference
     ``init_params`` :56-81: the same shapes and scales; other numbers, so
@@ -82,40 +98,46 @@ def init_params(cfg: CNNConfig, generator: torch.Generator) -> Dict[str, Any]:
     return params
 
 
-def forward(params: Dict[str, Any], images: torch.Tensor, cfg: CNNConfig, *,
-            device: DeviceLike = "cuda") -> torch.Tensor:
+def forward(params: Dict[str, Any], images: torch.Tensor, cfg: CNNConfig,
+            template=None, mesh=None, *, device: DeviceLike = "cuda") -> torch.Tensor:
     """images [B,H,W,C] → logits [B,n_classes] (float32); reference :83-104.
 
     Each stage is a 3x3 SAME convolution, its bias added in the compute dtype
     after it (as the reference adds it), ReLU and a 2x2 max pool.
-    ``params`` must lie on ``device``; ``images`` are moved there."""
+    ``params`` must lie on ``device``; ``images`` are moved there.  Under
+    ``template`` and ``mesh`` the params are this rank's shards, each
+    gathered at its use."""
     dev = resolve_device(device)
-    require_on(dev, conv0=params["conv0"]["w"])
     dt = cfg.dtype
+    placement = image_placement(param_axes(cfg), template, mesh)
+
+    def use(layer, name):
+        return placement.at(params, layer, name).to(dt)
+
+    require_on(dev, conv0=params["conv0"]["w"])
     x = images.to(dev).to(dt).permute(0, 3, 1, 2)  # NHWC -> NCHW
     for i in range(len(cfg.channels)):
-        layer = params[f"conv{i}"]
-        w = layer["w"].to(dt).permute(3, 2, 0, 1)  # HWIO -> OIHW
-        x = F.conv2d(x, w, padding="same") + layer["b"].to(dt)[:, None, None]
+        w = use(f"conv{i}", "w").permute(3, 2, 0, 1)  # HWIO -> OIHW
+        x = F.conv2d(x, w, padding="same") + use(f"conv{i}", "b")[:, None, None]
         x = F.max_pool2d(F.relu(x), kernel_size=2, stride=2)
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten in NHWC order
-    x = F.relu(x @ params["dense"]["w"].to(dt) + params["dense"]["b"].to(dt))
-    logits = x @ params["head"]["w"].to(dt) + params["head"]["b"].to(dt)
+    x = F.relu(x @ use("dense", "w") + use("dense", "b"))
+    logits = x @ use("head", "w") + use("head", "b")
     return logits.float()
 
 
-def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: CNNConfig, *,
-            device: DeviceLike = "cuda") -> torch.Tensor:
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: CNNConfig,
+            template=None, mesh=None, *, device: DeviceLike = "cuda") -> torch.Tensor:
     """Mean cross-entropy of ``batch`` (``images``, ``labels``); reference :107-113."""
-    logits = forward(params, batch["images"], cfg, device=device)
+    logits = forward(params, batch["images"], cfg, template, mesh, device=device)
     logp = torch.log_softmax(logits, dim=-1)
     labels = batch["labels"].to(logits.device).long()
     return -logp.gather(-1, labels[:, None])[:, 0].mean()
 
 
-def accuracy(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: CNNConfig, *,
-             device: DeviceLike = "cuda") -> torch.Tensor:
+def accuracy(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: CNNConfig,
+             template=None, mesh=None, *, device: DeviceLike = "cuda") -> torch.Tensor:
     """Share of ``batch`` whose argmax logit is its label; reference :116-120."""
-    logits = forward(params, batch["images"], cfg, device=device)
+    logits = forward(params, batch["images"], cfg, template, mesh, device=device)
     labels = batch["labels"].to(logits.device).long()
     return (logits.argmax(dim=-1) == labels).float().mean()

@@ -10,10 +10,14 @@ Ported: the plain single-device forward, the dense MLP and the top-1
 (switch) MoE MLP with its balance loss, GQA, flash or dense attention, the
 remat policies (per-layer ``torch.utils.checkpoint``, selective for the
 named policies), the training loss with its blockwise cross-entropy, and
-two strategy templates: ``ddp`` (the plain path on each rank's rows of the
-batch) and ``sp_ring`` (ring attention over the sequence axis, each rank on
-its shard of its rows).  Other strategies, meshes with another axis above 1
-(``parallel.templates.check_mesh``), and MoE on a mesh above one rank raise
+the strategy templates without a pipeline (``parallel.templates.
+PORTED_STRATEGIES``): ``ddp`` (the plain path on each rank's rows of the
+batch), ``fsdp`` (each weight sharded by ``param_axes`` and gathered at its
+use), ``tp`` and ``tp_dp`` (heads, MLP columns and the vocabulary split over
+the ``tensor`` axis, Megatron style), ``sp_ring`` (ring attention over the
+sequence axis) and ``ulysses`` (all-to-all attention over it).  ``pp``,
+``pp_tp``, ``ep``, ``custom``, meshes with another axis above 1
+(``parallel.templates.check_mesh``) and MoE on a mesh above one rank raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -25,6 +29,7 @@ from dataclasses import dataclass, replace
 from typing import Any, Dict, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -33,9 +38,16 @@ from torch.utils.checkpoint import (
 )
 
 from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
+from polyaxon_tpu_torch.parallel.axes import Placement
+from polyaxon_tpu_torch.parallel.collectives import (
+    copy_to_group,
+    gather_from_group,
+    reduce_from_group,
+)
 from polyaxon_tpu_torch.parallel.flash import flash_attention, kernel_takes
 from polyaxon_tpu_torch.parallel.ring import ring_attention_sharded
 from polyaxon_tpu_torch.parallel.templates import check_mesh
+from polyaxon_tpu_torch.parallel.ulysses import ulysses_attention_sharded
 
 _ATTENTION_IMPLS = ("auto", "dense", "flash")
 _REMAT_POLICIES = (
@@ -81,7 +93,8 @@ class TransformerConfig:
     #: (``flash.kernel_takes``), dense attention elsewhere and on the CPU;
     #: "flash" = the flash wrapper (its plain version on a CPU tensor);
     #: "dense" = :func:`_dense_attention`.  Under ``sp_ring`` the ring reads
-    #: it the same way (:func:`~polyaxon_tpu_torch.parallel.ring.ring_attention_sharded`).
+    #: it the same way (:func:`~polyaxon_tpu_torch.parallel.ring.ring_attention_sharded`),
+    #: and so does ``ulysses`` at a rank's share of the heads.
     attention_impl: str = "auto"
     #: Blockwise cross-entropy chunk of :func:`loss_fn` (0 = whole logits).
     ce_chunk: int = 0
@@ -123,6 +136,38 @@ class TransformerConfig:
             mlp = c.d_model * c.d_ff * 3
         per_layer = attn + mlp + 2 * c.d_model
         return c.vocab_size * c.d_model * 2 + c.n_layers * per_layer + c.d_model
+
+
+def param_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Logical axis names for every parameter, mirroring :func:`init_params`
+    (reference ``param_axes``, ``transformer.py:131-160``)."""
+    block: Dict[str, Any] = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "heads", "head_dim"),
+        "wv": ("layers", "embed", "heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "mlp_norm": ("layers", "embed"),
+    }
+    if cfg.n_experts:
+        block.update(
+            router=("layers", "embed", "experts"),
+            wi=("layers", "experts", "embed", "mlp"),
+            wg=("layers", "experts", "embed", "mlp"),
+            wd=("layers", "experts", "mlp", "embed"),
+        )
+    else:
+        block.update(
+            wi=("layers", "embed", "mlp"),
+            wg=("layers", "embed", "mlp"),
+            wd=("layers", "mlp", "embed"),
+        )
+    return {
+        "embed": ("vocab", "embed"),
+        "unembed": ("embed", "vocab"),
+        "final_norm": ("embed",),
+        "block": block,
+    }
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator) -> Dict[str, Any]:
@@ -199,11 +244,13 @@ def _dense_attention(q, k, v, q_pos, k_pos):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _use_flash(cfg: TransformerConfig, x: torch.Tensor) -> bool:
-    """Whether the unsharded attention takes the flash path; x: [B, T, D]."""
+def _use_flash(cfg: TransformerConfig, x: torch.Tensor, heads: Optional[int] = None) -> bool:
+    """Whether the attention on this rank takes the flash path; x: [B, T, D],
+    ``heads`` the rank's query heads (default all)."""
     if cfg.attention_impl == "auto":
         B, T, _ = x.shape
-        return x.device.type == "cuda" and kernel_takes((B, T, cfg.n_heads, cfg.head_dim), x.dtype)
+        q_shape = (B, T, heads or cfg.n_heads, cfg.head_dim)
+        return x.device.type == "cuda" and kernel_takes(q_shape, x.dtype)
     return cfg.attention_impl == "flash"
 
 
@@ -308,13 +355,45 @@ def moe_aux_loss(gates: torch.Tensor, expert_idx: torch.Tensor, n_experts: int) 
     return n_experts * (me * ce).sum()
 
 
+class _Shard:
+    """What one forward under a template needs beyond the config: the
+    parameters' :class:`~polyaxon_tpu_torch.parallel.axes.Placement`, each
+    block weight's spec within a layer (its ``layers`` dimension unbound),
+    and the sequence axis of the ring or of Ulysses."""
+
+    def __init__(self, cfg: TransformerConfig, template, mesh) -> None:
+        self.mesh = mesh
+        self.placement = Placement(param_axes(cfg), template, mesh)
+        self.tp = self.placement.tp_group
+        self.layer_specs = {name: self.placement.spec("block", name)[1:]
+                            for name in param_axes(cfg)["block"]}
+        self.ring_axis = template.ring_axis
+        self.ulysses_axis = template.ulysses_axis
+
+
 def _layer(x, positions, layer, cfg: TransformerConfig, use_flash: bool,
-           policy: _SavePolicy, want_kv: bool, mesh=None, ring_axis: Optional[str] = None):
+           policy: _SavePolicy, want_kv: bool, shard: Optional[_Shard] = None):
     """One decoder block (JAX ``forward.block``): ``(x, aux)``, aux the
     layer's ``(k, v)`` when ``want_kv``, its MoE ``(gates, expert_idx)`` when
-    ``cfg.n_experts``, else None."""
+    ``cfg.n_experts``, else None.
+
+    Under a template (``shard``) each weight is gathered here, at its use
+    (fsdp; inside the layer's checkpoint, so remat frees the gathered copy
+    after the forward and gathers again in the backward), and under a
+    tensor axis the products run on the rank's heads and MLP columns:
+    Megatron's f (:func:`copy_to_group`) before q/k/v and wi/wg, g
+    (:func:`reduce_from_group`) after wo and wd.  The GQA broadcast stays on
+    the rank: its kv heads serve its query heads.
+    """
     c = cfg
-    h = _rmsnorm(x, layer["attn_norm"])
+    tp = None
+    if shard is not None:
+        layer = {name: shard.placement.use(w, shard.layer_specs[name])
+                 for name, w in layer.items()}
+        tp = shard.tp
+    ring_axis = shard.ring_axis if shard is not None else None
+    ulysses_axis = shard.ulysses_axis if shard is not None else None
+    h = copy_to_group(_rmsnorm(x, layer["attn_norm"]), tp)
     wq, wk, wv = (layer[n].to(h.dtype) for n in ("wq", "wk", "wv"))
     with policy.scope("q_proj"):
         q = _rope(torch.einsum("btd,dhk->bthk", h, wq), positions, c.rope_theta)
@@ -331,24 +410,41 @@ def _layer(x, positions, layer, cfg: TransformerConfig, use_flash: bool,
         v = v.repeat_interleave(group, dim=2)
     with policy.scope("attn_out"):
         if ring_axis is not None:
-            attn = ring_attention_sharded(q, k, v, mesh, ring_axis, impl=c.attention_impl)
+            attn = ring_attention_sharded(q, k, v, shard.mesh, ring_axis, impl=c.attention_impl)
+        elif ulysses_axis is not None:
+            attn = ulysses_attention_sharded(q, k, v, shard.mesh, ulysses_axis,
+                                             impl=c.attention_impl, positions=positions)
         elif use_flash:
             attn = flash_attention(q, k, v, q.shape[-1] ** -0.5, device=x.device)
         else:
             attn = _dense_attention(q, k, v, positions, positions)
-    x = x + torch.einsum("bthk,hkd->btd", attn, layer["wo"].to(h.dtype))
+    x = x + reduce_from_group(torch.einsum("bthk,hkd->btd", attn, layer["wo"].to(h.dtype)), tp)
 
     h = _rmsnorm(x, layer["mlp_norm"])
     if c.n_experts:
         y, gates, expert_idx = _moe_mlp(h, layer, c)
         return x + y, (gates, expert_idx)
+    h = copy_to_group(h, tp)
     up = torch.einsum("btd,df->btf", h, layer["wi"].to(h.dtype))
     gate = torch.einsum("btd,df->btf", h, layer["wg"].to(h.dtype))
     act = F.silu(gate)
     with policy.scope("mlp_act"):
         y = act * up
-    x = x + torch.einsum("btf,fd->btd", y, layer["wd"].to(h.dtype))
+    x = x + reduce_from_group(torch.einsum("btf,fd->btd", y, layer["wd"].to(h.dtype)), tp)
     return x, kv
+
+
+def _vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor, group) -> torch.Tensor:
+    """The embedding of ``tokens`` from this rank's block of the vocabulary
+    (rows ``[r·V/n, (r+1)·V/n)``): its rows where a token falls in the
+    block, zeros elsewhere, summed over the group.  The reference's one-hot
+    product over the sharded table (``transformer.py:378-393``) gives the
+    same numbers: one nonzero term a token."""
+    Vl = table.shape[0]
+    local = tokens - group.rank() * Vl
+    inside = (local >= 0) & (local < Vl)
+    rows = table[local.clamp(0, Vl - 1)]
+    return reduce_from_group(torch.where(inside[..., None], rows, torch.zeros_like(rows)), group)
 
 
 def forward(
@@ -381,16 +477,22 @@ def forward(
 
     ``template`` (a :class:`~polyaxon_tpu_torch.parallel.templates.
     StrategyTemplate`) with ``mesh`` (:func:`~polyaxon_tpu_torch.runtime.
-    mesh.build_mesh`) selects the strategy: ``ddp`` is the plain path on
-    ``tokens``, this rank's rows when batch axes span ranks; ``sp_ring`` runs
-    attention over the ring of its sequence axis, ``tokens`` being this
-    rank's sequence shard of its rows and ``positions`` their global
-    positions (``runtime.train.shard_batch`` cuts both; ``positions``
-    defaults to ``arange(T)``, a shard at offset 0).
+    mesh.build_mesh`) selects the strategy; ``params`` are then this rank's
+    shards (``runtime.train.build_train_step`` cuts them by
+    :func:`param_axes`).  ``ddp`` is the plain path on ``tokens``, this
+    rank's rows when batch axes span ranks; ``fsdp`` gathers each weight at
+    its use; ``tp`` and ``tp_dp`` run the layers on the rank's heads and MLP
+    columns, the embedding and the logits on its block of the vocabulary
+    (the logits returned are gathered: every rank sees the whole ``[B, T,
+    vocab]``); ``sp_ring`` and ``ulysses`` run attention across the ranks of
+    their sequence axis, ``tokens`` being this rank's sequence shard of its
+    rows and ``positions`` their global positions
+    (``runtime.train.shard_batch`` cuts both; ``positions`` defaults to
+    ``arange(T)``, a shard at offset 0).
     """
     c = cfg
     dev = resolve_device(device)
-    ring_axis = check_mesh(template, mesh)
+    check_mesh(template, mesh)
     if return_kv and (template is not None or c.n_experts):
         raise NotImplementedError(
             "return_kv supports the plain-scan dense path only (no parallelism "
@@ -410,8 +512,11 @@ def forward(
     else:
         positions = positions.to(dev)
 
-    x = params["embed"].to(c.dtype)[tokens]  # [B,T,D]
-    use_flash = _use_flash(c, x)
+    shard = _Shard(c, template, mesh) if template is not None else None
+    tp = shard.tp if shard is not None else None
+    table = (params["embed"] if shard is None else shard.placement.at(params, "embed")).to(c.dtype)
+    x = table[tokens] if tp is None else _vocab_parallel_embed(table, tokens, tp)  # [B,T,D]
+    use_flash = _use_flash(c, x, c.n_heads // (1 if tp is None else tp.size()))
     policy = _SavePolicy(c.remat_policy)
     remat = c.remat and torch.is_grad_enabled()
     # unbind, not w[i]: its backward stacks the per-layer grads once.
@@ -419,7 +524,7 @@ def forward(
     auxes = []
     for i in range(c.n_layers):
         layer = {name: ws[i] for name, ws in per_layer.items()}
-        args = (x, positions, layer, c, use_flash, policy, return_kv, mesh, ring_axis)
+        args = (x, positions, layer, c, use_flash, policy, return_kv, shard)
         if remat:
             x, aux = checkpoint(_layer, *args, use_reentrant=False, **policy.checkpoint_kwargs())
         else:
@@ -429,19 +534,39 @@ def forward(
     if return_kv or c.n_experts:
         stacked = tuple(torch.stack(parts) for parts in zip(*auxes))
 
-    x = _rmsnorm(x, params["final_norm"])
+    x = _rmsnorm(x, params["final_norm"] if shard is None
+                 else shard.placement.at(params, "final_norm"))
     if return_hidden:
         return (x, stacked) if c.n_experts else x
-    logits = torch.einsum("btd,dv->btv", x, params["unembed"].to(x.dtype)).float()
+    unembed = params["unembed"] if shard is None else shard.placement.at(params, "unembed")
+    logits = torch.einsum("btd,dv->btv", copy_to_group(x, tp), unembed.to(x.dtype)).float()
+    logits = gather_from_group(logits, -1, tp)
     if stacked is not None:
         return logits, stacked
     return logits
 
 
-def _ce_chunk(xc, unembed, tc, mc):
+def _ce_chunk(xc, unembed, tc, mc, vocab=None):
+    """The masked NLL sum and count of one chunk.  ``vocab``: ``(group,
+    start)`` when ``unembed`` holds the columns ``[start, start + V/n)`` of
+    the vocabulary on each rank of ``group`` (tensor parallelism): the max,
+    the sum of exponentials and the target logit are then taken across the
+    group, and no rank holds the whole ``[B, C, V]`` logits."""
     logits = torch.einsum("bcd,dv->bcv", xc, unembed.to(xc.dtype)).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tl = logits.gather(-1, tc[..., None])[..., 0]
+    if vocab is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        tl = logits.gather(-1, tc[..., None])[..., 0]
+        return ((lse - tl) * mc).sum(), mc.sum()
+    group, start = vocab
+    with torch.no_grad():  # a shift for the exponentials only: no grad flows through it
+        peak = logits.amax(dim=-1)
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=group)
+    sumexp = reduce_from_group(torch.exp(logits - peak[..., None]).sum(dim=-1), group)
+    lse = torch.log(sumexp) + peak
+    local = tc - start
+    inside = (local >= 0) & (local < logits.shape[-1])
+    tl = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    tl = reduce_from_group(torch.where(inside, tl, torch.zeros_like(tl)), group)
     return ((lse - tl) * mc).sum(), mc.sum()
 
 
@@ -451,20 +576,28 @@ def _blockwise_ce(
     targets: torch.Tensor,
     mask: Optional[torch.Tensor],
     chunk: int,
+    tp=None,
 ) -> torch.Tensor:
     """Mean masked next-token NLL without materializing [B,T,V] logits.
 
     Counterpart of the JAX ``_blockwise_ce``: each ``chunk`` of the sequence
     is projected to logits, reduced to logsumexp and the target logit, and
     dropped; each chunk is checkpointed, so the backward recomputes its
-    logits instead of keeping them.
+    logits instead of keeping them.  ``tp``: the tensor group when
+    ``unembed`` is this rank's block of the vocabulary columns
+    (:func:`_ce_chunk`); ``x`` enters it through Megatron's f, so the
+    backward sums the ranks' grads of the hidden states once.
     """
     B, T, _ = x.shape
     m = torch.ones((B, T), dtype=torch.float32, device=x.device) if mask is None else mask.float()
+    vocab = None
+    if tp is not None:
+        x = copy_to_group(x, tp)
+        vocab = (tp, tp.rank() * unembed.shape[1])
     nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for s in range(0, T, chunk):
-        args = (x[:, s:s + chunk], unembed, targets[:, s:s + chunk], m[:, s:s + chunk])
+        args = (x[:, s:s + chunk], unembed, targets[:, s:s + chunk], m[:, s:s + chunk], vocab)
         if torch.is_grad_enabled():
             part, n = checkpoint(_ce_chunk, *args, use_reentrant=False)
         else:
@@ -489,22 +622,30 @@ def loss_fn(
     of :func:`moe_aux_loss` (JAX ``loss_fn``, ``transformer.py:632-681``).
 
     With ``cfg.ce_chunk`` dividing the sequence it goes through
-    :func:`_blockwise_ce`.  Across ranks the batch is this rank's shard
-    (its rows, and under ``sp_ring`` its sequence shard of them) and the
-    loss its mean; ``runtime.train.build_train_step`` weighs the ranks' means
-    into the global one.
+    :func:`_blockwise_ce`, and so does a template with a tensor axis (one
+    chunk of the whole sequence unless ``ce_chunk`` divides it): the
+    vocabulary-parallel cross-entropy.  Across ranks the batch is this
+    rank's shard (its rows, and under ``sp_ring`` and ``ulysses`` its
+    sequence shard of them) and the loss its mean;
+    ``runtime.train.build_train_step`` weighs the ranks' means into the
+    global one.
     """
     dev = resolve_device(device)
     targets = batch["targets"].to(dev).long()
     mask = batch.get("mask")
     mask = None if mask is None else mask.to(dev)
-    chunked = bool(cfg.ce_chunk and targets.shape[-1] % cfg.ce_chunk == 0)
+    T = targets.shape[-1]
+    chunked = bool(cfg.ce_chunk and T % cfg.ce_chunk == 0)
+    shard = _Shard(cfg, template, mesh) if template is not None and mesh is not None else None
+    tp = shard.tp if shard is not None else None
     out = forward(params, batch["tokens"], cfg, template=template, mesh=mesh,
-                  positions=batch.get("positions"), return_hidden=chunked, device=dev)
+                  positions=batch.get("positions"), return_hidden=chunked or tp is not None,
+                  device=dev)
     if cfg.n_experts:
         out, (gates, expert_idx) = out
-    if chunked:
-        loss = _blockwise_ce(out, params["unembed"], targets, mask, cfg.ce_chunk)
+    if chunked or tp is not None:
+        unembed = params["unembed"] if shard is None else shard.placement.at(params, "unembed")
+        loss = _blockwise_ce(out, unembed, targets, mask, cfg.ce_chunk if chunked else T, tp)
     else:
         logp = torch.log_softmax(out, dim=-1)
         nll = -logp.gather(-1, targets[..., None])[..., 0]

@@ -9,8 +9,11 @@ tree carries over leaf by leaf.  The reference computes the attention as
 plain einsums, outside any Pallas kernel, and so does the port (products
 and a float32 softmax; no flash kernel runs here).  The layer scan is a
 loop over the leading ``layers`` axis; ``remat`` checkpoints each block
-(``torch.utils.checkpoint``).  ``param_axes`` and the templates' sharding
-constraints wait for ``parallel/axes.py`` (ROADMAP item 7).
+(``torch.utils.checkpoint``).  ``param_axes`` names the LM's logical axes,
+so the same templates shard both families: under ``fsdp`` each rank holds
+its shard of every weight (``runtime.train.build_train_step``) and the
+forward gathers each at its use.  ``tp``, ``tp_dp`` and ``ulysses`` on the
+image models raise (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -24,6 +27,24 @@ from torch.utils.checkpoint import checkpoint
 
 from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
 from polyaxon_tpu_torch.models.transformer import _rmsnorm
+from polyaxon_tpu_torch.parallel.axes import Placement
+from polyaxon_tpu_torch.parallel.templates import check_mesh
+
+#: Templates whose compute the image models do not split yet (ROADMAP item 7).
+UNPORTED_IMAGE_STRATEGIES = ("tp", "tp_dp", "ulysses")
+
+
+def image_placement(axes_tree: Any, template, mesh) -> Placement:
+    """The image models' :class:`Placement` under ``template``, or raise on
+    a template whose compute they do not split (``tp``, ``tp_dp``,
+    ``ulysses``: ROADMAP item 7)."""
+    if template is not None and template.name in UNPORTED_IMAGE_STRATEGIES:
+        raise NotImplementedError(
+            f"strategy {template.name!r} on the image models is not ported yet; ddp and "
+            "fsdp are (ROADMAP item 7: multi-process and parallelism)")
+    if template is not None:
+        check_mesh(template, mesh)
+    return Placement(axes_tree, template, mesh)
 
 
 @dataclass(frozen=True)
@@ -69,6 +90,29 @@ class ViTConfig:
         )
 
 
+def param_axes(cfg: ViTConfig) -> Dict[str, Any]:
+    """Logical axes of every parameter, the LM's (reference ``param_axes``,
+    ``vit.py:74-94``)."""
+    block = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "heads", "head_dim"),
+        "wv": ("layers", "embed", "heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "mlp_norm": ("layers", "embed"),
+        "wi": ("layers", "embed", "mlp"),
+        "wg": ("layers", "embed", "mlp"),
+        "wd": ("layers", "mlp", "embed"),
+    }
+    return {
+        "patch_embed": (None, "embed"),
+        "pos_embed": (None, "embed"),
+        "final_norm": ("embed",),
+        "head": ("embed", "vocab"),
+        "block": block,
+    }
+
+
 def init_params(cfg: ViTConfig, generator: torch.Generator) -> Dict[str, Any]:
     """Random parameters on ``generator``'s device (reference ``init_params``
     :97-123: the same shapes and scales)."""
@@ -111,9 +155,14 @@ def _patchify(images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return x.to(cfg.dtype)
 
 
-def _block(x: torch.Tensor, layer: Dict[str, torch.Tensor], cfg: ViTConfig) -> torch.Tensor:
+def _block(x: torch.Tensor, layer: Dict[str, torch.Tensor], cfg: ViTConfig,
+           placement: Placement) -> torch.Tensor:
     """One encoder block (reference ``forward.block`` :154-178): dense bidirectional
-    attention, probs cast to q's dtype before the product with v, then SwiGLU."""
+    attention, probs cast to q's dtype before the product with v, then SwiGLU.
+    Each weight is gathered here, at its use (inside the block's checkpoint
+    under ``remat``)."""
+    layer = {name: placement.use(w, placement.spec("block", name)[1:])
+             for name, w in layer.items()}
     h = _rmsnorm(x, layer["attn_norm"])
     q, k, v = (torch.einsum("bnd,dhk->bnhk", h, layer[n].to(h.dtype)) for n in ("wq", "wk", "wv"))
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * cfg.head_dim**-0.5
@@ -127,41 +176,45 @@ def _block(x: torch.Tensor, layer: Dict[str, torch.Tensor], cfg: ViTConfig) -> t
     return x + torch.einsum("bnf,fd->bnd", F.silu(gate) * up, layer["wd"].to(h.dtype))
 
 
-def forward(params: Dict[str, Any], images: torch.Tensor, cfg: ViTConfig, *,
-            device: DeviceLike = "cuda") -> torch.Tensor:
+def forward(params: Dict[str, Any], images: torch.Tensor, cfg: ViTConfig,
+            template=None, mesh=None, *, device: DeviceLike = "cuda") -> torch.Tensor:
     """images [B,H,W,C] → logits [B, n_classes] (float32); reference :137-186.
 
     ``params`` must lie on ``device``; ``images`` are moved there.  With
-    ``cfg.remat`` each block is checkpointed while grads are being recorded."""
+    ``cfg.remat`` each block is checkpointed while grads are being recorded.
+    Under ``template`` and ``mesh`` the params are this rank's shards
+    (:func:`image_placement`)."""
     c = cfg
     dev = resolve_device(device)
+    placement = image_placement(param_axes(c), template, mesh)
     require_on(dev, patch_embed=params["patch_embed"])
     x = torch.einsum("bnp,pd->bnd", _patchify(images.to(dev), c),
-                     params["patch_embed"].to(c.dtype))
-    x = x + params["pos_embed"].to(c.dtype)[None]
+                     placement.at(params, "patch_embed").to(c.dtype))
+    x = x + placement.at(params, "pos_embed").to(c.dtype)[None]
     remat = c.remat and torch.is_grad_enabled()
     # unbind, not w[i]: its backward stacks the per-layer grads once.
     per_layer = {name: w.unbind(0) for name, w in params["block"].items()}
     for i in range(c.n_layers):
         layer = {name: ws[i] for name, ws in per_layer.items()}
-        x = checkpoint(_block, x, layer, c, use_reentrant=False) if remat else _block(x, layer, c)
-    x = _rmsnorm(x, params["final_norm"])
+        x = (checkpoint(_block, x, layer, c, placement, use_reentrant=False) if remat
+             else _block(x, layer, c, placement))
+    x = _rmsnorm(x, placement.at(params, "final_norm"))
     pooled = x.mean(dim=1)  # [B, D]
-    return torch.einsum("bd,dk->bk", pooled, params["head"].to(x.dtype)).float()
+    return torch.einsum("bd,dk->bk", pooled, placement.at(params, "head").to(x.dtype)).float()
 
 
-def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ViTConfig, *,
-            device: DeviceLike = "cuda") -> torch.Tensor:
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ViTConfig,
+            template=None, mesh=None, *, device: DeviceLike = "cuda") -> torch.Tensor:
     """Mean cross-entropy of ``batch`` (``images``, ``labels``); reference :189-199."""
-    logits = forward(params, batch["images"], cfg, device=device)
+    logits = forward(params, batch["images"], cfg, template, mesh, device=device)
     logp = torch.log_softmax(logits, dim=-1)
     labels = batch["labels"].to(logits.device).long()
     return -logp.gather(-1, labels[:, None])[:, 0].mean()
 
 
-def accuracy(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ViTConfig, *,
-             device: DeviceLike = "cuda") -> torch.Tensor:
+def accuracy(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ViTConfig,
+             template=None, mesh=None, *, device: DeviceLike = "cuda") -> torch.Tensor:
     """Share of ``batch`` whose argmax logit is its label; reference :202-210."""
-    logits = forward(params, batch["images"], cfg, device=device)
+    logits = forward(params, batch["images"], cfg, template, mesh, device=device)
     labels = batch["labels"].to(logits.device).long()
     return (logits.argmax(dim=-1) == labels).float().mean()

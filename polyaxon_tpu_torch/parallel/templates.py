@@ -4,12 +4,12 @@ Counterpart of ``polyaxon_tpu/parallel/templates.py``: every strategy the
 spec DSL names (``environment.topology.strategy``) resolves against a mesh's
 axis sizes to a :class:`StrategyTemplate`, the same fields and the same
 errors as there, as data.  The rules map logical axes (``batch``, ``seq``,
-``embed``, ...) to mesh axes; in the port they are read, not compiled:
-``ddp`` and ``sp_ring`` run (:func:`polyaxon_tpu_torch.models.transformer.
+``embed``, ...) to mesh axes; in the port they are read, not compiled
+(``parallel/axes.py`` turns them into each parameter's shard).
+:data:`PORTED_STRATEGIES` run (:func:`polyaxon_tpu_torch.models.transformer.
 forward`, :func:`polyaxon_tpu_torch.runtime.train.build_train_step`) with
-their batch axes and ``sp_ring``'s sequence axis across ranks
-(:func:`check_mesh`), and every other strategy resolves here but raises
-there (ROADMAP item 7).
+each of their axes across ranks (:func:`check_mesh`); ``pp``, ``pp_tp``,
+``ep`` and ``custom`` resolve here but raise there (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ DATA_AXES = ("replica", "data", "fsdp")
 
 #: The strategies the port's forward and train step run; the others
 #: resolve here and raise there (ROADMAP item 7).
-PORTED_STRATEGIES = ("ddp", "sp_ring")
+PORTED_STRATEGIES = ("ddp", "fsdp", "tp", "tp_dp", "sp_ring", "ulysses")
 
 
 class RuntimeLayerError(Exception):
@@ -37,17 +37,17 @@ def check_ported(template: Optional["StrategyTemplate"]) -> None:
     """Raise unless ``template`` is None or one of :data:`PORTED_STRATEGIES`."""
     if template is not None and template.name not in PORTED_STRATEGIES:
         raise NotImplementedError(
-            f"strategy {template.name!r} is not ported yet; ddp and sp_ring are "
-            "(ROADMAP item 7: multi-process and parallelism)"
+            f"strategy {template.name!r} is not ported yet; {', '.join(PORTED_STRATEGIES)} "
+            "are (ROADMAP item 7: multi-process and parallelism)"
         )
 
 
 def check_mesh(template: Optional["StrategyTemplate"], mesh) -> Optional[str]:
     """The ring axis a ported template runs over (None: no ring), or raise
     on what the port does not run yet: an unported strategy, a mesh above
-    one rank without a template, or a mesh axis above 1 that is neither one
-    of the template's batch axes (each rank takes its rows) nor its ring
-    axis (each rank takes its sequence shard)."""
+    one rank without a template, or a mesh axis above 1 that the template
+    does not spread over: its batch axes, its ring or Ulysses sequence axis
+    and every axis its rules name (the fsdp axis, ``tensor``)."""
     if template is None:
         if mesh is not None and mesh.size > 1:
             raise NotImplementedError(
@@ -58,13 +58,15 @@ def check_mesh(template: Optional["StrategyTemplate"], mesh) -> Optional[str]:
     check_ported(template)
     if mesh is None:
         raise ValueError(f"strategy template {template.name!r} needs a mesh")
-    spread = set(template.batch_axes) | {template.ring_axis}
+    spread = set(template.batch_axes) | {template.ring_axis, template.ulysses_axis}
+    for target in template.rules.values():
+        spread.update((target,) if isinstance(target, str) else target or ())
     wide = {a: n for a, n in mesh.shape.items() if n > 1 and a not in spread}
     if wide:
         raise NotImplementedError(
             f"strategy {template.name!r} on mesh axes {wide} is not ported yet: only its "
-            "batch axes and a sp_ring sequence axis may span ranks (ROADMAP item 7: "
-            "multi-process and parallelism)"
+            "batch axes, its sequence axis and the axes its rules shard parameters over "
+            "may span ranks (ROADMAP item 7: multi-process and parallelism)"
         )
     return template.ring_axis
 
@@ -80,7 +82,7 @@ class StrategyTemplate:
     batch_axes: Tuple[str, ...]
     #: attention runs the ring over this mesh axis (sp_ring)
     ring_axis: Optional[str] = None
-    #: Ulysses sequence axis (all-to-all attention; not ported)
+    #: Ulysses sequence axis (all-to-all attention)
     ulysses_axis: Optional[str] = None
     #: layers are pipeline stages over this mesh axis (pp; not ported)
     pipeline_axis: Optional[str] = None

@@ -2,24 +2,64 @@
 
 Counterpart of ``polyaxon_tpu/runtime/train.py``'s ``TrainStep`` and
 ``build_train_step``: value and grad of the loss, the optimizer's in-place
-update, the float32 global grad norm, and ``place_batch``.  It takes the
-``ddp`` and ``sp_ring`` templates, on one rank or across ranks: each rank
-holds the whole (replicated) params and its shard of the global batch (its
-rows along the template's batch axes and, under ``sp_ring``, its sequence
-shard of them), and the step sums the ranks' grads over the mesh's world
-group into what the reference's one program computes on the global batch.
+update, the float32 global grad norm, and ``place_batch``.  It takes every
+ported template (``parallel.templates.PORTED_STRATEGIES``), on one rank or
+across ranks: each rank holds its shard of the params and AdamW state, cut
+by the template's rules from the model's ``param_axes`` (whole under
+``ddp``, ``sp_ring`` and ``ulysses``), and its shard of the global batch
+(its rows along the template's batch axes and, under ``sp_ring`` and
+``ulysses``, its sequence shard of them); the step sums the ranks' grads
+into what the reference's one program computes on the global batch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from polyaxon_tpu_torch.parallel.templates import check_mesh, check_ported
-from polyaxon_tpu_torch.runtime.optim import tree_leaves
+from polyaxon_tpu_torch.parallel.axes import (
+    full_shape,
+    gather_shards,
+    shard_tensor,
+    spec_axes,
+    spec_leaves,
+    tree_map,
+    tree_shard,
+    tree_specs,
+)
+from polyaxon_tpu_torch.parallel.templates import RuntimeLayerError, check_mesh, check_ported
+from polyaxon_tpu_torch.runtime.optim import AdamWState, tree_leaves
+
+
+def _validate_param_shapes(params: Any, param_specs: Any, mesh_axes: Dict[str, int]) -> None:
+    """Every sharded param dim must divide by its mesh axes, checked up
+    front so that a config and mesh that do not fit (2 GQA kv heads over
+    ``tensor: 4``) read as one line naming the parameter (reference
+    ``_validate_param_shapes``, ``runtime/train.py:19-55``, the same words)."""
+    def check(path: str, leaf: Any, spec: Any) -> None:
+        if isinstance(leaf, dict):
+            for key in leaf:
+                check(f"{path}/{key}" if path else key, leaf[key], spec[key])
+            return
+        for dim, entry in zip(leaf.shape, spec):
+            if entry is None:
+                continue
+            axes = (entry,) if isinstance(entry, str) else entry
+            size = 1
+            for a in axes:
+                size *= mesh_axes.get(a, 1)
+            if size > 1 and dim % size:
+                raise RuntimeLayerError(
+                    f"Parameter {path!r} dim of size {dim} cannot shard over "
+                    f"mesh axes {axes} (total {size}) — adjust the model "
+                    f"config or the mesh (e.g. GQA kv heads vs tensor "
+                    f"parallelism)"
+                )
+
+    check("", params, param_specs)
 
 
 def shard_batch(
@@ -27,9 +67,10 @@ def shard_batch(
 ) -> Dict[str, torch.Tensor]:
     """This rank's part of a global batch: its rows along the template's
     batch axes (row-major over them, as the reference's batch sharding
-    places rows on devices), and under a ring template the contiguous
-    sequence shard of every ``[B, T]`` entry with ``positions`` set to its
-    global positions.  Without a template or mesh, the batch as given."""
+    places rows on devices), and under a ring or Ulysses template the
+    contiguous sequence shard of every ``[B, T]`` entry with ``positions``
+    set to its global positions.  Without a template or mesh, the batch as
+    given."""
     if template is None or mesh is None:
         return dict(batch)
     out = dict(batch)
@@ -43,13 +84,13 @@ def shard_batch(
             )
         Bl = B.pop() // count
         out = {name: x[index * Bl:(index + 1) * Bl] for name, x in out.items()}
-    ring_axis = template.ring_axis
-    if ring_axis is None:
+    seq_axis = template.ring_axis or template.ulysses_axis
+    if seq_axis is None:
         return out
-    n, r = mesh.shape[ring_axis], mesh.rank(ring_axis)
+    n, r = mesh.shape[seq_axis], mesh.rank(seq_axis)
     B, T = out["tokens"].shape
     if T % n:
-        raise ValueError(f"sequence length {T} does not split over {n} ranks of {ring_axis!r}")
+        raise ValueError(f"sequence length {T} does not split over {n} ranks of {seq_axis!r}")
     Tl = T // n
     positions = out.pop("positions", None)
     out = {name: x[:, r * Tl:(r + 1) * Tl] for name, x in out.items()}
@@ -76,18 +117,79 @@ def _all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor
     return out
 
 
+def _spec_leaves(params: Any, specs: Any) -> List[Tuple]:
+    """The spec of each leaf of ``params``, in ``tree_leaves`` order (the
+    spec tree may hold its keys in another order)."""
+    return spec_leaves(tree_map(lambda p, spec: spec, params, specs))
+
+
 @dataclass
 class TrainStep:
-    """A train step plus its initializer and batch placement."""
+    """A train step plus its initializer, batch placement and, under a
+    template that shards the params, the moves between each rank's shards
+    and the whole state (the checkpoints' one-rank layout)."""
 
     step: Callable  # (params, opt_state, batch) -> (params, opt_state, metrics)
     init: Callable  # (generator) -> (params, opt_state)
     mesh: Any = None
     template: Any = None
+    #: The params' spec tree (None: every param whole on every rank).
+    param_specs: Any = None
 
     def place_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """This rank's shard of a global batch (:func:`shard_batch`)."""
         return shard_batch(batch, self.mesh, self.template)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether some param is split over a mesh axis above 1."""
+        if self.param_specs is None:
+            return False
+        return any(self.mesh.shape.get(a, 1) > 1
+                   for spec in spec_leaves(self.param_specs) for a in spec_axes(spec))
+
+    def _map_state(self, fn, params: Any, opt_state: Any, *rest: Any) -> Tuple[Any, Any]:
+        """``fn(leaf, spec, *matching leaves of rest)`` over the params and
+        the AdamW moments (the moments take their param's spec)."""
+        specs = tree_map(lambda p, spec: spec, params, self.param_specs)
+        new_params = tree_map(fn, params, specs, *(r[0] for r in rest))
+        if not isinstance(opt_state, AdamWState):
+            return new_params, opt_state
+        leaf_specs = spec_leaves(specs)
+        moments = {}
+        for name in ("mu", "nu"):
+            others = [getattr(r[1], name) for r in rest]
+            moments[name] = [fn(t, spec, *(o[i] for o in others))
+                             for i, (t, spec) in enumerate(zip(getattr(opt_state, name),
+                                                               leaf_specs))]
+        return new_params, AdamWState(opt_state.count, moments["mu"], moments["nu"])
+
+    def full_state(self, params: Any, opt_state: Any) -> Tuple[Any, Any]:
+        """The whole params and AdamW state, as one rank holds them: every
+        rank of the mesh joins the gathers."""
+        with torch.no_grad():
+            return self._map_state(lambda t, spec: gather_shards(t.detach(), spec, self.mesh),
+                                   params, opt_state)
+
+    def empty_full_state(self, params: Any, opt_state: Any) -> Tuple[Any, Any]:
+        """Uninitialized host tensors of the whole state's shapes and dtypes:
+        a restore's target (a checkpoint is read on the host); no collective."""
+        return self._map_state(
+            lambda t, spec: torch.empty(full_shape(t.shape, spec, self.mesh.shape),
+                                        dtype=t.dtype),
+            params, opt_state)
+
+    def load_shards(self, full: Tuple[Any, Any], params: Any, opt_state: Any) -> None:
+        """Copy this rank's shard of the whole state ``full`` (params,
+        opt_state) into ``params`` and ``opt_state`` in place."""
+        def copy(t, spec, whole):
+            t.copy_(shard_tensor(whole, spec, self.mesh))
+            return t
+
+        with torch.no_grad():
+            self._map_state(copy, params, opt_state, full)
+        if isinstance(opt_state, AdamWState):
+            opt_state.count = full[1].count
 
 
 def build_train_step(
@@ -97,6 +199,7 @@ def build_train_step(
     optimizer: Any,
     mesh=None,
     template=None,
+    axes_tree: Any = None,
 ) -> TrainStep:
     """Wire a loss/init pair into a train step.
 
@@ -106,52 +209,127 @@ def build_train_step(
     updates ``params`` and ``opt_state`` in place and returns them with
     ``metrics``: ``loss`` and ``grad_norm`` as float32 device scalars (read
     them where the host needs them; reading syncs the device).  ``mesh``
-    and ``template``: ``ddp`` or ``sp_ring`` (``parallel.templates.
-    check_mesh``), a ported template alone (one rank), or neither.
+    and ``template``: a ported template (``parallel.templates.check_mesh``),
+    a ported template alone (one rank), or neither.  ``axes_tree`` names
+    every param's logical axes (the model's ``param_axes``, the reference's
+    argument of the same name); without it every param is whole.
+
+    ``init`` draws the whole params, checks that each sharded dimension
+    divides over its mesh axes (:func:`_validate_param_shapes`) and keeps
+    this rank's shard of each (``parallel.axes.tree_shard``); the AdamW
+    moments are made on the shards, so they are sharded alike (``optim.
+    AdamW`` is elementwise).
 
     Across ranks ``batch`` is this rank's shard (:meth:`TrainStep.place_batch`)
     and ``loss_fn`` its mean.  Each rank back-propagates its mean times a
     count ``c`` (the sum of its batch's ``mask``, or 1 without one: every
-    rank holds as many positions), and one all-reduce a dtype sums the
-    grads, the weighted losses and the counts over the mesh's world group;
-    dividing by the summed count gives the grads and the loss of the global
-    mean, masked or not, as the reference's step takes them on the global
-    batch (its masked loss is ``sum(nll * mask) / max(sum(mask), 1)``,
-    ``models/transformer.py:667-670``).  Under ``sp_ring`` a rank's grads
-    hold what its sequence shard contributes through the ring's backward,
-    so their sum is the whole sequence's.  ``grad_norm`` is that of the
-    summed grads.
+    rank holds as many positions), and the grads, the weighted losses and
+    the counts are summed over the mesh axes that split the batch (the
+    template's batch axes and its ring or Ulysses sequence axis), never over
+    ``tensor``, whose ranks hold the same rows; dividing by the summed count
+    gives the grads and the loss of the global mean, masked or not, as the
+    reference's step takes them on the global batch (its masked loss is
+    ``sum(nll * mask) / max(sum(mask), 1)``, ``models/transformer.py:667-670``).
+    A param's grad is not summed over an axis that shards it: the backward
+    of its fsdp gather (``collectives.gather_along``) already reduce-scattered
+    it there.  The sums go one all-reduce a dtype over the mesh's world group
+    where they span every axis above 1, else one an axis.  Under ``sp_ring``
+    and ``ulysses`` a rank's grads hold what its sequence shard contributes,
+    so their sum is the whole sequence's.
+
+    ``grad_norm`` is that of the global grads: each param's sum of squares
+    is summed over the axes that shard it, once for a param replicated over
+    them.
     """
     if mesh is None:
         check_ported(template)
     else:
         check_mesh(template, mesh)
-    world = mesh.world if mesh is not None and mesh.size > 1 else None
+    spread = mesh is not None and mesh.size > 1
+    specs = None
+    if axes_tree is not None and template is not None and mesh is not None:
+        specs = tree_specs(axes_tree, template.rules, dict(mesh.shape))
+    if spread:
+        wide = [a for a, n in mesh.shape.items() if n > 1]
+        batch_like = set(template.batch_axes) | {template.ring_axis, template.ulysses_axis}
+        sum_axes = tuple(a for a in wide if a in batch_like)
+    plans: Dict[str, Any] = {}
+
+    def plan(params: Any) -> Dict[str, Any]:
+        """Per leaf, the axes its grad is summed over and the axes that shard it."""
+        if not plans:
+            leaf_specs = (_spec_leaves(params, specs) if specs is not None
+                          else [()] * len(tree_leaves(params)))
+            by_axes: Dict[Tuple[str, ...], List[int]] = {sum_axes: []}
+            shards: Dict[Tuple[str, ...], List[int]] = {}
+            for i, spec in enumerate(leaf_specs):
+                split = tuple(a for a in spec_axes(spec) if mesh.shape.get(a, 1) > 1)
+                by_axes.setdefault(tuple(a for a in sum_axes if a not in split), []).append(i)
+                shards.setdefault(split, []).append(i)
+            plans.update(reduce=by_axes, shards=shards)
+        return plans
 
     def init(generator: torch.Generator) -> Tuple[Any, Any]:
         params = init_fn(generator)
+        if specs is not None:
+            _validate_param_shapes(params, specs, dict(mesh.shape))
+            params = tree_shard(params, specs, mesh)
         for p in tree_leaves(params):
             p.requires_grad_(True)
         return params, optimizer.init(params)
 
+    def reduce(grads: List[torch.Tensor], extras: List[torch.Tensor], params: Any):
+        """The grads and ``extras`` (weighted loss, count) summed as above."""
+        out = list(grads)
+        for axes, idx in plan(params)["reduce"].items():
+            tensors = [out[i] for i in idx] + (extras if axes == sum_axes else [])
+            if not axes or not tensors:
+                continue
+            groups = ([mesh.world] if set(axes) == set(wide)
+                      else [mesh.group(a) for a in axes])
+            for group in groups:
+                tensors = _all_reduce_sum(tensors, group)
+            for i, t in zip(idx, tensors):
+                out[i] = t
+            if axes == sum_axes:
+                extras = tensors[len(idx):]
+        return out, extras
+
+    def global_norm(grads: List[torch.Tensor], params: Any) -> torch.Tensor:
+        squares = [g.float().square().sum() for g in grads]
+        if not spread or specs is None:
+            return torch.stack(squares).sum().sqrt()
+        shards = plan(params)["shards"]
+        whole = [squares[i] for i in shards.get((), [])]
+        split = [s for s in shards if s]
+        partials = torch.stack([torch.stack([squares[i] for i in shards[s]]).sum()
+                                for s in split]) if split else squares[0].new_zeros(0)
+        for a in wide:
+            idx = [k for k, s in enumerate(split) if a in s]
+            if idx:
+                part = partials[idx].contiguous()
+                dist.all_reduce(part, op=dist.ReduceOp.SUM, group=mesh.group(a))
+                partials = partials.index_copy(0, torch.tensor(idx, device=part.device), part)
+        total = partials.sum()
+        return (total + torch.stack(whole).sum() if whole else total).sqrt()
+
     def step(params: Any, opt_state: Any, batch: Dict[str, torch.Tensor]):
         leaves = tree_leaves(params)
         loss = loss_fn(params, batch)
-        if world is None:
+        if not spread:
             grads = torch.autograd.grad(loss, leaves)
         else:
             mask = batch.get("mask")
             count = (torch.ones((), device=loss.device) if mask is None
                      else mask.float().sum().to(loss.device))
             grads = torch.autograd.grad(loss * count, leaves)
-            *grads, loss, count = _all_reduce_sum(
-                [*grads, loss.detach() * count, count], world)
+            grads, (loss, count) = reduce(list(grads), [loss.detach() * count, count], params)
             scale = 1.0 / torch.clamp(count, min=1.0)
             grads = [g * scale.to(g.dtype) for g in grads]
             loss = loss * scale
         with torch.no_grad():
-            gnorm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+            gnorm = global_norm(grads, params)
         opt_state = optimizer.update_(params, grads, opt_state)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
-    return TrainStep(step=step, init=init, mesh=mesh, template=template)
+    return TrainStep(step=step, init=init, mesh=mesh, template=template, param_specs=specs)

@@ -1,19 +1,26 @@
 """Parity of the port's train step across ranks with the JAX package's, on the CPU.
 
 The port's ranks are threads over gloo (``tests/torch_gang_ranks.py``), each
-holding the replicated params and its shard of the global batch
+holding its shard of the params (the template's rules over ``param_axes``:
+whole under ``ddp``, ``sp_ring`` and ``ulysses``) and of the global batch
 (``TrainStep.place_batch``); the JAX side runs ``build_train_step`` on the
 same mesh over the conftest's virtual CPU devices, with the same template.
 Weights come from the JAX ``init_params`` and cross through numpy
 (``params_from_jax``); tokens and masks come from numpy.  The config is the
 small float32 one of ``tests/test_torch_train.py`` (vocab 256, d 64, 2
-layers, 4 heads × 16, ff 128) at batch 4 × 64 with dense attention, and the
-optimizer ``adamw(3e-4)`` with a float32 first moment.
+layers, 4 heads × 16, ff 128) at batch 4 × 64 with dense attention (some
+cases with 2 kv heads, or Ulysses over the flash wrapper: the JAX kernel in
+Pallas interpret mode, the port's plain version), and the optimizer
+``adamw(3e-4)`` with a float32 first moment.
+
+Placement, bit for bit: after ``init``, each rank's shard of every param and
+of both AdamW moments is the JAX array's shard on device r of the mesh
+(``devices_indices_map``, the devices in row-major order).
 
 Tolerance, float32, where the frameworks differ only in summation order:
-per-step loss and grad norm atol 1e-5; every rank ends with the same
-parameters, bit for bit (they apply the same summed grads); the parameters
-after 3 steps atol 1e-5 (as ``test_three_train_steps_match_jax``) for every
+per-step loss and grad norm atol 1e-5; ranks that hold the same shard of a
+parameter end with it bit for bit (they apply the same summed grads); each
+rank's shards after 3 steps atol 1e-5 (as ``test_three_train_steps_match_jax``) for every
 element whose first-step gradient (the JAX gradient of the loss at the
 initial weights) is at least ``GRAD_FLOOR`` = 1e-5 in magnitude, about a
 150th of the median; the elements below it are held to the bound of Adam's
@@ -44,7 +51,7 @@ from polyaxon_tpu.runtime import train as jtrain
 from polyaxon_tpu.runtime.mesh import build_mesh as jax_build_mesh
 from polyaxon_tpu_torch.models import transformer as ttr
 from polyaxon_tpu_torch.models.weights import params_from_jax
-from polyaxon_tpu_torch.parallel.templates import template_for
+from polyaxon_tpu_torch.parallel.templates import PORTED_STRATEGIES, template_for
 from polyaxon_tpu_torch.runtime import optim
 from polyaxon_tpu_torch.runtime.mesh import build_mesh
 from polyaxon_tpu_torch.runtime.train import build_train_step, shard_batch
@@ -56,10 +63,23 @@ SMALL = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, head_dim=16, d_f
 BATCH, SEQ, STEPS, LR = 4, 64, 3, 3e-4
 GRAD_FLOOR = 1e-5
 CASES = {
-    "ddp-data2": ("ddp", {"data": 2}),
-    "ddp-data4": ("ddp", {"data": 4}),
-    "sp_ring-data2-sequence2": ("sp_ring", {"data": 2, "sequence": 2}),
+    "ddp-data2": ("ddp", {"data": 2}, {}),
+    "ddp-data4": ("ddp", {"data": 4}, {}),
+    "sp_ring-data2-sequence2": ("sp_ring", {"data": 2, "sequence": 2}, {}),
+    "fsdp-data2": ("fsdp", {"data": 2}, {}),
+    "fsdp-replica2-data2": ("fsdp", {"replica": 2, "data": 2}, {}),
+    "tp-tensor2": ("tp", {"tensor": 2}, {}),
+    "tp_dp-data2-tensor2": ("tp_dp", {"data": 2, "tensor": 2}, {}),
+    "tp-tensor4": ("tp", {"tensor": 4}, {}),
+    "tp-tensor2-kv2": ("tp", {"tensor": 2}, {"n_kv_heads": 2}),
+    "ulysses-data2-sequence2-dense": ("ulysses", {"data": 2, "sequence": 2}, {}),
+    "ulysses-data2-sequence2-flash": ("ulysses", {"data": 2, "sequence": 2},
+                                      {"attention_impl": "flash"}),
+    "ulysses-data2-sequence2-flash-kv2": ("ulysses", {"data": 2, "sequence": 2},
+                                          {"attention_impl": "flash", "n_kv_heads": 2}),
 }
+#: The meshes whose placement is held bit for bit after ``init``.
+PLACED = ("fsdp-data2", "fsdp-replica2-data2", "tp-tensor2", "tp_dp-data2-tensor2")
 
 
 def batch_np(masked: bool):
@@ -74,14 +94,35 @@ def batch_np(masked: bool):
     return batch
 
 
+def _paths(tree, prefix=""):
+    """``(path, leaf)`` of a nested dict, in key order."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _paths(tree[key], f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", tree[key]
+
+
 @functools.lru_cache(maxsize=None)
-def jax_run(strategy, axes_items, masked):
-    """Initial params, then each step's loss and grad norm and the final
-    params of the JAX step on the virtual mesh, and the gradient of the loss
-    over the whole batch at the initial params."""
+def jax_grad1(extra_items, masked):
+    """The JAX gradient of the loss over the whole batch at the initial params."""
+    jcfg = jtr.TransformerConfig(dtype=jnp.float32, **{**SMALL, **dict(extra_items)})
+    params = jtr.init_params(jax.random.PRNGKey(0), jcfg)
+    whole = {k: jnp.asarray(v) for k, v in batch_np(masked).items()}
+    grad1 = jax.jit(jax.grad(lambda p: jtr.loss_fn(p, whole, jcfg)))(params)
+    return jax.tree.map(np.asarray, grad1)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_run(strategy, axes_items, masked, extra_items=()):
+    """The JAX step on the virtual mesh: the initial params, each step's
+    loss and grad norm, the final params, the gradient of the loss over the
+    whole batch at the initial params, and per param path each device's
+    index into it and the shards ``init`` placed on each device (devices in
+    the mesh's row-major order, the port's ranks)."""
     axes = dict(axes_items)
     n = int(np.prod(list(axes.values())))
-    jcfg = jtr.TransformerConfig(dtype=jnp.float32, **SMALL)
+    jcfg = jtr.TransformerConfig(dtype=jnp.float32, **{**SMALL, **dict(extra_items)})
     mesh = jax_build_mesh(axes, devices=jax.devices()[:n])
     tmpl = jax_template_for(strategy, axes)
     jts = jtrain.build_train_step(
@@ -95,18 +136,26 @@ def jax_run(strategy, axes_items, masked):
     key = jax.random.PRNGKey(0)
     params, opt_state = jts.init(key)
     init_np = jax.tree.map(np.asarray, params)  # before donation
-    whole = {k: jnp.asarray(v) for k, v in batch_np(masked).items()}
-    grad1 = jax.grad(lambda p: jtr.loss_fn(p, whole, jcfg))(jax.tree.map(jnp.asarray, init_np))
-    batch = jts.place_batch(whole)
+    devices = list(mesh.devices.reshape(-1))
+    index, placed = {}, {}
+    for (path, leaf), (_, sharding) in zip(_paths(params), _paths(jts.param_shardings)):
+        by_device = sharding.devices_indices_map(leaf.shape)
+        index[path] = [by_device[d] for d in devices]
+        shards = {s.device: np.asarray(s.data) for s in leaf.addressable_shards}
+        mu = dict(_paths(opt_state[0].mu))[path]
+        mu_shards = {s.device: np.asarray(s.data) for s in mu.addressable_shards}
+        placed[path] = [(shards[d], mu_shards[d]) for d in devices]
+    batch = jts.place_batch({k: jnp.asarray(v) for k, v in batch_np(masked).items()})
     history = []
     for _ in range(STEPS):
         params, opt_state, m = jts.step(params, opt_state, batch, key)
         history.append((float(m["loss"]), float(m["grad_norm"])))
-    return init_np, history, jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, grad1)
+    return {"init": init_np, "history": history, "params": jax.tree.map(np.asarray, params),
+            "grad1": jax_grad1(extra_items, masked), "index": index, "placed": placed}
 
 
-def port_rank(mesh, rank, strategy, init_np, masked):
-    tcfg = ttr.TransformerConfig(dtype=torch.float32, **SMALL)
+def port_rank(mesh, rank, strategy, init_np, masked, extra=None, steps=STEPS):
+    tcfg = ttr.TransformerConfig(dtype=torch.float32, **{**SMALL, **(extra or {})})
     template = template_for(strategy, dict(mesh.shape))
     ts = build_train_step(
         loss_fn=lambda p, b: ttr.loss_fn(p, b, tcfg, template=template, mesh=mesh, device="cpu"),
@@ -114,27 +163,30 @@ def port_rank(mesh, rank, strategy, init_np, masked):
         optimizer=optim.AdamW(LR),
         mesh=mesh,
         template=template,
+        axes_tree=ttr.param_axes(tcfg),
     )
     params, opt_state = ts.init(torch.Generator())
+    placed = {path: (p.detach().clone(), mu.clone()) for (path, p), mu in
+              zip(_paths(params), optim_moments(params, opt_state.mu))}
     batch = ts.place_batch({k: torch.from_numpy(v) for k, v in batch_np(masked).items()})
     history = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         params, opt_state, m = ts.step(params, opt_state, batch)
         history.append((float(m["loss"]), float(m["grad_norm"])))
-    return history, params
+    return history, params, placed
+
+
+def optim_moments(params, moments):
+    """The moments in ``_paths`` order (they lie in ``tree_leaves`` order)."""
+    by_leaf = {id(p): m for p, m in zip(optim.tree_leaves(params), moments)}
+    return [by_leaf[id(p)] for _, p in _paths(params)]
 
 
 def flat_params(tree):
-    """All elements of a param tree (torch or numpy leaves), in key order."""
-    def leaves(tree, prefix=""):
-        for key in sorted(tree):
-            if isinstance(tree[key], dict):
-                yield from leaves(tree[key], f"{prefix}{key}/")
-            else:
-                yield f"{prefix}{key}", np.asarray(
-                    tree[key].detach() if isinstance(tree[key], torch.Tensor) else tree[key])
-
-    return dict(leaves(tree))
+    """All elements of a param tree (torch or numpy leaves, nested or flat
+    by path), in key order."""
+    return {path: np.asarray(leaf.detach() if isinstance(leaf, torch.Tensor) else leaf)
+            for path, leaf in _paths(tree)}
 
 
 def assert_params_close(tparams, jparams, grad1, atol=1e-5):
@@ -151,20 +203,49 @@ def assert_params_close(tparams, jparams, grad1, atol=1e-5):
     assert diff[~held].max() <= 2 * STEPS * LR, diff[~held].max()
 
 
+def _shard(tree, index, rank):
+    """Rank ``rank``'s slice of every leaf of a numpy tree (``index``: path →
+    per-device slices)."""
+    return {path: np.asarray(leaf)[index[path][rank]] for path, leaf in _paths(tree)}
+
+
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked-by-rank"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_steps_across_ranks_match_the_jax_step(case, masked):
-    strategy, axes = CASES[case]
-    init_np, jhist, jparams, grad1 = jax_run(strategy, tuple(axes.items()), masked)
-    results = run_mesh_ranks(
-        axes, lambda mesh, rank: port_rank(mesh, rank, strategy, init_np, masked))
-    for hist, params in results:
-        np.testing.assert_allclose(np.array(hist), np.array(jhist), atol=1e-5, rtol=0)
-        assert_params_close(params, jparams, grad1)
-    first = results[0][1]
-    for _, params in results[1:]:
-        for a, b in zip(optim.tree_leaves(first), optim.tree_leaves(params)):
-            assert torch.equal(a, b)
+    strategy, axes, extra = CASES[case]
+    want = jax_run(strategy, tuple(axes.items()), masked, tuple(extra.items()))
+    results = run_mesh_ranks(axes, lambda mesh, rank: port_rank(
+        mesh, rank, strategy, want["init"], masked, extra))
+    index = want["index"]
+    for rank, (hist, params, _) in enumerate(results):
+        np.testing.assert_allclose(np.array(hist), np.array(want["history"]), atol=1e-5, rtol=0)
+        assert_params_close(params, _shard(want["params"], index, rank),
+                            _shard(want["grad1"], index, rank))
+    for path in index:  # ranks that hold the same shard hold it bit for bit
+        mine = dict(_paths(results[0][1]))
+        for rank, (_, params, _) in enumerate(results[1:], start=1):
+            if index[path][rank] == index[path][0]:
+                assert torch.equal(dict(_paths(params))[path], mine[path]), (path, rank)
+
+
+@pytest.mark.parametrize("case", PLACED)
+def test_init_places_each_shard_where_jax_places_it(case):
+    """Each rank's shard of every param and of AdamW's first moment, after
+    ``init``, is the JAX array's shard on device r, bit for bit."""
+    strategy, axes, extra = CASES[case]
+    want = jax_run(strategy, tuple(axes.items()), False, tuple(extra.items()))
+    results = run_mesh_ranks(axes, lambda mesh, rank: port_rank(
+        mesh, rank, strategy, want["init"], False, extra, steps=0))
+    whole = dict(_paths(want["init"]))
+    split = 0
+    for rank, (_, _, placed) in enumerate(results):
+        assert placed.keys() == want["placed"].keys()
+        for path, (param, mu) in placed.items():
+            jparam, jmu = want["placed"][path][rank]
+            np.testing.assert_array_equal(param.numpy(), jparam)
+            np.testing.assert_array_equal(mu.numpy(), jmu)
+            split += jparam.size < whole[path].size
+    assert split > 0  # the template shards something
 
 
 def test_ranks_take_the_reference_rows_and_positions():
@@ -189,7 +270,7 @@ def test_ranks_take_the_reference_rows_and_positions():
         assert shard["tokens"][:, 0].tolist() == [(d * 2 + i) * 8 + s * 4 for i in range(2)]
 
 
-@pytest.mark.parametrize("strategy", [s for s in STRATEGIES if s not in ("ddp", "sp_ring")])
+@pytest.mark.parametrize("strategy", [s for s in STRATEGIES if s not in PORTED_STRATEGIES])
 def test_every_other_strategy_still_raises(strategy):
     axes = {"data": 1, "pipeline": 1, "expert": 1, "sequence": 1, "tensor": 1}
     with pytest.raises(NotImplementedError, match="multi-process and parallelism"):

@@ -162,18 +162,19 @@ def _mesh(**axes):
 @pytest.mark.parametrize(
     "kwargs, match",
     [
-        (dict(template=template_for("ulysses", {"sequence": 1}), mesh=_mesh(sequence=1)),
+        (dict(template=template_for("ep", {"expert": 1}), mesh=_mesh(expert=1)),
          "multi-process and parallelism"),
         (dict(mesh=_mesh(data=2)), "multi-process and parallelism"),
-        # ddp's batch axes and sp_ring's ring may span ranks; a tensor axis may not.
+        # ddp's batch axes and sp_ring's ring may span ranks; a tensor axis,
+        # which neither template spreads over, may not.
         (dict(template=template_for("ddp", {"data": 2, "tensor": 2}), mesh=_mesh(data=2, tensor=2)),
          "multi-process and parallelism"),
         (dict(template=template_for("sp_ring", {"sequence": 2, "tensor": 2}),
               mesh=_mesh(sequence=2, tensor=2)), "multi-process and parallelism"),
         (dict(template=template_for("pp", {"pipeline": 1}), mesh=_mesh(pipeline=1)),
          "multi-process and parallelism"),
-        (dict(template=template_for("fsdp", {"data": 1}), mesh=_mesh(data=1)),
-         "multi-process and parallelism"),
+        (dict(template=template_for("pp_tp", {"pipeline": 1, "tensor": 1}),
+              mesh=_mesh(pipeline=1, tensor=1)), "multi-process and parallelism"),
     ],
 )
 def test_unported_paths_raise(kwargs, match):

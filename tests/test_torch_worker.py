@@ -68,6 +68,9 @@ GANGS = {
     "failing": spec("failing"),
     "regression": spec("synthetic_regression", REGRESSION, **TWO_CPU_HOSTS),
     "lm_train": spec("lm_train", TINY_LM, seed=5, **TWO_CPU_HOSTS, strategy="ddp"),
+    **{f"lm_train_{strategy}": spec("lm_train", TINY_LM, seed=5,
+                                    **dict(TWO_CPU_HOSTS, mesh={axis: 2}), strategy=strategy)
+       for strategy, axis in (("fsdp", "data"), ("tp", "tensor"), ("ulysses", "sequence"))},
     # The catalog's default cpu slice: 8 devices on one host.
     "dph_lm_train": spec("lm_train", TINY_LM, accelerator="cpu"),
     "dph_noop": spec("noop", accelerator="cpu"),
@@ -171,6 +174,29 @@ def test_a_two_process_lm_train_logs_the_one_rank_losses(gangs):
     for i in (0, 1):  # each rank's ledger accounts its own half of the batch
         final = [row for row in of_type(reports(h, i), "ledger") if row.get("final")][-1]
         assert final["tokens"] == 3 * 2 * TINY_LM["seq"]
+
+
+@pytest.mark.parametrize("strategy", ["fsdp", "tp", "ulysses"])
+def test_a_two_process_sharded_lm_train_succeeds_with_the_one_rank_losses(gangs, strategy):
+    """The same run under ``fsdp`` (each process holds half of every param
+    and gathers each at its use), ``tp`` (half of the heads, MLP columns and
+    vocabulary) and ``ulysses`` (half of the sequence, all-to-all attention):
+    both processes end ``succeeded`` and the leader logs the one-rank
+    losses."""
+    h = gangs[f"lm_train_{strategy}"]
+    assert h.poll() == {0: 0, 1: 0}, h.paths.log_file(1).read_text()[-2000:]
+    for i in (0, 1):
+        assert of_type(reports(h, i), "status")[-1]["status"] == "succeeded"
+    losses = {m["step"]: m["values"]["loss"] for m in of_type(reports(h), "metric")
+              if "loss" in m["values"]}
+    records = []
+    lm_train(Context(params=dict(TINY_LM, device="cpu"), seed=5, records=records))
+    want = {r["step"]: r["values"]["loss"] for r in records
+            if r["kind"] == "metric" and "loss" in r["values"]}
+    assert sorted(losses) == sorted(want) == [0, 2]
+    assert [losses[s] for s in (0, 2)] == pytest.approx([want[s] for s in (0, 2)],
+                                                        rel=BF16_RTOL)
+    assert f"strategy={strategy}" in of_type(reports(h), "log")[-1]["line"]
 
 
 def test_more_devices_than_one_a_process_raise_only_where_the_mesh_is_read(gangs):
