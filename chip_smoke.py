@@ -21,7 +21,8 @@ worker running ``lm_train`` and ``lm_server`` from specs, and the train
 step across ranks); then the image classifiers (``cnn_train``,
 ``vit_train``) and ``lm_train`` with switch-MoE experts; then the sharded
 strategies without a pipeline (``fsdp``, ``tp``, ``tp_dp``, ``ulysses``)
-across rank processes on the one card.  Phases:
+across rank processes on the one card; then the pipeline and the experts
+across them (``pp``, pp×MoE, ``pp_tp``, ``ep``).  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -245,7 +246,27 @@ across rank processes on the one card.  Phases:
     bf16 causal) against their plain versions on two heads, with their
     times beside SDPA's and their bounds;
 37. ``vit_train`` (ViT-B/16) under ``fsdp {data: 2}`` through the entry
-    point, 2 steps: its losses within 1e-2 relative of one rank's.
+    point, 2 steps: its losses within 1e-2 relative of one rank's;
+38. the pipeline across rank processes (2, over gloo; phase 34's processes
+    run these cases after theirs) at the 671M width cut
+    to 2 layers, bf16, 2 steps: ``pp {pipeline: 2}``, batch 4 x 1024, 2
+    microbatches, one layer a stage; each rank's loss and grad norm within
+    1e-2 of one rank's step on the whole batch, a stage holding half of the
+    block's bytes, the kernels launched M times a layer a step on every
+    rank, the stage hops' walls and bytes;
+39. pp×MoE ``{pipeline: 2}``: 4 experts, capacity factor 1.25, batch 4 x
+    1024, one microbatch (which routes exactly what one rank routes): the
+    same checks;
+40. ``pp_tp {pipeline: 2, tensor: 2}`` (4 processes), the dense model of
+    phase 38: the same checks;
+41. ``ep {data: 2, expert: 2}`` (4 processes): the MoE model of phase 39
+    at batch 8 x 1024, routed over the global batch: the same checks, a rank
+    holding half of the experts (a quarter of their bytes: ``ep`` also
+    splits their embedding dimension over ``data``), and the tokens each
+    layer's global ranking drops at the initial weights, at capacity
+    factors 1.25, 1.0 and 0.5, those of one rank but for tokens whose
+    expert differs (bf16 near-ties), beside what a rank routing only its
+    own rows would drop.
 
 Any failed check raises, and the script exits non-zero; an atexit hook
 SIGKILLs any replica or gang worker left.  On success its last lines are the serving
@@ -255,7 +276,8 @@ the KV-tier and tracing figures as JSON, the tracking figures (the
 training and serving ledger rows, the overhead, the watchdog, the dataset
 path) as JSON, the card's name and power limit,
 the kernels' JSON record, the fleet's figures, the gang layer's, the image
-classifiers' and the MoE run's, the sharded strategies', and ``{"ok": true,
+classifiers' and the MoE run's, the sharded strategies', the pipeline's and
+the experts', and ``{"ok": true,
 "device": {...}}``.  Without CUDA it exits 1
 at once.
 """
@@ -264,6 +286,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -4169,7 +4192,20 @@ SHARDED_LM = {"fsdp": ("fsdp", {"data": 2}), "tp": ("tp", {"tensor": 2}),
 ULYSSES_BATCH, ULYSSES_SEQ = 1, 8192
 VIT_FSDP_BATCH, VIT_FSDP_STEPS = 32, 2
 SHARDED_TIMEOUT_S = 420
-COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all")
+COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all", "batch_isend_irecv")
+# The pipeline and the experts across ranks (phases 38-41): name -> (strategy,
+# mesh axes, template options).  pp_moe and ep carry MOE_EXPERTS experts at
+# capacity factor MOE_CAPACITY; ep at batch MOE_BATCH, the others at
+# STEP_RANKS_BATCH.
+PIPELINE_EXPERTS = {"pp": ("pp", {"pipeline": 2}, {"num_microbatches": 2}),
+                    "pp_moe": ("pp", {"pipeline": 2}, {"num_microbatches": 1}),
+                    "pp_tp": ("pp_tp", {"pipeline": 2, "tensor": 2}, {"num_microbatches": 2}),
+                    "ep": ("ep", {"data": 2, "expert": 2}, {})}
+MOE_RANK_CASES = ("pp_moe", "ep")
+# Phase 41 counts the tokens dropped at these capacity factors from one
+# routing at the initial weights: at MOE_CAPACITY a random init drops none
+# (PR 15 call 2), so the smaller ones show which capacity and ranking apply.
+DROP_FACTORS = (MOE_CAPACITY, 1.0, 0.5)
 
 
 @contextlib.contextmanager
@@ -4183,11 +4219,21 @@ def _timed_collectives():
 
     def timed(name):
         def call(*args, **kw):
-            sent = args[1] if name != "all_reduce" else args[0]
+            if name == "batch_isend_irecv":  # the stage hop: what this rank sends
+                sent = [op.tensor for op in args[0]
+                        if getattr(op.op, "__name__", "") == "isend"]
+            else:
+                sent = args[1] if name != "all_reduce" else args[0]
             sent = sent if isinstance(sent, (list, tuple)) else [sent]
             torch.cuda.synchronize()
             t = time.perf_counter()
             work = real[name](*args, **kw)
+            if name == "batch_isend_irecv":
+                # Waited here, inside the wall; a gloo send's work waited a
+                # second time blocks, so the caller gets none to wait on.
+                for w in work:
+                    w.wait()
+                work = []
             torch.cuda.synchronize()
             walls[name].append((time.perf_counter() - t,
                                 sum(x.numel() * x.element_size() for x in sent)))
@@ -4210,32 +4256,93 @@ def _state_bytes(params, opt_state):
             sum(m.numel() * m.element_size() for m in opt_state.mu + opt_state.nu))
 
 
-def _sharded_lm_shape(strategy):
-    """(config, global batch, seq) of a sharded LM case."""
+def _sharded_lm_shape(name):
+    """(config, global batch, seq) of a case of SHARDED_LM or PIPELINE_EXPERTS."""
     from polyaxon_tpu_torch.models.transformer import TransformerConfig
 
-    batch, seq = ((ULYSSES_BATCH, ULYSSES_SEQ) if strategy == "ulysses"
-                  else (STEP_RANKS_BATCH, TRAIN_SEQ))
-    cfg = TransformerConfig(max_seq=seq, **dict(BENCH_MODEL, n_layers=STEP_RANKS_LAYERS))
-    return cfg, batch, seq
+    batch, seq = ((ULYSSES_BATCH, ULYSSES_SEQ) if name == "ulysses"
+                  else (MOE_BATCH if name == "ep" else STEP_RANKS_BATCH, TRAIN_SEQ))
+    model = dict(BENCH_MODEL, n_layers=STEP_RANKS_LAYERS)
+    if name in MOE_RANK_CASES:
+        model.update(n_experts=MOE_EXPERTS, capacity_factor=MOE_CAPACITY)
+    return TransformerConfig(max_seq=seq, **model), batch, seq
+
+
+def _case_template(name):
+    """(strategy, axes, template options) of a rank-process case."""
+    if name in PIPELINE_EXPERTS:
+        return PIPELINE_EXPERTS[name]
+    return (*SHARDED_LM[name], {})
+
+
+def _block_bytes(params, keys=None):
+    return sum(w.numel() * w.element_size() for k, w in params["block"].items()
+               if keys is None or k in keys)
+
+
+def _dropped_at_capacity(params, tokens, cfg, template=None, mesh=None):
+    """Per capacity factor of DROP_FACTORS and per layer, the global tokens
+    one no-grad forward on ``tokens`` (this rank's) drops at capacity,
+    counted by the model's own ranking (``_Shard.rank_in_expert`` across
+    ranks), and the global expert indices (int lists, one per layer)."""
+    from polyaxon_tpu_torch.models.transformer import _Shard, forward
+    from polyaxon_tpu_torch.parallel.collectives import all_gather_cat
+
+    E = cfg.n_experts
+    with torch.no_grad():
+        _, (_, idx) = forward(params, tokens, cfg, template=template, mesh=mesh, device="cuda")
+        dropped, whole = [], []
+        for layer in idx:
+            if template is None:
+                full = layer.reshape(-1)
+                rank = torch.nn.functional.one_hot(full, E).cumsum(0).gather(
+                    1, full[:, None])[:, 0] - 1
+                n = full.numel()
+            else:
+                shard = _Shard(cfg, template, mesh)
+                rank, n = shard.rank_in_expert(layer, E)
+                full = layer.to(torch.int32)
+                for a in reversed(shard.token_batch_axes):
+                    full = all_gather_cat(full, 0, mesh.group(a))
+                full = full.reshape(-1)
+            count = torch.stack([(rank >= max(1, int(f * n / E))).sum() for f in DROP_FACTORS])
+            count = count.float()
+            if template is not None:
+                for group in shard.token_groups:
+                    torch.distributed.all_reduce(count, group=group)
+            dropped.append([int(c) for c in count.tolist()])
+            whole.append(full.tolist())
+    return [list(by_factor) for by_factor in zip(*dropped)], whole
 
 
 def _sharded_lm_rank(name):
-    """This rank's run of SHARDED_LM[name]: the kernels' counts set to 0 just
-    before its steps and read just after, (loss, grad_norm) a step, its
-    state's bytes and the collectives' walls."""
+    """This rank's run of SHARDED_LM[name] or PIPELINE_EXPERTS[name]: the
+    kernels' counts set to 0 just before its steps and read just after,
+    (loss, grad_norm) a step, its state's bytes (and its block's, its
+    experts'), the tokens dropped at capacity under MoE, and the
+    collectives' walls."""
     from polyaxon_tpu_torch.models.transformer import param_axes
     from polyaxon_tpu_torch.parallel.templates import template_for
     from polyaxon_tpu_torch.runtime.mesh import mesh_from_world
     from polyaxon_tpu_torch.runtime.optim import AdamW
 
-    strategy, axes = SHARDED_LM[name]
-    cfg, batch, seq = _sharded_lm_shape(strategy)
+    strategy, axes, options = _case_template(name)
+    cfg, batch, seq = _sharded_lm_shape(name)
     mesh = mesh_from_world(axes)
+    template = template_for(strategy, axes, options)
     ts, params, opt_state, local = _train_setup(
-        cfg, AdamW(LR), batch_size=batch, seq=seq, template=template_for(strategy, axes),
+        cfg, AdamW(LR), batch_size=batch, seq=seq, template=template,
         mesh=mesh, axes_tree=param_axes(cfg))
     state = _state_bytes(params, opt_state)
+    extra = {"block_bytes": _block_bytes(params)}
+    if cfg.n_experts:
+        extra.update(expert_bytes=_block_bytes(params, ("wi", "wg", "wd", "router")),
+                     experts_held=params["block"]["wi"].shape[1])
+        if template.pipeline_axis is None:
+            extra["dropped"], whole = _dropped_at_capacity(params, local["tokens"], cfg,
+                                                           template, mesh)
+            if torch.distributed.get_rank() == 0:
+                extra["expert_idx"] = whole
     torch.cuda.synchronize()
     _reset_counts()
     hist = []
@@ -4248,7 +4355,7 @@ def _sharded_lm_rank(name):
     del ts, params, opt_state, local
     _free()
     return {"history": hist, "launches": launches, "param_bytes": state[0],
-            "adam_bytes": state[1],
+            "adam_bytes": state[1], **extra,
             "walls": {k: {"calls": len(v), "s": sum(w for w, _ in v), "bytes": sum(b for _, b in v)}
                       for k, v in walls.items()}}
 
@@ -4341,19 +4448,34 @@ def _run_rank_processes(world, cases):
     return results, wall
 
 
+#: The rank processes' cases, in the order each process runs them: phases
+#: 34-41 share one launch of 2 processes and one of 4, so that the pipeline's
+#: cases run in processes whose first step (library loads, the kernels'
+#: first launch) an earlier case has paid.
+RANK_CASES = {2: ("fsdp", "tp", "ulysses", "vit_fsdp", "pp", "pp_moe"),
+              4: ("tp_dp", "pp_tp", "ep")}
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_cases():
+    """Every case of RANK_CASES run once: ``{world: (results by rank, launch
+    to exit s)}``."""
+    return {world: _run_rank_processes(world, list(cases)) for world, cases in RANK_CASES.items()}
+
+
 def phase_sharded_strategies():
     """Phases 34-37 (see the module docstring).  Returns the figures by
     case and each case's kernel launches summed over its ranks."""
     from polyaxon_tpu_torch.runtime.optim import AdamW
 
-    two, wall2 = _run_rank_processes(2, ["fsdp", "tp", "ulysses", "vit_fsdp"])
-    four, wall4 = _run_rank_processes(4, ["tp_dp"])
-    out = {"rank_processes_wall_s": {"2 ranks": wall2, "4 ranks": wall4},
+    (two, wall2), (four, wall4) = _rank_cases()[2], _rank_cases()[4]
+    out = {"rank_processes_wall_s": {"2 ranks": wall2, "4 ranks": wall4,
+                                     "cases": {w: list(c) for w, c in RANK_CASES.items()}},
            "backend": "gloo across processes on one card", "card": _card()}
     launches = {}
     for name, ranks in (("fsdp", two), ("tp", two), ("ulysses", two), ("tp_dp", four)):
         strategy, axes = SHARDED_LM[name]
-        cfg, batch, seq = _sharded_lm_shape(strategy)
+        cfg, batch, seq = _sharded_lm_shape(name)
         _free()
         ts, params, opt_state, whole = _train_setup(cfg, AdamW(LR), batch_size=batch, seq=seq)
         one_bytes = _state_bytes(params, opt_state)
@@ -4410,6 +4532,120 @@ def phase_sharded_strategies():
     if "strategy=fsdp" not in vit_ranks["lines"][-1]:
         raise AssertionError("vit_train's done-line does not name fsdp")
     out["vit_fsdp"] = {"losses": pairs, "wall_s": vit_ranks["wall_s"]}
+    return launches, out
+
+
+def _local_drops(idx, ranks, cfg):
+    """Per capacity factor of DROP_FACTORS and per layer, what would drop if
+    each of ``ranks`` data ranks routed only its own rows (capacity from its
+    own tokens): the counterfactual that global routing replaces."""
+    out = []
+    for factor in DROP_FACTORS:
+        by_layer = []
+        for layer in idx:
+            total = 0
+            for part in np.array_split(np.asarray(layer), ranks):
+                onehot = np.eye(cfg.n_experts, dtype=np.int64)[part]
+                rank = (onehot.cumsum(0) * onehot).sum(1) - 1
+                total += int((rank >= max(1, int(factor * part.size / cfg.n_experts))).sum())
+            by_layer.append(total)
+        out.append(by_layer)
+    return out
+
+
+def phase_pipeline_and_experts():
+    """Phases 38-41 (see the module docstring): the rank processes' cases
+    (run with phases 34-37's, ``_rank_cases``), then one rank's steps on the
+    whole batch in this process for each case.  Returns each case's kernel
+    launches summed over its ranks and the figures."""
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+
+    (two, _), (four, _) = _rank_cases()[2], _rank_cases()[4]
+    out = {"backend": "gloo across processes on one card; the stage hop through host copies",
+           "card": _card()}
+    launches = {}
+    for name, ranks in (("pp", two), ("pp_moe", two), ("pp_tp", four), ("ep", four)):
+        strategy, axes, options = PIPELINE_EXPERTS[name]
+        cfg, batch, seq = _sharded_lm_shape(name)
+        _free()
+        ts, params, opt_state, whole = _train_setup(cfg, AdamW(LR), batch_size=batch, seq=seq)
+        one_bytes = _state_bytes(params, opt_state)
+        one_block = _block_bytes(params)
+        one_experts = _block_bytes(params, ("wi", "wg", "wd", "router"))
+        one_dropped = one_idx = None
+        if name == "ep":
+            one_dropped, one_idx = _dropped_at_capacity(params, whole["tokens"], cfg)
+        torch.cuda.synchronize()
+        _reset_counts()
+        one = []
+        for _ in range(STEP_RANKS_STEPS):
+            params, opt_state, m = ts.step(params, opt_state, whole)
+            one.append((float(m["loss"]), float(m["grad_norm"])))
+        one_launches = _counts()
+        del ts, params, opt_state, whole
+        _free()
+        got = [r[name] for r in ranks]
+        rank_idx = next((g.pop("expert_idx") for g in got if "expert_idx" in g), None)
+        ok = all(abs(a - b) <= STEP_RANKS_BF16_RTOL * abs(b) for g in got
+                 for pair in zip(g["history"], one) for a, b in zip(*pair))
+        stages = axes.get("pipeline", 1)
+        micro = options.get("num_microbatches", 1) if stages > 1 else 1
+        want_launches = STEP_RANKS_STEPS * micro * cfg.n_layers // stages
+        log(f"{strategy} {axes} {options} on {len(got)} rank processes over gloo (not NCCL), "
+            f"bf16, the 671M width with {STEP_RANKS_LAYERS} layers"
+            + (f", {MOE_EXPERTS} experts at capacity factor {MOE_CAPACITY}"
+               if cfg.n_experts else "")
+            + f", batch {batch} x {seq}, {STEP_RANKS_STEPS} steps: (loss, grad_norm) per step "
+            + "; ".join(f"rank {i} {g['history']}" for i, g in enumerate(got))
+            + f"; one rank on the whole batch {one}")
+        for i, g in enumerate(got):
+            log(f"  rank {i}: kernels fwd/dq/dkv {g['launches']} (expected {want_launches} "
+                f"each: {STEP_RANKS_STEPS} steps x {micro} microbatches x "
+                f"{cfg.n_layers // stages} layers; one rank alone: {one_launches}); params "
+                f"{g['param_bytes']} B, AdamW {g['adam_bytes']} B, block {g['block_bytes']} B"
+                + (f", experts {g['expert_bytes']} B ({g['experts_held']} of {MOE_EXPERTS} "
+                   f"experts)" if cfg.n_experts else "")
+                + f" (one rank: {one_bytes[0]} B, {one_bytes[1]} B, block {one_block} B"
+                + (f", experts {one_experts} B" if cfg.n_experts else "")
+                + f"); collectives and hops over {STEP_RANKS_STEPS} steps, synchronized "
+                f"before and after, host copies through gloo: {g['walls']}; case wall "
+                f"{g['wall_s']:.1f} s")
+        if not ok:
+            raise AssertionError(f"{strategy} {axes} across ranks disagrees with one rank's step")
+        if not all(c == want_launches for g in got for c in g["launches"]):
+            raise AssertionError(f"{strategy} {axes}: kernel launches "
+                                 f"{[g['launches'] for g in got]}, expected {want_launches} "
+                                 "each on every rank")
+        # A stage holds its layers only: 1/S of the block's bytes under pp, less
+        # under pp_tp, whose tensor axis splits them again.
+        if stages > 1 and not all(g["block_bytes"] * stages == one_block if strategy == "pp"
+                                  else g["block_bytes"] * stages < one_block for g in got):
+            raise AssertionError(f"{strategy}: a stage does not hold 1/{stages} of the block")
+        case = {"axes": axes, "options": options, "ranks": got, "one_rank": one,
+                "one_rank_launches": one_launches, "one_rank_param_bytes": one_bytes[0],
+                "one_rank_adam_bytes": one_bytes[1], "one_rank_block_bytes": one_block,
+                "launches_expected_per_rank": want_launches}
+        if name == "ep":
+            if not all(g["experts_held"] * 2 == MOE_EXPERTS and
+                       g["expert_bytes"] * 4 == one_experts for g in got):
+                raise AssertionError("ep {data: 2, expert: 2}: a rank does not hold half of "
+                                     "the experts (a quarter of their bytes)")
+            differ = [int(np.sum(np.asarray(a) != np.asarray(b)))
+                      for a, b in zip(rank_idx, one_idx)]
+            local = _local_drops(one_idx, axes["data"], cfg)
+            log(f"  ep tokens dropped by layer at the initial weights, at capacity factors "
+                f"{DROP_FACTORS} (the model runs at {MOE_CAPACITY}): ranks "
+                f"{[g['dropped'] for g in got]}, one rank {one_dropped}, tokens whose expert "
+                f"differs {differ}; if each data rank routed only its rows: {local}")
+            if not all(abs(a - b) <= d for g in got for ranks_f, one_f in zip(g["dropped"],
+                                                                              one_dropped)
+                       for a, b, d in zip(ranks_f, one_f, differ)):
+                raise AssertionError("ep: the tokens dropped at capacity are not one rank's")
+            case.update(one_rank_expert_bytes=one_experts, one_rank_dropped=one_dropped,
+                        tokens_whose_expert_differs=differ, dropped_if_routed_locally=local)
+        launches[f"train_step_{name}"] = tuple(sum(g["launches"][i] for g in got)
+                                               for i in range(3))
+        out[name] = case
     return launches, out
 
 
@@ -4709,12 +4945,14 @@ def main() -> int:
     moe_launches, images["lm_train_moe"] = phase_moe_train()
     _free()
     sharded_launches, sharded = phase_sharded_strategies()
+    _free()
+    pipeline_launches, pipeline = phase_pipeline_and_experts()
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
                "lm_train_sp_ring_t16384": ring_launches, "lm_train_resumed": ckpt_launches,
                "lm_train_gang": gang_launches, "train_step_2_ranks": ranks_launches,
-               "lm_train_moe": moe_launches, **sharded_launches}
+               "lm_train_moe": moe_launches, **sharded_launches, **pipeline_launches}
     for i, (kind, record) in enumerate((("fwd", fwd), ("dq", bwd["dq"]), ("dkv", bwd["dkv"]))):
         record["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -4743,6 +4981,7 @@ def main() -> int:
     print(json.dumps({"gang": gang}))
     print(json.dumps({"image_classifiers_and_moe": images}))
     print(json.dumps({"sharded_strategies": sharded}))
+    print(json.dumps({"pipeline_and_experts": pipeline}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,15 +10,20 @@ Ported: the plain single-device forward, the dense MLP and the top-1
 (switch) MoE MLP with its balance loss, GQA, flash or dense attention, the
 remat policies (per-layer ``torch.utils.checkpoint``, selective for the
 named policies), the training loss with its blockwise cross-entropy, and
-the strategy templates without a pipeline (``parallel.templates.
-PORTED_STRATEGIES``): ``ddp`` (the plain path on each rank's rows of the
-batch), ``fsdp`` (each weight sharded by ``param_axes`` and gathered at its
-use), ``tp`` and ``tp_dp`` (heads, MLP columns and the vocabulary split over
-the ``tensor`` axis, Megatron style), ``sp_ring`` (ring attention over the
-sequence axis) and ``ulysses`` (all-to-all attention over it).  ``pp``,
-``pp_tp``, ``ep``, ``custom``, meshes with another axis above 1
-(``parallel.templates.check_mesh``) and MoE on a mesh above one rank raise
-``NotImplementedError`` naming their ROADMAP item.
+every strategy template (``parallel.templates.PORTED_STRATEGIES``):
+``ddp`` (the plain path on each rank's rows of the batch), ``fsdp`` (each
+weight sharded by ``param_axes`` and gathered at its use), ``tp`` and
+``tp_dp`` (heads, MLP columns and the vocabulary split over the ``tensor``
+axis, Megatron style), ``sp_ring`` (ring attention over the sequence axis),
+``ulysses`` (all-to-all attention over it), ``pp`` and ``pp_tp`` (the GPipe
+schedule over the ``pipeline`` axis, ``parallel/pipeline.py``), ``ep`` (the
+experts split over the ``expert`` axis) and ``custom`` (its rules, where the
+port splits each).  MoE routes the global batch on every template but a
+pipeline, whose stages route each microbatch of each data rank, as the
+reference's manual body does.  MoE under ``pp_tp``, a ``custom`` rule the
+port does not split and meshes with another axis above 1
+(``parallel.templates.check_mesh``) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,11 +45,19 @@ from torch.utils.checkpoint import (
 from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
 from polyaxon_tpu_torch.parallel.axes import Placement
 from polyaxon_tpu_torch.parallel.collectives import (
+    all_gather_cat,
     copy_to_group,
     gather_from_group,
+    group_size,
     reduce_from_group,
+    sum_over_group,
 )
 from polyaxon_tpu_torch.parallel.flash import flash_attention, kernel_takes
+from polyaxon_tpu_torch.parallel.pipeline import (
+    check_stages,
+    pipeline_scan,
+    pipeline_scan_composed,
+)
 from polyaxon_tpu_torch.parallel.ring import ring_attention_sharded
 from polyaxon_tpu_torch.parallel.templates import check_mesh
 from polyaxon_tpu_torch.parallel.ulysses import ulysses_attention_sharded
@@ -303,7 +316,8 @@ class _SavePolicy:
         return {"context_fn": functools.partial(create_selective_checkpoint_contexts, self)}
 
 
-def _moe_mlp(x: torch.Tensor, layer: Dict[str, torch.Tensor], cfg: TransformerConfig):
+def _moe_mlp(x: torch.Tensor, layer: Dict[str, torch.Tensor], cfg: TransformerConfig,
+             shard: Optional["_Shard"] = None):
     """Top-1 (switch) MoE MLP of x [B,T,D]: ``(y, gates [B,T,E] float32,
     expert_idx [B,T])``.
 
@@ -320,46 +334,106 @@ def _moe_mlp(x: torch.Tensor, layer: Dict[str, torch.Tensor], cfg: TransformerCo
     kept token into its slot of ``[E, C, D]`` and gathering each token's
     slot back computes the same function, without those one-hots (335 MB
     each in float32 at 8 × 1024 tokens, E 4, C 2560) or their products.
+
+    Across ranks (``shard``) it is the reference's semantics under GSPMD
+    (``polyaxon_tpu/models/transformer.py:268-315``) over the global batch,
+    this rank holding its shard of the tokens (``x``: its rows, and its
+    sequence shard of them) and, with an expert axis, its block of the
+    experts and of the router's columns:
+
+    - each rank's expert indices are gathered over the axes that split
+      tokens (:meth:`_Shard.rank_in_expert`, one int32 a token), so each
+      token's rank within its expert is its place in the global ``b·T + t``
+      order and ``capacity`` counts the global tokens;
+    - a rank computes its own kept tokens of its own experts, at most
+      ``min(capacity, its tokens)`` an expert;
+    - over the expert axis, tokens are replicated: Megatron's f before the
+      router and the experts, the router's logits gathered before the
+      softmax (its backward keeps this rank's columns), the gate the combine
+      reads through f (a rank combines only its experts' tokens, so the
+      gates' cotangent is summed over the axis before it reaches the
+      router; the balance loss's cotangent is whole on every rank and
+      counts once), and g summing the experts' outputs.
     """
     B, T, D = x.shape
     E = cfg.n_experts
     tokens = B * T
-    capacity = max(1, int(cfg.capacity_factor * tokens / E))
+    ex = None if shard is None else shard.expert_group
+    El = E // group_size(ex)
+    e0 = (0 if ex is None else ex.rank()) * El
+    x = copy_to_group(x, ex)
     logits = torch.einsum("btd,de->bte", x, layer["router"].to(x.dtype))
-    gates = torch.softmax(logits.float(), dim=-1)
+    gates = torch.softmax(gather_from_group(logits, -1, ex).float(), dim=-1)
     flat_gates = gates.reshape(tokens, E)
     expert_idx = flat_gates.argmax(dim=-1)
     gate_val = flat_gates.gather(1, expert_idx[:, None])[:, 0]
-    # [E, tokens]: each expert's running count along the tokens.
-    counts = (expert_idx == torch.arange(E, device=x.device)[:, None]).long().cumsum(dim=1)
-    rank = counts.gather(0, expert_idx[None])[0] - 1
-    # Slot e·C + rank of each kept token; dropped tokens go to a trash slot
-    # E·C, which the dispatch cuts off and the combine reads as zeros.
-    slot = torch.where(rank < capacity, expert_idx * capacity + rank, E * capacity)
-    expert_in = x.new_zeros(E * capacity + 1, D).index_copy(0, slot, x.reshape(tokens, D))
-    expert_in = expert_in[:-1].view(E, capacity, D)
+    split = shard is not None and bool(shard.token_groups)
+    if split:
+        rank, n_tokens = shard.rank_in_expert(expert_idx.view(B, T), E)
+    else:
+        rank, n_tokens = _rank_in_expert(expert_idx, E), tokens
+    capacity = max(1, int(cfg.capacity_factor * n_tokens / E))
+    local_e = expert_idx - e0
+    mine = rank < capacity
+    if ex is not None:
+        mine &= (local_e >= 0) & (local_e < El)
+        local_e = local_e.clamp(0, El - 1)
+    # Each kept token's slot e·C + its place among this rank's kept tokens of
+    # expert e (where the ranking counted only this rank's tokens, its rank);
+    # the others go to a trash slot E·C, which the dispatch cuts off and the
+    # combine reads as zeros.
+    cap = min(capacity, tokens)
+    place = _rank_in_expert(torch.where(mine, local_e, El), El + 1) if split else rank
+    slot = torch.where(mine, local_e * cap + place, El * cap)
+    expert_in = x.new_zeros(El * cap + 1, D).index_copy(0, slot, x.reshape(tokens, D))
+    expert_in = expert_in[:-1].view(El, cap, D)
     h = torch.einsum("ecd,edf->ecf", expert_in, layer["wi"].to(x.dtype))
     g = torch.einsum("ecd,edf->ecf", expert_in, layer["wg"].to(x.dtype))
     out = torch.einsum("ecf,efd->ecd", F.silu(g) * h, layer["wd"].to(x.dtype))
-    out = torch.cat([out.reshape(E * capacity, D), out.new_zeros(1, D)])
-    y = out.index_select(0, slot) * gate_val.to(x.dtype)[:, None]
+    out = torch.cat([out.reshape(El * cap, D), out.new_zeros(1, D)])
+    gate = copy_to_group(gate_val, ex).to(x.dtype)
+    y = reduce_from_group(out.index_select(0, slot) * gate[:, None], ex)
     return y.reshape(B, T, D), gates, expert_idx.reshape(B, T)
 
 
-def moe_aux_loss(gates: torch.Tensor, expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+def _rank_in_expert(expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each token's rank among the tokens of its expert, in order: the
+    running count of each expert along the flattened tokens (the JAX
+    ``_moe_mlp``'s ``cumsum(onehot) * onehot - 1``, ``transformer.py:288``)."""
+    flat = expert_idx.reshape(-1).long()
+    counts = (flat == torch.arange(n_experts, device=flat.device)[:, None]).long().cumsum(dim=1)
+    return counts.gather(0, flat[None])[0] - 1
+
+
+def moe_aux_loss(gates: torch.Tensor, expert_idx: torch.Tensor, n_experts: int,
+                 groups=()) -> torch.Tensor:
     """Switch-transformer load-balancing loss of one layer (JAX
     ``moe_aux_loss``, ``transformer.py:309-315``; :func:`loss_fn` takes the
-    mean over layers): ``E · Σ_e mean gate_e · share of tokens routed to e``."""
-    me = gates.reshape(-1, n_experts).mean(dim=0)
-    ce = F.one_hot(expert_idx.reshape(-1), n_experts).float().mean(dim=0)
-    return n_experts * (me * ce).sum()
+    mean over layers): ``E · Σ_e mean gate_e · share of tokens routed to e``.
+
+    ``groups``: the process groups of the axes that split the tokens; the
+    means are then over the global tokens (the sums all-reduced with
+    :func:`~polyaxon_tpu_torch.parallel.collectives.sum_over_group`, whose
+    backward sums the ranks' cotangents: each rank's loss holds the global
+    value), as the reference takes them over the global batch."""
+    me = gates.reshape(-1, n_experts).sum(dim=0)
+    ce = F.one_hot(expert_idx.reshape(-1), n_experts).float().sum(dim=0)
+    n = expert_idx.numel()
+    for group in groups:
+        me, ce = sum_over_group(me, group), sum_over_group(ce, group)
+        n *= group.size()
+    return n_experts * ((me / n) * (ce / n)).sum()
 
 
 class _Shard:
     """What one forward under a template needs beyond the config: the
     parameters' :class:`~polyaxon_tpu_torch.parallel.axes.Placement`, each
     block weight's spec within a layer (its ``layers`` dimension unbound),
-    and the sequence axis of the ring or of Ulysses."""
+    the sequence axis of the ring or of Ulysses, the pipeline axis, and
+    MoE's routing across ranks: the axes above 1 that split the tokens
+    (the batch axes, then the sequence axis; none under a pipeline, whose
+    stages route each microbatch of each data rank) and the expert axis's
+    group."""
 
     def __init__(self, cfg: TransformerConfig, template, mesh) -> None:
         self.mesh = mesh
@@ -369,6 +443,39 @@ class _Shard:
                             for name in param_axes(cfg)["block"]}
         self.ring_axis = template.ring_axis
         self.ulysses_axis = template.ulysses_axis
+        self.pipeline_axis = template.pipeline_axis
+        expert_axis = self.placement.expert_axis
+        self.expert_group = None if expert_axis is None else mesh.group(expert_axis)
+        wide = lambda a: a is not None and mesh.shape.get(a, 1) > 1  # noqa: E731
+        self.token_batch_axes: tuple = ()
+        self.token_seq_axis: Optional[str] = None
+        if self.pipeline_axis is None:
+            self.token_batch_axes = tuple(a for a in template.batch_axes if wide(a))
+            seq = self.ring_axis or self.ulysses_axis
+            self.token_seq_axis = seq if wide(seq) else None
+
+    @property
+    def token_groups(self) -> list:
+        """The process groups of the axes that split the tokens."""
+        axes = self.token_batch_axes + ((self.token_seq_axis,) if self.token_seq_axis else ())
+        return [self.mesh.group(a) for a in axes]
+
+    def rank_in_expert(self, expert_idx: torch.Tensor, n_experts: int):
+        """``(rank, n)``: each of this rank's tokens' rank among its expert's
+        tokens in the global ``b·T + t`` order (flattened, this rank's
+        ``[B, T]`` block), and the global token count.  ``expert_idx``: this
+        rank's ``[B, T]``, gathered as int32 over the batch axes (rows, the
+        innermost axis first) and the sequence axis (columns)."""
+        B, T = expert_idx.shape
+        whole = expert_idx.to(torch.int32)
+        for a in reversed(self.token_batch_axes):
+            whole = all_gather_cat(whole, 0, self.mesh.group(a))
+        if self.token_seq_axis is not None:
+            whole = all_gather_cat(whole, 1, self.mesh.group(self.token_seq_axis))
+        rank = _rank_in_expert(whole, n_experts).view(whole.shape)
+        bi, _ = self.mesh.shard(self.token_batch_axes)
+        si = 0 if self.token_seq_axis is None else self.mesh.rank(self.token_seq_axis)
+        return rank[bi * B:(bi + 1) * B, si * T:(si + 1) * T].reshape(-1), whole.numel()
 
 
 def _layer(x, positions, layer, cfg: TransformerConfig, use_flash: bool,
@@ -422,7 +529,7 @@ def _layer(x, positions, layer, cfg: TransformerConfig, use_flash: bool,
 
     h = _rmsnorm(x, layer["mlp_norm"])
     if c.n_experts:
-        y, gates, expert_idx = _moe_mlp(h, layer, c)
+        y, gates, expert_idx = _moe_mlp(h, layer, c, shard)
         return x + y, (gates, expert_idx)
     h = copy_to_group(h, tp)
     up = torch.einsum("btd,df->btf", h, layer["wi"].to(h.dtype))
@@ -466,9 +573,9 @@ def forward(
     prefill fills its cache from them (plain path only: no template, no
     MoE).  With ``cfg.n_experts`` the result is ``(logits or hidden, (gates
     [L,B,T,E], expert_idx [L,B,T]))``, the per-layer routing that
-    :func:`loss_fn`'s balance loss reads; MoE runs on one rank only (a mesh
-    above one rank raises: the reference routes the global batch, ROADMAP
-    item 7).
+    :func:`loss_fn`'s balance loss reads (this rank's tokens; routed over the
+    global batch, :func:`_moe_mlp`); under a pipeline ``(..., {"aux_loss":
+    scalar})``, the balance loss reduced inside the schedule.
     ``return_hidden`` returns the final-norm hidden states [B,T,D] in the
     compute dtype instead of the logits, for :func:`loss_fn`'s blockwise
     cross-entropy.  With ``cfg.remat`` each layer is checkpointed while
@@ -488,7 +595,14 @@ def forward(
     their sequence axis, ``tokens`` being this rank's sequence shard of its
     rows and ``positions`` their global positions
     (``runtime.train.shard_batch`` cuts both; ``positions`` defaults to
-    ``arange(T)``, a shard at offset 0).
+    ``arange(T)``, a shard at offset 0).  Under ``pp`` and ``pp_tp``
+    (``template.pipeline_axis``) the layer loop is
+    :func:`~polyaxon_tpu_torch.parallel.pipeline.pipeline_scan` (or its
+    composed form) over the rank's stage, the same ``_layer`` under the same
+    checkpoint as the stage body (the reference's ``jax.checkpoint(block)``
+    inside the stage, :500-513); every rank of the pipeline returns the
+    whole output.  ``ep`` (and ``tp`` with experts) runs the rank's
+    experts on tokens replicated over the expert axis.
     """
     c = cfg
     dev = resolve_device(device)
@@ -497,12 +611,6 @@ def forward(
         raise NotImplementedError(
             "return_kv supports the plain-scan dense path only (no parallelism "
             "template, no MoE)"
-        )
-    if c.n_experts and mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"MoE on a mesh {dict(mesh.shape)} above one rank is not ported yet: the "
-            "reference takes capacity, in-expert ranks and the balance loss over the global "
-            "batch (ROADMAP item 7: MoE across ranks, the ep strategy)"
         )
     require_on(dev, embed=params["embed"])
     tokens = tokens.to(dev)
@@ -514,25 +622,50 @@ def forward(
 
     shard = _Shard(c, template, mesh) if template is not None else None
     tp = shard.tp if shard is not None else None
+    if shard is not None and shard.pipeline_axis is not None:
+        check_stages(c.n_layers, mesh.shape[shard.pipeline_axis])
+        if c.n_experts and (template.pipeline_composed or tp is not None
+                            or shard.expert_group is not None):
+            raise NotImplementedError(
+                f"MoE under {template.name!r} (a composed pipeline, or one with a tensor "
+                "or expert axis) is not ported yet: there the reference routes each "
+                "microbatch over the data axis's global tokens, cut from the global batch "
+                "before the data split (ROADMAP item 7: MoE across ranks under pp_tp, "
+                "multi-process and parallelism)"
+            )
     table = (params["embed"] if shard is None else shard.placement.at(params, "embed")).to(c.dtype)
     x = table[tokens] if tp is None else _vocab_parallel_embed(table, tokens, tp)  # [B,T,D]
     use_flash = _use_flash(c, x, c.n_heads // (1 if tp is None else tp.size()))
     policy = _SavePolicy(c.remat_policy)
     remat = c.remat and torch.is_grad_enabled()
-    # unbind, not w[i]: its backward stacks the per-layer grads once.
-    per_layer = {name: w.unbind(0) for name, w in params["block"].items()}
-    auxes = []
-    for i in range(c.n_layers):
-        layer = {name: ws[i] for name, ws in per_layer.items()}
-        args = (x, positions, layer, c, use_flash, policy, return_kv, shard)
+
+    def block(h, pos, layer):
+        args = (h, pos, layer, c, use_flash, policy, return_kv, shard)
         if remat:
-            x, aux = checkpoint(_layer, *args, use_reentrant=False, **policy.checkpoint_kwargs())
-        else:
-            x, aux = _layer(*args)
-        auxes.append(aux)
-    stacked = None  # the layers' aux on a leading layer axis: (k, v) or (gates, expert_idx)
-    if return_kv or c.n_experts:
-        stacked = tuple(torch.stack(parts) for parts in zip(*auxes))
+            return checkpoint(_layer, *args, use_reentrant=False, **policy.checkpoint_kwargs())
+        return _layer(*args)
+
+    # The layers' aux: on a leading layer axis, (k, v) or (gates,
+    # expert_idx); under a pipeline the balance loss reduced inside the
+    # schedule, as the reference's {"aux_loss": ...} (:622-628).
+    stacked = None
+    if shard is not None and shard.pipeline_axis is not None:
+        scan = pipeline_scan_composed if template.pipeline_composed else pipeline_scan
+        aux_fn = (lambda a: moe_aux_loss(a[0], a[1], c.n_experts)) if c.n_experts else None
+        x, pp_aux = scan(block, x, positions, params["block"], mesh,
+                         axis=shard.pipeline_axis, num_microbatches=template.num_microbatches,
+                         batch_axes=template.batch_axes, aux_fn=aux_fn)
+        if c.n_experts:
+            stacked = {"aux_loss": pp_aux}
+    else:
+        # unbind, not w[i]: its backward stacks the per-layer grads once.
+        per_layer = {name: w.unbind(0) for name, w in params["block"].items()}
+        auxes = []
+        for i in range(c.n_layers):
+            x, aux = block(x, positions, {name: ws[i] for name, ws in per_layer.items()})
+            auxes.append(aux)
+        if return_kv or c.n_experts:
+            stacked = tuple(torch.stack(parts) for parts in zip(*auxes))
 
     x = _rmsnorm(x, params["final_norm"] if shard is None
                  else shard.placement.at(params, "final_norm"))
@@ -642,7 +775,7 @@ def loss_fn(
                   positions=batch.get("positions"), return_hidden=chunked or tp is not None,
                   device=dev)
     if cfg.n_experts:
-        out, (gates, expert_idx) = out
+        out, aux = out
     if chunked or tp is not None:
         unembed = params["unembed"] if shard is None else shard.placement.at(params, "unembed")
         loss = _blockwise_ce(out, unembed, targets, mask, cfg.ce_chunk if chunked else T, tp)
@@ -655,6 +788,11 @@ def loss_fn(
             mask = mask.float()
             loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     if cfg.n_experts:
-        aux = torch.stack([moe_aux_loss(g, i, cfg.n_experts) for g, i in zip(gates, expert_idx)])
-        loss = loss + MOE_AUX_WEIGHT * aux.mean()
+        if isinstance(aux, dict):  # a pipeline's, reduced inside the schedule (:672-680)
+            aux_loss = aux["aux_loss"]
+        else:
+            groups = shard.token_groups if shard is not None else ()
+            aux_loss = torch.stack([moe_aux_loss(g, i, cfg.n_experts, groups)
+                                    for g, i in zip(*aux)]).mean()
+        loss = loss + MOE_AUX_WEIGHT * aux_loss
     return loss

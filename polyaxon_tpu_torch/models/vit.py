@@ -30,14 +30,16 @@ from polyaxon_tpu_torch.models.transformer import _rmsnorm
 from polyaxon_tpu_torch.parallel.axes import Placement
 from polyaxon_tpu_torch.parallel.templates import check_mesh
 
-#: Templates whose compute the image models do not split yet (ROADMAP item 7).
-UNPORTED_IMAGE_STRATEGIES = ("tp", "tp_dp", "ulysses")
+#: Templates whose compute the image models do not split yet (ROADMAP item
+#: 7).  The reference's ViT takes ``layers: pipeline`` as a GSPMD placement,
+#: not as a schedule; the port's pipeline is the transformer's.
+UNPORTED_IMAGE_STRATEGIES = ("tp", "tp_dp", "ulysses", "pp", "pp_tp", "ep", "custom")
 
 
 def image_placement(axes_tree: Any, template, mesh) -> Placement:
     """The image models' :class:`Placement` under ``template``, or raise on
-    a template whose compute they do not split (``tp``, ``tp_dp``,
-    ``ulysses``: ROADMAP item 7)."""
+    a template whose compute they do not split (every one but ``ddp`` and
+    ``fsdp``: ROADMAP item 7)."""
     if template is not None and template.name in UNPORTED_IMAGE_STRATEGIES:
         raise NotImplementedError(
             f"strategy {template.name!r} on the image models is not ported yet; ddp and "

@@ -123,19 +123,19 @@ def spec_leaves(specs: Any) -> list:
     return [specs]
 
 
-def gather_shards(t: torch.Tensor, spec: Spec, mesh, keep: Optional[str] = None) -> torch.Tensor:
+def gather_shards(t: torch.Tensor, spec: Spec, mesh, keep: Sequence[str] = ()) -> torch.Tensor:
     """``t``, this rank's shard under ``spec``, gathered along every
-    dimension split over an axis other than ``keep``
+    dimension split over axes not in ``keep``
     (:func:`~polyaxon_tpu_torch.parallel.collectives.gather_along`: its
     backward reduce-scatters the grad into the shard).  Every rank of those
     axes must call it."""
     for dim, entry in enumerate(spec):
         axes = entry_axes(entry)
-        if keep in axes:
+        if any(a in keep for a in axes):
             if len(axes) > 1:
                 raise NotImplementedError(
-                    f"a dimension split over {axes} with the tensor-parallel axis among "
-                    "them is not ported (ROADMAP item 7: multi-process and parallelism)")
+                    f"a dimension split over {axes} with a local axis among them is not "
+                    "ported (ROADMAP item 7: multi-process and parallelism)")
             continue
         for a in reversed(axes):  # innermost first: the blocks of each outer index
             t = gather_along(t, dim, mesh.group(a))
@@ -162,10 +162,18 @@ class Placement:
 
     ``specs`` is the spec tree of ``axes_tree`` under the template's rules
     (None without a template and mesh: every parameter whole).
-    ``tp_axis`` is the mesh axis, above 1, the rules split the heads over
-    (``tensor`` under ``tp`` and ``tp_dp``): a dimension split over it stays
-    split at use, where the tensor-parallel compute runs on the rank's
-    block; every other split dimension is gathered
+    The *local* axes are those whose split dimensions stay split at use,
+    each named by the template, none by the strategy's name:
+
+    - ``tp_axis``, the mesh axis, above 1, the rules split the heads over
+      (``tensor`` under ``tp``, ``tp_dp`` and ``pp_tp``), where the
+      tensor-parallel compute runs on the rank's block;
+    - the template's ``pipeline_axis``: a stage keeps its layers;
+    - ``expert_axis``, the mesh axis, above 1, of the ``experts`` rule
+      (``expert`` under ``ep``, ``tensor`` under ``tp``): a rank computes
+      its own experts.
+
+    Every other split dimension is gathered
     (:func:`~polyaxon_tpu_torch.parallel.collectives.gather_along`, whose
     backward reduce-scatters the grad into the rank's shard).
     """
@@ -174,11 +182,18 @@ class Placement:
         self.mesh = mesh
         self.specs = None
         self.tp_axis: Optional[str] = None
+        self.expert_axis: Optional[str] = None
+        self.local_axes: Tuple[str, ...] = ()
         if template is not None and mesh is not None:
             self.specs = tree_specs(axes_tree, template.rules, mesh.shape)
-            heads = template.rules.get("heads")
-            if isinstance(heads, str) and mesh.shape.get(heads, 1) > 1:
-                self.tp_axis = heads
+
+            def wide(target):
+                return target if isinstance(target, str) and mesh.shape.get(target, 1) > 1 else None
+
+            self.tp_axis = wide(template.rules.get("heads"))
+            self.expert_axis = wide(template.rules.get("experts"))
+            local = (self.tp_axis, wide(template.pipeline_axis), self.expert_axis)
+            self.local_axes = tuple(dict.fromkeys(a for a in local if a is not None))
 
     @property
     def tp_group(self):
@@ -203,5 +218,5 @@ class Placement:
 
     def use(self, w: torch.Tensor, spec: Spec) -> torch.Tensor:
         """This rank's shard ``w`` gathered along every dimension that
-        ``spec`` splits over an axis other than :attr:`tp_axis`."""
-        return gather_shards(w, spec, self.mesh, self.tp_axis)
+        ``spec`` splits over an axis not in :attr:`local_axes`."""
+        return gather_shards(w, spec, self.mesh, self.local_axes)

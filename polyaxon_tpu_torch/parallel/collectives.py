@@ -13,7 +13,12 @@ them itself:
 - :func:`gather_from_group`: all-gather forward, this rank's slice
   backward; a tensor-parallel output that every rank then uses whole;
 - :func:`all_to_all_swap`: Ulysses' swap of a sharded dimension for
-  another; its backward is the reverse swap.
+  another; its backward is the reverse swap;
+- :func:`sum_over_group`: all-reduce forward and backward; a sum every
+  rank uses as its own term of one objective (MoE's global balance
+  statistics, whose ranks' losses the train step weighs by their counts);
+- :func:`send_to_next`: the pipeline's stage hop, rank s to s + 1 (rank 0
+  gets zeros); its backward is the reverse hop.
 
 Each is the identity for a group of one (None).  They call the list forms
 (``dist.all_gather``, ``dist.reduce_scatter``, ``dist.all_reduce``,
@@ -76,6 +81,59 @@ def _swap(x: torch.Tensor, split_dim: int, cat_dim: int, group: dist.ProcessGrou
         got = [torch.empty_like(parts[0]) for _ in range(n)]
         dist.all_to_all(got, parts, group=group)
     return torch.cat(got, dim=cat_dim)
+
+
+def hop(x: torch.Tensor, group: dist.ProcessGroup, reverse: bool = False) -> torch.Tensor:
+    """Send ``x`` to rank r + 1 of ``group`` and return what rank r − 1 sent
+    (``reverse``: to r − 1, from r + 1); the end with no sender gets zeros,
+    the end with no receiver sends nothing: the reference's ``lax.ppermute``
+    along the stages (``polyaxon_tpu/parallel/pipeline.py:124``) without its
+    wrap-around, whose payload stage 0 discards.  Every rank of the
+    group calls it together: the send and the receive go out as one
+    ``batch_isend_irecv``, so no rank blocks in a send its peer has not
+    met with a receive."""
+    n, r = group.size(), group.rank()
+    step = -1 if reverse else 1
+    dst, src = r + step, r - step
+    # Gloo's send and receive take no CUDA tensor: on the card's torch 2.11
+    # every form (send/recv, isend/irecv, batch_isend_irecv) fails with
+    # "writev ...: Bad address" (tools/gloo_probe.py), as gloo writes the
+    # device pointer to its socket.  On a gloo group a CUDA tensor goes
+    # through a host copy each way: the bytes of the hop, no more.  NCCL
+    # takes the tensor itself.
+    staged = x.is_cuda and group.name() == "gloo"
+    sent = (x.cpu() if staged else x).contiguous()
+    got = torch.zeros_like(sent)
+    ops = []
+    if 0 <= dst < n:
+        ops.append(dist.P2POp(dist.isend, sent, group=group, group_peer=dst))
+    if 0 <= src < n:
+        ops.append(dist.P2POp(dist.irecv, got, group=group, group_peer=src))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return got.to(x.device) if staged else got
+
+
+class _SendToNext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return hop(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return hop(grad, ctx.group, reverse=True), None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
 
 
 class _GatherAlong(torch.autograd.Function):
@@ -166,3 +224,18 @@ def all_to_all_swap(x: torch.Tensor, split_dim: int, cat_dim: int,
     if group_size(group) == 1:
         return x
     return _AllToAllSwap.apply(x, split_dim, cat_dim, group)
+
+
+def sum_over_group(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """The sum of the group's ``x``; the backward sums the group's grads.
+    The rule for a sum that each rank puts into its own loss: rank r's
+    share of the sum gets the cotangents of every rank's use of it."""
+    return x if group_size(group) == 1 else _SumOverGroup.apply(x, group)
+
+
+def send_to_next(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """What rank r − 1 of ``group`` sent (zeros on rank 0), this rank's
+    ``x`` going to rank r + 1 (the reference's ``lax.ppermute`` along the
+    stages, ``polyaxon_tpu/parallel/pipeline.py:124``); the backward is the
+    reverse hop.  The identity for a group of one."""
+    return x if group_size(group) == 1 else _SendToNext.apply(x, group)

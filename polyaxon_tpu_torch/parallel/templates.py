@@ -6,10 +6,15 @@ axis sizes to a :class:`StrategyTemplate`, the same fields and the same
 errors as there, as data.  The rules map logical axes (``batch``, ``seq``,
 ``embed``, ...) to mesh axes; in the port they are read, not compiled
 (``parallel/axes.py`` turns them into each parameter's shard).
-:data:`PORTED_STRATEGIES` run (:func:`polyaxon_tpu_torch.models.transformer.
-forward`, :func:`polyaxon_tpu_torch.runtime.train.build_train_step`) with
-each of their axes across ranks (:func:`check_mesh`); ``pp``, ``pp_tp``,
-``ep`` and ``custom`` resolve here but raise there (ROADMAP item 7).
+Every strategy is in :data:`PORTED_STRATEGIES`: the transformer
+(:func:`polyaxon_tpu_torch.models.transformer.forward`,
+:func:`polyaxon_tpu_torch.runtime.train.build_train_step`) runs each with
+its axes across ranks (:func:`check_mesh`).  What still raises, naming
+ROADMAP item 7: a ``custom`` rule the port does not split
+(:func:`check_rules`), MoE under ``pp_tp`` (``transformer.forward``), the
+image models under any strategy but ``ddp`` and ``fsdp``
+(``models/vit.py``), and ``checkpoint-now`` under a template that shards
+the params (``builtins/trainers.py``).
 """
 
 from __future__ import annotations
@@ -23,9 +28,13 @@ AxisRules = Mapping[str, Union[str, Tuple[str, ...], None]]
 #: Mesh axes over which the *batch* may be sharded (data-like axes).
 DATA_AXES = ("replica", "data", "fsdp")
 
-#: The strategies the port's forward and train step run; the others
-#: resolve here and raise there (ROADMAP item 7).
-PORTED_STRATEGIES = ("ddp", "fsdp", "tp", "tp_dp", "sp_ring", "ulysses")
+#: The strategies the port's forward and train step run: all of them.
+PORTED_STRATEGIES = ("ddp", "fsdp", "tp", "tp_dp", "pp", "pp_tp", "sp_ring", "ulysses", "ep",
+                     "custom")
+#: The logical axes of the transformer's parameters and activations that a
+#: rule may map, and which :func:`check_rules` reads for each.
+_TENSOR_RULES = ("heads", "mlp", "vocab")
+_ITEM_7 = "(ROADMAP item 7: multi-process and parallelism)"
 
 
 class RuntimeLayerError(Exception):
@@ -33,21 +42,96 @@ class RuntimeLayerError(Exception):
     same name, kept apart so the port imports nothing of that package)."""
 
 
+def _axes(target) -> Tuple[str, ...]:
+    if target is None:
+        return ()
+    return (target,) if isinstance(target, str) else tuple(target)
+
+
+def check_rules(template: "StrategyTemplate") -> None:
+    """Raise on a rule the port does not split (only a ``custom`` template
+    can hold one).  The port realizes a rule through a mechanism of its own,
+    so it takes:
+
+    - ``batch``: axes among the template's batch axes;
+    - ``seq``: the ring axis (``ulysses``: its sequence axis);
+    - ``heads``, ``mlp``, ``vocab``: none, or all three one axis (Megatron's
+      split of the heads, MLP columns and vocabulary); ``attn_heads`` and
+      ``act_mlp``: none or that axis (the Ulysses axis under ``ulysses``);
+    - ``embed``: axes other than the tensor axis (gathered at each use);
+    - ``layers``: the pipeline axis, which it must name when there is one;
+    - ``experts``: one axis that splits no tokens and is not the pipeline's.
+
+    Anything else (``head_dim``, a tuple for the tensor axis, an unknown
+    name) raises ``NotImplementedError`` naming the rule."""
+    rules = template.rules
+
+    def refuse(name, why):
+        raise NotImplementedError(
+            f"strategy {template.name!r}: the rule {name!r} -> {rules.get(name)!r} is not "
+            f"ported ({why}) {_ITEM_7}")
+
+    tensor = {rules.get(n) for n in _TENSOR_RULES}
+    if len(tensor) > 1:
+        refuse("heads", "heads, mlp and vocab must map to one axis, not "
+                        f"{sorted(map(str, tensor))}")
+    tensor_axis = tensor.pop()
+    if tensor_axis is not None and not isinstance(tensor_axis, str):
+        refuse("heads", "the tensor-parallel split takes one mesh axis")
+    tokens = set(template.batch_axes) | set(_axes(template.ring_axis)) | set(
+        _axes(template.ulysses_axis))
+    for name, target in rules.items():
+        axes = _axes(target)
+        if not axes or name in _TENSOR_RULES:
+            continue
+        if name == "batch":
+            if not set(axes) <= set(template.batch_axes):
+                refuse(name, f"the batch splits over the batch axes {template.batch_axes}")
+        elif name == "seq":
+            if axes != _axes(template.ring_axis or template.ulysses_axis):
+                refuse(name, "the sequence splits over a ring or Ulysses axis only")
+        elif name in ("attn_heads", "act_mlp"):
+            if axes != _axes(tensor_axis) and axes != _axes(template.ulysses_axis):
+                refuse(name, "it may name only the tensor or Ulysses axis")
+        elif name == "embed":
+            if tensor_axis in axes:
+                refuse(name, "the tensor axis splits the heads, not the embedding")
+        elif name == "layers":
+            if axes != _axes(template.pipeline_axis):
+                refuse(name, "the layers split over the pipeline axis only")
+        elif name == "experts":
+            if len(axes) > 1 or axes[0] in tokens or axes[0] == template.pipeline_axis:
+                refuse(name, "the experts split over one axis that splits no tokens")
+        else:
+            refuse(name, "the port splits no such axis")
+    if template.pipeline_axis is not None:
+        if _axes(rules.get("layers")) != (template.pipeline_axis,):
+            refuse("layers", f"a pipeline over {template.pipeline_axis!r} needs the rule "
+                             f"layers -> {template.pipeline_axis!r}")
+        if template.ring_axis is not None or template.ulysses_axis is not None:
+            refuse("seq", "a pipeline runs no sequence axis")
+
+
 def check_ported(template: Optional["StrategyTemplate"]) -> None:
-    """Raise unless ``template`` is None or one of :data:`PORTED_STRATEGIES`."""
-    if template is not None and template.name not in PORTED_STRATEGIES:
+    """Raise unless ``template`` is None or one of :data:`PORTED_STRATEGIES`
+    whose rules the port splits (:func:`check_rules`)."""
+    if template is None:
+        return
+    if template.name not in PORTED_STRATEGIES:
         raise NotImplementedError(
             f"strategy {template.name!r} is not ported yet; {', '.join(PORTED_STRATEGIES)} "
-            "are (ROADMAP item 7: multi-process and parallelism)"
+            f"are {_ITEM_7}"
         )
+    check_rules(template)
 
 
 def check_mesh(template: Optional["StrategyTemplate"], mesh) -> Optional[str]:
     """The ring axis a ported template runs over (None: no ring), or raise
-    on what the port does not run yet: an unported strategy, a mesh above
-    one rank without a template, or a mesh axis above 1 that the template
-    does not spread over: its batch axes, its ring or Ulysses sequence axis
-    and every axis its rules name (the fsdp axis, ``tensor``)."""
+    on what the port does not run yet: a rule it does not split
+    (:func:`check_ported`), a mesh above one rank without a template, or a
+    mesh axis above 1 that the template does not spread over: its batch
+    axes, its ring or Ulysses sequence axis, its pipeline axis and every
+    axis its rules name (the fsdp axis, ``tensor``, ``expert``)."""
     if template is None:
         if mesh is not None and mesh.size > 1:
             raise NotImplementedError(
@@ -58,15 +142,16 @@ def check_mesh(template: Optional["StrategyTemplate"], mesh) -> Optional[str]:
     check_ported(template)
     if mesh is None:
         raise ValueError(f"strategy template {template.name!r} needs a mesh")
-    spread = set(template.batch_axes) | {template.ring_axis, template.ulysses_axis}
+    spread = set(template.batch_axes) | {template.ring_axis, template.ulysses_axis,
+                                         template.pipeline_axis}
     for target in template.rules.values():
         spread.update((target,) if isinstance(target, str) else target or ())
     wide = {a: n for a, n in mesh.shape.items() if n > 1 and a not in spread}
     if wide:
         raise NotImplementedError(
             f"strategy {template.name!r} on mesh axes {wide} is not ported yet: only its "
-            "batch axes, its sequence axis and the axes its rules shard parameters over "
-            "may span ranks (ROADMAP item 7: multi-process and parallelism)"
+            "batch axes, its sequence or pipeline axis and the axes its rules shard "
+            "parameters over may span ranks (ROADMAP item 7: multi-process and parallelism)"
         )
     return template.ring_axis
 
@@ -84,7 +169,7 @@ class StrategyTemplate:
     ring_axis: Optional[str] = None
     #: Ulysses sequence axis (all-to-all attention)
     ulysses_axis: Optional[str] = None
-    #: layers are pipeline stages over this mesh axis (pp; not ported)
+    #: layers are pipeline stages over this mesh axis (pp, pp_tp)
     pipeline_axis: Optional[str] = None
     #: microbatch count for the pipeline schedule
     num_microbatches: int = 1

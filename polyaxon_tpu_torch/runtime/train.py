@@ -226,7 +226,10 @@ def build_train_step(
     rank holds as many positions), and the grads, the weighted losses and
     the counts are summed over the mesh axes that split the batch (the
     template's batch axes and its ring or Ulysses sequence axis), never over
-    ``tensor``, whose ranks hold the same rows; dividing by the summed count
+    ``tensor`` or ``expert``, whose ranks hold the same rows, nor over
+    ``pipeline``, whose stages compute the loss on the same broadcast
+    outputs (each stage's block grads are its own, ``parallel/pipeline.py``;
+    ``init`` splits the block's ``layers`` over it); dividing by the summed count
     gives the grads and the loss of the global mean, masked or not, as the
     reference's step takes them on the global batch (its masked loss is
     ``sum(nll * mask) / max(sum(mask), 1)``, ``models/transformer.py:667-670``).

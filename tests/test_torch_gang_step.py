@@ -6,7 +6,9 @@ whole under ``ddp``, ``sp_ring`` and ``ulysses``) and of the global batch
 (``TrainStep.place_batch``); the JAX side runs ``build_train_step`` on the
 same mesh over the conftest's virtual CPU devices, with the same template.
 Weights come from the JAX ``init_params`` and cross through numpy
-(``params_from_jax``); tokens and masks come from numpy.  The config is the
+(``params_from_jax``); tokens and masks come from numpy (the JAX side takes
+a mask of ones where the port takes none: the same loss, and one compiled
+step for both).  The config is the
 small float32 one of ``tests/test_torch_train.py`` (vocab 256, d 64, 2
 layers, 4 heads × 16, ff 128) at batch 4 × 64 with dense attention (some
 cases with 2 kv heads, or Ulysses over the flash wrapper: the JAX kernel in
@@ -22,8 +24,10 @@ per-step loss and grad norm atol 1e-5; ranks that hold the same shard of a
 parameter end with it bit for bit (they apply the same summed grads); each
 rank's shards after 3 steps atol 1e-5 (as ``test_three_train_steps_match_jax``) for every
 element whose first-step gradient (the JAX gradient of the loss at the
-initial weights) is at least ``GRAD_FLOOR`` = 1e-5 in magnitude, about a
-150th of the median; the elements below it are held to the bound of Adam's
+initial weights; under a pipeline with experts, whose stages route each
+microbatch on its own, of that template's loss) is at least
+``GRAD_FLOOR`` = 1e-5 in magnitude, about a 150th of the median; the
+elements below it are held to the bound of Adam's
 update instead, |Δ| ≤ 2·steps·lr.  Adam divides each update by √v̂ + 1e-8:
 where an element's grads stay near 0 (one ``wi`` element here has 2.9e-10 at
 the first step), a float32 summation error in them (an error relative to the
@@ -37,6 +41,7 @@ parameter by up to lr a step.
 
 from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -103,36 +108,53 @@ def _paths(tree, prefix=""):
             yield f"{prefix}{key}", tree[key]
 
 
+def jax_batch(masked: bool):
+    """The JAX side's batch: ``batch_np``'s, with a mask of ones where the
+    port's has none (the same loss, and one compiled program for both)."""
+    batch = batch_np(masked)
+    batch.setdefault("mask", np.ones((BATCH, SEQ), np.float32))
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
 @functools.lru_cache(maxsize=None)
-def jax_grad1(extra_items, masked):
-    """The JAX gradient of the loss over the whole batch at the initial params."""
+def jax_grad_fn(extra_items):
+    """The jitted JAX gradient of the loss over the whole batch."""
     jcfg = jtr.TransformerConfig(dtype=jnp.float32, **{**SMALL, **dict(extra_items)})
-    params = jtr.init_params(jax.random.PRNGKey(0), jcfg)
-    whole = {k: jnp.asarray(v) for k, v in batch_np(masked).items()}
-    grad1 = jax.jit(jax.grad(lambda p: jtr.loss_fn(p, whole, jcfg)))(params)
-    return jax.tree.map(np.asarray, grad1)
+    return jax.jit(jax.grad(lambda p, b: jtr.loss_fn(p, b, jcfg)))
 
 
 @functools.lru_cache(maxsize=None)
-def jax_run(strategy, axes_items, masked, extra_items=()):
-    """The JAX step on the virtual mesh: the initial params, each step's
-    loss and grad norm, the final params, the gradient of the loss over the
-    whole batch at the initial params, and per param path each device's
-    index into it and the shards ``init`` placed on each device (devices in
-    the mesh's row-major order, the port's ranks)."""
+def jax_step(strategy, axes_items, extra_items, options_json):
+    """The JAX train step on the virtual mesh, built (and compiled) once for
+    the masked and the unmasked batch: ``(config, mesh, template, step,
+    the template's jitted loss gradient)``."""
     axes = dict(axes_items)
     n = int(np.prod(list(axes.values())))
     jcfg = jtr.TransformerConfig(dtype=jnp.float32, **{**SMALL, **dict(extra_items)})
     mesh = jax_build_mesh(axes, devices=jax.devices()[:n])
-    tmpl = jax_template_for(strategy, axes)
+    tmpl = jax_template_for(strategy, axes, json.loads(options_json))
+    loss = lambda p, b: jtr.loss_fn(p, b, jcfg, template=tmpl, mesh=mesh)  # noqa: E731
     jts = jtrain.build_train_step(
-        loss_fn=lambda p, b: jtr.loss_fn(p, b, jcfg, template=tmpl, mesh=mesh),
+        loss_fn=loss,
         init_fn=lambda k: jtr.init_params(k, jcfg),
         axes_tree=jtr.param_axes(jcfg),
         optimizer=optax.adamw(LR),
         mesh=mesh,
         template=tmpl,
     )
+    return jcfg, mesh, tmpl, jts, jax.jit(jax.grad(loss))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_run(strategy, axes_items, masked, extra_items=(), options_json="{}"):
+    """The JAX step on the virtual mesh: the initial params, each step's
+    loss and grad norm, the final params, the gradient of the loss over the
+    whole batch at the initial params, and per param path each device's
+    index into it and the shards ``init`` placed on each device (devices in
+    the mesh's row-major order, the port's ranks).  ``options_json``: the
+    template's options, as JSON (a cache key)."""
+    jcfg, mesh, tmpl, jts, template_grad = jax_step(strategy, axes_items, extra_items,
+                                                    options_json)
     key = jax.random.PRNGKey(0)
     params, opt_state = jts.init(key)
     init_np = jax.tree.map(np.asarray, params)  # before donation
@@ -145,18 +167,25 @@ def jax_run(strategy, axes_items, masked, extra_items=()):
         mu = dict(_paths(opt_state[0].mu))[path]
         mu_shards = {s.device: np.asarray(s.data) for s in mu.addressable_shards}
         placed[path] = [(shards[d], mu_shards[d]) for d in devices]
-    batch = jts.place_batch({k: jnp.asarray(v) for k, v in batch_np(masked).items()})
+    batch = jts.place_batch(jax_batch(masked))
+    if tmpl.pipeline_axis and jcfg.n_experts:
+        # The stages route each microbatch on its own: this loss is not the
+        # one-device loss, and its first-step gradient is its own.
+        grad1 = template_grad(params, batch)
+    else:
+        grad1 = jax_grad_fn(extra_items)(params, jax_batch(masked))
+    grad1 = jax.tree.map(np.asarray, grad1)
     history = []
     for _ in range(STEPS):
         params, opt_state, m = jts.step(params, opt_state, batch, key)
         history.append((float(m["loss"]), float(m["grad_norm"])))
     return {"init": init_np, "history": history, "params": jax.tree.map(np.asarray, params),
-            "grad1": jax_grad1(extra_items, masked), "index": index, "placed": placed}
+            "grad1": grad1, "index": index, "placed": placed}
 
 
-def port_rank(mesh, rank, strategy, init_np, masked, extra=None, steps=STEPS):
+def port_rank(mesh, rank, strategy, init_np, masked, extra=None, steps=STEPS, options=None):
     tcfg = ttr.TransformerConfig(dtype=torch.float32, **{**SMALL, **(extra or {})})
-    template = template_for(strategy, dict(mesh.shape))
+    template = template_for(strategy, dict(mesh.shape), options)
     ts = build_train_step(
         loss_fn=lambda p, b: ttr.loss_fn(p, b, tcfg, template=template, mesh=mesh, device="cpu"),
         init_fn=lambda g: params_from_jax(init_np, "cpu"),
@@ -270,9 +299,33 @@ def test_ranks_take_the_reference_rows_and_positions():
         assert shard["tokens"][:, 0].tolist() == [(d * 2 + i) * 8 + s * 4 for i in range(2)]
 
 
-@pytest.mark.parametrize("strategy", [s for s in STRATEGIES if s not in PORTED_STRATEGIES])
+#: What still refuses under each strategy this test once held to a refusal
+#: (every strategy is ported for the transformer now): the image models
+#: under ``pp`` and ``ep``, MoE under ``pp_tp``, a ``custom`` rule the port
+#: does not split.
+STILL_REFUSED = ("pp", "pp_tp", "ep", "custom")
+
+
+@pytest.mark.parametrize("strategy", STILL_REFUSED)
 def test_every_other_strategy_still_raises(strategy):
+    from polyaxon_tpu_torch.models import vit as tvit
+
     axes = {"data": 1, "pipeline": 1, "expert": 1, "sequence": 1, "tensor": 1}
+    assert set(STRATEGIES) == set(PORTED_STRATEGIES)
+    mesh = build_mesh(axes)
     with pytest.raises(NotImplementedError, match="multi-process and parallelism"):
-        build_train_step(loss_fn=None, init_fn=None, optimizer=None,
-                         mesh=build_mesh(axes), template=template_for(strategy, axes))
+        if strategy in ("pp", "ep"):
+            vcfg = tvit.ViTConfig(image_size=8, patch_size=4, d_model=8, n_layers=1, n_heads=2,
+                                  head_dim=4, d_ff=16, n_classes=3, dtype=torch.float32)
+            tvit.forward(tvit.init_params(vcfg, torch.Generator().manual_seed(0)),
+                         torch.zeros(1, 8, 8, 3, dtype=torch.uint8), vcfg,
+                         template_for(strategy, axes), mesh, device="cpu")
+        elif strategy == "pp_tp":
+            tcfg = ttr.TransformerConfig(dtype=torch.float32, **SMALL, n_experts=4)
+            ttr.forward(ttr.init_params(tcfg, torch.Generator().manual_seed(0)),
+                        torch.zeros((2, 4), dtype=torch.long), tcfg,
+                        template_for(strategy, axes), mesh, device="cpu")
+        else:
+            build_train_step(loss_fn=None, init_fn=None, optimizer=None, mesh=mesh,
+                             template=template_for(strategy, axes,
+                                                   {"rules": {"head_dim": "tensor"}}))

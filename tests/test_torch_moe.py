@@ -105,13 +105,17 @@ def test_remat_recomputes_the_same_routing_in_bf16():
 
 
 def test_moe_on_a_mesh_above_one_rank_raises_naming_the_roadmap_item():
+    """MoE across ranks runs on every template but ``pp_tp``
+    (``tests/test_torch_moe_ranks.py``); under ``pp_tp`` on a mesh above one
+    rank it still raises, naming the item."""
     _, tcfg = configs(n_experts=4)
     tp = ttr.init_params(tcfg, torch.Generator().manual_seed(0))
     two_ranks = SimpleNamespace(size=lambda: 2, rank=lambda: 0)  # a group's stand-in
-    mesh = build_mesh({"data": 2}, groups={"data": two_ranks})
+    axes = {"pipeline": 2, "tensor": 2}
+    mesh = build_mesh(axes, groups={"pipeline": two_ranks, "tensor": two_ranks})
     with pytest.raises(NotImplementedError, match="ROADMAP item 7: MoE across ranks"):
-        ttr.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg, device="cpu",
-                    template=template_for("ddp", {"data": 2}), mesh=mesh)
+        ttr.forward(tp, torch.zeros((2, 4), dtype=torch.long), tcfg, device="cpu",
+                    template=template_for("pp_tp", axes), mesh=mesh)
     with pytest.raises(NotImplementedError, match="no MoE"):
         ttr.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg, device="cpu",
                     return_kv=True)

@@ -346,7 +346,11 @@ def test_an_image_model_under_fsdp_matches_the_jax_step(name, n):
 
 @pytest.mark.parametrize("strategy, axes", [("tp", {"tensor": 2}), ("tp_dp", {"data": 1,
                                                                               "tensor": 1}),
-                                            ("ulysses", {"sequence": 1})])
+                                            ("ulysses", {"sequence": 1}),
+                                            ("pp", {"pipeline": 1}),
+                                            ("pp_tp", {"pipeline": 1, "tensor": 1}),
+                                            ("ep", {"expert": 1}),
+                                            ("custom", {"data": 1})])
 def test_the_image_models_refuse_what_they_do_not_split(strategy, axes):
     tcfg = tvit.ViTConfig(dtype=torch.float32, **VIT)
     params = tvit.init_params(tcfg, torch.Generator().manual_seed(0))

@@ -245,12 +245,13 @@ def test_train_step_init_and_unported_parallelism():
     assert [m.dtype for m in state.mu] == [torch.bfloat16] * len(leaves)
     assert [tuple(n.shape) for n in state.nu] == [tuple(p.shape) for p in leaves]
     two_ranks = SimpleNamespace(size=lambda: 2, rank=lambda: 0)  # a group's stand-in
-    # The templates without a pipeline across ranks are ported
-    # (tests/test_torch_gang_step.py); a mesh without a template, an
-    # unported strategy and an axis above 1 that the template does not
+    # Every strategy is ported (tests/test_torch_gang_step.py,
+    # test_torch_pipeline_step.py); a mesh without a template, a custom rule
+    # the port does not split and an axis above 1 that the template does not
     # spread over still raise.
     for kw in ({"mesh": build_port_mesh({"data": 2}, groups={"data": two_ranks})},
-               {"template": port_template_for("ep", {"expert": 1})},
+               {"template": port_template_for("custom", {"tensor": 1},
+                                              {"rules": {"head_dim": "tensor"}})},
                {"template": port_template_for("sp_ring", {"sequence": 2, "tensor": 2}),
                 "mesh": build_port_mesh({"sequence": 2, "tensor": 2},
                                         groups={"sequence": two_ranks, "tensor": two_ranks})}):

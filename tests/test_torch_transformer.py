@@ -162,8 +162,10 @@ def _mesh(**axes):
 @pytest.mark.parametrize(
     "kwargs, match",
     [
-        (dict(template=template_for("ep", {"expert": 1}), mesh=_mesh(expert=1)),
-         "multi-process and parallelism"),
+        # Every strategy runs now; what still refuses: a custom rule the port
+        # does not split, a pipeline without its layers rule, MoE under pp_tp.
+        (dict(template=template_for("custom", {"tensor": 2}, {"rules": {"head_dim": "tensor"}}),
+              mesh=_mesh(tensor=2)), "multi-process and parallelism"),
         (dict(mesh=_mesh(data=2)), "multi-process and parallelism"),
         # ddp's batch axes and sp_ring's ring may span ranks; a tensor axis,
         # which neither template spreads over, may not.
@@ -171,14 +173,17 @@ def _mesh(**axes):
          "multi-process and parallelism"),
         (dict(template=template_for("sp_ring", {"sequence": 2, "tensor": 2}),
               mesh=_mesh(sequence=2, tensor=2)), "multi-process and parallelism"),
-        (dict(template=template_for("pp", {"pipeline": 1}), mesh=_mesh(pipeline=1)),
-         "multi-process and parallelism"),
+        (dict(template=template_for("custom", {"pipeline": 2}, {"pipeline_axis": "pipeline"}),
+              mesh=_mesh(pipeline=2)), "multi-process and parallelism"),
         (dict(template=template_for("pp_tp", {"pipeline": 1, "tensor": 1}),
-              mesh=_mesh(pipeline=1, tensor=1)), "multi-process and parallelism"),
+              mesh=_mesh(pipeline=1, tensor=1), cfg={"n_experts": 4}),
+         "multi-process and parallelism"),
     ],
 )
 def test_unported_paths_raise(kwargs, match):
+    kwargs = dict(kwargs)
     _, tcfg = configs("mha", "dense")
+    tcfg = tcfg.scaled(**kwargs.pop("cfg", {}))
     tp = ttr.init_params(tcfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match=match):
         ttr.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg, device="cpu", **kwargs)

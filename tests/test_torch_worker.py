@@ -70,7 +70,8 @@ GANGS = {
     "lm_train": spec("lm_train", TINY_LM, seed=5, **TWO_CPU_HOSTS, strategy="ddp"),
     **{f"lm_train_{strategy}": spec("lm_train", TINY_LM, seed=5,
                                     **dict(TWO_CPU_HOSTS, mesh={axis: 2}), strategy=strategy)
-       for strategy, axis in (("fsdp", "data"), ("tp", "tensor"), ("ulysses", "sequence"))},
+       for strategy, axis in (("fsdp", "data"), ("tp", "tensor"), ("ulysses", "sequence"),
+                              ("pp", "pipeline"))},
     # The catalog's default cpu slice: 8 devices on one host.
     "dph_lm_train": spec("lm_train", TINY_LM, accelerator="cpu"),
     "dph_noop": spec("noop", accelerator="cpu"),
@@ -176,13 +177,14 @@ def test_a_two_process_lm_train_logs_the_one_rank_losses(gangs):
         assert final["tokens"] == 3 * 2 * TINY_LM["seq"]
 
 
-@pytest.mark.parametrize("strategy", ["fsdp", "tp", "ulysses"])
+@pytest.mark.parametrize("strategy", ["fsdp", "tp", "ulysses", "pp"])
 def test_a_two_process_sharded_lm_train_succeeds_with_the_one_rank_losses(gangs, strategy):
     """The same run under ``fsdp`` (each process holds half of every param
     and gathers each at its use), ``tp`` (half of the heads, MLP columns and
-    vocabulary) and ``ulysses`` (half of the sequence, all-to-all attention):
-    both processes end ``succeeded`` and the leader logs the one-rank
-    losses."""
+    vocabulary), ``ulysses`` (half of the sequence, all-to-all attention)
+    and ``pp`` (one layer a stage, 2 microbatches through the GPipe
+    schedule): both processes end ``succeeded`` and the leader logs the
+    one-rank losses."""
     h = gangs[f"lm_train_{strategy}"]
     assert h.poll() == {0: 0, 1: 0}, h.paths.log_file(1).read_text()[-2000:]
     for i in (0, 1):

@@ -9,7 +9,13 @@ list forms (``all_reduce``, ``all_gather``, ``reduce_scatter``,
 ``all_to_all``) and the tensor forms (``all_gather_into_tensor``,
 ``reduce_scatter_tensor``, ``all_to_all_single``) on float32 and bfloat16
 CUDA tensors and prints ``RESULT {form/dtype: "ok" or the error}`` with the
-wall of one 128 MiB ``all_gather``.  Then 2 threads of the parent, each
+wall of one 128 MiB ``all_gather``.  Then, one pair of processes a form
+(a form that crashes its process takes no other with it), the
+point-to-point forms the pipeline's stage hop could use: ``send`` /
+``recv`` paired by rank parity, ``isend`` / ``irecv``, and
+``batch_isend_irecv`` of ``P2POp`` s; each prints ``P2P {form/dtype: "ok",
+"wrong values" or the error}`` and the wall of one 64 MiB exchange, and the
+parent prints each pair's exit codes.  Then 2 threads of the parent, each
 with its own ``ProcessGroupGloo`` (20 s timeout), back-propagate through an
 autograd function whose backward all-reduces; it prints ``THREADS`` with
 each thread's grad sum or error.  The autograd engine runs a CUDA backward
@@ -73,6 +79,64 @@ def child(rank: int, world: int, port: int) -> None:
     dist.destroy_process_group()
 
 
+P2P_FORMS = ("send_recv", "isend_irecv", "batch_isend_irecv")
+
+
+def p2p_child(form: str, rank: int, world: int, port: int) -> None:
+    """One rank of a pair: ``form`` between ranks 0 and 1 on CUDA tensors,
+    each rank sending its tensor and receiving the other's."""
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=60))
+    torch.cuda.set_device(0)
+    peer = 1 - rank
+    out = {}
+
+    def exchange(x, got):
+        if form == "send_recv":  # a blocking send before a receive on both would deadlock
+            if rank == 0:
+                dist.send(x, peer)
+                dist.recv(got, peer)
+            else:
+                dist.recv(got, peer)
+                dist.send(x, peer)
+        elif form == "isend_irecv":
+            works = [dist.isend(x, peer), dist.irecv(got, peer)]
+            for w in works:
+                w.wait()
+        else:
+            ops = [dist.P2POp(dist.isend, x, peer), dist.P2POp(dist.irecv, got, peer)]
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.full((4, 3), float(rank + 1), device="cuda", dtype=dt)
+        got = torch.zeros_like(x)
+        try:
+            exchange(x, got)
+            torch.cuda.synchronize()
+            ok = bool((got == float(peer + 1)).all())
+            out[f"{form}/{dt}"] = "ok" if ok else "wrong values"
+        except Exception as e:
+            out[f"{form}/{dt}"] = f"{type(e).__name__}: {str(e)[:160]}"
+        print("P2P " + json.dumps(out), flush=True)
+    if all(v == "ok" for v in out.values()):
+        big = torch.ones(16 * 1024 * 1024, device="cuda")  # 64 MiB of float32
+        got = torch.empty_like(big)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        exchange(big, got)
+        torch.cuda.synchronize()
+        out[f"{form}_64MB_s"] = time.perf_counter() - t
+    print("P2P " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def threads_backward() -> dict:
     """Two thread ranks on the card, an all-reduce inside the backward."""
     store = dist.HashStore()
@@ -116,15 +180,28 @@ def main() -> None:
     if sys.argv[1:2] == ["child"]:
         child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]))
         return
+    if sys.argv[1:2] == ["p2p"]:
+        p2p_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]))
+        return
     print(torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0), flush=True)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = _free_port()
     t = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, __file__, "child", str(r), "2", str(port)])
              for r in range(2)]
     print("rcs", [p.wait(timeout=300) for p in procs], "wall", time.perf_counter() - t,
           flush=True)
+    for form in P2P_FORMS:
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, __file__, "p2p", form, str(r), "2", str(port)])
+                 for r in range(2)]
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=120))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rcs.append(f"killed after 120 s: {p.wait()}")
+        print(f"P2P {form} rcs {rcs}", flush=True)
     print("THREADS", threads_backward(), flush=True)
     os._exit(0)  # the timed-out gloo threads may still hold the interpreter
 

@@ -3,10 +3,13 @@
 worker, one process a card over NCCL, against one rank's run.
 
 Run from the repository root on a machine with 4 cards:
-``python3 tools/sharded_gangs.py`` (``--cpu``: 4 processes on the CPU over
-gloo at small widths, a rehearsal).  For ``lm_train`` under ``ddp``,
-``fsdp``, ``tp``, ``tp_dp`` and ``ulysses``, and ``vit_train`` and
-``cnn_train`` under ``fsdp``, over 4 ranks, it launches a ``kind:
+``python3 tools/sharded_gangs.py [--cpu] [trainer ...]`` (``--cpu``: 4
+processes on the CPU over gloo at small widths, a rehearsal; trainer names,
+e.g. ``vit_train``: only their cases).  For ``lm_train`` under ``ddp``,
+``fsdp``, ``tp``, ``tp_dp``, ``ulysses``, ``pp {data: 2, pipeline: 2}``,
+``pp_tp {pipeline: 2, tensor: 2}`` and, with 4 experts, ``ep {data: 2,
+expert: 2}``, and ``vit_train`` and ``cnn_train`` under ``fsdp``, over 4
+ranks, it launches a ``kind:
 experiment`` spec naming the trainer through
 ``spawner.local.LocalGangSpawner`` (topology ``h100``, 4 devices on 4
 "hosts" of this machine: the worker takes ``cuda:<LOCAL_RANK>`` and NCCL),
@@ -23,7 +26,11 @@ The models: bench.py's 671M width cut to 2 layers (vocab 32768, d 2048, 32
 heads of 64, d_ff 8192; global batch 8 x 1024), ViT-B/16's widths cut to
 2 layers (224 px, patch 16, d 768, 12 heads of 64, d_ff 3072; batch 32)
 and the CIFAR-10 guide's CNN (32 px, channels (64, 128, 256); batch 256),
-3 steps each on synthetic data.
+3 steps each on synthetic data.  ``vit_train`` runs three times: at batch
+32, whose fixed batch it fits to a loss near 0 by its 3rd step; at batch
+256 for 2 steps, which one update fits as well; and at batch 32 with lr
+1e-5, whose loss stays near its start.  A case's overrides apply to its
+gang and to its one-rank run.
 """
 
 from __future__ import annotations
@@ -57,10 +64,17 @@ MODELS = {
     "cnn_train": (dict(image_size=32, channels=[64, 128, 256], classes=10, batch=256, steps=3),
                   dict(image_size=16, channels=[8, 16], classes=10, batch=16, steps=3)),
 }
-CASES = (("lm_train", "ddp", {"data": 4}), ("lm_train", "fsdp", {"data": 4}),
-         ("lm_train", "tp", {"tensor": 4}), ("lm_train", "tp_dp", {"data": 2, "tensor": 2}),
-         ("lm_train", "ulysses", {"sequence": 4}), ("vit_train", "fsdp", {"data": 4}),
-         ("cnn_train", "fsdp", {"data": 4}))
+#: (trainer, strategy, mesh, overrides of its params)
+CASES = (("lm_train", "ddp", {"data": 4}, {}), ("lm_train", "fsdp", {"data": 4}, {}),
+         ("lm_train", "tp", {"tensor": 4}, {}),
+         ("lm_train", "tp_dp", {"data": 2, "tensor": 2}, {}),
+         ("lm_train", "ulysses", {"sequence": 4}, {}), ("vit_train", "fsdp", {"data": 4}, {}),
+         ("vit_train", "fsdp", {"data": 4}, {"batch": 256, "steps": 2}),
+         ("vit_train", "fsdp", {"data": 4}, {"lr": 1e-5}),
+         ("cnn_train", "fsdp", {"data": 4}, {}),
+         ("lm_train", "pp", {"data": 2, "pipeline": 2}, {}),
+         ("lm_train", "pp_tp", {"pipeline": 2, "tensor": 2}, {}),
+         ("lm_train", "ep", {"data": 2, "expert": 2}, {"n_experts": 4}))
 
 
 def _reports(handle, process_id):
@@ -113,8 +127,15 @@ def run_gang(spawner, run_id, entry, strategy, mesh, model, accelerator):
     return out
 
 
+def _key(entry, overrides):
+    """A one-rank run's key: its trainer and its overrides."""
+    return entry + json.dumps(overrides, sort_keys=True)
+
+
 def main() -> int:
-    cpu = sys.argv[1:] == ["--cpu"]
+    cpu = "--cpu" in sys.argv[1:]
+    only = [a for a in sys.argv[1:] if a != "--cpu"]
+    cases = [c for c in CASES if not only or c[0] in only]
     cards = [] if cpu else subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
@@ -123,18 +144,23 @@ def main() -> int:
     accelerator = "cpu" if cpu else "h100"
     base = Path(tempfile.mkdtemp(prefix="sharded-gangs-"))
     spawner = LocalGangSpawner(StoreLayout(base), heartbeat_interval=0.5)
-    gangs = [run_gang(spawner, i + 1, entry, strategy, mesh, models[entry], accelerator)
-             for i, (entry, strategy, mesh) in enumerate(CASES)]
+    gangs = [dict(run_gang(spawner, i + 1, entry, strategy, mesh,
+                           dict(models[entry], **overrides), accelerator), overrides=overrides)
+             for i, (entry, strategy, mesh, overrides) in enumerate(cases)]
     one_rank = {}
-    for entry, model in models.items():
+    for entry, _, _, overrides in cases:
+        key = _key(entry, overrides)
+        if key in one_rank:
+            continue
         records = []
         t0 = time.perf_counter()
-        getattr(trainers, entry)(Context(params=dict(model, device="cpu" if cpu else "cuda"),
-                                         seed=SEED, records=records))
-        one_rank[entry] = {"losses": _losses(records), "s": time.perf_counter() - t0}
+        getattr(trainers, entry)(Context(
+            params=dict(models[entry], **overrides, device="cpu" if cpu else "cuda"),
+            seed=SEED, records=records))
+        one_rank[key] = {"losses": _losses(records), "s": time.perf_counter() - t0}
     ok = True
     for g in gangs:
-        one = one_rank[g["entry"]]["losses"]
+        one = one_rank[_key(g["entry"], g["overrides"])]["losses"]
         steps = sorted(one)
         worst = (max(abs(g["losses"][s] - one[s]) / abs(one[s]) for s in steps)
                  if steps and all(s in g["losses"] for s in steps) else None)
@@ -143,8 +169,9 @@ def main() -> int:
                 and all(s == ["succeeded"] for s in g["statuses"])
                 and g["done"] and f"strategy={g['strategy']}" in g["done"][0])
         ok = ok and good
-        print(f"{g['entry']} {g['strategy']} {g['mesh']}: rcs {g['rcs']}, statuses "
-              f"{g['statuses']}, losses {g['losses']} against one rank's {one}: max rel diff {worst} "
+        print(f"{g['entry']} {g['strategy']} {g['mesh']} {g['overrides']}: rcs {g['rcs']}, "
+              f"statuses {g['statuses']}, losses {g['losses']} against one rank's {one}: "
+              f"max rel diff {worst} "
               f"({'ok' if good else 'FAILED'}), {g['wall_s']:.1f} s launch to exit; "
               f"{g['done'][0] if g['done'] else g.get('log_tail', '')}", flush=True)
     print(json.dumps({"ok": ok, "cards": cards, "one_rank": one_rank, "gangs": gangs}))
