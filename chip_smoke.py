@@ -22,7 +22,10 @@ step across ranks); then the image classifiers (``cnn_train``,
 ``vit_train``) and ``lm_train`` with switch-MoE experts; then the sharded
 strategies without a pipeline (``fsdp``, ``tp``, ``tp_dp``, ``ulysses``)
 across rank processes on the one card; then the pipeline and the experts
-across them (``pp``, pp×MoE, ``pp_tp``, ``ep``).  Phases:
+across them (``pp``, pp×MoE, ``pp_tp``, ``ep``); then the rest of the
+parallel layer across them (the image models under ``tp``, ``tp_dp``,
+``ulysses``, ``pp``, ``pp_tp`` and ``ep``, ``sp_ring``, MoE under
+``pp_tp``, ``checkpoint-now`` under ``fsdp``).  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -266,7 +269,47 @@ across them (``pp``, pp×MoE, ``pp_tp``, ``ep``).  Phases:
     layer's global ranking drops at the initial weights, at capacity
     factors 1.25, 1.0 and 0.5, those of one rank but for tokens whose
     expert differs (bf16 near-ties), beside what a rank routing only its
-    own rows would drop.
+    own rows would drop;
+42. ``vit_train`` at ViT-B/16's widths cut to 2 layers (batch 32, bf16, 2
+    steps, lr 1e-5, synthetic images) through the entry point, its train
+    step recorded, across rank processes (phase 34's
+    launches run these cases after theirs): ``tp {tensor: 2}``, ``ulysses
+    {sequence: 2}`` (each rank its 98 of the 196 patches, the Ulysses swap
+    around the attention) and ``pp {pipeline: 2}`` (the layers gathered at
+    use) on 2 processes, ``tp_dp {data: 2, tensor: 2}``, ``pp_tp {pipeline:
+    2, tensor: 2}`` and ``ep {data: 2, expert: 2}`` on 4: each rank's loss
+    and grad norm within 1e-2 of one rank's run of ``vit_train``, the
+    leader's logged losses its steps', each rank's param, AdamW and block
+    bytes, no flash launch (the ViT's attention is plain products, as the
+    reference's), the collectives' walls;
+43. ``cnn_train`` at the CIFAR shape (batch 256) under ``tp {tensor: 2}``
+    (the classes split, the logits gathered), reading a fixture dataset
+    (every rank the whole batch: no data axis): the same checks;
+44. ``sp_ring {sequence: 2}`` at T 8192, batch 1, the 671M width cut to 2
+    layers: the ring's hops between the rank processes (``GroupRing.rotate``
+    over gloo, staged through the host), each rank's loss and grad norm
+    within 1e-2 of one rank's, the kernels launched on both ranks;
+45. MoE under ``pp_tp`` (4 processes): the 671M width cut to 2 layers with
+    4 experts, batch 8 x 1024, ``attention_impl`` flash, on ``{pipeline: 2,
+    tensor: 2}`` (each expert's MLP columns split over ``tensor``) with one
+    microbatch (which routes the tokens one rank routes) and on ``{data: 2,
+    pipeline: 2}`` with two (a data rank's rows its block of each global
+    microbatch, each microbatch routed over both data ranks): the same
+    checks, the kernels launched exactly M times a stage's layer a step on
+    every rank, and on ``{data: 2, pipeline: 2}`` the tokens the MoE of the
+    layer each rank holds drops, microbatch by microbatch, at capacity
+    factors 1.25, 1.0 and 0.5, those of one rank routing each global
+    microbatch but for tokens whose expert differs, beside what routing each
+    data rank's rows alone would drop;
+46. ``checkpoint-now`` under ``fsdp {data: 2}`` (2 processes, the 671M width
+    cut to 2 layers, 5 steps): each process's copy of one command written
+    into its own mailbox at another step (1 and 3) and drained by its
+    capture agent: one save, at step 2 (the step after the first copy's),
+    acked ``complete`` with that step by both processes (the late copy
+    without a second save), the saved step
+    restored bit for bit equal to the ``full_state`` the ranks gathered
+    there; ``maybe_save`` with nothing queued (the flag's all-reduce on the
+    hosts, over gloo) timed on an idle card.
 
 Any failed check raises, and the script exits non-zero; an atexit hook
 SIGKILLs any replica or gang worker left.  On success its last lines are the serving
@@ -277,7 +320,7 @@ training and serving ledger rows, the overhead, the watchdog, the dataset
 path) as JSON, the card's name and power limit,
 the kernels' JSON record, the fleet's figures, the gang layer's, the image
 classifiers' and the MoE run's, the sharded strategies', the pipeline's and
-the experts', and ``{"ok": true,
+the experts', the rest of the parallel layer's, and ``{"ok": true,
 "device": {...}}``.  Without CUDA it exits 1
 at once.
 """
@@ -4188,10 +4231,10 @@ def phase_vit_train():
 SHARDED_RANK = "--sharded-rank"
 SHARDED_LM = {"fsdp": ("fsdp", {"data": 2}), "tp": ("tp", {"tensor": 2}),
               "tp_dp": ("tp_dp", {"data": 2, "tensor": 2}),
-              "ulysses": ("ulysses", {"sequence": 2})}
+              "ulysses": ("ulysses", {"sequence": 2}), "sp_ring": ("sp_ring", {"sequence": 2})}
 ULYSSES_BATCH, ULYSSES_SEQ = 1, 8192
 VIT_FSDP_BATCH, VIT_FSDP_STEPS = 32, 2
-SHARDED_TIMEOUT_S = 420
+SHARDED_TIMEOUT_S = 600
 COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all", "batch_isend_irecv")
 # The pipeline and the experts across ranks (phases 38-41): name -> (strategy,
 # mesh axes, template options).  pp_moe and ep carry MOE_EXPERTS experts at
@@ -4200,8 +4243,37 @@ COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all", "batc
 PIPELINE_EXPERTS = {"pp": ("pp", {"pipeline": 2}, {"num_microbatches": 2}),
                     "pp_moe": ("pp", {"pipeline": 2}, {"num_microbatches": 1}),
                     "pp_tp": ("pp_tp", {"pipeline": 2, "tensor": 2}, {"num_microbatches": 2}),
-                    "ep": ("ep", {"data": 2, "expert": 2}, {})}
-MOE_RANK_CASES = ("pp_moe", "ep")
+                    "ep": ("ep", {"data": 2, "expert": 2}, {}),
+                    "pp_tp_moe": ("pp_tp", {"pipeline": 2, "tensor": 2},
+                                  {"num_microbatches": 1}),
+                    "pp_dp_moe": ("pp_tp", {"data": 2, "pipeline": 2, "tensor": 1},
+                                  {"num_microbatches": 2})}
+MOE_RANK_CASES = ("pp_moe", "ep", "pp_tp_moe", "pp_dp_moe")
+# The rest of the parallel layer (phases 42-46): the image models under the
+# templates ddp and fsdp do not cover, name -> (model, strategy, mesh axes),
+# at ViT-B/16's widths cut to STEP_RANKS_LAYERS layers (batch VIT_FSDP_BATCH,
+# lr VIT_RANK_LR) and the CIFAR shape (batch CNN_BATCH), STEP_RANKS_STEPS
+# steps.  At lr 1e-3 one update fits the ViT's fixed batch to a loss near 7e-4,
+# where bf16 rounding in another order moves the loss and grad norm by 2e-2
+# relative while float32 agrees within 1e-6 (H100 80GB HBM3, 700 W): at lr 1e-5 the loss
+# stays near its start, as tools/sharded_gangs.py's vit_train runs.  Then sp_ring
+# {sequence: 2} (SHARDED_LM), MoE under pp_tp (PIPELINE_EXPERTS, flash: on
+# {pipeline: 2, tensor: 2} one microbatch, the tokens one rank routes; on
+# {data: 2, pipeline: 2} two, each routed over the data ranks' blocks of it)
+# and checkpoint-now under fsdp.
+IMAGE_RANK_CASES = {"vit_tp": ("vit", "tp", {"tensor": 2}),
+                    "vit_ulysses": ("vit", "ulysses", {"sequence": 2}),
+                    "vit_pp": ("vit", "pp", {"pipeline": 2}),
+                    "cnn_tp": ("cnn", "tp", {"tensor": 2}),
+                    "vit_tp_dp": ("vit", "tp_dp", {"data": 2, "tensor": 2}),
+                    "vit_pp_tp": ("vit", "pp_tp", {"pipeline": 2, "tensor": 2}),
+                    "vit_ep": ("vit", "ep", {"data": 2, "expert": 2})}
+# checkpoint-now over 2 rank processes under fsdp {data: 2} at the 671M width
+# cut to STEP_RANKS_LAYERS layers: CKPT_NOW_STEPS steps, rank r's copy of one
+# command dropped into its mailbox at step CKPT_NOW_DROPS[r]; the flag's
+# all-reduce timed over CKPT_NOW_REPS calls on an idle card.
+CKPT_NOW_STEPS, CKPT_NOW_DROPS, CKPT_NOW_REPS, CKPT_NOW_UUID = 5, (1, 3), 50, "ckpt-now-1"
+VIT_RANK_LR = 1e-5
 # Phase 41 counts the tokens dropped at these capacity factors from one
 # routing at the initial weights: at MOE_CAPACITY a random init drops none
 # (PR 15 call 2), so the smaller ones show which capacity and ranking apply.
@@ -4260,11 +4332,14 @@ def _sharded_lm_shape(name):
     """(config, global batch, seq) of a case of SHARDED_LM or PIPELINE_EXPERTS."""
     from polyaxon_tpu_torch.models.transformer import TransformerConfig
 
-    batch, seq = ((ULYSSES_BATCH, ULYSSES_SEQ) if name == "ulysses"
-                  else (MOE_BATCH if name == "ep" else STEP_RANKS_BATCH, TRAIN_SEQ))
+    batch, seq = ((ULYSSES_BATCH, ULYSSES_SEQ) if name in ("ulysses", "sp_ring")
+                  else (MOE_BATCH if name in ("ep", "pp_tp_moe", "pp_dp_moe")
+                        else STEP_RANKS_BATCH, TRAIN_SEQ))
     model = dict(BENCH_MODEL, n_layers=STEP_RANKS_LAYERS)
     if name in MOE_RANK_CASES:
         model.update(n_experts=MOE_EXPERTS, capacity_factor=MOE_CAPACITY)
+    if name in ("pp_tp_moe", "pp_dp_moe"):
+        model.update(attention_impl="flash")
     return TransformerConfig(max_seq=seq, **model), batch, seq
 
 
@@ -4315,6 +4390,58 @@ def _dropped_at_capacity(params, tokens, cfg, template=None, mesh=None):
     return [list(by_factor) for by_factor in zip(*dropped)], whole
 
 
+def _microbatch_drops(params, cfg, batch, seq, template=None, mesh=None):
+    """The routing of a composed pipeline's MoE, microbatch by microbatch:
+    ``_moe_mlp`` of a layer (under ``template``, this rank's first, layer
+    ``stage·L/S``, on the rows ``shard_batch`` gives it; else every layer)
+    routes a hidden state made from the seed, each global microbatch of
+    ``template.num_microbatches`` in turn.  Returns ``{layer: (per capacity
+    factor of DROP_FACTORS the global tokens dropped, summed over the
+    microbatches; per microbatch its global expert indices, int lists)}``,
+    counted by the model's own ranking (``_Shard.rank_in_expert`` across
+    ranks) at the initial weights."""
+    from polyaxon_tpu_torch.models.transformer import _moe_mlp, _rank_in_expert, _Shard
+    from polyaxon_tpu_torch.parallel.collectives import all_gather_cat
+    from polyaxon_tpu_torch.runtime.train import shard_batch
+
+    E, M = cfg.n_experts, PIPELINE_EXPERTS["pp_dp_moe"][2]["num_microbatches"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 45)
+    h = torch.randn(batch, seq, cfg.d_model, generator=g, device="cuda").to(cfg.dtype)
+    out = {}
+    with torch.no_grad():
+        if template is None:
+            rows = torch.arange(batch, device="cuda")
+            layers = {i: ({n: w[i] for n, w in params["block"].items()}, None)
+                      for i in range(cfg.n_layers)}
+        else:
+            shard = _Shard(cfg, template, mesh)
+            rows = shard_batch({"rows": torch.arange(batch, device="cuda")}, mesh, template)["rows"]
+            first = mesh.rank(template.pipeline_axis) * cfg.n_layers // mesh.shape[
+                template.pipeline_axis]
+            layers = {first: ({n: shard.placement.use(w[0], shard.layer_specs[n])
+                               for n, w in params["block"].items()}, shard)}
+        for i, (layer, sh) in layers.items():
+            dropped = torch.zeros(len(DROP_FACTORS), device="cuda")
+            whole = []
+            for mb in rows.chunk(M):
+                _, _, idx = _moe_mlp(h[mb], layer, cfg, sh)
+                if sh is None:
+                    rank, n, full = _rank_in_expert(idx, E), idx.numel(), idx
+                else:
+                    rank, n = sh.rank_in_expert(idx, E)
+                    full = idx.to(torch.int32)
+                    for a in reversed(sh.token_batch_axes):
+                        full = all_gather_cat(full, 0, mesh.group(a))
+                dropped += torch.stack([(rank >= max(1, int(f * n / E))).sum()
+                                        for f in DROP_FACTORS]).float()
+                whole.append(full.reshape(-1).tolist())
+            if sh is not None:
+                for group in sh.token_groups:
+                    torch.distributed.all_reduce(dropped, group=group)
+            out[i] = ([int(c) for c in dropped.tolist()], whole)
+    return out
+
+
 def _sharded_lm_rank(name):
     """This rank's run of SHARDED_LM[name] or PIPELINE_EXPERTS[name]: the
     kernels' counts set to 0 just before its steps and read just after,
@@ -4342,6 +4469,12 @@ def _sharded_lm_rank(name):
             extra["dropped"], whole = _dropped_at_capacity(params, local["tokens"], cfg,
                                                            template, mesh)
             if torch.distributed.get_rank() == 0:
+                extra["expert_idx"] = whole
+        elif name == "pp_dp_moe":
+            ((layer, (dropped, whole)),) = _microbatch_drops(params, cfg, batch, seq, template,
+                                                             mesh).items()
+            extra.update(layer=layer, dropped=dropped)
+            if mesh.rank("data") == 0:
                 extra["expert_idx"] = whole
     torch.cuda.synchronize()
     _reset_counts()
@@ -4379,9 +4512,10 @@ def _vit_fsdp_run(mesh=None, rank=0, world=1):
 
 
 def _sharded_rank_main(world, rank, port, out_dir, cases):
-    """One rank process of phases 34-37: join the gloo world, run ``cases``
-    (names of SHARDED_LM, or ``vit_fsdp``) in order, write their results
-    to ``<out_dir>/rank<rank>.json``."""
+    """One rank process of phases 34-46: join the gloo world, run ``cases``
+    (names of SHARDED_LM, PIPELINE_EXPERTS or IMAGE_RANK_CASES, ``vit_fsdp``
+    or ``ckpt_now``) in order, write their results to
+    ``<out_dir>/rank<rank>.json``."""
     import datetime
 
     import torch.distributed as dist
@@ -4397,6 +4531,10 @@ def _sharded_rank_main(world, rank, port, out_dir, cases):
             t = time.perf_counter()
             if case == "vit_fsdp":
                 out[case] = _vit_fsdp_run(mesh_from_world({"data": world}), rank, world)
+            elif case in IMAGE_RANK_CASES:
+                out[case] = _sharded_image_rank(case)
+            elif case == "ckpt_now":
+                out[case] = _ckpt_now_rank(rank, out_dir)
             else:
                 out[case] = _sharded_lm_rank(case)
             out[case]["wall_s"] = time.perf_counter() - t
@@ -4449,11 +4587,13 @@ def _run_rank_processes(world, cases):
 
 
 #: The rank processes' cases, in the order each process runs them: phases
-#: 34-41 share one launch of 2 processes and one of 4, so that the pipeline's
+#: 34-46 share one launch of 2 processes and one of 4, so that the later
 #: cases run in processes whose first step (library loads, the kernels'
 #: first launch) an earlier case has paid.
-RANK_CASES = {2: ("fsdp", "tp", "ulysses", "vit_fsdp", "pp", "pp_moe"),
-              4: ("tp_dp", "pp_tp", "ep")}
+RANK_CASES = {2: ("fsdp", "tp", "ulysses", "vit_fsdp", "pp", "pp_moe", "vit_tp", "vit_ulysses",
+                  "vit_pp", "cnn_tp", "sp_ring", "ckpt_now"),
+              4: ("tp_dp", "pp_tp", "ep", "vit_tp_dp", "vit_pp_tp", "vit_ep", "pp_tp_moe",
+                  "pp_dp_moe")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -4646,6 +4786,347 @@ def phase_pipeline_and_experts():
         launches[f"train_step_{name}"] = tuple(sum(g["launches"][i] for g in got)
                                                for i in range(3))
         out[name] = case
+    return launches, out
+
+
+@contextlib.contextmanager
+def _recorded_steps():
+    """The trainers' own train step, recorded while the block runs: yields a
+    dict that gets this rank's state bytes at init (``param_bytes``,
+    ``adam_bytes``, ``block_bytes`` where the model has a block) and, after
+    the block, ``history``: (loss, grad_norm) a step.  Only the trainers'
+    ``build_train_step`` is wrapped; the metrics are read after the run, so
+    the loop synchronizes no more than it does without the wrapper."""
+    from polyaxon_tpu_torch.builtins import trainers
+
+    real = trainers.build_train_step
+    seen, metrics = {}, []
+
+    def build(**kw):
+        ts = real(**kw)
+        init, step = ts.init, ts.step
+
+        def recording_init(generator):
+            params, opt_state = init(generator)
+            seen["param_bytes"], seen["adam_bytes"] = _state_bytes(params, opt_state)
+            seen["block_bytes"] = _block_bytes(params) if "block" in params else None
+            return params, opt_state
+
+        def recording_step(params, opt_state, batch):
+            params, opt_state, m = step(params, opt_state, batch)
+            metrics.append((m["loss"], m["grad_norm"]))
+            return params, opt_state, m
+
+        ts.init, ts.step = recording_init, recording_step
+        return ts
+
+    trainers.build_train_step = build
+    try:
+        yield seen
+    finally:
+        trainers.build_train_step = real
+    seen["history"] = [(float(loss), float(norm)) for loss, norm in metrics]
+
+
+def _image_trainer_run(model, strategy="ddp", axes=None):
+    """``vit_train`` (ViT-B/16's widths cut to STEP_RANKS_LAYERS layers, batch
+    VIT_FSDP_BATCH, lr VIT_RANK_LR, synthetic images) or ``cnn_train`` (the
+    CIFAR shape, batch CNN_BATCH, a make_image_fixture dataset read through
+    the trainer's DatasetReader) for STEP_RANKS_STEPS steps, through the entry
+    point, under ``strategy`` over the world's ranks on ``axes`` (or on one
+    rank): the recorded steps (``_recorded_steps``) and the leader's logged
+    [step, loss] pairs."""
+    from polyaxon_tpu_torch.builtins.trainers import cnn_train, vit_train
+    from polyaxon_tpu_torch.runtime.datasets import make_image_fixture
+    from polyaxon_tpu_torch.runtime.mesh import mesh_from_world
+    from polyaxon_tpu_torch.tracking.context import Context
+
+    if model == "vit":
+        trainer, params = vit_train, dict(VIT_B16, n_layers=STEP_RANKS_LAYERS,
+                                          batch=VIT_FSDP_BATCH, lr=VIT_RANK_LR)
+    else:
+        trainer, params = cnn_train, dict(CNN_MODEL, batch=CNN_BATCH,
+                                          dataset="cifar-fixture")
+    world = 1 if axes is None else int(np.prod(list(axes.values())))
+    rank = torch.distributed.get_rank() if world > 1 else 0
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_cifar_"))
+    records = []
+    _free()
+    try:
+        if model == "cnn":
+            make_image_fixture(store, "cifar-fixture", num_examples=4 * CNN_BATCH,
+                               image_size=CNN_MODEL["image_size"],
+                               n_classes=CNN_MODEL["classes"])
+        with _recorded_steps() as seen:
+            trainer(Context(params=dict(params, steps=STEP_RANKS_STEPS, device="cuda"),
+                            seed=SEED, records=records, data_path=str(store),
+                            mesh=None if axes is None else mesh_from_world(axes),
+                            strategy=strategy, process_id=rank, num_processes=world))
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    seen["losses"] = [[r["step"], r["values"]["loss"]] for r in records
+                      if r["kind"] == "metric" and "loss" in r["values"]]
+    return seen
+
+
+def _sharded_image_rank(name):
+    """This rank's run of IMAGE_RANK_CASES[name] through its trainer
+    (``_image_trainer_run``), the kernels' counts over it (the image models
+    launch none) and the collectives' walls."""
+    model, strategy, axes = IMAGE_RANK_CASES[name]
+    torch.cuda.synchronize()
+    _reset_counts()
+    with _timed_collectives() as walls:
+        out = _image_trainer_run(model, strategy, axes)
+    out["launches"] = _counts()
+    out["walls"] = {k: {"calls": len(v), "s": sum(w for w, _ in v),
+                        "bytes": sum(b for _, b in v)} for k, v in walls.items()}
+    return out
+
+
+class _CommandEvents:
+    """The reporter's two methods the capture agent calls, kept in a list."""
+
+    def __init__(self):
+        self.lines = []
+
+    def command_event(self, uuid, state, message=None, **attrs):
+        self.lines.append({"uuid": uuid, "state": state, "message": message, **attrs})
+
+    def capture(self, record):
+        pass
+
+
+def _ckpt_now_rank(rank, out_dir):
+    """Phase 46 on this rank: ``fsdp {data: 2}`` train steps with the
+    trainers' checkpoint-now service (``_checkpoint_now``) on the process's
+    capture agent, its copy of one command written into its own mailbox at
+    step CKPT_NOW_DROPS[rank] and drained by ``agent.poll()``; every rank
+    gathers the whole state again after the save that served it, and the
+    leader restores the saved step and compares it bit for bit.  Then the
+    cost of the ranks' agreement: ``maybe_save`` with nothing queued (the
+    flag's all-reduce on the hosts), on an idle card."""
+    from polyaxon_tpu_torch.builtins.trainers import _checkpoint_now
+    from polyaxon_tpu_torch.models.transformer import param_axes
+    from polyaxon_tpu_torch.parallel.templates import template_for
+    from polyaxon_tpu_torch.runtime.checkpoint import CheckpointManager
+    from polyaxon_tpu_torch.runtime.mesh import mesh_from_world
+    from polyaxon_tpu_torch.runtime.optim import AdamW, tree_leaves
+    from polyaxon_tpu_torch.tracking import capture
+
+    rank = int(rank)
+    axes = {"data": 2}
+    mesh = mesh_from_world(axes)
+    cfg, batch, seq = _sharded_lm_shape("fsdp")
+    ts, params, opt_state, local = _train_setup(
+        cfg, AdamW(LR), batch_size=batch, seq=seq, template=template_for("fsdp", axes),
+        mesh=mesh, axes_tree=param_axes(cfg))
+    root = Path(out_dir)
+    ckpt = CheckpointManager(root / "ckpt-now", save_interval_steps=10**9) if rank == 0 else None
+    box = root / "commands" / f"proc{rank}"
+    box.mkdir(parents=True, exist_ok=True)
+    events = _CommandEvents()
+    agent = capture.configure(reporter=events, mailbox=box, process_id=rank)
+    service = _checkpoint_now(ckpt, lambda *a: None, agent, ts)
+
+    def flat(state):
+        p, o = state
+        return [t.detach().cpu() for t in tree_leaves(p) + o.mu + o.nu]
+
+    served, kept = [], None
+    for step in range(CKPT_NOW_STEPS):
+        params, opt_state, _ = ts.step(params, opt_state, local)
+        if step == CKPT_NOW_DROPS[rank]:
+            (box / f"{CKPT_NOW_UUID}.json").write_text(
+                json.dumps({"kind": "checkpoint-now", "uuid": CKPT_NOW_UUID}))
+            agent.poll()
+        if service.maybe_save(step, params, opt_state):
+            served.append(step)
+            whole = ts.full_state(params, opt_state)  # every rank joins the gathers
+            if rank == 0:
+                kept = (step, flat(whole))
+            del whole
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(CKPT_NOW_REPS):
+        service.maybe_save(CKPT_NOW_STEPS, params, opt_state)
+    idle_ms = (time.perf_counter() - t) / CKPT_NOW_REPS * 1e3
+    out = {"served": served, "events": events.lines, "maybe_save_idle_ms": idle_ms}
+    if ckpt is not None:
+        ckpt.close()
+        out["history"] = [h["step"] for h in ckpt.history]
+        out["save_bytes"] = [h["bytes"] for h in ckpt.history]
+        out["save_block_s"] = ckpt.save_block_s
+        manager = CheckpointManager(root / "ckpt-now")
+        try:
+            restored = manager.restore(*ts.empty_full_state(params, opt_state), step=kept[0])
+        finally:
+            manager.close()
+        got = flat((restored["params"], restored["opt_state"]))
+        out["restored_step"] = restored["step"]
+        out["restore_equal"] = len(got) == len(kept[1]) and all(
+            torch.equal(a, b) for a, b in zip(got, kept[1]))
+    capture.configure(reporter=None, mailbox=None)
+    del ts, params, opt_state, local
+    _free()
+    return out
+
+
+def _worst(got, one):
+    """The worst relative difference of any rank's (loss, grad_norm) from
+    one rank's, step by step."""
+    return max(abs(a - b) / abs(b) for g in got for pair in zip(g["history"], one)
+               for a, b in zip(*pair))
+
+
+def _agrees(label, worst):
+    """Raise unless ``worst`` is within STEP_RANKS_BF16_RTOL."""
+    if not worst <= STEP_RANKS_BF16_RTOL:
+        raise AssertionError(f"{label} across ranks disagrees with one rank's step ({worst})")
+
+
+def _check_microbatch_routing(name, got, one_routing, axes, cfg):
+    """Phase 45's routing check on ``{data: 2, pipeline: 2}``: each rank's
+    drops at its layer (``_microbatch_drops``) those of one rank routing each
+    global microbatch whole, but for tokens whose expert differs (bf16
+    near-ties); beside them what would drop if each data rank routed only
+    its rows of each microbatch."""
+    figures = {"one_rank_dropped": {}, "tokens_whose_expert_differs": {},
+               "dropped_if_routed_locally": {}}
+    for g in got:
+        layer = g["layer"]
+        one_dropped, one_idx = one_routing[layer]
+        rank_idx = next(r["expert_idx"] for r in got if r["layer"] == layer and "expert_idx" in r)
+        differ = sum(int(np.sum(np.asarray(a) != np.asarray(b)))
+                     for a, b in zip(rank_idx, one_idx))
+        local = [sum(_local_drops([part], axes["data"], cfg)[f][0] for part in one_idx)
+                 for f in range(len(DROP_FACTORS))]
+        figures["one_rank_dropped"][layer] = one_dropped
+        figures["tokens_whose_expert_differs"][layer] = differ
+        figures["dropped_if_routed_locally"][layer] = local
+        if not all(abs(a - b) <= differ for a, b in zip(g["dropped"], one_dropped)):
+            raise AssertionError(f"{name}: layer {layer}'s tokens dropped at capacity "
+                                 f"{g['dropped']} are not one rank's {one_dropped}")
+    log(f"  {name} tokens dropped at the initial weights by the layer each rank holds, "
+        f"summed over {len(one_routing[0][1])} global microbatches, at capacity factors "
+        f"{DROP_FACTORS} (the model runs at {MOE_CAPACITY}): ranks "
+        f"{[(g['layer'], g['dropped']) for g in got]}, one rank {figures['one_rank_dropped']}, "
+        f"tokens whose expert differs {figures['tokens_whose_expert_differs']}; if each data "
+        f"rank routed only its rows of each microbatch: "
+        f"{figures['dropped_if_routed_locally']}")
+    for g in got:
+        g.pop("expert_idx", None)
+    return figures
+
+
+def phase_rest_of_the_parallel_layer():
+    """Phases 42-46 (see the module docstring): the rank processes' cases
+    (run with phases 34-41's, ``_rank_cases``), then one rank's steps on the
+    whole batch in this process.  Returns the kernels' launches summed over
+    the ranks of sp_ring and of MoE under pp_tp, and the figures."""
+    from polyaxon_tpu_torch.runtime.optim import AdamW
+
+    (two, _), (four, _) = _rank_cases()[2], _rank_cases()[4]
+    out = {"backend": "gloo across processes on one card", "card": _card()}
+    one_image = {model: _image_trainer_run(model) for model in ("vit", "cnn")}
+    _free()
+    for name, (model, strategy, axes) in IMAGE_RANK_CASES.items():
+        got = [r[name] for r in (two if np.prod(list(axes.values())) == 2 else four)]
+        one = one_image[model]
+        worst = _worst(got, one["history"])
+        log(f"{name}: {model}_train under {strategy} {axes} on {len(got)} rank processes over "
+            f"gloo, bf16, " + ("ViT-B/16 widths at 2 layers, batch " + str(VIT_FSDP_BATCH)
+                               if model == "vit" else f"the CIFAR shape, batch {CNN_BATCH}, "
+                               "a fixture dataset")
+            + f", {STEP_RANKS_STEPS} steps: (loss, grad_norm) "
+            + "; ".join(f"rank {i} {g['history']}" for i, g in enumerate(got))
+            + f"; one rank {one['history']}; worst relative difference {worst:.3g}; the "
+            f"leader's logged losses {got[0]['losses']}, one rank's {one['losses']}")
+        for i, g in enumerate(got):
+            log(f"  rank {i}: params {g['param_bytes']} B, AdamW {g['adam_bytes']} B"
+                + (f", block {g['block_bytes']} B" if g["block_bytes"] else "")
+                + f" (one rank: {one['param_bytes']} B, {one['adam_bytes']} B"
+                + (f", block {one['block_bytes']} B" if one["block_bytes"] else "")
+                + f"); kernels {g['launches']}; collectives: {g['walls']}; case wall "
+                f"{g['wall_s']:.1f} s")
+        _agrees(f"{name} {axes}", worst)
+        logged = [loss for _, loss in got[0]["losses"]]
+        if logged != [got[0]["history"][s][0] for s, _ in got[0]["losses"]] or not logged:
+            raise AssertionError(f"{name}: the leader's logged losses {got[0]['losses']} are "
+                                 f"not its steps' {got[0]['history']}")
+        if any(c for g in got for c in g["launches"]):
+            raise AssertionError(f"{name}: the image model launched a flash kernel")
+        out[name] = {"axes": axes, "ranks": got, "one_rank": one["history"],
+                     "one_rank_param_bytes": one["param_bytes"],
+                     "one_rank_adam_bytes": one["adam_bytes"], "worst_rel_diff": worst}
+    launches = {}
+    for name, ranks in (("sp_ring", two), ("pp_tp_moe", four), ("pp_dp_moe", four)):
+        strategy, axes, options = _case_template(name)
+        cfg, batch, seq = _sharded_lm_shape(name)
+        _free()
+        ts, params, opt_state, whole = _train_setup(cfg, AdamW(LR), batch_size=batch, seq=seq)
+        one_bytes = _state_bytes(params, opt_state)
+        one_routing = (_microbatch_drops(params, cfg, batch, seq) if name == "pp_dp_moe"
+                       else None)
+        torch.cuda.synchronize()
+        _reset_counts()
+        one = []
+        for _ in range(STEP_RANKS_STEPS):
+            params, opt_state, m = ts.step(params, opt_state, whole)
+            one.append((float(m["loss"]), float(m["grad_norm"])))
+        one_launches = _counts()
+        del ts, params, opt_state, whole
+        _free()
+        got = [r[name] for r in ranks]
+        worst = _worst(got, one)
+        stages = axes.get("pipeline", 1)
+        micro = options.get("num_microbatches", 1) if stages > 1 else 1
+        # The ring launches each kernel once a hop; a stage M times a layer a step.
+        want_launches = (STEP_RANKS_STEPS * micro * cfg.n_layers // stages if stages > 1
+                         else None)
+        log(f"{name}: {strategy} {axes} {options} on {len(got)} rank processes over gloo, "
+            f"bf16, the 671M width with {STEP_RANKS_LAYERS} layers"
+            + (f", {MOE_EXPERTS} experts, attention_impl flash" if cfg.n_experts else "")
+            + f", batch {batch} x {seq}, {STEP_RANKS_STEPS} steps: (loss, grad_norm) "
+            + "; ".join(f"rank {i} {g['history']}" for i, g in enumerate(got))
+            + f"; one rank {one}; worst relative difference {worst:.3g}")
+        for i, g in enumerate(got):
+            log(f"  rank {i}: kernels fwd/dq/dkv {g['launches']} (expected "
+                f"{want_launches or 'above 0'}; one rank alone: {one_launches}); params "
+                f"{g['param_bytes']} B, AdamW {g['adam_bytes']} B (one rank: {one_bytes[0]} B, "
+                f"{one_bytes[1]} B); collectives and ring hops: {g['walls']}; case wall "
+                f"{g['wall_s']:.1f} s")
+        _agrees(f"{strategy} {axes}", worst)
+        if not all(c == want_launches if want_launches else c > 0
+                   for g in got for c in g["launches"]):
+            raise AssertionError(f"{name}: kernel launches {[g['launches'] for g in got]}, "
+                                 f"expected {want_launches or 'some'} each on every rank")
+        launches[f"train_step_{name}"] = tuple(sum(g["launches"][i] for g in got)
+                                               for i in range(3))
+        out[name] = {"axes": axes, "options": options, "ranks": got, "one_rank": one,
+                     "one_rank_launches": one_launches, "worst_rel_diff": worst,
+                     "launches_expected_per_rank": want_launches}
+        if one_routing is not None:
+            out[name].update(_check_microbatch_routing(name, got, one_routing, axes, cfg))
+    ranks = [r["ckpt_now"] for r in two]
+    lead = ranks[0]
+    at = CKPT_NOW_DROPS[0] + 1  # the ranks read the count posted a step before
+    want = [{"uuid": CKPT_NOW_UUID, "state": "acked", "message": None},
+            {"uuid": CKPT_NOW_UUID, "state": "complete", "message": None, "step": at}]
+    log(f"checkpoint-now under fsdp {{data: 2}} on 2 rank processes over gloo (the 671M width "
+        f"with {STEP_RANKS_LAYERS} layers): copies dropped at steps {CKPT_NOW_DROPS}; saves "
+        f"{lead['history']} ({lead['save_bytes']} B, {lead['save_block_s']:.2f} s blocked), "
+        f"served at {[r['served'] for r in ranks]}, events {[r['events'] for r in ranks]}, "
+        f"restored step {lead['restored_step']} equal to full_state: {lead['restore_equal']}; "
+        f"maybe_save with nothing queued (the flag's all-reduce on the hosts) "
+        f"{[round(r['maybe_save_idle_ms'], 4) for r in ranks]} ms; case wall "
+        f"{[round(r['wall_s'], 1) for r in ranks]} s")
+    if not (lead["history"] == [at] and lead["restore_equal"]
+            and all(r["served"] == [at] and r["events"] == want for r in ranks)):
+        raise AssertionError("checkpoint-now across ranks: not one save at one step acked by "
+                             "every process, or a restore that differs")
+    out["ckpt_now"] = {"ranks": ranks}
     return launches, out
 
 
@@ -4947,12 +5428,15 @@ def main() -> int:
     sharded_launches, sharded = phase_sharded_strategies()
     _free()
     pipeline_launches, pipeline = phase_pipeline_and_experts()
+    _free()
+    rest_launches, rest = phase_rest_of_the_parallel_layer()
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
                "lm_train_sp_ring_t16384": ring_launches, "lm_train_resumed": ckpt_launches,
                "lm_train_gang": gang_launches, "train_step_2_ranks": ranks_launches,
-               "lm_train_moe": moe_launches, **sharded_launches, **pipeline_launches}
+               "lm_train_moe": moe_launches, **sharded_launches, **pipeline_launches,
+               **rest_launches}
     for i, (kind, record) in enumerate((("fwd", fwd), ("dq", bwd["dq"]), ("dkv", bwd["dkv"]))):
         record["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -4982,6 +5466,7 @@ def main() -> int:
     print(json.dumps({"image_classifiers_and_moe": images}))
     print(json.dumps({"sharded_strategies": sharded}))
     print(json.dumps({"pipeline_and_experts": pipeline}))
+    print(json.dumps({"rest_of_the_parallel_layer": rest}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,9 +6,9 @@ the platform's gang tests drive (``noop``, ``failing``, ``sleepy``,
 and :667-678 there), ``synthetic_regression`` (the quickstart's job,
 :904-958), the image classifiers ``cnn_train`` and ``vit_train`` (:469-563,
 over ``_train_image_classifier`` :175-466), ``lm_generate``, and
-``lm_train`` (every ported template: ``ddp``, ``fsdp``, ``tp``, ``tp_dp``,
-``sp_ring`` and ``ulysses``, on one rank or across a gang's ranks; dense or
-switch-MoE), with checkpoint save, resume and restore, the fault
+``lm_train`` (every ported template, on one rank or across a gang's ranks;
+dense or switch-MoE); the trainers with checkpoint save, resume, restore
+and ``checkpoint-now`` under every template, the fault
 injection the platform's preemption tests drive, and the trainers' run
 accounting (the utilization ledger, the progress beacon, tracer spans and
 step-wall percentiles).  Metrics are logged by the leader (process 0), as
@@ -36,7 +36,11 @@ from polyaxon_tpu_torch.models.transformer import (
     param_axes,
 )
 from polyaxon_tpu_torch.parallel.templates import template_for
-from polyaxon_tpu_torch.runtime.checkpoint import CheckpointManager, CheckpointNowService
+from polyaxon_tpu_torch.runtime.checkpoint import (
+    CheckpointManager,
+    CheckpointNowService,
+    GangCheckpointNowService,
+)
 from polyaxon_tpu_torch.runtime.data import global_batch_from_host_data
 from polyaxon_tpu_torch.runtime.datasets import DatasetReader, synthetic_class_images
 from polyaxon_tpu_torch.runtime.mesh import build_mesh
@@ -323,22 +327,20 @@ def _open_checkpoints(ctx: Context, save_every: int, ts, params, opt_state):
     return ckpt, (save if ckpt is not None or ts.sharded else None), params, opt_state, start_step
 
 
-def _checkpoint_now(ckpt, capture, ts):
-    """The ``checkpoint-now`` service of the leader's manager.  Under a
-    template that shards the params a save needs every rank, and the
-    command reaches one: the command fails, naming ROADMAP item 7, and the
-    saves at ``save_every`` go on."""
-    if ckpt is None:
+def _checkpoint_now(ckpt, save, capture, ts):
+    """The run's ``checkpoint-now`` service, or None when it keeps no
+    checkpoints (no ``save`` hook).  Under a template that shards the params
+    a save needs every rank, and every process gets its own copy of the
+    command: each process serves its copy through
+    ``GangCheckpointNowService``, whose ranks agree at each step's end on
+    whether to save (one all-reduce) and then save once together.
+    Otherwise the leader's ``CheckpointNowService`` saves alone, as the
+    reference's (``polyaxon_tpu/runtime/checkpoint.py:311-360``)."""
+    if save is None:
         return None
     if ts.sharded:
-        def refuse(cmd):
-            raise NotImplementedError(
-                "checkpoint-now under a template that shards the params across ranks is not "
-                "ported yet (ROADMAP item 7: multi-process and parallelism)")
-
-        capture.register_handler("checkpoint-now", refuse)
-        return None
-    return CheckpointNowService(ckpt, capture)
+        return GangCheckpointNowService(ckpt, capture, ts)
+    return None if ckpt is None else CheckpointNowService(ckpt, capture)
 
 
 def _train_image_classifier(
@@ -364,12 +366,13 @@ def _train_image_classifier(
     ``save_every``, ``prefetch``, ``prefetch_workers``, ``profile_start``,
     ``profile_steps`` and the fault injection's (``_fault_injection``).  The
     template comes from ``ctx.strategy`` over ``ctx.mesh`` (default
-    ``build_mesh({"data": 1})``): ``ddp`` or ``fsdp`` on one rank or across
-    a gang's ranks.  Two data paths, one loop:
+    ``build_mesh({"data": 1})``): any ported strategy, on one rank or across
+    a gang's ranks (the models split what the template splits,
+    ``models/vit.py``, ``models/cnn.py``).  Two data paths, one loop:
 
     - ``dataset: <name>``, a registered dataset (``runtime/datasets.py``):
-      each rank reads its own rows of every global batch
-      (``DatasetReader(num_processes=, process_id=)``, uint8 on the wire,
+      each rank reads the rows of its shard of the batch axes of every
+      global batch (``DatasetReader(num_processes=, process_id=)``, uint8 on the wire,
       per-epoch shuffles), and a resumed run's stream fast-forwards to its
       restored step, position for position.  With ``prefetch`` > 0 a
       ``TrainPipeline`` gathers rows on ``prefetch_workers`` threads and
@@ -411,14 +414,17 @@ def _train_image_classifier(
     params, opt_state = ts.init(torch.Generator(device=device).manual_seed(seed))
     ckpt, save, params, opt_state, start_step = _open_checkpoints(
         ctx, save_every, ts, params, opt_state)
-    _, ranks = mesh.shard(template.batch_axes)
+    shard, ranks = mesh.shard(template.batch_axes)
     local_rows = batch_size // ranks
 
     if dataset is not None:
+        # Each rank reads the rows of its shard of the batch axes: ranks that
+        # differ only on another axis (tensor, pipeline, sequence, expert)
+        # read the same rows, as place_batch would give them.
         reader = DatasetReader(ctx.data_path, str(dataset), global_batch=batch_size, seed=seed,
-                               num_processes=ctx.num_processes, process_id=ctx.process_id)
+                               num_processes=ranks, process_id=shard)
         place = device if prefetch > 0 else functools.partial(
-            global_batch_from_host_data, device=device, num_processes=ctx.num_processes)
+            global_batch_from_host_data, device=device, num_processes=ranks)
         pipe = TrainPipeline(reader.batch_tasks(start_step), place, prefetch=prefetch,
                              workers=prefetch_workers)
     else:
@@ -434,14 +440,15 @@ def _train_image_classifier(
         num_steps=int(ctx.get_param("profile_steps", 0)),
     )
     capture = get_capture_agent()
-    ckpt_now = _checkpoint_now(ckpt, capture, ts)
+    ckpt_now = _checkpoint_now(ckpt, save, capture, ts)
     inject = _fault_injection(ctx)
     drain = MetricsDrain(lambda step, vals: ctx.log_metrics(step=step, **vals))
     clock = StepClock()
     tracer = get_tracer()
     run_stats = get_stats()
     progress = get_progress()
-    led.set_flops_per_step(flops_per_example * local_rows)
+    # This rank's share of the global step's FLOPs, as lm_train counts it.
+    led.set_flops_per_step(flops_per_example * batch_size / mesh.size)
     metrics = batch = first_step_s = last_dt = None
     data_wait_accounted = 0.0
     t0 = time.perf_counter()
@@ -507,9 +514,9 @@ def _train_image_classifier(
         return
     with torch.no_grad():
         acc = accuracy_fn(params, batch, template, mesh)
-    if ranks > 1:  # every rank holds as many rows: the mean of the ranks' shares
+    if mesh.size > 1:  # every rank holds as many rows: the mean of the ranks' shares
         dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=mesh.world)
-        acc = acc / ranks
+        acc = acc / mesh.size
     acc = float(acc)
     if not ctx.is_leader:
         return
@@ -703,18 +710,18 @@ def lm_train(ctx: Context) -> None:
     ``TransformerConfig`` fields ``vocab_size``, ``d_model``, ``n_layers``,
     ``n_heads``, ``head_dim``, ``d_ff``, ``n_experts``, ``n_kv_heads``,
     ``ce_chunk``), plus ``device`` (default ``cuda``; ``cpu`` only when
-    asked).  With ``n_experts`` the MLP is the switch MoE, on one rank only
-    (``models/transformer.py:forward``), and the loss carries its balance
-    term; the ledger's FLOPs stay the reference's ``6·n_params + ...``, and
+    asked).  With ``n_experts`` the MLP is the switch MoE under every
+    template (``models/transformer.py:forward``), and the loss carries its
+    balance term; the ledger's FLOPs stay the reference's ``6·n_params + ...``, and
     ``n_params`` counts every expert, so a top-1 MoE's MFU counts FLOPs its
     tokens do not spend.  The template comes from ``ctx.strategy`` over ``ctx.mesh``
-    (default ``build_mesh({"data": 1})``): ``ddp``, ``fsdp``, ``tp``,
-    ``tp_dp`` (the params sharded by ``param_axes``), ``sp_ring`` (ring
-    attention; on a ``{"sequence": 1}`` mesh one causal block over the whole
-    sequence, as bench.py runs T = 16384) or ``ulysses``, on one rank or
-    across a gang's ranks (the worker's ``ctx.mesh``).  Data is the same synthetic
-    next-token batch, drawn once from ``np.random.default_rng(seed)`` on
-    every rank (as the reference draws it on the host) and fed every step;
+    (default ``build_mesh({"data": 1})``): any ported template (the params
+    sharded by ``param_axes``; ``sp_ring`` on a ``{"sequence": 1}`` mesh
+    runs one causal block over the whole sequence, as bench.py runs T =
+    16384), on one rank or across a gang's ranks (the worker's
+    ``ctx.mesh``).  Data is the same synthetic next-token batch, drawn once
+    from ``np.random.default_rng(seed)`` on every rank (as the reference
+    draws it on the host) and fed every step;
     each rank takes its rows and sequence shard (``TrainStep.place_batch``).
     The optimizer is ``AdamW(lr)``.  ``tokens_per_s`` counts the global
     batch; each rank's ledger counts its share, the global step's tokens
@@ -724,8 +731,9 @@ def lm_train(ctx: Context) -> None:
     resumes from the newest complete checkpoint there (``start_step`` = its
     step + 1), saves every ``save_every`` steps (asynchronously; fenced at
     the end) and answers ``checkpoint-now`` commands from the capture
-    agent's bus.  ``profile_start``/``profile_steps`` trace a window of
-    steps into ``<outputs>/profile``; a ``profile`` command captures one on
+    agent's bus (on every process under a template that shards the params:
+    ``_checkpoint_now``).  ``profile_start``/``profile_steps`` trace a
+    window of steps into ``<outputs>/profile``; a ``profile`` command captures one on
     demand.  ``preempt_*`` and ``stall_*`` inject faults (``_fault_injection``).
 
     Logs ``loss`` and ``grad_norm`` at every tenth step and the last (read
@@ -793,7 +801,7 @@ def lm_train(ctx: Context) -> None:
     capture = get_capture_agent()
     # checkpoint-now lands on the bus thread but must save from the loop
     # thread (the optimizer updates the state in place).
-    ckpt_now = _checkpoint_now(ckpt, capture, ts)
+    ckpt_now = _checkpoint_now(ckpt, save, capture, ts)
     inject = _fault_injection(ctx)
     # Losses leave the loop as device scalars; the drain thread reads them.
     drain = MetricsDrain(lambda step, vals: ctx.log_metrics(step=step, **vals))

@@ -9,10 +9,15 @@ takes NHWC images, as the reference does, and runs its convolutions in
 NCHW (``F.conv2d`` for ``lax.conv_general_dilated``, ``F.max_pool2d`` for
 ``lax.reduce_window``); it permutes back to NHWC before it flattens, so the
 dense layer reads its rows in the reference's (h, w, c) order.
-``param_axes`` is the reference's: under ``fsdp`` each rank holds its shard
-of every weight (``runtime.train.build_train_step``) and the forward
-gathers each at its use; ``tp``, ``tp_dp`` and ``ulysses`` raise
-(``vit.image_placement``, ROADMAP item 7).
+``param_axes`` is the reference's, and each rank holds its shard of every
+weight as the template's rules cut it (``runtime.train.build_train_step``),
+as the reference's trainer places them (``polyaxon_tpu/builtins/trainers.py:490-495``;
+its ``forward`` takes no template): the ``embed`` split over a data axis
+(``fsdp``, ``tp_dp``, ``ep``, ``custom``) is gathered at its use
+(``vit.image_placement``), the head's classes split over a tensor axis
+(``tp``, ``tp_dp``, ``pp_tp``) give the ViT's gathered logits
+(``vit.head_logits``), and every other axis (``pipeline``, ``sequence``,
+``expert``) leaves the CNN whole, each of its ranks computing the same rows.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
-from polyaxon_tpu_torch.models.vit import image_placement
+from polyaxon_tpu_torch.models.vit import head_logits, image_placement
 
 
 @dataclass(frozen=True)
@@ -106,7 +111,8 @@ def forward(params: Dict[str, Any], images: torch.Tensor, cfg: CNNConfig,
     after it (as the reference adds it), ReLU and a 2x2 max pool.
     ``params`` must lie on ``device``; ``images`` are moved there.  Under
     ``template`` and ``mesh`` the params are this rank's shards, each
-    gathered at its use."""
+    gathered at its use but the head's block of the classes under a tensor
+    axis (``vit.head_logits``)."""
     dev = resolve_device(device)
     dt = cfg.dtype
     placement = image_placement(param_axes(cfg), template, mesh)
@@ -122,8 +128,7 @@ def forward(params: Dict[str, Any], images: torch.Tensor, cfg: CNNConfig,
         x = F.max_pool2d(F.relu(x), kernel_size=2, stride=2)
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten in NHWC order
     x = F.relu(x @ use("dense", "w") + use("dense", "b"))
-    logits = x @ use("head", "w") + use("head", "b")
-    return logits.float()
+    return head_logits(x, use("head", "w"), use("head", "b"), placement)
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: CNNConfig,

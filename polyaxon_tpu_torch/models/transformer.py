@@ -18,12 +18,14 @@ axis, Megatron style), ``sp_ring`` (ring attention over the sequence axis),
 ``ulysses`` (all-to-all attention over it), ``pp`` and ``pp_tp`` (the GPipe
 schedule over the ``pipeline`` axis, ``parallel/pipeline.py``), ``ep`` (the
 experts split over the ``expert`` axis) and ``custom`` (its rules, where the
-port splits each).  MoE routes the global batch on every template but a
-pipeline, whose stages route each microbatch of each data rank, as the
-reference's manual body does.  MoE under ``pp_tp``, a ``custom`` rule the
-port does not split and meshes with another axis above 1
-(``parallel.templates.check_mesh``) raise ``NotImplementedError`` naming
-their ROADMAP item.
+port splits each).  MoE routes the global batch on every template but
+``pp``, whose stages route each microbatch of each data rank, as the
+reference's manual body does; under ``pp_tp`` each microbatch is cut from
+the global batch and routed over the data ranks' tokens, as the
+reference's composed body does.  A ``custom`` rule the port does not split,
+MoE under a ``custom`` pipeline with a tensor or expert axis, and meshes
+with another axis above 1 (``parallel.templates.check_mesh``) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from torch.utils.checkpoint import (
 )
 
 from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
-from polyaxon_tpu_torch.parallel.axes import Placement
+from polyaxon_tpu_torch.parallel.axes import Placement, entry_axes
 from polyaxon_tpu_torch.parallel.collectives import (
     all_gather_cat,
     copy_to_group,
@@ -353,12 +355,19 @@ def _moe_mlp(x: torch.Tensor, layer: Dict[str, torch.Tensor], cfg: TransformerCo
       reads through f (a rank combines only its experts' tokens, so the
       gates' cotangent is summed over the axis before it reaches the
       router; the balance loss's cotangent is whole on every rank and
-      counts once), and g summing the experts' outputs.
+      counts once), and g summing the experts' outputs;
+    - where the rules split each expert's MLP columns over the tensor axis
+      (``mlp`` there and no ``experts`` rule: ``pp_tp``, ``tp_dp``), each
+      rank computes its columns of every expert: f before ``wi``/``wg`` on
+      the dispatched tokens and g after ``wd``, as the dense MLP's
+      Megatron split; the router and the routing are whole and the same on
+      every rank of the axis.
     """
     B, T, D = x.shape
     E = cfg.n_experts
     tokens = B * T
     ex = None if shard is None else shard.expert_group
+    cols = None if shard is None else shard.expert_mlp_group
     El = E // group_size(ex)
     e0 = (0 if ex is None else ex.rank()) * El
     x = copy_to_group(x, ex)
@@ -386,10 +395,11 @@ def _moe_mlp(x: torch.Tensor, layer: Dict[str, torch.Tensor], cfg: TransformerCo
     place = _rank_in_expert(torch.where(mine, local_e, El), El + 1) if split else rank
     slot = torch.where(mine, local_e * cap + place, El * cap)
     expert_in = x.new_zeros(El * cap + 1, D).index_copy(0, slot, x.reshape(tokens, D))
-    expert_in = expert_in[:-1].view(El, cap, D)
+    expert_in = copy_to_group(expert_in[:-1].view(El, cap, D), cols)
     h = torch.einsum("ecd,edf->ecf", expert_in, layer["wi"].to(x.dtype))
     g = torch.einsum("ecd,edf->ecf", expert_in, layer["wg"].to(x.dtype))
-    out = torch.einsum("ecf,efd->ecd", F.silu(g) * h, layer["wd"].to(x.dtype))
+    out = reduce_from_group(torch.einsum("ecf,efd->ecd", F.silu(g) * h,
+                                         layer["wd"].to(x.dtype)), cols)
     out = torch.cat([out.reshape(El * cap, D), out.new_zeros(1, D)])
     gate = copy_to_group(gate_val, ex).to(x.dtype)
     y = reduce_from_group(out.index_select(0, slot) * gate[:, None], ex)
@@ -431,9 +441,12 @@ class _Shard:
     block weight's spec within a layer (its ``layers`` dimension unbound),
     the sequence axis of the ring or of Ulysses, the pipeline axis, and
     MoE's routing across ranks: the axes above 1 that split the tokens
-    (the batch axes, then the sequence axis; none under a pipeline, whose
-    stages route each microbatch of each data rank) and the expert axis's
-    group."""
+    (the batch axes, then the sequence axis; none under ``pp``, whose
+    stages route each microbatch of each data rank; the batch axes under a
+    composed pipeline, whose microbatches are cut from the global batch
+    before the data split, ``runtime.train.shard_batch``), the expert
+    axis's group, and the tensor group where it splits each expert's MLP
+    columns."""
 
     def __init__(self, cfg: TransformerConfig, template, mesh) -> None:
         self.mesh = mesh
@@ -449,10 +462,14 @@ class _Shard:
         wide = lambda a: a is not None and mesh.shape.get(a, 1) > 1  # noqa: E731
         self.token_batch_axes: tuple = ()
         self.token_seq_axis: Optional[str] = None
-        if self.pipeline_axis is None:
+        if self.pipeline_axis is None or template.pipeline_composed:
             self.token_batch_axes = tuple(a for a in template.batch_axes if wide(a))
+        if self.pipeline_axis is None:
             seq = self.ring_axis or self.ulysses_axis
             self.token_seq_axis = seq if wide(seq) else None
+        wi = self.layer_specs.get("wi", ()) if cfg.n_experts else ()
+        self.expert_mlp_group = (self.tp if len(wi) == 3 and self.placement.tp_axis
+                                 in entry_axes(wi[2]) else None)
 
     @property
     def token_groups(self) -> list:
@@ -624,14 +641,13 @@ def forward(
     tp = shard.tp if shard is not None else None
     if shard is not None and shard.pipeline_axis is not None:
         check_stages(c.n_layers, mesh.shape[shard.pipeline_axis])
-        if c.n_experts and (template.pipeline_composed or tp is not None
-                            or shard.expert_group is not None):
+        if c.n_experts and not template.pipeline_composed and (
+                tp is not None or shard.expert_group is not None):
             raise NotImplementedError(
-                f"MoE under {template.name!r} (a composed pipeline, or one with a tensor "
-                "or expert axis) is not ported yet: there the reference routes each "
-                "microbatch over the data axis's global tokens, cut from the global batch "
-                "before the data split (ROADMAP item 7: MoE across ranks under pp_tp, "
-                "multi-process and parallelism)"
+                f"MoE under {template.name!r} (a pipeline that is not composed, with a "
+                "tensor or expert axis) is not ported: the reference's manual body gathers "
+                "the experts' weights whole in each stage (ROADMAP item 7: MoE under a "
+                "custom pipeline, multi-process and parallelism)"
             )
     table = (params["embed"] if shard is None else shard.placement.at(params, "embed")).to(c.dtype)
     x = table[tokens] if tp is None else _vocab_parallel_embed(table, tokens, tp)  # [B,T,D]
@@ -651,7 +667,9 @@ def forward(
     stacked = None
     if shard is not None and shard.pipeline_axis is not None:
         scan = pipeline_scan_composed if template.pipeline_composed else pipeline_scan
-        aux_fn = (lambda a: moe_aux_loss(a[0], a[1], c.n_experts)) if c.n_experts else None
+        groups = shard.token_groups
+        aux_fn = ((lambda a: moe_aux_loss(a[0], a[1], c.n_experts, groups)) if c.n_experts
+                  else None)
         x, pp_aux = scan(block, x, positions, params["block"], mesh,
                          axis=shard.pipeline_axis, num_microbatches=template.num_microbatches,
                          batch_axes=template.batch_axes, aux_fn=aux_fn)

@@ -21,7 +21,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-from polyaxon_tpu_torch.parallel.collectives import gather_along
+from polyaxon_tpu_torch.parallel.collectives import gather_along, gather_from_group
 from polyaxon_tpu_torch.parallel.templates import AxisRules, RuntimeLayerError
 
 #: One dimension's entry of a spec: a mesh axis, a tuple of them, or None.
@@ -123,12 +123,16 @@ def spec_leaves(specs: Any) -> list:
     return [specs]
 
 
-def gather_shards(t: torch.Tensor, spec: Spec, mesh, keep: Sequence[str] = ()) -> torch.Tensor:
+def gather_shards(t: torch.Tensor, spec: Spec, mesh, keep: Sequence[str] = (),
+                  replicated: Sequence[str] = ()) -> torch.Tensor:
     """``t``, this rank's shard under ``spec``, gathered along every
-    dimension split over axes not in ``keep``
-    (:func:`~polyaxon_tpu_torch.parallel.collectives.gather_along`: its
-    backward reduce-scatters the grad into the shard).  Every rank of those
-    axes must call it."""
+    dimension split over axes not in ``keep``.  Over an axis of
+    ``replicated``, whose ranks hold the same rows and so the same grads,
+    the gather is :func:`~polyaxon_tpu_torch.parallel.collectives.gather_from_group`
+    (its backward keeps this rank's block of the grad); over any other,
+    :func:`~polyaxon_tpu_torch.parallel.collectives.gather_along` (its
+    backward reduce-scatters: the sum of the ranks' grads, cut to the shard).
+    Every rank of those axes must call it."""
     for dim, entry in enumerate(spec):
         axes = entry_axes(entry)
         if any(a in keep for a in axes):
@@ -138,7 +142,8 @@ def gather_shards(t: torch.Tensor, spec: Spec, mesh, keep: Sequence[str] = ()) -
                     "ported (ROADMAP item 7: multi-process and parallelism)")
             continue
         for a in reversed(axes):  # innermost first: the blocks of each outer index
-            t = gather_along(t, dim, mesh.group(a))
+            gather = gather_from_group if a in replicated else gather_along
+            t = gather(t, dim, mesh.group(a))
     return t
 
 
@@ -168,22 +173,34 @@ class Placement:
     - ``tp_axis``, the mesh axis, above 1, the rules split the heads over
       (``tensor`` under ``tp``, ``tp_dp`` and ``pp_tp``), where the
       tensor-parallel compute runs on the rank's block;
-    - the template's ``pipeline_axis``: a stage keeps its layers;
+    - the template's ``pipeline_axis`` when the caller runs a schedule over
+      it (``pipeline_local``: the transformer's stages keep their layers);
+      the image models run none and gather the ``layers`` split at use, as
+      the reference's ViT takes ``layers: pipeline`` as a placement
+      (``polyaxon_tpu/models/vit.py:181``, a ``lax.scan`` over the stacked
+      params);
     - ``expert_axis``, the mesh axis, above 1, of the ``experts`` rule
       (``expert`` under ``ep``, ``tensor`` under ``tp``): a rank computes
       its own experts.
 
-    Every other split dimension is gathered
-    (:func:`~polyaxon_tpu_torch.parallel.collectives.gather_along`, whose
-    backward reduce-scatters the grad into the rank's shard).
+    Every other split dimension is gathered (:func:`gather_shards`): over
+    the axes whose grads the train step sums (the template's batch axes and
+    its ring or Ulysses axis) by ``gather_along``, whose backward
+    reduce-scatters the grad into the rank's shard; over the others
+    (``replicated``: ``pipeline`` for the image models, an axis that only a
+    ``custom`` rule names), whose ranks hold the same rows, by
+    ``gather_from_group``, whose backward keeps the rank's block, since a
+    reduce-scatter there would sum n equal grads.
     """
 
-    def __init__(self, axes_tree: Any, template=None, mesh=None) -> None:
+    def __init__(self, axes_tree: Any, template=None, mesh=None,
+                 pipeline_local: bool = True) -> None:
         self.mesh = mesh
         self.specs = None
         self.tp_axis: Optional[str] = None
         self.expert_axis: Optional[str] = None
         self.local_axes: Tuple[str, ...] = ()
+        self.replicated_axes: Tuple[str, ...] = ()
         if template is not None and mesh is not None:
             self.specs = tree_specs(axes_tree, template.rules, mesh.shape)
 
@@ -192,8 +209,11 @@ class Placement:
 
             self.tp_axis = wide(template.rules.get("heads"))
             self.expert_axis = wide(template.rules.get("experts"))
-            local = (self.tp_axis, wide(template.pipeline_axis), self.expert_axis)
+            pipeline = wide(template.pipeline_axis) if pipeline_local else None
+            local = (self.tp_axis, pipeline, self.expert_axis)
             self.local_axes = tuple(dict.fromkeys(a for a in local if a is not None))
+            summed = set(template.batch_axes) | {template.ring_axis, template.ulysses_axis}
+            self.replicated_axes = tuple(a for a in mesh.shape if a not in summed)
 
     @property
     def tp_group(self):
@@ -219,4 +239,4 @@ class Placement:
     def use(self, w: torch.Tensor, spec: Spec) -> torch.Tensor:
         """This rank's shard ``w`` gathered along every dimension that
         ``spec`` splits over an axis not in :attr:`local_axes`."""
-        return gather_shards(w, spec, self.mesh, self.local_axes)
+        return gather_shards(w, spec, self.mesh, self.local_axes, self.replicated_axes)

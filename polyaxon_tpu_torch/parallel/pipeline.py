@@ -226,10 +226,18 @@ def pipeline_scan_composed(block: Block, x: torch.Tensor, positions: torch.Tenso
                            aux_fn: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``pp_tp``: the same schedule with each stage's layers run under the
     tensor group inside ``block`` (reference ``pipeline_scan_composed``,
-    :154-229).  The reference cuts the microbatches from the global batch
-    before the data split; here each data rank cuts its own rows, which for
-    a dense model gives the same loss.  The global batch must divide by the
-    microbatches (the reference's check), and so must the local one."""
+    :154-229).  The reference cuts microbatch m from the global batch
+    before the data split (global rows ``[m·B/M, (m+1)·B/M)``, :64-66) and
+    its body's auto axes see every data rank's tokens of that microbatch;
+    here ``x`` is this rank's block of each global microbatch in
+    microbatch order (``runtime.train.shard_batch`` cuts the rows so), so
+    its local microbatch m is its part of global microbatch m, and a
+    ``block`` that routes MoE over the data group routes the reference's
+    microbatch.  ``aux_fn`` then returns a value over the global
+    microbatch already (the reference's ``batch_axis_names=()``, :211):
+    it is not averaged over ``batch_axes`` again.  The global batch must
+    divide by the microbatches (the reference's check), and so must the
+    local one."""
     n = 1
     for a in batch_axes:
         n *= mesh.shape.get(a, 1)
@@ -238,5 +246,4 @@ def pipeline_scan_composed(block: Block, x: torch.Tensor, positions: torch.Tenso
             f"Global batch {x.shape[0] * n} not divisible by {num_microbatches} microbatches"
         )
     return pipeline_scan(block, x, positions, stage_layers, mesh, axis=axis,
-                         num_microbatches=num_microbatches, batch_axes=batch_axes,
-                         aux_fn=aux_fn)
+                         num_microbatches=num_microbatches, aux_fn=aux_fn)

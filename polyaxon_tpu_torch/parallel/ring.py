@@ -34,7 +34,11 @@ class GroupRing:
     Both go out together through ``dist.batch_isend_irecv`` (a blocking send
     then receive would deadlock the ring); at two ranks both go to one peer.
     Without a group (an axis of size 1) the ring is one rank and rotating
-    makes no call."""
+    makes no call.  Gloo sends no CUDA tensor point to point ("writev ...:
+    Bad address", ``tools/gloo_probe.py``): on a gloo group a CUDA tensor
+    goes through a host copy each way, as ``collectives.hop`` stages it;
+    NCCL takes the tensor itself.  Each send's and receive's work is waited
+    once, here (a gloo send's work waited twice blocks)."""
 
     def __init__(self, group: Optional[dist.ProcessGroup] = None) -> None:
         self.group = group
@@ -46,7 +50,8 @@ class GroupRing:
             return tuple(tensors)
         step = -1 if reverse else 1
         dst, src = (self.rank + step) % self.size, (self.rank - step) % self.size
-        sent = [t.contiguous() for t in tensors]
+        staged = self.group.name() == "gloo"
+        sent = [(t.cpu() if staged and t.is_cuda else t).contiguous() for t in tensors]
         received = [torch.empty_like(t) for t in sent]
         ops = []
         for out, into in zip(sent, received):
@@ -54,7 +59,7 @@ class GroupRing:
             ops.append(dist.P2POp(dist.irecv, into, group=self.group, group_peer=src))
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-        return tuple(received)
+        return tuple(r.to(t.device) for r, t in zip(received, tensors))
 
 
 class LocalRing:

@@ -8,13 +8,13 @@ errors as there, as data.  The rules map logical axes (``batch``, ``seq``,
 (``parallel/axes.py`` turns them into each parameter's shard).
 Every strategy is in :data:`PORTED_STRATEGIES`: the transformer
 (:func:`polyaxon_tpu_torch.models.transformer.forward`,
-:func:`polyaxon_tpu_torch.runtime.train.build_train_step`) runs each with
-its axes across ranks (:func:`check_mesh`).  What still raises, naming
-ROADMAP item 7: a ``custom`` rule the port does not split
-(:func:`check_rules`), MoE under ``pp_tp`` (``transformer.forward``), the
-image models under any strategy but ``ddp`` and ``fsdp``
-(``models/vit.py``), and ``checkpoint-now`` under a template that shards
-the params (``builtins/trainers.py``).
+:func:`polyaxon_tpu_torch.runtime.train.build_train_step`) and the image
+models (``models/vit.py``, ``models/cnn.py``) run each with its axes
+across ranks (:func:`check_mesh`), and ``checkpoint-now`` serves every
+template (``runtime/checkpoint.py:GangCheckpointNowService``).  What still
+raises, naming ROADMAP item 7: a ``custom`` rule the port does not split
+(:func:`check_rules`), and MoE under a ``custom`` pipeline with a tensor or
+expert axis (``transformer.forward``).
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ Counterpart of ``polyaxon_tpu/runtime/checkpoint.py``, written for PyTorch
 tensors: the same ``.complete/<step>`` finalize markers and
 ``latest_complete_step`` (what the control plane asks "where can this run
 resume from"), the same save policy and fences, and ``CheckpointNowService``
-for the command bus.  The on-disk layout is the port's own:
+for the command bus, with ``GangCheckpointNowService`` serving the command
+across the ranks of a template that shards the params.  The on-disk layout is the port's own:
 
 - a step is the directory ``<step>/`` holding ``params.pt`` and
   ``opt_state.pt`` (``torch.save`` of a flat ``{tree path: tensor}`` dict,
@@ -397,3 +398,158 @@ class CheckpointNowService:
             if uuid:
                 self._agent.command_event(uuid, "complete", step=saved)
         return True
+
+
+#: Bytes of a command uuid in the exchange of a gang-wide save (longer ones
+#: are told apart by their first bytes).
+_UUID_BYTES = 64
+
+
+def host_group(group):
+    """A group over ``group``'s ranks that takes CPU tensors: ``group``
+    itself where its backend is gloo, else a gloo group made here, a
+    collective that every process of the default world makes at the same
+    point (``dist.new_group``)."""
+    import torch.distributed as dist
+
+    if isinstance(group, dist.ProcessGroupGloo) or "gloo" in dist.get_backend(group):
+        return group
+    return dist.new_group(dist.get_process_group_ranks(group), backend="gloo")
+
+
+class GangCheckpointNowService:
+    """``checkpoint-now`` under a template that shards the params: every
+    process of the gang serves its own copy of the command, and one save
+    serves them all.
+
+    The control plane drops the command into every process's mailbox
+    (``commands/proc<N>/``, ``tracking/capture.py``), and the copies may
+    arrive at different steps, while a save needs every rank: the whole
+    state is gathered (``TrainStep.full_state``, a collective) and the
+    leader writes it.  So, on every process:
+
+    - the bus handler only queues the command's uuid, as the reference's
+      ``CheckpointNowService`` does (``polyaxon_tpu/runtime/checkpoint.py:330-333``);
+    - at each step's end (:meth:`maybe_save`) each process posts the count
+      of its queued uuids as an all-reduce (max) of a CPU tensor over a gloo
+      group of the world's ranks (:func:`host_group`), which runs while the
+      next step is queued, and reads the count posted at the step before:
+      every rank reads the same value at the same step, the host never
+      waits for the card, and a command is served one step after its first
+      copy was counted (a copy counted at the run's last step is not);
+    - when some process had one, the ranks exchange the uuids that count
+      covered (an all-gather of their bytes over the same group), every
+      rank joins ``full_state``, the leader saves with ``force`` and fences,
+      and the saved step (or -1 when the leader's save failed) is shared by
+      a second all-reduce; each process acks its copies ``complete`` with
+      that step, or ``failed``, and training goes on either way;
+    - a copy that arrives after the save that served its uuid acks that
+      save's step (or its failure) and never causes a second save.
+
+    ``ckpt`` is the leader's manager (None on the other processes).  Made
+    by every process of the world at the same point: the gloo group may be
+    a new one.
+    """
+
+    def __init__(self, ckpt: Optional[CheckpointManager], agent: Any, ts: Any) -> None:
+        self._ckpt = ckpt
+        self._agent = agent
+        self._ts = ts
+        self._group = host_group(ts.mesh.world)
+        self._flag = torch.zeros(1, dtype=torch.int64)
+        #: The flag's all-reduce posted at the previous step, and the uuids it counts.
+        self._work: Any = None
+        self._counted: List[str] = []
+        #: Queued uuids that no save has served yet.
+        self._fresh: List[str] = []
+        self._lock = threading.Lock()
+        self._pending: List[str] = []
+        #: uuid -> ("complete", step) or ("failed", message), for every save.
+        self._served: Dict[str, tuple] = {}
+        agent.register_handler("checkpoint-now", self._on_command)
+
+    def _on_command(self, cmd: Dict[str, Any]) -> None:
+        with self._lock:
+            self._pending.append(str(cmd.get("uuid") or ""))
+
+    def _ack(self, uuid: str) -> None:
+        if not uuid:
+            return
+        state, value = self._served[uuid]
+        if state == "complete":
+            self._agent.command_event(uuid, "complete", step=value)
+        else:
+            self._agent.command_event(uuid, "failed", message=value)
+
+    def _agree(self, value: int) -> int:
+        """The max of ``value`` over the world's processes, on their hosts."""
+        import torch.distributed as dist
+
+        flag = torch.tensor([value], dtype=torch.int64)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
+        return int(flag)
+
+    def _exchange(self, uuids: List[str], width: int) -> List[str]:
+        """Every process's queued uuids: ``width`` rows of uuid bytes a rank,
+        all-gathered over the hosts' group."""
+        from polyaxon_tpu_torch.parallel.collectives import all_gather_cat
+
+        rows = torch.zeros((width, _UUID_BYTES), dtype=torch.uint8)
+        for i, uuid in enumerate(uuids):
+            raw = uuid.encode()[:_UUID_BYTES]
+            rows[i, :len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+        every = all_gather_cat(rows, 0, self._group)
+        return [bytes(r.tolist()).rstrip(b"\0").decode() for r in every if r.any()]
+
+    def maybe_save(self, step: int, params: Any, opt_state: Any) -> bool:
+        """Train-loop hook on every process, once a step: reads the flag
+        posted at the previous step, saves when it counts a uuid, and posts
+        this step's.  Returns whether a save served a command at this
+        step."""
+        import torch.distributed as dist
+
+        with self._lock:
+            queued, self._pending = self._pending, []
+        self._fresh += queued
+        saved = False
+        if self._work is not None:
+            self._work.wait()
+            width = int(self._flag)
+            if width:
+                saved = self._save(step, self._counted, width, params, opt_state)
+        fresh = []
+        for uuid in self._fresh:
+            if uuid in self._served:
+                self._ack(uuid)  # served now, or a late copy of a command served before
+            else:
+                fresh.append(uuid)
+        self._fresh, self._counted = fresh, list(fresh)
+        self._flag.fill_(len(fresh))
+        self._work = dist.all_reduce(self._flag, op=dist.ReduceOp.MAX, group=self._group,
+                                     async_op=True)
+        return saved
+
+    def _save(self, step: int, counted: List[str], width: int, params: Any,
+              opt_state: Any) -> bool:
+        """One save for the uuids every process counted: whether it saved."""
+        uuids = self._exchange(counted, width)
+        full = self._ts.full_state(params, opt_state)
+        saved, message = -2, ""
+        if self._ckpt is not None:
+            try:
+                try:
+                    self._ckpt.save(step, *full, force=True)
+                except ValueError:
+                    pass  # the interval policy saved this step: fencing it is all we need
+                self._ckpt.wait_until_finished()
+                saved = self._ckpt.latest_step()
+                saved = -1 if saved is None else saved
+            except Exception as exc:  # keep training alive; fail the command everywhere
+                saved, message = -1, f": {exc}"
+        del full
+        saved = self._agree(saved)
+        result = (("complete", saved) if saved >= 0 else
+                  ("failed", f"checkpoint-now: the save at step {step} failed{message}"))
+        for uuid in set(uuids) | set(counted):
+            self._served[uuid] = result
+        return saved >= 0

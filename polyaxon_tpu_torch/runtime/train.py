@@ -41,7 +41,7 @@ def _validate_param_shapes(params: Any, param_specs: Any, mesh_axes: Dict[str, i
     ``_validate_param_shapes``, ``runtime/train.py:19-55``, the same words)."""
     def check(path: str, leaf: Any, spec: Any) -> None:
         if isinstance(leaf, dict):
-            for key in leaf:
+            for key in sorted(leaf):  # the reference's order: JAX flattens dicts by sorted key
                 check(f"{path}/{key}" if path else key, leaf[key], spec[key])
             return
         for dim, entry in zip(leaf.shape, spec):
@@ -67,25 +67,34 @@ def shard_batch(
 ) -> Dict[str, torch.Tensor]:
     """This rank's part of a global batch: its rows along the template's
     batch axes (row-major over them, as the reference's batch sharding
-    places rows on devices), and under a ring or Ulysses template the
-    contiguous sequence shard of every ``[B, T]`` entry with ``positions``
-    set to its global positions.  Without a template or mesh, the batch as
-    given."""
+    places rows on devices; under a composed pipeline its block of each
+    global microbatch in microbatch order), and under a ring
+    or Ulysses template the contiguous sequence shard of every ``[B, T]``
+    entry of a token batch with ``positions`` set to its global positions.
+    A batch without ``tokens`` (images) keeps its rows whole along the
+    sequence axis: the image models cut their patches themselves
+    (``models/vit.py``).  Without a template or mesh, the batch as given."""
     if template is None or mesh is None:
         return dict(batch)
     out = dict(batch)
     index, count = mesh.shard(template.batch_axes)
     if count > 1:
+        micro = template.num_microbatches if template.pipeline_composed else 1
         B = {x.shape[0] for x in out.values()}
-        if len(B) != 1 or next(iter(B)) % count:
+        if len(B) != 1 or next(iter(B)) % (count * micro):
             raise ValueError(
                 f"batch rows {sorted(B)} do not split over {count} ranks of "
-                f"{template.batch_axes}"
+                f"{template.batch_axes} x {micro} microbatches"
             )
-        Bl = B.pop() // count
-        out = {name: x[index * Bl:(index + 1) * Bl] for name, x in out.items()}
+        # The reference cuts microbatch m (global rows [m·B/M, (m+1)·B/M))
+        # before the data split (polyaxon_tpu/parallel/pipeline.py:64-66, the
+        # schedule of pipeline_scan_composed :175-186): a rank's local
+        # microbatch m is its block of global microbatch m, whose MoE routing
+        # spans the data ranks.  One microbatch: the rank's contiguous rows.
+        rows = torch.arange(B.pop()).view(micro, count, -1)[:, index].reshape(-1)
+        out = {name: x[rows.to(x.device)] for name, x in out.items()}
     seq_axis = template.ring_axis or template.ulysses_axis
-    if seq_axis is None:
+    if seq_axis is None or "tokens" not in out:
         return out
     n, r = mesh.shape[seq_axis], mesh.rank(seq_axis)
     B, T = out["tokens"].shape

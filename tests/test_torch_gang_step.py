@@ -277,6 +277,28 @@ def test_init_places_each_shard_where_jax_places_it(case):
     assert split > 0  # the template shards something
 
 
+def test_under_a_composed_pipeline_a_rank_takes_its_block_of_each_microbatch():
+    """Under ``pp_tp {data: 2, pipeline: 2}`` with 2 microbatches, data rank
+    d holds rows [4d, 4d + 4) and [8 + 4d, 12 + 4d) of a batch of 16: its
+    block of each of the reference's global microbatches (rows [8m, 8m + 8)),
+    in order; the stages hold the same rows.  Rows that do not split over
+    the ranks times the microbatches raise."""
+    axes = {"data": 2, "pipeline": 2, "tensor": 1}
+    tmpl = template_for("pp_tp", axes, {"num_microbatches": 2})
+    rows = run_mesh_ranks(axes, lambda mesh, rank: shard_batch(
+        {"rows": torch.arange(16)}, mesh, tmpl)["rows"].tolist())
+    for d in range(2):
+        want = [*range(4 * d, 4 * d + 4), *range(8 + 4 * d, 12 + 4 * d)]
+        assert rows[2 * d] == rows[2 * d + 1] == want
+    odd = template_for("pp_tp", axes, {"num_microbatches": 3})
+
+    def refuse(mesh, rank):
+        with pytest.raises(ValueError, match=r"do not split over 2 ranks .* x 3 microbatches"):
+            shard_batch({"rows": torch.arange(16)}, mesh, odd)
+
+    run_mesh_ranks(axes, refuse)
+
+
 def test_ranks_take_the_reference_rows_and_positions():
     """Rank r of a {data: 2, sequence: 2} mesh holds device r's block of the
     reference's batch sharding: rows by data index, the sequence by
@@ -299,33 +321,41 @@ def test_ranks_take_the_reference_rows_and_positions():
         assert shard["tokens"][:, 0].tolist() == [(d * 2 + i) * 8 + s * 4 for i in range(2)]
 
 
-#: What still refuses under each strategy this test once held to a refusal
-#: (every strategy is ported for the transformer now): the image models
-#: under ``pp`` and ``ep``, MoE under ``pp_tp``, a ``custom`` rule the port
-#: does not split.
+#: The strategies this test once held to a refusal: the image models under
+#: ``pp`` and ``ep`` and MoE under ``pp_tp`` run now (one rank here; across
+#: ranks in ``tests/test_torch_image_strategies.py`` and
+#: ``tests/test_torch_pipeline_step.py``), and a ``custom`` rule the port does
+#: not split still raises.
 STILL_REFUSED = ("pp", "pp_tp", "ep", "custom")
 
 
 @pytest.mark.parametrize("strategy", STILL_REFUSED)
 def test_every_other_strategy_still_raises(strategy):
+    """On a mesh of axes of size 1 the ViT under ``pp`` and ``ep`` and the
+    MoE transformer under ``pp_tp`` give the plain path's logits bit for
+    bit; ``custom`` with a ``head_dim`` rule raises, naming the item."""
     from polyaxon_tpu_torch.models import vit as tvit
 
     axes = {"data": 1, "pipeline": 1, "expert": 1, "sequence": 1, "tensor": 1}
     assert set(STRATEGIES) == set(PORTED_STRATEGIES)
     mesh = build_mesh(axes)
-    with pytest.raises(NotImplementedError, match="multi-process and parallelism"):
-        if strategy in ("pp", "ep"):
-            vcfg = tvit.ViTConfig(image_size=8, patch_size=4, d_model=8, n_layers=1, n_heads=2,
-                                  head_dim=4, d_ff=16, n_classes=3, dtype=torch.float32)
-            tvit.forward(tvit.init_params(vcfg, torch.Generator().manual_seed(0)),
-                         torch.zeros(1, 8, 8, 3, dtype=torch.uint8), vcfg,
-                         template_for(strategy, axes), mesh, device="cpu")
-        elif strategy == "pp_tp":
-            tcfg = ttr.TransformerConfig(dtype=torch.float32, **SMALL, n_experts=4)
-            ttr.forward(ttr.init_params(tcfg, torch.Generator().manual_seed(0)),
-                        torch.zeros((2, 4), dtype=torch.long), tcfg,
-                        template_for(strategy, axes), mesh, device="cpu")
-        else:
+    if strategy in ("pp", "ep"):
+        vcfg = tvit.ViTConfig(image_size=8, patch_size=4, d_model=8, n_layers=2, n_heads=2,
+                              head_dim=4, d_ff=16, n_classes=3, dtype=torch.float32)
+        params = tvit.init_params(vcfg, torch.Generator().manual_seed(0))
+        images = torch.randint(0, 256, (2, 8, 8, 3), generator=torch.Generator().manual_seed(1))
+        got = tvit.forward(params, images, vcfg, template_for(strategy, axes), mesh, device="cpu")
+        assert torch.equal(got, tvit.forward(params, images, vcfg, device="cpu"))
+    elif strategy == "pp_tp":
+        tcfg = ttr.TransformerConfig(dtype=torch.float32, **SMALL, n_experts=4)
+        params = ttr.init_params(tcfg, torch.Generator().manual_seed(0))
+        tokens = torch.randint(0, SMALL["vocab_size"], (2, 8),
+                               generator=torch.Generator().manual_seed(1))
+        got = ttr.forward(params, tokens, tcfg, template_for(strategy, axes), mesh, device="cpu")
+        want = ttr.forward(params, tokens, tcfg, device="cpu")
+        assert torch.equal(got[0], want[0])
+    else:
+        with pytest.raises(NotImplementedError, match="multi-process and parallelism"):
             build_train_step(loss_fn=None, init_fn=None, optimizer=None, mesh=mesh,
                              template=template_for(strategy, axes,
                                                    {"rules": {"head_dim": "tensor"}}))

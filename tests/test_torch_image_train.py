@@ -1,7 +1,9 @@
 """The port's image trainers, ``cnn_train`` and ``vit_train``
 (``builtins/trainers.py``), on the CPU: the dataset path on a
-``make_image_fixture`` dataset, the synthetic path, checkpoint and resume,
-and a 2-process ``ddp`` gang of each through the port's worker.
+``make_image_fixture`` dataset (on one rank, and on thread ranks under
+``tp``, ``tp_dp``, ``ulysses`` and ``pp_tp``), the synthetic path,
+checkpoint and resume, and a 2-process ``ddp`` gang of each through the
+port's worker.
 
 Models are small (16 px; the CNN at channels (8, 16), the ViT at d 32, 2
 layers, 2 heads of 16) in the trainers' bf16 compute.  Tolerances: a
@@ -95,6 +97,44 @@ def test_the_synthetic_path_learns_its_fixed_batch(name):
     assert metrics[20]["loss"] < metrics[0]["loss"]
     assert metrics[21]["accuracy"] > 0.5  # 10 classes: chance is 0.1
     assert "prefetch=2" in logs[-1]
+
+
+#: (trainer, strategy, mesh axes): ranks that hold the same rows (tensor,
+#: sequence, pipeline) must read the same rows of the dataset.
+STRATEGY_CASES = {
+    "vit_train-tp_dp": ("vit_train", "tp_dp", {"data": 2, "tensor": 2}),
+    "vit_train-ulysses": ("vit_train", "ulysses", {"sequence": 2}),
+    "vit_train-pp_tp": ("vit_train", "pp_tp", {"pipeline": 2, "tensor": 2}),
+    "cnn_train-tp": ("cnn_train", "tp", {"tensor": 2}),
+}
+
+
+@pytest.mark.parametrize("case", list(STRATEGY_CASES))
+def test_the_dataset_path_under_a_template_logs_the_one_rank_losses(case, data_dir):
+    """The trainer on thread ranks of the template's mesh reads the dataset
+    by the ranks' shard of the batch axes and logs one rank's losses within
+    1e-2 relative (bf16), and the accuracy of the last batch over every
+    rank's rows, and names the strategy in its last line."""
+    from tests.torch_gang_ranks import run_mesh_ranks
+
+    name, strategy, axes = STRATEGY_CASES[case]
+    trainer, params = TRAINERS[name]
+    params = dict(params, dataset="fixture", steps=3)
+    world = 1
+    for n in axes.values():
+        world *= n
+
+    def rank_main(mesh, rank):
+        return _run(trainer, params, data_dir, mesh=mesh, strategy=strategy, process_id=rank,
+                    num_processes=world)[:2]
+
+    metrics, logs = run_mesh_ranks(axes, rank_main)[0]
+    one, _, _ = _run(trainer, params, data_dir)
+    assert sorted(metrics) == sorted(one) == [0, 2, 3]
+    assert [metrics[s]["loss"] for s in (0, 2)] == pytest.approx(
+        [one[s]["loss"] for s in (0, 2)], rel=BF16_RTOL)
+    assert abs(metrics[3]["accuracy"] - one[3]["accuracy"]) <= 1 / params["batch"]
+    assert logs[-1].startswith(f"{name} done: 3 steps, strategy={strategy}")
 
 
 def _saved_params(ckpt_dir, template, step):

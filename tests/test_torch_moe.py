@@ -25,10 +25,12 @@ import torch
 from polyaxon_tpu.models import transformer as jtr
 from polyaxon_tpu_torch.builtins.trainers import lm_train
 from polyaxon_tpu_torch.models import transformer as ttr
+from polyaxon_tpu_torch.parallel.axes import tree_shard, tree_specs
 from polyaxon_tpu_torch.parallel.templates import template_for
 from polyaxon_tpu_torch.runtime.mesh import build_mesh
 from polyaxon_tpu_torch.runtime.optim import tree_leaves
 from polyaxon_tpu_torch.tracking.context import Context
+from tests.torch_gang_ranks import run_mesh_ranks
 from tests.torch_parity import assert_tree_close, carried, grads_of
 
 SMALL = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, head_dim=16, d_ff=128, max_seq=64,
@@ -105,17 +107,35 @@ def test_remat_recomputes_the_same_routing_in_bf16():
 
 
 def test_moe_on_a_mesh_above_one_rank_raises_naming_the_roadmap_item():
-    """MoE across ranks runs on every template but ``pp_tp``
-    (``tests/test_torch_moe_ranks.py``); under ``pp_tp`` on a mesh above one
-    rank it still raises, naming the item."""
+    """MoE across ranks runs on every template (``tests/test_torch_moe_ranks.py``,
+    ``tests/test_torch_pipeline_step.py``): under ``pp_tp {pipeline: 2,
+    tensor: 2}`` with one microbatch every rank returns one rank's logits
+    (atol 1e-5: the tensor axis splits each expert's MLP columns).  What
+    still raises, naming the item: MoE under a ``custom`` pipeline that is
+    not composed, with a tensor axis."""
     _, tcfg = configs(n_experts=4)
     tp = ttr.init_params(tcfg, torch.Generator().manual_seed(0))
-    two_ranks = SimpleNamespace(size=lambda: 2, rank=lambda: 0)  # a group's stand-in
+    tokens = torch.from_numpy(tokens_np(4)["tokens"]).long()
+    want = ttr.forward(tp, tokens, tcfg, device="cpu")[0]
     axes = {"pipeline": 2, "tensor": 2}
+
+    def rank_main(mesh, rank):
+        tmpl = template_for("pp_tp", axes, {"num_microbatches": 1})
+        specs = tree_specs(ttr.param_axes(tcfg), tmpl.rules, axes)
+        with torch.no_grad():
+            return ttr.forward(tree_shard(tp, specs, mesh), tokens, tcfg, tmpl, mesh,
+                               device="cpu")[0]
+
+    for got in run_mesh_ranks(axes, rank_main):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    two_ranks = SimpleNamespace(size=lambda: 2, rank=lambda: 0)  # a group's stand-in
     mesh = build_mesh(axes, groups={"pipeline": two_ranks, "tensor": two_ranks})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7: MoE across ranks"):
+    custom = template_for("custom", axes, {
+        "pipeline_axis": "pipeline",
+        "rules": {"layers": "pipeline", "heads": "tensor", "mlp": "tensor", "vocab": "tensor"}})
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7: MoE under a custom pipeline"):
         ttr.forward(tp, torch.zeros((2, 4), dtype=torch.long), tcfg, device="cpu",
-                    template=template_for("pp_tp", axes), mesh=mesh)
+                    template=custom, mesh=mesh)
     with pytest.raises(NotImplementedError, match="no MoE"):
         ttr.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg, device="cpu",
                     return_kv=True)

@@ -1,5 +1,7 @@
 """Parity of the port's train step with the JAX package's under the pipeline
-across ranks: ``pp``, ``pp_tp`` (dense and flash) and ``custom``; the MoE
+across ranks: ``pp``, ``pp_tp`` (dense and flash, and with 4 experts: each
+microbatch cut from the global batch and routed over the data ranks' tokens,
+as the reference's composed body routes it) and ``custom``; the other MoE
 cases are in ``tests/test_torch_moe_ranks.py``.
 
 The cases extend ``tests/test_torch_gang_step.py``'s ``CASES`` and are held
@@ -60,6 +62,11 @@ CASES = {
     "custom-data2-tensor2": ("custom", {"data": 2, "tensor": 2}, {},
                              {"rules": {"embed": "data", "heads": "tensor", "mlp": "tensor",
                                         "vocab": "tensor"}}),
+    "pp_tp-moe-data2-tensor2-pipeline2-micro2-dense": (
+        "pp_tp", {"data": 2, "tensor": 2, "pipeline": 2}, MOE, {"num_microbatches": 2}),
+    "pp_tp-moe-data2-tensor2-pipeline2-micro2-flash": (
+        "pp_tp", {"data": 2, "tensor": 2, "pipeline": 2}, dict(MOE, attention_impl="flash"),
+        {"num_microbatches": 2}),
 }
 #: The meshes whose placement is held bit for bit after ``init``.
 PLACED = ("pp-data2-pipeline2", "pp_tp-data2-tensor2-pipeline2-dense")
@@ -252,6 +259,7 @@ LM_TRAIN_CASES = {
     "moe-tp": ("tp", {"tensor": 2}, MOE, None),
     "moe-sp_ring": ("sp_ring", {"sequence": 2}, MOE, None),
     "moe-pp": ("pp", {"pipeline": 2}, MOE, {"num_microbatches": 1}),
+    "moe-pp_tp": ("pp_tp", {"pipeline": 2, "tensor": 2}, MOE, {"num_microbatches": 1}),
 }
 
 

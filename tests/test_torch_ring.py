@@ -192,6 +192,32 @@ def test_local_ring_rotates_and_a_failing_rank_stops_every_rank():
         LocalRing.run(4, rank_two_fails, timeout=30)
 
 
+@pytest.mark.parametrize("n", [2, 3])
+def test_group_ring_on_gloo_rotates_cpu_tensors_as_they_are(n):
+    """``GroupRing.rotate`` over a gloo group stages only CUDA tensors
+    through the host: CPU tensors of two dtypes arrive from rank r - 1
+    (``reverse``: r + 1) on the CPU, in their dtype, with their values, and
+    the sent tensors are left as they were."""
+    from tests.torch_gang_ranks import run_mesh_ranks
+
+    def rank_main(mesh, rank):
+        ring = mesh.ring("sequence")
+        assert isinstance(ring, GroupRing) and ring.group.name() == "gloo"
+        sent = (torch.arange(6, dtype=torch.float32).view(2, 3) + 10 * rank,
+                torch.full((4,), rank, dtype=torch.int64))
+        kept = tuple(t.clone() for t in sent)
+        got = ring.rotate(sent)
+        back = ring.rotate(got, reverse=True)
+        assert all(torch.equal(a, b) for a, b in zip(sent, kept))
+        assert all(t.device.type == "cpu" and t.dtype == s.dtype for t, s in zip(got, sent))
+        return [t.tolist() for t in got], [t.tolist() for t in back]
+
+    for rank, (got, back) in enumerate(run_mesh_ranks({"sequence": n}, rank_main, timeout=60)):
+        src = (rank - 1) % n
+        assert got == [(torch.arange(6.0).view(2, 3) + 10 * src).tolist(), [src] * 4]
+        assert back == [(torch.arange(6.0).view(2, 3) + 10 * rank).tolist(), [rank] * 4]
+
+
 def test_merge_matches_jax_and_empty_blocks_are_its_identity():
     rng = np.random.default_rng(0)
     o, o_b = (rng.standard_normal((3, 5, 4)).astype(np.float32) for _ in range(2))

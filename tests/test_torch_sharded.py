@@ -18,7 +18,10 @@ throughout; tolerances:
 - the ViT and the CNN under ``fsdp`` on 2 and 4 ranks, three steps against the
   JAX step on the same mesh: loss atol 1e-5, grad norm rtol 1e-5 (the model
   parity tests' ``STEP_ATOL`` and ``GNORM_RTOL``), each rank's shards
-  within Adam's bound of the JAX shards (2·steps·lr);
+  within Adam's bound of the JAX shards (2·steps·lr); under the templates
+  the image models once refused (``tp {tensor: 2}`` and the others on axes
+  of size 1) every rank's logits against the JAX one-device forward, atol
+  1e-5 (across ranks: ``tests/test_torch_image_strategies.py``);
 - checkpoints: bit for bit, an ``fsdp`` run's state restored into one rank
   and a one-rank state into ``fsdp`` ranks.
 """
@@ -344,6 +347,19 @@ def test_an_image_model_under_fsdp_matches_the_jax_step(name, n):
     assert hist[-1][0] < hist[0][0]
 
 
+@functools.lru_cache(maxsize=None)
+def jax_image_logits(name):
+    """The JAX one-device logits of a small image model: ``(params as numpy,
+    normalized float images, logits)``."""
+    jcfg, _, jmod, _, _, _ = _image_models(name)
+    params = jax.jit(jmod.init_params, static_argnums=1)(jax.random.PRNGKey(6), jcfg)
+    images = images_np(3, 4, jcfg.image_size)["images"]
+    if name == "cnn":
+        images = images.astype(np.float32) / 255.0 - 0.5
+    logits = jax.jit(jmod.forward, static_argnums=2)(params, jnp.asarray(images), jcfg)
+    return jax.tree.map(np.asarray, params), images, np.asarray(logits)
+
+
 @pytest.mark.parametrize("strategy, axes", [("tp", {"tensor": 2}), ("tp_dp", {"data": 1,
                                                                               "tensor": 1}),
                                             ("ulysses", {"sequence": 1}),
@@ -352,16 +368,29 @@ def test_an_image_model_under_fsdp_matches_the_jax_step(name, n):
                                             ("ep", {"expert": 1}),
                                             ("custom", {"data": 1})])
 def test_the_image_models_refuse_what_they_do_not_split(strategy, axes):
-    tcfg = tvit.ViTConfig(dtype=torch.float32, **VIT)
-    params = tvit.init_params(tcfg, torch.Generator().manual_seed(0))
-    images = torch.zeros(1, 16, 16, 3, dtype=torch.uint8)
-    mesh = build_mesh(dict(axes, tensor=1) if "tensor" in axes and axes["tensor"] > 1 else axes)
-    with pytest.raises(NotImplementedError, match="image models is not ported yet.*ROADMAP item 7"):
-        tvit.forward(params, images, tcfg, template_for(strategy, axes), mesh, device="cpu")
-    cparams = tcnn.init_params(tcnn.CNNConfig(**CNN), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tcnn.forward(cparams, images, tcnn.CNNConfig(**CNN), template_for(strategy, axes), mesh,
-                     device="cpu")
+    """Under each template the image models once refused, every rank of
+    ``axes`` returns the JAX one-device logits of the ViT and the CNN from
+    its shards (atol 1e-5); what they still refuse is a ``custom`` rule the
+    port does not split, with ``check_rules``' error."""
+    for name in ("vit", "cnn"):
+        params_np, images, want = jax_image_logits(name)
+        _, tcfg, _, tmod, _, _ = _image_models(name)
+
+        def rank_main(mesh, rank):
+            tmpl = template_for(strategy, axes)
+            specs = taxes.tree_specs(tmod.param_axes(tcfg), tmpl.rules, axes)
+            params = taxes.tree_shard(params_from_jax(params_np, "cpu"), specs, mesh)
+            with torch.no_grad():
+                logits = tmod.forward(params, torch.from_numpy(images), tcfg, tmpl, mesh,
+                                      device="cpu")
+            refused = template_for("custom", axes, {"rules": {"head_dim": next(iter(axes))}})
+            with pytest.raises(NotImplementedError, match="'head_dim'.*is not ported.*item 7"):
+                tmod.forward(params, torch.from_numpy(images), tcfg, refused, mesh,
+                             device="cpu")
+            return _np(logits)
+
+        for logits in run_mesh_ranks(axes, rank_main):
+            np.testing.assert_allclose(logits, want, atol=1e-5, err_msg=name)
 
 
 def _paths(tree, prefix=""):

@@ -163,7 +163,9 @@ def _mesh(**axes):
     "kwargs, match",
     [
         # Every strategy runs now; what still refuses: a custom rule the port
-        # does not split, a pipeline without its layers rule, MoE under pp_tp.
+        # does not split, a pipeline without its layers rule, MoE under a
+        # custom pipeline with a tensor axis (MoE under pp_tp runs:
+        # tests/test_torch_pipeline_step.py).
         (dict(template=template_for("custom", {"tensor": 2}, {"rules": {"head_dim": "tensor"}}),
               mesh=_mesh(tensor=2)), "multi-process and parallelism"),
         (dict(mesh=_mesh(data=2)), "multi-process and parallelism"),
@@ -175,8 +177,11 @@ def _mesh(**axes):
               mesh=_mesh(sequence=2, tensor=2)), "multi-process and parallelism"),
         (dict(template=template_for("custom", {"pipeline": 2}, {"pipeline_axis": "pipeline"}),
               mesh=_mesh(pipeline=2)), "multi-process and parallelism"),
-        (dict(template=template_for("pp_tp", {"pipeline": 1, "tensor": 1}),
-              mesh=_mesh(pipeline=1, tensor=1), cfg={"n_experts": 4}),
+        (dict(template=template_for("custom", {"pipeline": 2, "tensor": 2}, {
+            "pipeline_axis": "pipeline",
+            "rules": {"layers": "pipeline", "heads": "tensor", "mlp": "tensor",
+                      "vocab": "tensor"}}),
+              mesh=_mesh(pipeline=2, tensor=2), cfg={"n_experts": 4}),
          "multi-process and parallelism"),
     ],
 )
