@@ -27,7 +27,9 @@ parallel layer across them (the image models under ``tp``, ``tp_dp``,
 ``ulysses``, ``pp``, ``pp_tp`` and ``ep``, ``sp_ring``, MoE under
 ``pp_tp``, ``checkpoint-now`` under ``fsdp``); then serving a model split
 over the card's rank processes; then the non-model services, a gang through
-the ssh transport, and the control plane's state and bus.  Phases:
+the ssh transport, and the control plane's state and bus; then the port's
+own control plane running runs, a serving fleet of its runs, a sweep and a
+pipeline.  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -352,7 +354,19 @@ the ssh transport, and the control plane's state and bus.  Phases:
     lines, each gated by the lifecycle, and its metrics), an ``Auditor``
     records its events and ``ExecutorHandlers`` on a ``TaskBus`` dispatch
     them (``experiment_done``: a stop with cleanup); two processes write
-    2000 metrics each to one WAL database together, every row read back.
+    2000 metrics each to one WAL database together, every row read back;
+51. phase 49's ``lm_train`` spec (with a ``build`` section) and a queued
+    ``noop`` through the port's ``Orchestrator`` with one ``h100`` device
+    registered; 52. a 2-layer ``lm_train`` SIGKILLed at step 5 and
+    remediated from its latest complete checkpoint;
+53. a control-plane ``ServingFleet`` of 2 ``lm_server`` replicas (the
+    671M width, 4 layers) as ``kind: service`` runs: a 16-request burst,
+    both replicas' greedy tokens equal, the exemplar harvest, one replica
+    SIGSTOPped, drained and replaced, ``run_health_checks`` healthy;
+54. a ``kind: group`` grid over ``lr`` of phase 51's spec, one trial at a
+    time on the one registered slice, the ``lr`` 3e-4 loss phase 51's;
+55. a ``kind: pipeline``: ``lm_train`` at 2 layers, then ``lm_generate``,
+    each op's flash launches counted (``counted_entry``).
 
 Any failed check raises, and the script exits non-zero; an atexit hook
 SIGKILLs any replica or gang worker left.  On success its last lines are the serving
@@ -364,7 +378,8 @@ path) as JSON, the card's name and power limit,
 the kernels' JSON record, the fleet's figures, the gang layer's, the image
 classifiers' and the MoE run's, the sharded strategies', the pipeline's and
 the experts', the rest of the parallel layer's, mesh serving's, the services',
-the ssh gang's and the state and bus's, and ``{"ok": true,
+the ssh gang's, the state and bus's and the orchestrator's, the fleet's,
+the sweep's and the pipeline's (phases 53–55), and ``{"ok": true,
 "device": {...}}``.  Without CUDA it exits 1
 at once.
 """
@@ -620,8 +635,7 @@ def _counts():
     """The kernels' launch counts: (flash_fwd, flash_bwd_dq, flash_bwd_dkv)."""
     from polyaxon_tpu_torch.parallel import flash
 
-    return (flash.flash_block_fwd.launches, flash.flash_block_dq.launches,
-            flash.flash_block_dkv.launches)
+    return tuple(flash.launch_counts().values())
 
 
 def _reset_counts() -> None:
@@ -6285,6 +6299,409 @@ def phase_remediated_preemption():
     return launches, out
 
 
+# Phase 53: a control-plane ServingFleet of CP_REPLICAS lm_server replicas at
+# FLEET_MODEL (phase 25's replica configuration), kind: service runs of a port
+# Orchestrator with no device registered (admission off, as phase 25's fleet
+# shares the card: with one h100 device registered the second replica would
+# wait in queued for the first, which never finishes).  CP_BURST greedy
+# requests of CP_PROMPT tokens and CP_NEW new ones through the router; one
+# replica's worker SIGSTOPped with heartbeat_stale's threshold at CP_STALE_S
+# (heartbeats every second), a drain deadline of CP_DRAIN_S (a stopped
+# replica never drains) and CP_MEANWHILE requests sent while it drains.
+CP_REPLICAS, CP_BURST, CP_PROMPT, CP_NEW, CP_SEED = 2, 16, 256, 32, 53
+CP_STALE_S, CP_DRAIN_S, CP_READY_S, CP_MEANWHILE = 4.0, 2.0, 300.0, 4
+# Phase 54: a grid sweep of phase 51's lm_train spec over SWEEP_LRS with
+# concurrency 2 and one h100 device registered.  Phase 55: a pipeline of
+# lm_train at CKPT_MODEL (PIPE_STEPS steps, batch SSH_BATCH) and, after it,
+# lm_generate at the same width (batch PIPE_BATCH, prompt PIPE_PROMPT,
+# PIPE_NEW new tokens), each op through counted_entry.
+SWEEP_LRS, SWEEP_WAIT_S = (3e-4, 1e-3), 600
+PIPE_STEPS, PIPE_BATCH, PIPE_PROMPT, PIPE_NEW = 3, 4, 512, 16
+
+
+def counted_entry(ctx) -> None:
+    """A gang entry point (phase 55's ops): the builtin trainer named by the
+    ``counted`` declaration, the flash kernels' launch counts set to 0 just
+    before it and logged just after, as a metric row of its run."""
+    from polyaxon_tpu_torch.builtins import trainers
+
+    _reset_counts()
+    getattr(trainers, ctx.get_param("counted"))(ctx)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    fwd, dq, dkv = _counts()
+    ctx.log_metrics(launches_fwd=fwd, launches_dq=dq, launches_dkv=dkv)
+
+
+def _pump_fleet(orch, fleet, cond, timeout, what, each=None):
+    """Pump ``orch`` and poll ``fleet`` until ``cond()`` holds; ``each()``
+    runs after the pump and after the poll (a remediation row opened in the
+    pump can move on in the next poll)."""
+    deadline = time.time() + timeout
+    while True:
+        for step in (functools.partial(orch.pump, max_wait=0.05), fleet.poll):
+            step()
+            if each is not None:
+                each()
+        if cond():
+            return
+        if time.time() > deadline:
+            raise AssertionError(f"control-plane fleet: {what} not seen in {timeout} s: "
+                                 f"{fleet.status()}")
+
+
+def _through_router(router, prompts, max_new, orch, fleet, each=None):
+    """Send ``prompts`` through ``router`` at once, one thread each, pumping
+    ``orch`` and ``fleet`` (:func:`_pump_fleet`) until all are answered:
+    [(replica, tokens)], an error raised."""
+    results, errors = [None] * len(prompts), []
+
+    def send(i, prompt):
+        try:
+            body = router.generate([prompt], max_new_tokens=max_new)
+            results[i] = (body["replica"], body["tokens"][0])
+        except Exception as e:  # raised below, after every thread is done
+            errors.append(e)
+
+    threads = [threading.Thread(target=send, args=(i, p), daemon=True)
+               for i, p in enumerate(prompts)]
+    for th in threads:
+        th.start()
+    _pump_fleet(orch, fleet, lambda: not any(th.is_alive() for th in threads), CP_READY_S,
+                f"the answers to {len(prompts)} requests", each=each)
+    if errors:
+        raise errors[0]
+    return results
+
+
+def phase_control_plane_fleet():
+    """Phase 53: the control plane's ``ServingFleet`` on the card.
+    CP_REPLICAS ``lm_server`` replicas at FLEET_MODEL as ``kind: service``
+    runs of a port ``Orchestrator`` with no device registered, the router
+    probing every 0.2 s.  Admission is then off: ``experiments_start``
+    (``scheduler/tasks.py``) calls ``RunRegistry.acquire_device``, which
+    returns ``{"unmanaged": True}`` for a family with no inventory, and the
+    run is scheduled at once; with one ``h100`` registered it would return
+    None for the second replica, which would wait in ``queued`` for the
+    first, a service that never finishes.  Checks: both replicas probe ``ready``; the
+    burst all completes with CP_NEW tokens each; one probe prompt sent
+    straight to each replica gives the same greedy tokens; where a replica's
+    ``/v1/stats`` reports ``trace_exemplars``, its run holds a ``ttft_slow``
+    anomaly whose dump file exists; after a SIGSTOP of one replica's worker,
+    ``heartbeat_stale`` fires, the remediation engine opens
+    ``drain_replace`` and its row passes ``draining`` -> ``replacing`` ->
+    ``done``, closed ``succeeded``; the requests sent while it drains all
+    complete on the survivor; the replacement probes ``ready`` and gives the
+    probe prompt the same greedy tokens; then
+    ``run_health_checks(orch, include_devices=True)`` is healthy with the
+    fleet 2/2 ready and ``devices`` naming the card; no flash kernel runs in
+    this process, nor in any replica's (its ``/v1/stats`` ``flash_launches``,
+    the replacement's read after it served the probe).  Returns the figures:
+    each replica's submit-to-ready s and the alert-to-replacement-ready s."""
+    from polyaxon_tpu_torch.checks import run_health_checks
+    from polyaxon_tpu_torch.db.registry import RemediationStatus
+    from polyaxon_tpu_torch.serving.fleet import ServingFleet
+
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_cp_fleet_"))
+    orch = _orchestrator(base / "plane", POLYAXON_TPU_ALERT_INTERVAL_S="0.2",
+                         POLYAXON_TPU_SCHEDULER_TERMINAL_GRACE="0.5")
+    router = _fleet_router(probe_interval_s=0.2)
+    fleet = ServingFleet(
+        orch, name="cp-fleet", replicas=CP_REPLICAS, drain_deadline_s=CP_DRAIN_S,
+        ready_timeout_s=CP_READY_S, router=router,
+        declarations=dict(FLEET_MODEL, seq=SERVE_SEQ, slots=SERVE_SLOTS, block_size=SERVE_BLOCK,
+                          prefill_chunk=SERVE_CHUNK,
+                          **{"alert.heartbeat_stale.threshold_s": CP_STALE_S}),
+        environment={"seed": SEED, "topology": dict(GANG_TOPOLOGY)})
+    rng = np.random.default_rng(CP_SEED)
+    V = FLEET_MODEL["vocab_size"]
+    stopped = None
+    out = {}
+    _reset_counts()
+    try:
+        t0 = time.time()
+        fleet.start()
+        ready_at = {}
+
+        def note_ready():
+            now = time.time()
+            for name in fleet.run_ids():
+                rep = router.replica(name)
+                if name not in ready_at and rep is not None and rep.state == "ready":
+                    ready_at[name] = now
+
+        _pump_fleet(orch, fleet, lambda: len(ready_at) == CP_REPLICAS, CP_READY_S,
+                    "both replicas ready", each=note_ready)
+        out["submit_to_ready_s"] = {name: at - t0 for name, at in ready_at.items()}
+        prompts = [rng.integers(0, V, CP_PROMPT).tolist() for _ in range(CP_BURST)]
+        tb = time.time()
+        burst = _through_router(router, prompts, CP_NEW, orch, fleet, each=note_ready)
+        out["burst_s"] = time.time() - tb
+        out["burst_by_replica"] = {n: sum(r == n for r, _ in burst) for n in fleet.run_ids()}
+        if any(len(tokens) != CP_NEW for _, tokens in burst):
+            raise AssertionError(f"control-plane fleet: burst answers {burst}")
+        probe = rng.integers(0, V, CP_PROMPT).tolist()
+        same = {name: _http(router.replica(name).base_url, "/generate",
+                            {"prompts": [probe], "max_new_tokens": CP_NEW})[1]["tokens"][0]
+                for name in fleet.run_ids()}
+        if len({tuple(t) for t in same.values()}) != 1:
+            raise AssertionError(f"control-plane fleet: the replicas' greedy tokens {same}")
+        # The exemplar harvest: a sweep every EXEMPLAR_HARVEST_INTERVAL_S.
+        harvest_until = time.time() + 2 * ServingFleet.EXEMPLAR_HARVEST_INTERVAL_S + 0.5
+        _pump_fleet(orch, fleet, lambda: time.time() > harvest_until, 60, "exemplar harvest")
+        exemplars, replica_launches = {}, {}
+        for name, run_id in fleet.run_ids().items():
+            stats = _http(router.replica(name).base_url, "/v1/stats")[1]
+            replica_launches[name] = stats["flash_launches"]
+            reported = stats.get("trace_exemplars") or []
+            rows = orch.registry.get_anomalies(run_id, kind="ttft_slow")
+            dumps = [orch.layout.run_paths(orch.get_run(run_id).uuid).root
+                     / r["attrs"]["dump_artifact"] for r in rows]
+            exemplars[name] = {"reported": len(reported), "anomaly_rows": len(rows),
+                               "dumps": [str(p.relative_to(base)) for p in dumps]}
+            if reported and not (rows and all(p.exists() for p in dumps)):
+                raise AssertionError(f"control-plane fleet: {name} reports exemplars but "
+                                     f"holds no ttft_slow anomaly with a dump: {rows}")
+        out["exemplars"] = exemplars
+        # Wedge one replica: alive, silent.
+        victim, survivor = sorted(fleet.run_ids())
+        victim_run = fleet.run_ids()[victim]
+        stopped = int(orch.registry.get_processes(victim_run)[0]["pid"])
+        os.kill(stopped, signal.SIGSTOP)
+        t_stop = time.time()
+        phases, done = [], []
+
+        def watch():
+            note_ready()
+            for row in orch.registry.get_remediations(victim_run, action="drain_replace"):
+                phase = (row["attrs"] or {}).get("phase")
+                if not phases or phases[-1][0] != phase:
+                    phases.append((phase, time.time()))
+                if row["status"] == RemediationStatus.SUCCEEDED:
+                    done.append(row)
+
+        _pump_fleet(orch, fleet, lambda: phases, CP_READY_S, "drain_replace opened", each=watch)
+        sent = [rng.integers(0, V, CP_PROMPT).tolist() for _ in range(CP_MEANWHILE)]
+        meanwhile = _through_router(router, sent, CP_NEW, orch, fleet, each=watch)
+        _pump_fleet(orch, fleet, lambda: done, CP_READY_S, "drain_replace succeeded",
+                    each=watch)
+        row = done[0]
+        replacement = row["attrs"]["replacement"]
+        alert = orch.registry.get_alerts(victim_run, rule="heartbeat_stale")
+        fired_at = alert[0]["fired_at"] if alert else None
+        _pump_fleet(orch, fleet, lambda: replacement in ready_at, 60, "the replacement ready",
+                    each=note_ready)
+        same[replacement] = _http(router.replica(replacement).base_url, "/generate",
+                                  {"prompts": [probe], "max_new_tokens": CP_NEW})[1]["tokens"][0]
+        replica_launches[replacement] = _http(router.replica(replacement).base_url,
+                                              "/v1/stats")[1]["flash_launches"]
+        members = sorted(fleet.run_ids())
+        with _environ(POLYAXON_TPU_LINT_STATE=str(base / "lint_state.json")):
+            health = run_health_checks(orch, include_devices=True)
+        live = list(fleet.run_ids().values())
+        for run_id in live:
+            orch.stop_run(run_id)
+        _await_done(orch, live, 120)
+    finally:
+        if stopped is not None:
+            try:
+                os.kill(stopped, signal.SIGCONT)
+            except ProcessLookupError:
+                pass
+        fleet.stop()
+        orch.stop()
+    torch.cuda.synchronize()
+    launches = _counts()
+    out.update(
+        stall_to_fired_s=(fired_at - t_stop) if fired_at else None,
+        phases=[p for p, _ in phases],
+        alert_to_replacement_ready_s=(ready_at[replacement] - fired_at) if fired_at else None,
+        stall_to_replacement_ready_s=ready_at[replacement] - t_stop,
+        drain_timed_out=row["attrs"].get("drain_timed_out"),
+        meanwhile_by_replica=[r for r, _ in meanwhile], members=members,
+        health={k: v for k, v in health["checks"].items()
+                if k in ("fleet", "devices", "remediation", "alerts")},
+        healthy=health["healthy"], launches=launches, replica_launches=replica_launches)
+    log(f"control-plane fleet: {CP_REPLICAS} lm_server replicas ({FLEET_LAYERS} layers) as "
+        f"kind: service runs, submit to ready {out['submit_to_ready_s']} s; {CP_BURST} requests "
+        f"in {out['burst_s']:.2f} s {out['burst_by_replica']}; exemplars {exemplars}; "
+        f"SIGSTOP of {victim}: heartbeat_stale fired {out['stall_to_fired_s']} s later, "
+        f"drain_replace {out['phases']} ({row['status']}), the {CP_MEANWHILE} requests meanwhile "
+        f"on {out['meanwhile_by_replica']}, alert to replacement ready "
+        f"{out['alert_to_replacement_ready_s']} s; health {health['healthy']} {out['health']}; "
+        f"flash launches {launches} here, {replica_launches} in the replicas' processes")
+    problems = []
+    if out["phases"] != ["draining", "replacing", "done"] or fired_at is None:
+        problems.append(f"phases {phases}, alert {alert}")
+    if row["trigger"] != "heartbeat_stale" or members != sorted([survivor, replacement]):
+        problems.append(f"row {row}, members {members}")
+    if any(r != survivor for r in out["meanwhile_by_replica"]):
+        problems.append(f"requests while draining went to {out['meanwhile_by_replica']}")
+    fleet_detail = health["checks"]["fleet"]["detail"]
+    devices = health["checks"]["devices"]
+    if not health["healthy"] or "2/2 ready" not in fleet_detail or not devices["ok"] or \
+            torch.cuda.get_device_name(0) not in devices["detail"]:
+        problems.append(f"health {health}")
+    if len({tuple(t) for t in same.values()}) != 1:
+        problems.append(f"the replacement's greedy tokens {same[replacement]}, not {same[victim]}")
+    if launches != (0, 0, 0) or any(any(c.values()) for c in replica_launches.values()):
+        problems.append(f"flash launches {launches} here, {replica_launches} in the replicas")
+    if problems:
+        raise AssertionError("control-plane fleet: " + "; ".join(problems))
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def phase_sweep(orch_loss):
+    """Phase 54: a ``kind: group`` grid sweep through the port's
+    ``Orchestrator``: phase 51's ``lm_train`` spec (671M, batch 4 x 1024, 3
+    steps, a profiled last step) over ``lr`` in SWEEP_LRS with ``concurrency:
+    2`` and one ``h100`` device registered.  Checks: the group and both trials
+    succeed; the second trial is scheduled only after the first succeeded
+    (the one slice runs them one at a time); the group's iteration row holds
+    both configs and its trial ids, and each trial reported its loss; the
+    ``lr`` 3e-4 trial's final loss is phase 51's (``orch_loss``) within
+    ORCH_LOSS_RTOL; each kernel once a layer in each trial's profiled step.
+    Returns the launches of both trials' profiled steps and the figures."""
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
+    orch = _orchestrator(base / "plane")
+    try:
+        orch.register_device("card-0", GANG_TOPOLOGY["accelerator"], 1)
+        spec = _gang_spec("group", "lm_train", dict(
+            BENCH_MODEL, seq=TRAIN_SEQ, batch=SSH_BATCH, steps=SSH_STEPS,
+            profile_start=SSH_STEPS - 1, profile_steps=1))
+        spec["hptuning"] = {"matrix": {"lr": {"values": list(SWEEP_LRS)}}, "concurrency": 2,
+                            "grid_search": {}}
+        _free()
+        t0 = time.time()
+        group = orch.submit(spec, name="lm_train lr sweep")
+        _await_done(orch, [group.id], SWEEP_WAIT_S)
+        group = orch.get_run(group.id)
+        trials = sorted(orch.registry.list_runs(group_id=group.id), key=lambda r: r.id)
+        iterations = orch.registry.get_iterations(group.id)
+        statuses = {t.id: _status_times(orch, t.id) for t in trials}
+        losses = {t.id: _losses(orch, t.id) for t in trials}
+        traced = {t.id: _run_trace_launches(orch, t) for t in trials}
+    finally:
+        orch.stop()
+    n = BENCH_MODEL["n_layers"]
+    lrs = [t.spec.declarations["lr"] for t in trials]
+    first, second = sorted(trials, key=lambda t: dict(statuses[t.id]).get("scheduled", 0))
+    first_done = dict(statuses[first.id]).get("succeeded", float("inf"))
+    second_scheduled = dict(statuses[second.id]).get("scheduled", 0.0)
+    final = {lr: losses[t.id].get(SSH_STEPS - 1) for lr, t in zip(lrs, trials)}
+    got = final.get(SWEEP_LRS[0])
+    rel = abs(got - orch_loss) / abs(orch_loss) if got is not None else float("nan")
+    out = {"group_status": group.status, "trial_statuses": {
+               lr: [s for s, _ in statuses[t.id]] for lr, t in zip(lrs, trials)},
+           "submit_to_succeeded_s": {lr: dict(statuses[t.id]).get("succeeded", t0) - t0
+                                     for lr, t in zip(lrs, trials)},
+           "second_waited_s": second_scheduled - dict(statuses[second.id]).get("created", t0),
+           "final_loss": final, "phase51_loss": orch_loss, "loss_rel_diff": rel,
+           "iterations": [{k: row["data"].get(k) for k in ("configs", "trial_ids")}
+                          for row in iterations],
+           "launches_in_profiled_steps": {lr: traced[t.id][0] for lr, t in zip(lrs, trials)}}
+    log(f"sweep: grid over lr {list(SWEEP_LRS)} of lm_train (671M, batch {SSH_BATCH} x "
+        f"{TRAIN_SEQ}, {SSH_STEPS} steps), concurrency 2 on one registered h100: group "
+        f"{group.status}, trials {out['trial_statuses']}, submit to succeeded "
+        f"{out['submit_to_succeeded_s']} s, the second scheduled "
+        f"{second_scheduled - first_done:.2f} s after the first succeeded; final losses {final} "
+        f"(lr {SWEEP_LRS[0]} against phase 51's {orch_loss}: relative {rel:.3g}); kernels in "
+        f"the profiled steps {out['launches_in_profiled_steps']}")
+    problems = []
+    if group.status != "succeeded" or len(trials) != 2 or \
+            any(t.status != "succeeded" for t in trials) or sorted(lrs) != sorted(SWEEP_LRS):
+        problems.append(f"group {group.status}, trials {out['trial_statuses']}, lrs {lrs}")
+    if second_scheduled < first_done:
+        problems.append(f"the second trial was scheduled at {second_scheduled}, before the "
+                        f"first succeeded at {first_done}")
+    if len(iterations) != 1 or iterations[0]["data"]["configs"] != [
+            {"lr": lr} for lr in SWEEP_LRS] or sorted(iterations[0]["data"]["trial_ids"]) != \
+            [t.id for t in trials] or any(v is None or not np.isfinite(v)
+                                           for v in final.values()):
+        problems.append(f"iterations {out['iterations']}, losses {final}")
+    if not rel <= ORCH_LOSS_RTOL:
+        problems.append(f"the lr {SWEEP_LRS[0]} trial's loss relative {rel}")
+    if any(launches != (n, n, n) for _, launches in traced.values()):
+        problems.append(f"kernels {out['launches_in_profiled_steps']}")
+    if problems:
+        raise AssertionError("the sweep: " + "; ".join(problems))
+    shutil.rmtree(base, ignore_errors=True)
+    total = tuple(sum(launches[i] for _, launches in traced.values()) for i in range(3))
+    return total, out
+
+
+def phase_pipeline():
+    """Phase 55: a ``kind: pipeline`` through the port's ``Orchestrator``
+    (admission off): op ``train`` is ``lm_train`` at CKPT_MODEL (PIPE_STEPS
+    steps, batch SSH_BATCH x 1024) and op ``generate``, which depends on it,
+    ``lm_generate`` at the same width (batch PIPE_BATCH, prompt PIPE_PROMPT,
+    PIPE_NEW new tokens), each through ``counted_entry``.  Checks: the
+    pipeline and both ops succeed; ``generate`` is dispatched only after
+    ``train`` succeeded; ``train``'s loss is finite and falls; ``generate``
+    made PIPE_BATCH x PIPE_NEW tokens; each op's launches are phase 7's and
+    phase 5's at 2 layers (each kernel once a layer a step; four prefills'
+    forward launches).  Returns each op's launches and the figures."""
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
+    orch = _orchestrator(base / "plane")
+    env = {"seed": SEED, "topology": dict(GANG_TOPOLOGY)}
+    entry = {"entrypoint": "chip_smoke:counted_entry"}
+    ops = [{"name": "train", "run": entry, "environment": env,
+            "declarations": dict(CKPT_MODEL, seq=TRAIN_SEQ, batch=SSH_BATCH, steps=PIPE_STEPS,
+                                 lr=LR, counted="lm_train")},
+           {"name": "generate", "dependencies": ["train"], "run": entry, "environment": env,
+            "declarations": dict(CKPT_MODEL, seq=TRAIN_SEQ, batch=PIPE_BATCH,
+                                 prompt_len=PIPE_PROMPT, max_new_tokens=PIPE_NEW,
+                                 temperature=0.0, counted="lm_generate")}]
+    try:
+        _free()
+        t0 = time.time()
+        pipe = orch.submit({"kind": "pipeline", "ops": ops}, name="train, then generate")
+        _await_done(orch, [pipe.id], ORCH_WAIT_S)
+        pipe = orch.get_run(pipe.id)
+        runs = {r.name: r for r in orch.registry.list_runs(pipeline_id=pipe.id)}
+        statuses = {name: _status_times(orch, r.id) for name, r in runs.items()}
+        metrics = {name: [m for m in orch.registry.get_metrics(r.id)] for name, r in runs.items()}
+    finally:
+        orch.stop()
+    launches = {}
+    for name, rows in metrics.items():
+        counted = [m["values"] for m in rows if "launches_fwd" in m["values"]]
+        launches[name] = tuple(int(counted[-1][f"launches_{k}"]) for k in ("fwd", "dq", "dkv")) \
+            if counted else None
+    losses = {m["step"]: m["values"]["loss"] for m in metrics.get("train", [])
+              if "loss" in m["values"]}
+    generated = next((m["values"]["generated"] for m in metrics.get("generate", [])
+                      if "generated" in m["values"]), None)
+    train_done = dict(statuses.get("train", [])).get("succeeded", float("inf"))
+    gen_dispatched = dict(statuses.get("generate", [])).get("queued", 0.0)
+    n = CKPT_MODEL["n_layers"]
+    out = {"status": pipe.status, "op_statuses": {k: [s for s, _ in v] for k, v in statuses.items()},
+           "op_order": sorted(statuses, key=lambda k: dict(statuses[k]).get("queued", 0.0)),
+           "submit_to_succeeded_s": {k: dict(v).get("succeeded", t0) - t0
+                                     for k, v in statuses.items()},
+           "generate_dispatched_after_train_s": gen_dispatched - train_done,
+           "train_loss": losses, "generated": generated,
+           "launches": launches}
+    log(f"pipeline: train (lm_train, {n} layers, batch {SSH_BATCH} x {TRAIN_SEQ}, {PIPE_STEPS} "
+        f"steps) then generate (lm_generate, batch {PIPE_BATCH}, prompt {PIPE_PROMPT}, {PIPE_NEW} "
+        f"new): {pipe.status}, ops {out['op_statuses']}, order {out['op_order']}, submit to "
+        f"succeeded {out['submit_to_succeeded_s']} s, generate dispatched "
+        f"{out['generate_dispatched_after_train_s']:.2f} s after train succeeded; losses "
+        f"{out['train_loss']}; generated {generated}; launches {launches}")
+    first, last = losses.get(0), losses.get(PIPE_STEPS - 1)
+    if (pipe.status != "succeeded" or sorted(runs) != ["generate", "train"]
+            or any(r.status != "succeeded" for r in runs.values()) or gen_dispatched < train_done
+            or first is None or last is None or not (np.isfinite(first) and np.isfinite(last)
+                                                     and last < first)
+            or generated != PIPE_BATCH * PIPE_NEW
+            or launches.get("train") != (n * PIPE_STEPS,) * 3
+            or launches.get("generate") != (4 * n, 0, 0)):
+        raise AssertionError(f"the pipeline: {out}")
+    shutil.rmtree(base, ignore_errors=True)
+    return launches, out
+
+
 def _tracing_in_a_process_of_its_own():
     """Phase 24 in a child process of this script: a serving process holds
     one engine, not the objects, threads and heap of the 23 phases before,
@@ -6420,6 +6837,12 @@ def main() -> int:
     mark("51 orchestrator run")
     remedy_launches, control["remediated_preemption"] = phase_remediated_preemption()
     mark("52 remediated preemption")
+    search = {"control_plane_fleet": phase_control_plane_fleet()}
+    mark("53 control-plane fleet")
+    sweep_launches, search["sweep"] = phase_sweep(control["orchestrator"]["final_loss"])
+    mark("54 sweep")
+    pipe_launches, search["pipeline"] = phase_pipeline()
+    mark("55 pipeline")
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
@@ -6428,7 +6851,9 @@ def main() -> int:
                "lm_train_moe": moe_launches, **sharded_launches, **pipeline_launches,
                **rest_launches, "mesh_serving": mesh_launches,
                "lm_train_ssh_gang": ssh_launches, "lm_train_orchestrator": orch_launches,
-               "lm_train_remediated": remedy_launches}
+               "lm_train_remediated": remedy_launches, "lm_train_sweep": sweep_launches,
+               "lm_train_pipeline": pipe_launches["train"],
+               "lm_generate_pipeline": pipe_launches["generate"]}
     for i, (kind, record) in enumerate((("fwd", fwd), ("dq", bwd["dq"]), ("dkv", bwd["dkv"]))):
         record["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -6462,6 +6887,7 @@ def main() -> int:
     print(json.dumps({"rest_of_the_parallel_layer": rest}))
     print(json.dumps({"mesh_serving": mesh_serving}))
     print(json.dumps({"services_transport_state": control}))
+    print(json.dumps({"fleet_search_pipelines": search}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -26,6 +26,7 @@ from polyaxon_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
 )
+from polyaxon_tpu_torch.parallel import flash
 from polyaxon_tpu_torch.parallel.axes import tree_shard
 from polyaxon_tpu_torch.parallel.templates import template_for
 from polyaxon_tpu_torch.serving import EngineDrainingError, ServingEngine
@@ -78,6 +79,7 @@ def _make_lm_handler(engine, cfg, meta: dict, log=lambda line: None):
                 latency = engine.latency_summaries()
                 if latency:
                     payload["latency"] = latency
+                payload["flash_launches"] = flash.launch_counts()
                 return self._json(200, payload)
             if self.path.startswith("/v1/trace/"):
                 # This process's spans of one trace, from the tracer's ring;
@@ -215,7 +217,8 @@ def lm_server(ctx: Context) -> None:
     ``{"request_id": N}``; ``GET /healthz`` (model, occupancy, ``state``
     ``warming``/``ready``/``draining``, warming while the engine builds its
     step family, and the ``steady_state_compiles`` count); ``GET /v1/stats``
-    (engine stats and latency percentiles); ``GET /v1/trace/<id>`` (this
+    (engine stats, latency percentiles and ``flash_launches``, this process's
+    launches of each flash kernel); ``GET /v1/trace/<id>`` (this
     process's spans of a trace); ``GET /metrics`` (Prometheus text).  A
     ``/generate`` with a ``traceparent`` header joins that trace (without
     one, a trace is started while ``POLYAXON_TPU_TRACE_REQUESTS`` is on), and

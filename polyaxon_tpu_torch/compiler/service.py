@@ -15,9 +15,9 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Union
 
 from polyaxon_tpu_torch.exceptions import CompilerError, SchemaError
+from polyaxon_tpu_torch.schemas.polyaxonfile import PolyaxonFile
 from polyaxon_tpu_torch.schemas.specifications import (
     BaseSpecification,
-    Kinds,
     specification_for_kind,
 )
 
@@ -67,17 +67,14 @@ def compile_spec(
 ) -> BaseSpecification:
     """Validate a spec dict into a typed specification (a specification is
     taken as it is).  The kind is read as the reference's loader reads it
-    (``PolyaxonFile._normalize``): a document with ``hptuning`` or
-    ``matrix`` is a group, which no worker runs, and one with neither and
-    no ``kind`` an experiment.  ``kind`` (when given) must match."""
+    (``PolyaxonFile._normalize``): a document with ``hptuning`` or a legacy
+    top-level ``matrix`` is a group, which no worker runs, and one with
+    neither and no ``kind`` an experiment.  ``kind`` (when given) must
+    match."""
     if isinstance(values, BaseSpecification):
         spec = values
     elif isinstance(values, dict):
-        data = dict(values)
-        sweep = "hptuning" in data or "matrix" in data
-        if sweep and data.get("kind", Kinds.EXPERIMENT) == Kinds.EXPERIMENT:
-            data["kind"] = Kinds.GROUP
-        data.setdefault("kind", Kinds.EXPERIMENT)
+        data = PolyaxonFile._normalize(dict(values))
         spec = specification_for_kind(data["kind"]).from_dict(data)
     else:
         raise SchemaError(f"Spec document must be a mapping, got {type(values)}")

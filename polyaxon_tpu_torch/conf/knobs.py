@@ -5,7 +5,8 @@ serving engine, its KV tiers, its tracer, its serving fleet (router,
 fleet, autoscaler), its utilization ledger, its stall watchdog, its
 resource sampler, its gang worker and its control plane (the registry's
 retention sweep, the secret options' key, the watcher, the alert and
-remediation engines, the metric history, the notifier's fallbacks) use: the
+remediation engines, the metric history, the notifier's fallbacks, the
+health checks' static-analysis state) use: the
 same ``POLYAXON_TPU_*`` variables, the same defaults, the same parsing (a
 bool is false for ``0``, ``false``, ``off``, ``no`` and the empty string; an
 unparsable number keeps the default).  Reading a knob that is not in
@@ -112,6 +113,11 @@ KNOBS: Dict[str, Any] = {
     # the notifier's fallbacks for the notifier.webhook_* options
     "POLYAXON_TPU_WEBHOOK_URL": "",
     "POLYAXON_TPU_WEBHOOK_KIND": "",
+    # the platform's state dir, and the static-analysis state that
+    # checks/health.py's check_static_analysis reads ('' = under the home)
+    "POLYAXON_TPU_HOME": "~/.polyaxon_tpu",
+    "POLYAXON_TPU_LINT_STATE": "",
+    "POLYAXON_TPU_LINT_STALE_S": 7 * 86400.0,
 }
 
 #: Declared prefixes of knobs with dynamic suffixes.

@@ -16,9 +16,10 @@ the scheduler's monitor tick and acts through the existing machinery:
   kills the straggling rank process and records an elastic topology
   override in the run's meta, so the resume re-forms the gang smaller;
 - ``drain_replace``: a drain-class alert on a replica of a registered serving
-  fleet.  No fleet registers until ``ServingFleet`` is ported, so such an
-  alert finds none and does nothing, as the reference does for a run that is
-  not a replica.
+  fleet (``serving/fleet.py:ServingFleet`` registers itself) opens the
+  operation and hands it to the fleet, whose ``poll()`` drains, replaces and
+  closes the row; on a run that is not a replica it does nothing, as the
+  reference does.
 
 Every action is a registry row, an audit event and a
 ``remediation_total{action,outcome}`` counter.  The port's gang handle holds

@@ -3,8 +3,10 @@ one object wiring the registry (state), the task bus, the auditor and the
 executor (events), the spawner and the watcher (the gang layer), the alert
 and remediation engines, the metric history, the notifier, the tracker and
 the crons.  It runs the port's runs: the spawner launches the port's worker,
-one rank process a card (``spawner/local.py``), and nothing here imports
-torch, so building an orchestrator initialises no CUDA.
+one rank process a card (``spawner/local.py``); the search tasks
+(``hpsearch/``) run a group's sweep and the pipeline tasks (``polyflow/``)
+a pipeline's ops, as trial and op runs of the same chain.  Nothing here
+imports torch, so building an orchestrator initialises no CUDA.
 
 Two operating modes:
 
@@ -12,18 +14,6 @@ Two operating modes:
   graph in the calling thread;
 - **service**: :meth:`start` runs the bus on a background thread with the
   beat crons and holds the control-plane lease on a timer thread.
-
-The one departure is item 10.4 (search and pipelines), which is not ported:
-
-- ``register_hp_tasks`` and ``register_pipeline_tasks`` are not called, so
-  the bus has no ``HPTasks.*`` or ``PipelineTasks.*`` handler;
-- :meth:`submit` of a group (a spec with ``hptuning`` or ``matrix``) or a
-  pipeline raises the port's ``SchemaError``;
-- :meth:`recover` leaves a group or pipeline row (one another control plane
-  wrote into a shared registry) as it is, does not count it, and logs once
-  that item 10.4 is not ported, where the reference re-kicks its driving
-  task: the port's ``TaskBus.send`` raises ``KeyError`` on a task no handler
-  has registered.
 """
 
 from __future__ import annotations
@@ -298,9 +288,18 @@ class Orchestrator:
             scraper=self.scraper,
         )
         register_scheduler_tasks(self.ctx)
-        # Item 10.4's hpsearch and polyflow tasks are not registered: their
-        # modules are not ported (see the module docstring).
-        self._unported_logged = False
+        from polyaxon_tpu_torch.hpsearch import HPContext, register_hp_tasks
+
+        register_hp_tasks(
+            HPContext(registry=self.registry, bus=self.bus, auditor=self.auditor)
+        )
+        from polyaxon_tpu_torch.polyflow import PipelineContext, register_pipeline_tasks
+
+        register_pipeline_tasks(
+            PipelineContext(
+                registry=self.registry, bus=self.bus, auditor=self.auditor
+            )
+        )
         self._heartbeat_check_interval = heartbeat_check_interval
         import uuid as _uuid
 
@@ -347,24 +346,21 @@ class Orchestrator:
             )
             return 0
         n = 0
-        unported = 0
         for run in self.registry.list_runs(statuses=[S.CREATED, S.QUEUED]):
             if run.kind == Kinds.GROUP:
                 # A group with trials already created must not re-create
                 # them; re-kick the wave instead.
                 has_trials = bool(self.registry.list_runs(group_id=run.id))
-                task = HPTasks.START if has_trials else HPTasks.CREATE
-                if not self.bus.has_task(task):
-                    unported += 1
-                    continue
-                self.bus.send(task, {"group_id": run.id})
+                self.bus.send(
+                    HPTasks.START if has_trials else HPTasks.CREATE,
+                    {"group_id": run.id},
+                )
             elif run.kind == Kinds.PIPELINE:
                 has_ops = bool(self.registry.list_runs(pipeline_id=run.id))
-                task = PipelineTasks.CHECK if has_ops else PipelineTasks.START
-                if not self.bus.has_task(task):
-                    unported += 1
-                    continue
-                self.bus.send(task, {"pipeline_id": run.id})
+                self.bus.send(
+                    PipelineTasks.CHECK if has_ops else PipelineTasks.START,
+                    {"pipeline_id": run.id},
+                )
             elif run.status == S.CREATED and (run.group_id or run.pipeline_id):
                 # Wave/DAG scheduling owns dispatch of member runs — direct
                 # re-entry would bypass concurrency windows and DAG order.
@@ -453,24 +449,11 @@ class Orchestrator:
                 self.bus.send(SchedulerTasks.EXPERIMENTS_START, {"run_id": run.id})
                 n += 1
         for group in self.registry.list_runs(kind=Kinds.GROUP, statuses=[S.RUNNING]):
-            if not self.bus.has_task(HPTasks.START):
-                unported += 1
-                continue
             self.bus.send(HPTasks.START, {"group_id": group.id})
             n += 1
         for pipe in self.registry.list_runs(kind=Kinds.PIPELINE, statuses=[S.RUNNING]):
-            if not self.bus.has_task(PipelineTasks.CHECK):
-                unported += 1
-                continue
             self.bus.send(PipelineTasks.CHECK, {"pipeline_id": pipe.id})
             n += 1
-        if unported and not self._unported_logged:
-            self._unported_logged = True
-            logger.warning(
-                "Leaving %d group/pipeline run(s) as they are: item 10.4 "
-                "(search and pipelines) is not ported",
-                unported,
-            )
         return n
 
     def start(self) -> None:

@@ -291,6 +291,12 @@ flash_block_dq.launches = 0
 flash_block_dkv.launches = 0
 
 
+def launch_counts() -> dict:
+    """This process's launches of each flash kernel so far, by kernel name."""
+    return {"flash_fwd": flash_block_fwd.launches, "flash_bwd_dq": flash_block_dq.launches,
+            "flash_bwd_dkv": flash_block_dkv.launches}
+
+
 def flash_block_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,

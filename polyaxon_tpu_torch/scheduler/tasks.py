@@ -11,9 +11,6 @@ handles live in one place.  The port's departures:
   launches D rank processes a host.  The process rows and the watcher count
   those (``range(handle.plan.num_hosts)``);
 - a service's URL names the host of rank process 0.
-
-Item 10.4's sweeps have no tasks yet: :func:`admission_check` re-kicks
-groups only where a handler has ``HPTasks.START``, as the reference's does.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ The reference validates its spec sections with pydantic models
 (``polyaxon_tpu/schemas/``); the port has no pydantic, so each section is a
 dataclass whose ``from_dict`` runs these checks.  They take what pydantic
 takes: an ``int`` field an int, a bool, an integral float or a string of
-digits; a ``float`` field any number or a numeric string; a ``str`` field
-only a string.  Unknown keys are refused (the reference's
+digits; a ``float`` field any number or a numeric string; a ``bool`` field
+a bool, 0 or 1, or one of pydantic's words (``yes``, ``off``, ...); a ``str``
+field only a string.  Unknown keys are refused (the reference's
 ``extra="forbid"``).  Every failure is a ``ValueError`` naming the field by
 its dotted path.
 """
@@ -55,6 +56,20 @@ def as_float(v: Any, where: str) -> float:
         except ValueError:
             pass
     raise ValueError(f"{where}: Input should be a valid number")
+
+
+_TRUE = ("1", "on", "t", "true", "y", "yes")
+_FALSE = ("0", "off", "f", "false", "n", "no")
+
+
+def as_bool(v: Any, where: str) -> bool:
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, (int, float)) and v in (0, 1):
+        return bool(v)
+    if isinstance(v, str) and v.lower() in _TRUE + _FALSE:
+        return v.lower() in _TRUE
+    raise ValueError(f"{where}: Input should be a valid boolean")
 
 
 def as_str(v: Any, where: str) -> str:

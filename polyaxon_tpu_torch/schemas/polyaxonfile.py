@@ -2,11 +2,10 @@
 ``polyaxon_tpu/schemas/polyaxonfile.py``: a YAML or JSON document, a path
 or a dict, to a typed specification.
 
-A document with an ``hptuning`` (or legacy ``matrix``) section is a group,
-which the port refuses with ``SchemaError`` (item 10.4, as
-``specification_for_kind`` does), as it refuses a pipeline.  ``yaml`` is
-imported only for text that is not JSON: a dict or a JSON spec never needs
-PyYAML, which the card's machine may lack.
+A document with an ``hptuning`` (or legacy top-level ``matrix``) section is
+a group, as in the reference's loader.  ``yaml`` is imported only for text
+that is not JSON: a dict or a JSON spec never needs PyYAML, which the card's
+machine may lack.
 """
 
 from __future__ import annotations

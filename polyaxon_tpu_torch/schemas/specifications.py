@@ -1,14 +1,14 @@
-"""Typed specifications of the kinds a gang worker runs, the port's copy.
-
-Counterpart of ``polyaxon_tpu/schemas/specifications.py`` (:77-195, :290):
-``interpolate``, the experiment, job and service kinds with
-``resolved_run``, and ``specification_for_kind``.  Dataclasses with explicit
-checks instead of pydantic models; ``from_dict`` accepts and refuses the
-documents the reference's ``from_dict`` does and raises
-:class:`~polyaxon_tpu_torch.exceptions.SchemaError` with the reference's
-messages.  Groups (hptuning sweeps) and pipelines are control-plane kinds
-that never reach a worker: :func:`specification_for_kind` names them and
-refuses them.
+"""Typed specifications, the port's copy of
+``polyaxon_tpu/schemas/specifications.py``: ``interpolate``, the experiment,
+job and service kinds with ``resolved_run``, the group (an hptuning sweep
+over an experiment template, with ``get_experiment_spec`` materialising one
+trial) and the pipeline (a DAG of ops), and ``specification_for_kind``.
+Dataclasses with explicit checks instead of pydantic models; ``from_dict``
+accepts and refuses the documents the reference's ``from_dict`` does and
+raises :class:`~polyaxon_tpu_torch.exceptions.SchemaError` with the
+reference's messages.  Groups and pipelines are control-plane kinds: the
+port's ``Orchestrator`` expands them into trial and op runs
+(``hpsearch/``, ``polyflow/``), and no gang worker runs them.
 
 A service spec without a run section resolves to the port's own built-in
 (``builtins/services.py``), kind for kind as the reference's:
@@ -34,6 +34,7 @@ from polyaxon_tpu_torch.schemas.fields import (
     drop_none,
     optional,
 )
+from polyaxon_tpu_torch.schemas.hptuning import HPTuningConfig
 from polyaxon_tpu_torch.schemas.run import BuildConfig, RunConfig
 
 
@@ -50,8 +51,6 @@ class Kinds:
         EXPERIMENT, GROUP, JOB, BUILD, NOTEBOOK, TENSORBOARD, SERVICE,
         PIPELINE,
     )
-    #: Kinds the control plane expands into other runs; no worker runs them.
-    CONTROL_PLANE = (GROUP, PIPELINE)
 
 
 _TEMPLATE_RE = re.compile(r"\{\{\s*([\w.]+)\s*\}\}")
@@ -225,23 +224,92 @@ class ServiceSpecification(BaseSpecification):
         return RunConfig.from_dict(interpolate(data, self.declarations))
 
 
+@dataclass
+class GroupSpecification(BaseSpecification):
+    """An hptuning sweep over an experiment template; the search tasks
+    materialise each trial with :meth:`get_experiment_spec`."""
+
+    kind: str = Kinds.GROUP
+    run: Optional[RunConfig] = None
+    hptuning: Optional[HPTuningConfig] = None
+
+    _KIND_KEYS = ("run", "hptuning")
+    _TAKES = (Kinds.GROUP,)
+    _KIND_MESSAGE = "Expected kind=group, got {kind!r}"
+
+    def _validate_kind(self, d: Dict[str, Any]) -> None:
+        for name in self._KIND_KEYS:
+            if name not in d:
+                raise ValueError(f"{name}: Field required")
+        self.run = RunConfig.from_dict(d["run"])
+        self.hptuning = HPTuningConfig.from_dict(d["hptuning"])
+
+    def get_experiment_spec(self, matrix_declaration: Dict[str, Any]) -> ExperimentSpecification:
+        """Materialize one trial: group spec minus hptuning, declarations
+        merged with the suggestion (suggestion wins)."""
+        data = self.to_dict()
+        del data["hptuning"]
+        data["kind"] = Kinds.EXPERIMENT
+        data["declarations"] = {**copy.deepcopy(self.declarations), **matrix_declaration}
+        return ExperimentSpecification.from_dict(data)
+
+    @property
+    def matrix_space(self) -> Optional[int]:
+        """Grid cardinality, None if any param is a continuous distribution."""
+        total = 1
+        for m in self.hptuning.matrix.values():
+            n = m.length
+            if n is None:
+                return None
+            total *= n
+        return total
+
+
+@dataclass
+class PipelineSpecification(BaseSpecification):
+    """DAG-of-operations spec: ``ops`` is a list of {name, run sections,
+    dependencies: [names]}."""
+
+    kind: str = Kinds.PIPELINE
+    ops: List[Dict[str, Any]] = field(default_factory=list)
+    concurrency: Optional[int] = None
+
+    _KIND_KEYS = ("ops", "concurrency")
+    _TAKES = (Kinds.PIPELINE,)
+    _KIND_MESSAGE = "Expected kind=pipeline, got {kind!r}"
+
+    def _validate_kind(self, d: Dict[str, Any]) -> None:
+        ops = d.get("ops", [])
+        if not isinstance(ops, (list, tuple)):
+            raise ValueError("ops: Input should be a valid list")
+        ops = [as_dict(op, f"ops.{i}") for i, op in enumerate(ops)]
+        names = [op.get("name") for op in ops]
+        if any(n is None for n in names):
+            raise ValueError("every pipeline op needs a name")
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate op names in pipeline: {names}")
+        known = set(names)
+        for op in ops:
+            for dep in op.get("dependencies", []):
+                if dep not in known:
+                    raise ValueError(f"op {op['name']!r} depends on unknown op {dep!r}")
+        self.ops = ops
+        self.concurrency = optional(as_int)(d.get("concurrency"), "concurrency")
+
+
 _KIND_TO_SPEC = {
     Kinds.EXPERIMENT: ExperimentSpecification,
+    Kinds.GROUP: GroupSpecification,
     Kinds.JOB: JobSpecification,
     Kinds.BUILD: JobSpecification,
     Kinds.NOTEBOOK: ServiceSpecification,
     Kinds.TENSORBOARD: ServiceSpecification,
     Kinds.SERVICE: ServiceSpecification,
+    Kinds.PIPELINE: PipelineSpecification,
 }
 
 
 def specification_for_kind(kind: str) -> type:
-    if kind in Kinds.CONTROL_PLANE:
-        raise SchemaError(
-            f"kind {kind!r} is expanded by the control plane into other runs; no gang "
-            "worker runs it, and the port does not validate it (item 10.4, search and "
-            "pipelines, is not ported)"
-        )
     try:
         return _KIND_TO_SPEC[kind]
     except KeyError:

@@ -2,37 +2,37 @@
 continuous-batching engine, its block bookkeeping and host KV tier, the
 persistent prefix store (``serving.kvstore``), and the fleet: replica
 subprocesses (``serving.replica``) behind the :class:`FleetRouter`, started
-by :class:`LocalServingFleet` and resized by the :class:`FleetAutoscaler`."""
+by :class:`LocalServingFleet` or, as control-plane runs, by
+:class:`ServingFleet`, and resized by the :class:`FleetAutoscaler`.
 
-from polyaxon_tpu_torch.serving.engine import (
-    EngineDrainingError,
-    GenerationRequest,
-    NgramDrafter,
-    ServingEngine,
-    SlotAllocator,
-)
-from polyaxon_tpu_torch.serving.paging import (
-    BlockAllocator,
-    HostKVTier,
-    PrefixCache,
-    truncate_table,
-)
-from polyaxon_tpu_torch.serving.router import FleetRouter, RouterError
-from polyaxon_tpu_torch.serving.fleet import LocalServingFleet
-from polyaxon_tpu_torch.serving.autoscaler import FleetAutoscaler
+The names load their modules at first use: the router, the fleets and the
+autoscaler import no torch, so a control plane that runs a fleet loads none.
+"""
 
-__all__ = [
-    "BlockAllocator",
-    "EngineDrainingError",
-    "FleetAutoscaler",
-    "FleetRouter",
-    "GenerationRequest",
-    "HostKVTier",
-    "LocalServingFleet",
-    "NgramDrafter",
-    "PrefixCache",
-    "RouterError",
-    "ServingEngine",
-    "SlotAllocator",
-    "truncate_table",
-]
+import importlib
+
+_MODULES = {
+    "EngineDrainingError": "engine",
+    "GenerationRequest": "engine",
+    "NgramDrafter": "engine",
+    "ServingEngine": "engine",
+    "SlotAllocator": "engine",
+    "BlockAllocator": "paging",
+    "HostKVTier": "paging",
+    "PrefixCache": "paging",
+    "truncate_table": "paging",
+    "FleetRouter": "router",
+    "RouterError": "router",
+    "LocalServingFleet": "fleet",
+    "ServingFleet": "fleet",
+    "FleetAutoscaler": "autoscaler",
+}
+
+__all__ = sorted(_MODULES)
+
+
+def __getattr__(name):
+    module = _MODULES.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

@@ -176,9 +176,15 @@ def test_kind_mismatch_and_the_control_plane_kinds():
         compile_spec(yaml.safe_load(EXPERIMENT_YAML), kind="group")
     for doc in (yaml.safe_load(GROUP_YAML), {"matrix": {"lr": {"values": [1]}}, "run": {"cmd": "e"}},
                 {"kind": "pipeline", "ops": [{"name": "a"}]}):
-        assert jax_compile_spec(doc).kind in ("group", "pipeline")
-        with pytest.raises(texc.SchemaError, match="expanded by the control plane"):
-            compile_spec(doc)
+        # Search and pipelines are ported: both packages read the kinds the
+        # control plane expands into trial and op runs alike.
+        want = jax_compile_spec(doc)
+        assert want.kind in ("group", "pipeline")
+        got = compile_spec(doc)
+        assert got.kind == want.kind
+        assert got.to_dict() == want.to_dict()
+        with pytest.raises(texc.CompilerError, match="does not match requested 'experiment'"):
+            compile_spec(doc, kind="experiment")
 
 
 def test_a_service_spec_resolves_to_the_ports_builtin():

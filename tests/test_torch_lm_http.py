@@ -147,6 +147,8 @@ def test_stats_healthz_and_metrics(server):
             "block_occupancy", "blocks_free", "prefix_cache_hit_rate", "prefill_backlog_chunks",
             "requests_cancelled"} <= set(body)
     assert {"queue_wait_s", "ttft_s", "decode_step_s", "batch_occupancy"} <= set(body["latency"])
+    # The paged engine runs no flash kernel (on the CPU no wrapper launches one).
+    assert body["flash_launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     status, _, health = _get(base, "/healthz")
     assert status == 200 and health["ok"] is True and health["state"] == "ready"
     assert health["model"]["vocab_size"] == 64 and health["engine"]["slots"] == 3

@@ -14,8 +14,8 @@ that resumes from its latest complete checkpoint.  What is compared: each
 run's status sequence (``running`` left out: a run may finish within one
 poll), its audited event types, its process rows, remediation rows and
 status messages.  ``lm_train`` losses are not compared across the packages
-(their RNGs differ).  The port's refusals are shown too: ``recover`` leaves a
-group row as it is, and ``submit`` of a group raises ``SchemaError``.  A
+(their RNGs differ).  ``recover`` re-kicks a group and a pipeline row and
+``submit`` takes both kinds, on both planes alike.  A
 subprocess runs a port ``Orchestrator`` and a gang with no module of
 ``polyaxon_tpu`` (or ``jax``) loaded in either.
 
@@ -37,6 +37,7 @@ from polyaxon_tpu.orchestrator import Orchestrator as JOrchestrator
 from polyaxon_tpu_torch.exceptions import SchemaError
 from polyaxon_tpu_torch.lifecycles import StatusOptions as S
 from polyaxon_tpu_torch.orchestrator import Orchestrator as TOrchestrator
+from polyaxon_tpu_torch.schemas import PolyaxonFile
 
 REPO = Path(__file__).resolve().parents[1]
 WAIT_S = 120.0
@@ -298,26 +299,33 @@ def test_a_second_control_plane_recovers_what_the_first_left(tmp_path):
     assert got["port"]["lease"] == [True, 0, False, 0]
 
 
-def test_the_port_leaves_a_group_row_and_refuses_a_group(tmp_path, caplog):
-    orch = _plane("port", tmp_path / "plat")
-    try:
-        group = orch.registry.create_run({"kind": "group", "hptuning": {"matrix": {}}})
-        running = orch.registry.create_run({"kind": "pipeline", "ops": []})
-        orch.registry.set_status(running.id, S.RUNNING)
-        assert orch.recover() == 0
-        assert orch.recover() == 0
-        assert orch.get_run(group.id).status == S.CREATED
-        assert orch.get_run(running.id).status == S.RUNNING
-        notes = [r.message for r in caplog.records if "item 10.4" in r.message]
-        assert notes == ["Leaving 2 group/pipeline run(s) as they are: item 10.4 (search and "
-                         "pipelines) is not ported"]
-        for doc in ({"kind": "group", "run": {"cmd": "x"}},
-                    json.dumps({"run": {"cmd": "x"}, "hptuning": {"matrix": {"lr": {"values": [1]}}}}),
-                    {"kind": "pipeline", "ops": []}):
-            with pytest.raises(SchemaError, match="item 10.4"):
-                orch.submit(doc)
-    finally:
-        orch.stop()
+def test_the_port_leaves_a_group_row_and_refuses_a_group(tmp_path):
+    """Since search and pipelines are ported the port no longer leaves
+    group and pipeline rows or refuses such specs: ``recover`` re-kicks a
+    created group and a running pipeline as the reference's does (each
+    counted), and ``submit`` takes a group (an ``hptuning`` section or a
+    legacy top-level ``matrix``) and a pipeline."""
+    docs = ({"kind": "group", "run": {"cmd": "x"},
+             "hptuning": {"matrix": {"lr": {"values": [1]}}}},
+            json.dumps({"run": {"cmd": "x"}, "hptuning": {"matrix": {"lr": {"values": [1]}}}}),
+            {"run": {"cmd": "x"}, "matrix": {"lr": {"values": [1, 2]}}},
+            {"kind": "pipeline", "ops": []})
+    got = {}
+    for name in PACKAGES:
+        orch = _plane(name, tmp_path / name / "plat")
+        try:
+            group = orch.registry.create_run({"kind": "group", "run": {"cmd": "true"},
+                                              "hptuning": {"matrix": {"lr": {"values": [1]}}}})
+            running = orch.registry.create_run({"kind": "pipeline", "ops": []})
+            orch.registry.set_status(running.id, S.RUNNING)
+            got[name] = ([orch.recover(), orch.recover()], orch.get_run(group.id).status,
+                         [orch.submit(doc).kind for doc in docs])
+        finally:
+            orch.stop()
+    assert got["port"] == got["jax"]
+    assert got["port"] == ([2, 2], S.CREATED, ["group", "group", "group", "pipeline"])
+    with pytest.raises(SchemaError):  # a group still needs its run section
+        PolyaxonFile.load({"kind": "group", "hptuning": {"matrix": {"lr": {"values": [1]}}}})
 
 
 PROBE = """

@@ -6,10 +6,9 @@ status writes, metrics with labels, logs, heartbeats, progress, processes,
 commands and their acks, anomalies, alerts, remediations, captures,
 iterations, activity, options, archiving and deletion.  Every step's result
 is compared (an exception by its type name and message), and then every
-table's rows, apart from ids, uuids, token hashes and timestamps.  The port
-validates only the kinds a worker runs: ``Run.spec`` on a group or pipeline
-row raises its ``SchemaError``, where the reference returns the group's or
-pipeline's specification.
+table's rows, apart from ids, uuids, token hashes and timestamps.
+``Run.spec`` reads every kind, groups and pipelines included, as the
+reference's does, and refuses a stored row whose spec does not validate.
 """
 
 from tests import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
@@ -244,16 +243,29 @@ def test_the_row_vocabularies_are_the_references():
 
 
 def test_a_group_row_is_stored_and_listed_but_its_spec_is_refused(tmp_path):
-    reg = treg.RunRegistry(tmp_path / "r.db")
+    """Since search and pipelines are ported, a group's and a pipeline's
+    ``Run.spec`` are the reference's; only a row whose spec does not
+    validate (a group without its run section) is refused, on both."""
+    regs = {"port": treg.RunRegistry(tmp_path / "t.db"),
+            "jax": jreg.RunRegistry(tmp_path / "j.db")}
     try:
-        group = reg.create_run(SPECS["group"])
-        assert [r.kind for r in reg.list_runs()] == ["group"]
-        with pytest.raises(SchemaError, match="expanded by the control plane"):
-            reg.get_run(group.id).spec
-        exp = reg.create_run(SPECS["experiment"])
-        assert reg.get_run(exp.id).spec.resolved_run().cmd == "python train.py"
+        specs = {}
+        for name, reg in regs.items():
+            rows = [reg.create_run(SPECS[k]) for k in ("group", "pipeline", "experiment")]
+            broken = reg.create_run({"kind": "group", "hptuning": SPECS["group"]["hptuning"]})
+            assert [r.kind for r in reg.list_runs()] == ["group", "pipeline", "experiment",
+                                                        "group"]
+            specs[name] = [json.loads(json.dumps(reg.get_run(r.id).spec.to_dict()))
+                           for r in rows]
+            with pytest.raises(Exception, match="run"):
+                reg.get_run(broken.id).spec
+        assert specs["port"] == specs["jax"]
+        with pytest.raises(SchemaError):
+            regs["port"].get_run(4).spec
+        assert regs["port"].get_run(3).spec.resolved_run().cmd == "python train.py"
     finally:
-        reg.close()
+        for reg in regs.values():
+            reg.close()
 
 
 def _write_metrics(path, worker, n):

@@ -153,30 +153,50 @@ def test_importing_the_port_loads_no_jax():
         "import polyaxon_tpu_torch.monitor, polyaxon_tpu_torch.stats.tsdb\n"
         "import polyaxon_tpu_torch.stores.artifacts, polyaxon_tpu_torch.notifier\n"
         "import polyaxon_tpu_torch.tracker, polyaxon_tpu_torch.ci\n"
-        "import polyaxon_tpu_torch.schemas.polyaxonfile\n"
+        "import polyaxon_tpu_torch.schemas.polyaxonfile, polyaxon_tpu_torch.schemas.hptuning\n"
+        "import polyaxon_tpu_torch.schemas.matrix, polyaxon_tpu_torch.hpsearch\n"
+        "import polyaxon_tpu_torch.hpsearch.search_managers, polyaxon_tpu_torch.hpsearch.tasks\n"
+        "import polyaxon_tpu_torch.polyflow, polyaxon_tpu_torch.query\n"
+        "import polyaxon_tpu_torch.checks, polyaxon_tpu_torch.checks.health\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'polyaxon_tpu')]\n"
         "assert not bad, bad\n"
-        "# The card's machine has neither: the spec sections are checked without them.\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('pydantic', 'yaml')]\n"
+        "# The card's machine has none of these: the spec sections are checked\n"
+        "# without them, and BO fits the port's own Gaussian process.\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('pydantic', 'yaml', 'sklearn')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
 def test_the_control_plane_loads_no_torch_and_no_cuda_context(tmp_path):
-    """Importing the orchestrator and building one (with a JSON spec
-    submitted) loads no torch, so no CUDA context: the control plane
-    initialises nothing on a card its gangs use."""
+    """Importing the orchestrator and building one (with a JSON spec and a
+    group submitted, the group's trials created) loads no torch, so no CUDA
+    context: the control plane initialises nothing on a card its gangs
+    use."""
     code = (
         "import sys\n"
         "from polyaxon_tpu_torch.orchestrator import Orchestrator\n"
         "import polyaxon_tpu_torch.scheduler, polyaxon_tpu_torch.monitor\n"
         "import polyaxon_tpu_torch.stats, polyaxon_tpu_torch.stores, polyaxon_tpu_torch.notifier\n"
+        "import polyaxon_tpu_torch.checks, polyaxon_tpu_torch.query\n"
+        "from polyaxon_tpu_torch.serving.fleet import ServingFleet\n"
         "orch = Orchestrator(sys.argv[1])\n"
         "orch.submit('{\"kind\": \"experiment\", \"run\": {\"cmd\": \"true\"}}')\n"
+        "group = orch.submit({'kind': 'group', 'run': {'cmd': 'true'}, 'hptuning': {\n"
+        "    'matrix': {'lr': {'uniform': [0, 1]}},\n"
+        "    'bo': {'n_initial_trials': 2, 'n_iterations': 1,\n"
+        "           'metric': {'name': 'loss'}}}})\n"
+        "ServingFleet(orch, replicas=0).stop()\n"
+        "polyaxon_tpu_torch.checks.run_health_checks(orch)\n"
+        "from polyaxon_tpu_torch.workers import HPTasks\n"
+        "orch.bus._tasks[HPTasks.CREATE](group_id=group.id)  # the trials, not dispatched\n"
+        "assert len(orch.registry.list_runs(group_id=group.id)) == 2\n"
+        "from polyaxon_tpu_torch.hpsearch import get_search_manager\n"
+        "bo = get_search_manager(orch.get_run(group.id).spec.hptuning)\n"
+        "bo.get_suggestions({'configs': [{'lr': 0.2}, {'lr': 0.6}], 'metrics': [1.0, 0.5]})\n"
         "orch.stop()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'polyaxon_tpu',\n"
-        "                                                     'yaml')]\n"
+        "                                                     'yaml', 'sklearn')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code, str(tmp_path / "plane")], cwd=REPO, check=True,
