@@ -366,7 +366,17 @@ pipeline.  Phases:
 54. a ``kind: group`` grid over ``lr`` of phase 51's spec, one trial at a
     time on the one registered slice, the ``lr`` 3e-4 loss phase 51's;
 55. a ``kind: pipeline``: ``lm_train`` at 2 layers, then ``lm_generate``,
-    each op's flash launches counted (``counted_entry``).
+    each op's flash launches counted (``counted_entry``);
+56. the surfaces: ``python -m polyaxon_tpu_torch.cli.main serve`` on a free
+    port, and the CLI in remote mode submitting ``run -f spec.json --watch``
+    for phase 55's ``train`` op as a JSON spec that names no accelerator
+    (stored with the card, run on it, 6 launches of each kernel); the run
+    read back over HTTP (its detail, its metrics, the WS metrics tail, the
+    status with the card probe, the version, ``/metrics``, the dashboard)
+    and through the CLI's ``ps``, ``get``, ``logs`` and ``statuses``; the
+    server stopped, its control-plane lease released.  Where aiohttp is not
+    installed the API cannot serve: the same run goes through the CLI's
+    local mode, and a line says so.
 
 Any failed check raises, and the script exits non-zero; an atexit hook
 SIGKILLs any replica or gang worker left.  On success its last lines are the serving
@@ -379,7 +389,8 @@ the kernels' JSON record, the fleet's figures, the gang layer's, the image
 classifiers' and the MoE run's, the sharded strategies', the pipeline's and
 the experts', the rest of the parallel layer's, mesh serving's, the services',
 the ssh gang's, the state and bus's and the orchestrator's, the fleet's,
-the sweep's and the pipeline's (phases 53–55), and ``{"ok": true,
+the sweep's and the pipeline's (phases 53–55), the surfaces' (phase 56),
+and ``{"ok": true,
 "device": {...}}``.  Without CUDA it exits 1
 at once.
 """
@@ -1767,7 +1778,8 @@ def _free_port() -> int:
 
 
 def _http(base, path, payload=None, timeout=600, headers=None):
-    """(status, body) of a GET (payload None) or a JSON POST; /metrics as text."""
+    """(status, body) of a GET (payload None) or a JSON POST; /metrics and the
+    dashboard at / as text."""
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(base + path, data=data,
                                  headers={"Content-Type": "application/json", **(headers or {})})
@@ -1776,7 +1788,7 @@ def _http(base, path, payload=None, timeout=600, headers=None):
             status, body = resp.status, resp.read()
     except urllib.error.HTTPError as e:
         status, body = e.code, e.read()
-    return status, (body.decode() if path == "/metrics" else json.loads(body))
+    return status, (body.decode() if path in ("/metrics", "/") else json.loads(body))
 
 
 def _await_stats(base, cond, what, timeout=120):
@@ -6702,6 +6714,220 @@ def phase_pipeline():
     return launches, out
 
 
+_SERVERS = []  # phase 56's serve processes
+
+
+def _stop_servers() -> None:
+    """TERM each serve process still running (its orchestrator then stops its
+    gangs), KILL it if it does not exit."""
+    for proc in _SERVERS:
+        if proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.killpg(proc.pid, signal.SIGTERM)
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                with contextlib.suppress(ProcessLookupError, PermissionError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+
+
+atexit.register(_stop_servers)
+
+
+def _cli(*argv):
+    """(rc, stdout, stderr, seconds) of the port's CLI called in this process."""
+    import io
+
+    from polyaxon_tpu_torch.cli.main import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = cli_main(list(argv))
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def _ws_rows(url, timeout=120):
+    """The rows a WS tail delivers up to its ``done`` event, and that event."""
+    import asyncio
+
+    import aiohttp
+
+    async def tail():
+        rows = []
+        async with aiohttp.ClientSession() as session:
+            async with session.ws_connect(url, timeout=timeout) as ws:
+                async for msg in ws:
+                    row = msg.json()
+                    if row.get("event") == "done":
+                        return rows, row
+                    rows.append(row)
+        raise AssertionError(f"the WS tail {url} closed without its done event: {rows}")
+
+    return asyncio.run(asyncio.wait_for(tail(), timeout))
+
+
+def phase_surfaces():
+    """Phase 56: the API and the CLI drive phase 55's ``train`` op (``lm_train``
+    at CKPT_MODEL, batch SSH_BATCH x 1024, PIPE_STEPS steps, through
+    ``counted_entry``) as a JSON spec naming no accelerator.  The port's
+    ``serve`` runs as a subprocess over its own base directory; the CLI in
+    remote mode submits ``run -f spec.json --watch``.  Checks: the run
+    succeeds, its stored topology names the card, its launches are each
+    kernel once a layer a step and its loss is finite and falls; over HTTP
+    its detail, its metrics (the registry's loss rows), the WS metrics tail
+    (the same rows), ``/api/v1/status?devices=1`` healthy naming the card,
+    ``/api/v1/version`` naming torch and its CUDA, ``/metrics`` with
+    ``api_request_s``, and the dashboard at ``/``; the CLI's remote ``ps``,
+    ``get``, ``logs`` and ``statuses``; the server stops with rc 0 and
+    releases its lease.  Without aiohttp the API cannot serve: the CLI's
+    local mode drives the same run and reads, and a line says why."""
+    import importlib.util
+
+    from polyaxon_tpu_torch.api.dashboard import DASHBOARD_HTML
+    from polyaxon_tpu_torch.db.registry import RunRegistry
+
+    t_phase = time.perf_counter()
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_surfaces_"))
+    plane = base / "plane"
+    spec_file = base / "spec.json"
+    spec_file.write_text(json.dumps({
+        "kind": "experiment", "run": {"entrypoint": "chip_smoke:counted_entry"},
+        "declarations": dict(CKPT_MODEL, seq=TRAIN_SEQ, batch=SSH_BATCH, steps=PIPE_STEPS, lr=LR,
+                             counted="lm_train"),
+        "environment": {"seed": SEED}}))
+    api = importlib.util.find_spec("aiohttp") is not None
+    reads, out, server = {}, {"api": api}, None
+    if api:
+        port = _free_port()
+        url = f"http://127.0.0.1:{port}"
+        target = ["--host", url]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH", "")]))
+        server_log = open(base / "serve.log", "w")
+        server = subprocess.Popen(
+            [sys.executable, "-m", "polyaxon_tpu_torch.cli.main", "--base-dir", str(plane),
+             "serve", "--port", str(port)],
+            env=env, stdout=server_log, stderr=subprocess.STDOUT, start_new_session=True)
+        _SERVERS.append(server)
+    else:
+        log("surfaces: the API was not driven: aiohttp is not installed on this host, so the "
+            "port's serve cannot run here; the CLI's local mode drives the same run")
+        target = ["--base-dir", str(plane)]
+    try:
+        if api:
+            deadline = time.time() + 120
+            while True:
+                try:
+                    if _http(url, "/api/v1/status", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                if server.poll() is not None or time.time() > deadline:
+                    raise AssertionError(f"serve did not come up: "
+                                         f"{(base / 'serve.log').read_text()[-4000:]}")
+                time.sleep(0.1)
+            out["serve_up_s"] = time.perf_counter() - t_phase
+        _free()
+        watched = []
+        watch = threading.Thread(target=lambda: watched.append(_cli(
+            *target, "run", "-f", str(spec_file), "--watch", "--name", "surfaces")), daemon=True)
+        watch.start()
+        watch.join(ORCH_WAIT_S)
+        if not watched:
+            raise AssertionError(f"surfaces: run --watch did not end in {ORCH_WAIT_S} s")
+        rc, printed, status_lines, reads["run_watch"] = watched[0]
+        if rc != 0:
+            raise AssertionError(f"surfaces: run --watch rc {rc}: {status_lines[-4000:]}\n"
+                                 f"{printed[-4000:]}")
+        run_id = int(status_lines.split("Created run ")[1].split()[0])
+        registry = RunRegistry(plane / "registry.db")
+        try:
+            statuses = {s["status"]: s["created_at"] for s in registry.get_statuses(run_id)}
+            rows = registry.get_metrics(run_id)
+            stored = registry.get_run(run_id).spec_data["environment"]["topology"]
+        finally:
+            registry.close()
+        out["submit_to_succeeded_s"] = statuses["succeeded"] - statuses["created"]
+        losses = {m["step"]: m["values"]["loss"] for m in rows if "loss" in m["values"]}
+        counted = [m["values"] for m in rows if "launches_fwd" in m["values"]]
+        launches = tuple(int(counted[-1][f"launches_{k}"]) for k in ("fwd", "dq", "dkv")) \
+            if counted else None
+        out.update(stored_topology=stored, train_loss=losses, launches=launches)
+        checks = {}
+        printed_right = {"ps": lambda t: "succeeded" in t and "surfaces" in t,
+                         "get": lambda t: json.loads(t)["status"] == "succeeded",
+                         "logs": lambda t: "final loss" in t,
+                         "statuses": lambda t: "created" in t and "succeeded" in t}
+        for name in printed_right:
+            argv = [name] if name == "ps" else [name, str(run_id)]
+            rc, text, err, reads[f"cli {name}"] = _cli(*target, *argv)
+            checks[f"cli {name}"] = rc == 0 and printed_right[name](text)
+        if api:
+            def timed(name, path):
+                t0 = time.perf_counter()
+                got = _http(url, path, timeout=60)
+                reads[name] = time.perf_counter() - t0
+                return got
+
+            code, detail = timed("GET /api/v1/runs/{id}", f"/api/v1/runs/{run_id}")
+            checks["run detail"] = code == 200 and detail["status"] == "succeeded" and detail[
+                "spec"]["environment"]["topology"] == stored
+            code, metrics = timed("GET /api/v1/runs/{id}/metrics", f"/api/v1/runs/{run_id}/metrics")
+            http_losses = {m["step"]: m["values"]["loss"] for m in metrics["results"]
+                           if "loss" in m["values"]}
+            checks["metrics over HTTP"] = code == 200 and http_losses == losses
+            t0 = time.perf_counter()
+            ws_rows, done = _ws_rows(url.replace("http", "ws") + f"/ws/v1/runs/{run_id}/metrics")
+            reads["WS /ws/v1/runs/{id}/metrics"] = time.perf_counter() - t0
+            ws_losses = {m["step"]: m["values"]["loss"] for m in ws_rows if "loss" in m["values"]}
+            checks["WS metrics tail"] = ws_losses == losses and done["status"] == "succeeded"
+            code, health = timed("GET /api/v1/status?devices=1", "/api/v1/status?devices=1")
+            out["devices_probe"] = health["checks"].get("devices")
+            checks["status"] = code == 200 and health["healthy"] and \
+                torch.cuda.get_device_name(0) in health["checks"]["devices"]["detail"]
+            code, version = timed("GET /api/v1/version", "/api/v1/version")
+            out["version"] = version
+            checks["version"] = code == 200 and version.get("torch") == torch.__version__ \
+                and version.get("cuda") == torch.version.cuda and "jax" not in version
+            code, exposition = timed("GET /metrics", "/metrics")
+            checks["/metrics"] = code == 200 and "api_request_s" in exposition
+            code, page = timed("GET /", "/")
+            checks["dashboard"] = code == 200 and page == DASHBOARD_HTML
+    finally:
+        if server is not None:
+            _stop_servers()
+            out["serve_rc"] = server.poll()
+            server_log.close()
+    if api:
+        registry = RunRegistry(plane / "registry.db")
+        try:
+            checks["lease released"] = out["serve_rc"] == 0 and registry.get_option(
+                "platform.lease") is None
+        finally:
+            registry.close()
+    out["reads_s"] = reads
+    out["checks"] = checks
+    out["phase_s"] = time.perf_counter() - t_phase
+    n = CKPT_MODEL["n_layers"]
+    log(f"surfaces: {'the API and the CLI' if api else 'the CLI (local mode)'}: lm_train "
+        f"({n} layers, batch {SSH_BATCH} x {TRAIN_SEQ}, {PIPE_STEPS} steps) naming no "
+        f"accelerator, stored as {stored}; submit to succeeded "
+        f"{out['submit_to_succeeded_s']:.2f} s; launches {launches}; losses {losses}; "
+        f"reads (s) {reads}; checks {checks}; phase {out['phase_s']:.1f} s")
+    first, last = losses.get(0), losses.get(PIPE_STEPS - 1)
+    if (not all(checks.values()) or stored.get("accelerator") != "h100"
+            or "succeeded" not in statuses or launches != (n * PIPE_STEPS,) * 3
+            or first is None or last is None
+            or not (np.isfinite(first) and np.isfinite(last) and last < first)):
+        raise AssertionError(f"the surfaces: {out}")
+    shutil.rmtree(base, ignore_errors=True)
+    return launches, out
+
+
 def _tracing_in_a_process_of_its_own():
     """Phase 24 in a child process of this script: a serving process holds
     one engine, not the objects, threads and heap of the 23 phases before,
@@ -6843,6 +7069,8 @@ def main() -> int:
     mark("54 sweep")
     pipe_launches, search["pipeline"] = phase_pipeline()
     mark("55 pipeline")
+    surface_launches, surfaces = phase_surfaces()
+    mark("56 the surfaces")
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
@@ -6853,7 +7081,8 @@ def main() -> int:
                "lm_train_ssh_gang": ssh_launches, "lm_train_orchestrator": orch_launches,
                "lm_train_remediated": remedy_launches, "lm_train_sweep": sweep_launches,
                "lm_train_pipeline": pipe_launches["train"],
-               "lm_generate_pipeline": pipe_launches["generate"]}
+               "lm_generate_pipeline": pipe_launches["generate"],
+               "lm_train_surfaces": surface_launches}
     for i, (kind, record) in enumerate((("fwd", fwd), ("dq", bwd["dq"]), ("dkv", bwd["dkv"]))):
         record["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -6888,6 +7117,7 @@ def main() -> int:
     print(json.dumps({"mesh_serving": mesh_serving}))
     print(json.dumps({"services_transport_state": control}))
     print(json.dumps({"fleet_search_pipelines": search}))
+    print(json.dumps({"surfaces": surfaces}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,7 +6,7 @@ fleet, autoscaler), its utilization ledger, its stall watchdog, its
 resource sampler, its gang worker and its control plane (the registry's
 retention sweep, the secret options' key, the watcher, the alert and
 remediation engines, the metric history, the notifier's fallbacks, the
-health checks' static-analysis state) use: the
+health checks' static-analysis state), its API and its CLI use: the
 same ``POLYAXON_TPU_*`` variables, the same defaults, the same parsing (a
 bool is false for ``0``, ``false``, ``off``, ``no`` and the empty string; an
 unparsable number keeps the default).  Reading a knob that is not in
@@ -118,6 +118,10 @@ KNOBS: Dict[str, Any] = {
     "POLYAXON_TPU_HOME": "~/.polyaxon_tpu",
     "POLYAXON_TPU_LINT_STATE": "",
     "POLYAXON_TPU_LINT_STALE_S": 7 * 86400.0,
+    # the API (its bearer token, the metric query's cap, a WS tail's batch)
+    "POLYAXON_TPU_AUTH_TOKEN": "",
+    "POLYAXON_TPU_TSDB_QUERY_MAX_POINTS": 2000,
+    "POLYAXON_TPU_WS_TAIL_MAX_BATCH": 500,
 }
 
 #: Declared prefixes of knobs with dynamic suffixes.

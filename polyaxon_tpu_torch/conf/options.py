@@ -73,7 +73,7 @@ _ALL = [
            "gang transport (restart required)", choices=("local", "ssh")),
     Option("spawner.hosts", str, "",
            "comma-separated worker host addresses for the ssh backend "
-           "(pool order: worker 0 first — it hosts the coordinator)"),
+           "(slice order: worker 0 first — it hosts the coordinator)"),
     Option("spawner.ssh_user", str, "", "ssh login user ('' = current user)"),
     Option("spawner.ssh_identity_file", str, "", "ssh private key path"),
     Option("spawner.remote_python", str, "python3",

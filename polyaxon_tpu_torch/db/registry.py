@@ -761,7 +761,7 @@ class RunRegistry:
         status: str = S.CREATED,
     ) -> Run:
         if isinstance(spec, BaseSpecification):
-            spec_data = spec.to_dict()
+            spec_data = spec.stored_dict()
             kind = spec.kind
             name = name or spec.name
             spec_tags = spec.tags

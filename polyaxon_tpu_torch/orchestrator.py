@@ -721,7 +721,9 @@ class Orchestrator:
         up at trigger time."""
         if not isinstance(spec, BaseSpecification):
             spec = PolyaxonFile.load(spec).specification
-        data = spec.to_dict()
+        # The topology that will run, as a run row stores it
+        # (``BaseSpecification.stored_dict``).
+        data = spec.stored_dict()
         # Persist the build section with ONLY the fields the user set:
         # to_dict() serializes the default context '.', which after a
         # round-trip reads as explicitly set and defeats trigger_ci's

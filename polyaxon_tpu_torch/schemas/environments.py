@@ -9,7 +9,10 @@ names the same slices in both packages; an accelerator outside it (``h100``,
 say) needs ``num_devices`` and ``num_hosts``, as there:
 ``{"accelerator": "h100", "num_devices": 1, "num_hosts": 1}`` validates in
 both.  The port's worker runs the card for any accelerator not named
-``cpu*`` (``runtime/worker.py``).
+``cpu*`` (``runtime/worker.py``).  The schema's default accelerator stays
+the reference's ``cpu`` (``to_dict`` is the reference's); what a run row
+stores is :meth:`TopologyConfig.stored`, which names the card where the spec
+named no accelerator.
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ ACCELERATOR_CATALOG: Dict[str, Tuple[int, int]] = {
     "v6e-16": (16, 2),
     "v6e-32": (32, 4),
 }
+
+#: The topology a run whose spec names none is stored with: one card, which
+#: the port's worker runs (``runtime/worker.py:device_and_backend``).
+CARD_TOPOLOGY: Dict[str, Any] = {"accelerator": "h100", "num_devices": 1, "num_hosts": 1}
 
 #: Canonical mesh axis names, outermost (data-like) first, innermost last.
 CANONICAL_AXES = ("replica", "data", "fsdp", "pipeline", "expert", "sequence", "tensor")
@@ -141,6 +148,7 @@ class TopologyConfig:
     def from_dict(cls, data: Any, where: str = "topology") -> "TopologyConfig":
         d = check_keys(data, cls._KEYS, where)
         out = cls()
+        out._given = dict(d)
         if "accelerator" in d:
             out.accelerator = as_str(d["accelerator"], f"{where}.accelerator")
         for name in ("num_hosts", "num_devices"):
@@ -198,6 +206,19 @@ class TopologyConfig:
                     f"dcn_axis {self.dcn_axis!r} collides with a per-slice "
                     "(ICI) mesh axis; the cross-slice axis must differ"
                 )
+
+    def stored(self) -> "TopologyConfig":
+        """The topology a run row stores, which is the one that runs: this one
+        where the spec names an accelerator; else one card
+        (:data:`CARD_TOPOLOGY`) under the spec's other keys, with as many
+        devices as a given mesh's fixed axes hold."""
+        given = getattr(self, "_given", {})
+        if "accelerator" in given:
+            return self
+        data = {**CARD_TOPOLOGY, **given}
+        if "num_devices" not in given and self.mesh is not None:
+            data["num_devices"] = math.prod(s for s in self.mesh.axes.values() if s != -1)
+        return TopologyConfig.from_dict(data)
 
     def resolved_mesh(self) -> Dict[str, int]:
         """Per-slice axis->size mapping (default: pure data parallel)."""

@@ -154,6 +154,14 @@ class BaseSpecification:
         keys = self._BASE_KEYS + self._KIND_KEYS
         return drop_none({k: copy.deepcopy(getattr(self, k)) for k in keys})
 
+    def stored_dict(self) -> Dict[str, Any]:
+        """The document a run row stores: :meth:`to_dict` with the topology
+        that runs (:meth:`TopologyConfig.stored`), so that a spec naming no
+        accelerator is stored with the card, not the schema's ``cpu``."""
+        data = self.to_dict()
+        data["environment"]["topology"] = self.environment.topology.stored().to_dict()
+        return data
+
 
 @dataclass
 class ExperimentSpecification(BaseSpecification):

@@ -52,11 +52,6 @@ __all__ = ["LocalServingFleet", "ServingFleet"]
 
 logger = logging.getLogger(__name__)
 
-#: A control-plane replica's topology when the fleet is given none: one card.
-#: (A spec naming no topology gets the schema's ``cpu`` one when it is
-#: stored, which the worker runs on the CPU.)
-CARD_TOPOLOGY = {"accelerator": "h100", "num_devices": 1, "num_hosts": 1}
-
 #: Shared phase key with the scheduler's monitor-tick breakdown — the
 #: autoscaler pump is one more control-plane phase on the same histogram.
 _AUTOSCALER_PHASE_KEY = labeled_key("tick_phase_s", phase="autoscaler")
@@ -300,7 +295,8 @@ class ServingFleet:
     ``declarations`` are the per-replica run declarations (model shape,
     ``slots``, ``seq``, optionally ``target`` for checkpointed weights);
     ``environment`` the runs' environment block; without one each replica
-    runs on one card (:data:`CARD_TOPOLOGY`), and its worker raises on a
+    runs on one card, as every run whose spec names no accelerator does
+    (``schemas/environments.py:CARD_TOPOLOGY``), and its worker raises on a
     host without one.  Name a ``cpu-1`` topology to run them on the CPU.
 
     Drive with ``poll()`` from the pump loop.  It (1) registers replica
@@ -327,9 +323,7 @@ class ServingFleet:
         self.orch = orch
         self.name = name
         self.declarations = dict(declarations or {})
-        self.environment = (
-            dict(environment) if environment else {"topology": dict(CARD_TOPOLOGY)}
-        )
+        self.environment = dict(environment or {})
         self.replicas = (
             replicas
             if replicas is not None

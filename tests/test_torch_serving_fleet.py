@@ -44,7 +44,8 @@ from polyaxon_tpu.serving.router import RouterError as JRouterError
 from polyaxon_tpu.stats.metrics import labeled_key
 from polyaxon_tpu_torch.db.registry import RemediationStatus
 from polyaxon_tpu_torch.orchestrator import Orchestrator
-from polyaxon_tpu_torch.serving.fleet import CARD_TOPOLOGY, ServingFleet
+from polyaxon_tpu_torch.schemas.environments import CARD_TOPOLOGY
+from polyaxon_tpu_torch.serving.fleet import ServingFleet
 from polyaxon_tpu_torch.serving.router import FleetRouter, RouterError
 from polyaxon_tpu_torch.runtime.worker import GangLayoutError, device_and_backend, named_accelerator
 

@@ -158,7 +158,12 @@ def test_importing_the_port_loads_no_jax():
         "import polyaxon_tpu_torch.hpsearch.search_managers, polyaxon_tpu_torch.hpsearch.tasks\n"
         "import polyaxon_tpu_torch.polyflow, polyaxon_tpu_torch.query\n"
         "import polyaxon_tpu_torch.checks, polyaxon_tpu_torch.checks.health\n"
+        "import polyaxon_tpu_torch.api.app, polyaxon_tpu_torch.api.sso\n"
+        "import polyaxon_tpu_torch.api.dashboard, polyaxon_tpu_torch.cli.main\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'polyaxon_tpu')]\n"
+        "assert not bad, bad\n"
+        "# The API and the CLI load aiohttp where they serve or sign in, not at import.\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'aiohttp']\n"
         "assert not bad, bad\n"
         "# The card's machine has none of these: the spec sections are checked\n"
         "# without them, and BO fits the port's own Gaussian process.\n"
@@ -194,6 +199,9 @@ def test_the_control_plane_loads_no_torch_and_no_cuda_context(tmp_path):
         "from polyaxon_tpu_torch.hpsearch import get_search_manager\n"
         "bo = get_search_manager(orch.get_run(group.id).spec.hptuning)\n"
         "bo.get_suggestions({'configs': [{'lr': 0.2}, {'lr': 0.6}], 'metrics': [1.0, 0.5]})\n"
+        "import polyaxon_tpu_torch.cli.main\n"
+        "from polyaxon_tpu_torch.api.app import create_app\n"
+        "create_app(orch)\n"
         "orch.stop()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'polyaxon_tpu',\n"
         "                                                     'yaml', 'sklearn')]\n"
