@@ -29,7 +29,8 @@ parallel layer across them (the image models under ``tp``, ``tp_dp``,
 over the card's rank processes; then the non-model services, a gang through
 the ssh transport, and the control plane's state and bus; then the port's
 own control plane running runs, a serving fleet of its runs, a sweep and a
-pipeline.  Phases:
+pipeline; then the API and the CLI; then the static analysis and the
+control plane's saturation harness.  Phases:
 
 1. the card, its power limit, and the toolchain;
 2. the kernel build (one ``nvcc`` per source, all started together);
@@ -376,7 +377,16 @@ pipeline.  Phases:
     and through the CLI's ``ps``, ``get``, ``logs`` and ``statuses``; the
     server stopped, its control-plane lease released.  Where aiohttp is not
     installed the API cannot serve: the same run goes through the CLI's
-    local mode, and a line says so.
+    local mode, and a line says so;
+57. the analysis and the saturation harness: ``python -m
+    polyaxon_tpu_torch.analysis --format json`` over the port's package (rc
+    0, no finding, every suppression with a reason, the health probe's
+    ``static_analysis`` clean from its state); in a child process a step
+    with ``.item()`` refused by ``capture_step`` and the same step without
+    it captured, replayed and equal to its eager result; then
+    ``monitor/cploadgen.py`` over the port's control plane with bench.py's
+    arguments (saturation, scrape overhead, idle tick) in a process that
+    loads no torch, bench.py's budgets reported as ``_ok`` flags.
 
 Any failed check raises, and the script exits non-zero; an atexit hook
 SIGKILLs any replica or gang worker left.  On success its last lines are the serving
@@ -390,7 +400,7 @@ classifiers' and the MoE run's, the sharded strategies', the pipeline's and
 the experts', the rest of the parallel layer's, mesh serving's, the services',
 the ssh gang's, the state and bus's and the orchestrator's, the fleet's,
 the sweep's and the pipeline's (phases 53–55), the surfaces' (phase 56),
-and ``{"ok": true,
+the analysis and the saturation harness's (phase 57), and ``{"ok": true,
 "device": {...}}``.  Without CUDA it exits 1
 at once.
 """
@@ -619,6 +629,23 @@ MOE_SMALL_TOKENS, MOE_TIE, MOE_OUT_ATOL = (4, 256), 1e-6, 1e-4
 # card, within BF16_BWD_GRAD_RTOL of each grad's norm (equal bits reported):
 # another expert for a token moves a grad by its own size.
 MOE_REMAT_BATCH, MOE_REMAT_SEQ = 4, 128
+# The analysis and the saturation harness (phase 57), with bench.py's
+# arguments (bench.py:2236-2246, 2311-2320, 2326) and its budgets, which are
+# reported as _ok flags beside the numbers and not gated
+# (bench.py:2259-2261, 2327, 2352-2353, 2361).
+CP_SATURATION = dict(n_registry_runs=1000, n_gangs=8, procs_per_gang=2, duration_s=6.0,
+                     write_hz=20.0, api_concurrency=4, stall_after_s=0.75,
+                     monitor_interval_s=0.05)
+CP_SCRAPE = dict(n_registry_runs=1000, n_replicas=16, n_gangs=4, duration_s=4.0,
+                 monitor_interval_s=0.05, api_duration_s=2.0, api_concurrency=2)
+CP_IDLE_ITERS = 200
+CP_BUDGETS = {"watcher_ingest_lag_p99_s": 1.0, "alert_fire_latency_s": 2.0, "api_p99_s": 0.25,
+              "scrape_share": 0.10, "query_p99_s": 0.1, "idle_tick_us": 5000.0,
+              "lint_s": 10.0}
+# GL001's bug class on the card (phase 57), in a child process of the script:
+# a step captured with and without a host read of a device value.
+CAPTURE_PROBE = "--capture-probe"
+CAPTURE_PROBE_ATOL = 1e-5
 
 
 def log(*args) -> None:
@@ -4704,8 +4731,15 @@ RANK_CASES = {2: ("fsdp", "tp", "ulysses", "vit_fsdp", "pp", "pp_moe", "vit_tp",
 @functools.lru_cache(maxsize=None)
 def _rank_cases():
     """Every case of RANK_CASES run once: ``{world: (results by rank, launch
-    to exit s)}``."""
-    return {world: _run_rank_processes(world, list(cases)) for world, cases in RANK_CASES.items()}
+    to exit s)}``.  The two launches run at the same time (6 processes on the
+    card): their processes wait on gloo's host copies and their own boots
+    far more than on the card, and this process only waits for them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(RANK_CASES)) as pool:
+        launched = {world: pool.submit(_run_rank_processes, world, list(cases))
+                    for world, cases in RANK_CASES.items()}
+    return {world: done.result() for world, done in launched.items()}
 
 
 def phase_sharded_strategies():
@@ -6928,6 +6962,146 @@ def phase_surfaces():
     return launches, out
 
 
+def _capture_probe():
+    """GL001's bug class on the card, in a process of its own (phase 57's
+    child): one small step captured by ``decode.capture_step`` without, then
+    with, a host read of a device value (``.item()``).  Without it the graph
+    replays, after its input is rewritten in place, what the eager step gives
+    on the new input; with it the capture must raise.  The failed capture
+    comes last: nothing after it in this process uses the card."""
+    from polyaxon_tpu_torch.models.decode import capture_step
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(256, 256, device="cuda", generator=gen)
+    w = torch.randn(256, 256, device="cuda", generator=gen) / 16
+
+    def step(host_read):
+        y = torch.tanh(x @ w)
+        peak = y.abs().max()
+        return y / (peak.item() if host_read else peak)
+
+    graph, out = capture_step(lambda: step(False))
+    first = out.clone()
+    x.mul_(0.5).add_(1.0)  # the next input, written into the captured buffer
+    graph.replay()
+    eager = step(False)
+    torch.cuda.synchronize()
+    got = {"replay_vs_eager_max_abs_err": (out - eager).abs().max().item(),
+           "replay_moved": (out - first).abs().max().item()}
+    try:
+        capture_step(lambda: step(True))
+        got["host_read_capture"] = "captured"
+    except RuntimeError as e:
+        cause = e
+        while cause.__context__ is not None:  # the capture's end fails after the read
+            cause = cause.__context__
+        got["host_read_capture"] = (f"raised {type(e).__name__}, first "
+                                    f"{type(cause).__name__}: {str(cause).splitlines()[0][:200]}")
+    return got
+
+
+def phase_analysis_and_cploadgen():
+    """Phase 57: the port's static analysis and its control-plane saturation
+    harness on the card's machine.  ``python -m polyaxon_tpu_torch.analysis
+    --format json`` lints the port's package in a subprocess (its state in a
+    temporary directory): rc 0, no unsuppressed finding, every suppression
+    with a reason, and ``checks/health.py:check_static_analysis`` healthy from
+    that state.  Beside it, in a child of this script (this process's CUDA
+    context is never put at risk), GL001's bug class: a step with a host read
+    must fail to capture, the same step without it must capture, replay and
+    match its eager result.  Then, in a process of its own that loads no
+    torch, ``monitor/cploadgen.py`` over the port's control plane with
+    bench.py's arguments: ``run_saturation``, ``run_scrape_overhead``,
+    ``measure_idle_tick_us``; the phase fails on a monitor, API, query or
+    scrape error, no alert, no ingest-lag sample or no report byte ingested,
+    and reports bench.py's budgets as ``_ok`` flags.  No kernel launches in
+    this process."""
+    from polyaxon_tpu_torch.checks.health import check_static_analysis
+
+    t_phase = time.perf_counter()
+    launches = _counts()
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_analysis_"))
+    root = Path(__file__).resolve().parent
+    state = base / "lint_state.json"
+    env = dict(os.environ, POLYAXON_TPU_LINT_STATE=str(state), PYTHONPATH=os.pathsep.join(
+        [str(root), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    lint = subprocess.Popen([sys.executable, "-m", "polyaxon_tpu_torch.analysis", "--format",
+                             "json", "--show-suppressed"], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    probe = subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), CAPTURE_PROBE],
+                             cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    lint_out, lint_err = lint.communicate(timeout=300)
+    lint_s = time.perf_counter() - t0
+    probe_out, probe_err = probe.communicate(timeout=300)
+    if lint.returncode != 0 or not lint_out:
+        raise AssertionError(f"the lint exited {lint.returncode}: {lint_out[-4000:]}"
+                             f"{lint_err[-4000:]}")
+    report = json.loads(lint_out)
+    unjustified = [f for f in report["findings"] if f["suppressed"] and not f["suppress_reason"]]
+    with _environ(POLYAXON_TPU_LINT_STATE=str(state)):
+        health = check_static_analysis(None)
+    out = {"lint": {"rc": lint.returncode, "wall_s": lint_s, "summary": report["summary"],
+                    "suppressed": [f"{f['path']}:{f['line']} {f['rule']} -- "
+                                   f"{f['suppress_reason']}" for f in report["findings"]],
+                    "health": list(health)}}
+    if report["summary"]["unsuppressed"] or unjustified or not health[0] \
+            or not health[1].startswith("clean"):
+        raise AssertionError(f"the lint of the port: {out['lint']}")
+    if probe.returncode != 0:
+        raise AssertionError(f"the capture probe exited {probe.returncode}: "
+                             f"{probe_out[-4000:]}{probe_err[-4000:]}")
+    out["capture_probe"] = json.loads(probe_out.strip().splitlines()[-1])
+    cap = out["capture_probe"]
+    if not (cap["host_read_capture"].startswith("raised")
+            and cap["replay_vs_eager_max_abs_err"] <= CAPTURE_PROBE_ATOL
+            and cap["replay_moved"] > 0.0):
+        raise AssertionError(f"the capture probe: {cap}")
+    code = ("import json, sys, tempfile\n"
+            "from polyaxon_tpu_torch.monitor.cploadgen import (measure_idle_tick_us,\n"
+            "    run_saturation, run_scrape_overhead)\n"
+            f"out = {{'saturation': run_saturation(tempfile.mkdtemp(dir={str(base)!r}), "
+            f"**{CP_SATURATION!r}),\n"
+            f"       'scrape': run_scrape_overhead(tempfile.mkdtemp(dir={str(base)!r}), "
+            f"**{CP_SCRAPE!r}),\n"
+            f"       'idle_tick_us': measure_idle_tick_us(tempfile.mkdtemp(dir={str(base)!r}), "
+            f"iters={CP_IDLE_ITERS})}}\n"
+            "out['torch_loaded'] = 'torch' in sys.modules\n"
+            "print(json.dumps(out))\n")
+    t0 = time.perf_counter()
+    harness = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=300)
+    harness_s = time.perf_counter() - t0
+    if harness.returncode != 0:
+        raise AssertionError(f"the saturation harness exited {harness.returncode}: "
+                             f"{harness.stderr[-4000:]}")
+    got = json.loads(harness.stdout.strip().splitlines()[-1])
+    sat, scrape = got["saturation"], got["scrape"]
+    out.update(saturation=sat, scrape=scrape, idle_tick_us=got["idle_tick_us"],
+               harness_wall_s=harness_s, harness_loaded_torch=got["torch_loaded"])
+    figures = {"watcher_ingest_lag_p99_s": sat["watcher_ingest_lag_p99_s"],
+               "alert_fire_latency_s": sat["alert_fire_latency_s"],
+               "api_p99_s": sat["api_p99_s"], "scrape_share": scrape["scrape_share"],
+               "query_p99_s": scrape["query_p99_s"], "idle_tick_us": got["idle_tick_us"],
+               "lint_s": lint_s}
+    out["budgets_ok"] = {f"{k}_ok": v is not None and v < CP_BUDGETS[k]
+                         for k, v in figures.items()}
+    if (sat["monitor_errors"] or sat["api_errors"] or sat["alert_fire_latency_s"] is None
+            or not sat["watcher_ingest_lag_samples"] or not sat["report_bytes_ingested"]
+            or scrape["query_errors"] or scrape["scrape_errors"] or got["torch_loaded"]):
+        raise AssertionError(f"the saturation harness on the port's control plane: {out}")
+    if _counts() != launches:
+        raise AssertionError(f"phase 57 launched flash kernels: {launches} -> {_counts()}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"analysis: lint {report['summary']['unsuppressed']} finding(s), "
+        f"{report['summary']['suppressed']} suppressed, {lint_s:.2f} s; health {health}; "
+        f"capture probe {cap}; saturation {sat}; scrape {scrape}; idle tick "
+        f"{got['idle_tick_us']:.1f} us; budgets {out['budgets_ok']}; phase {out['phase_s']:.1f} s")
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
 def _tracing_in_a_process_of_its_own():
     """Phase 24 in a child process of this script: a serving process holds
     one engine, not the objects, threads and heap of the 23 phases before,
@@ -6953,6 +7127,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == [SHARDED_RANK]:  # a child of _run_rank_processes
         return _sharded_rank_main(*sys.argv[2:])
+    if sys.argv[1:] == [CAPTURE_PROBE]:  # the child of phase_analysis_and_cploadgen
+        print(json.dumps(_capture_probe()), flush=True)
+        os._exit(0)  # no teardown of a context whose last capture failed
     t0 = time.perf_counter()
     phase_s = {}
     last = [t0]
@@ -7071,6 +7248,8 @@ def main() -> int:
     mark("55 pipeline")
     surface_launches, surfaces = phase_surfaces()
     mark("56 the surfaces")
+    analysis_and_cploadgen = phase_analysis_and_cploadgen()
+    mark("57 analysis and cploadgen")
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
@@ -7118,6 +7297,7 @@ def main() -> int:
     print(json.dumps({"services_transport_state": control}))
     print(json.dumps({"fleet_search_pipelines": search}))
     print(json.dumps({"surfaces": surfaces}))
+    print(json.dumps({"analysis_and_cploadgen": analysis_and_cploadgen}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

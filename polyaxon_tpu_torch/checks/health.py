@@ -14,9 +14,12 @@ Three probes depart from the reference:
   ``compile_cache_dir`` (creatable, writable, its entry count); its
   per-process part says that the port keeps no persistent compile cache: a
   CUDA graph is captured again at each start.  It loads no torch.
-- :func:`check_static_analysis` reads the lint state through this module's
-  own :func:`read_state` and :func:`state_file_path` (the reference's live
-  in ``analysis/reporter.py``).
+- :func:`check_static_analysis` reads the state that the port's own lint
+  (``python -m polyaxon_tpu_torch.analysis``) records, through the port's
+  ``analysis/reporter.py``: the same state file and keys as the
+  reference's, but the rules it names are the port's (GL001 and GL002
+  check CUDA-graph captures), and a probe that finds no state names the
+  port's lint, not the reference's ``make lint``.
 """
 
 from __future__ import annotations
@@ -28,27 +31,8 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from polyaxon_tpu_torch.conf.knobs import knob_float, knob_str
-
-
-def state_file_path() -> Path:
-    """Where the static-analysis run records its state (resolved at each
-    call, so the environment can move it)."""
-    override = knob_str("POLYAXON_TPU_LINT_STATE")
-    if override:
-        return Path(override).expanduser()
-    home = knob_str("POLYAXON_TPU_HOME")
-    return Path(home).expanduser() / "analysis" / "last_run.json"
-
-
-def read_state(path: Optional[Path] = None) -> Optional[Dict]:
-    """The last recorded static-analysis state (None when there is none or
-    it does not parse)."""
-    path = path or state_file_path()
-    try:
-        return json.loads(path.read_text(encoding="utf-8"))
-    except (OSError, ValueError):
-        return None
+from polyaxon_tpu_torch.analysis.reporter import read_state, state_file_path
+from polyaxon_tpu_torch.conf.knobs import knob_float
 
 
 def check_registry(orch) -> Tuple[bool, str]:
@@ -258,7 +242,7 @@ def check_static_analysis(orch) -> Tuple[bool, str]:
     if state is None:
         return True, (
             f"never run (no state at {state_file_path()}; "
-            "run `python -m polyaxon_tpu.analysis` or `make lint`)"
+            "run `python -m polyaxon_tpu_torch.analysis`)"
         )
     rules = ", ".join(
         f"{rid} v{meta['version']}"

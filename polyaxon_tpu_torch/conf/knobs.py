@@ -1,12 +1,14 @@
 """The environment knobs the port reads, with the reference's names and defaults.
 
 The port's own copy of the part of ``polyaxon_tpu/conf/knobs.py`` its
-serving engine, its KV tiers, its tracer, its serving fleet (router,
-fleet, autoscaler), its utilization ledger, its stall watchdog, its
-resource sampler, its gang worker and its control plane (the registry's
-retention sweep, the secret options' key, the watcher, the alert and
-remediation engines, the metric history, the notifier's fallbacks, the
-health checks' static-analysis state), its API and its CLI use: the
+gang env contract (``runtime/env.py``), its serving engine, its KV tiers,
+its tracer, its serving fleet (router, fleet, autoscaler), its utilization
+ledger, its stall watchdog, its resource sampler, its gang worker and its
+control plane (the registry's retention sweep, the secret options' key,
+the watcher, the alert and remediation engines, the metric history, the
+notifier's fallbacks, the health checks' static-analysis state), its API,
+its CLI and its static analysis (``analysis/``, whose GL005 holds this
+catalog and the code to each other) use: the
 same ``POLYAXON_TPU_*`` variables, the same defaults, the same parsing (a
 bool is false for ``0``, ``false``, ``off``, ``no`` and the empty string; an
 unparsable number keeps the default).  Reading a knob that is not in
@@ -22,7 +24,8 @@ from typing import Any, Dict, Optional
 
 _FALSY = ("0", "false", "off", "no", "")
 
-#: name -> default (its type is the default's).
+#: name -> default (its type is the default's; None where the reference
+#: declares none, and a read of an unset one gives None).
 KNOBS: Dict[str, Any] = {
     "POLYAXON_TPU_SERVING_WARMUP": True,
     "POLYAXON_TPU_SERVING_SPEC_DECODE": False,
@@ -45,6 +48,25 @@ KNOBS: Dict[str, Any] = {
     "POLYAXON_TPU_PROGRESS_INTERVAL_S": 2.0,
     # the resource sampler (monitor/resources.py)
     "POLYAXON_TPU_RESOURCE_INTERVAL": 10.0,
+    # the gang rendezvous contract (runtime/env.py: the spawner writes these,
+    # the worker reads them; None where the reference declares no default)
+    "POLYAXON_TPU_RUN_ID": None,
+    "POLYAXON_TPU_RUN_UUID": None,
+    "POLYAXON_TPU_RUN_DIR": None,
+    "POLYAXON_TPU_SPEC_PATH": None,
+    "POLYAXON_TPU_PROCESS_ID": None,
+    "POLYAXON_TPU_NUM_PROCESSES": None,
+    "POLYAXON_TPU_COORDINATOR": "",
+    "POLYAXON_TPU_DEVICES_PER_HOST": 1,
+    "POLYAXON_TPU_ACCELERATOR": "cpu",
+    "POLYAXON_TPU_MESH": "{}",
+    "POLYAXON_TPU_MESH_DCN": "{}",
+    "POLYAXON_TPU_STRATEGY": "ddp",
+    "POLYAXON_TPU_STRATEGY_OPTIONS": "{}",
+    "POLYAXON_TPU_HEARTBEAT_INTERVAL": 5.0,
+    "POLYAXON_TPU_SEED": None,
+    "POLYAXON_TPU_DATA_DIR": "",
+    "POLYAXON_TPU_COMPILE_CACHE_DIR": "",
     # a service gang's dispatch-time port (runtime/worker.py)
     "POLYAXON_TPU_SERVICE_PORT": "",
     # the host KV tier and the persistent prefix store

@@ -156,3 +156,9 @@ def test_the_knobs_conf_reads_are_the_references():
 
     for name in ("POLYAXON_TPU_SECRET_KEY", "POLYAXON_TPU_RETENTION_SWEEP_ROWS"):
         assert tknobs.KNOBS[name] == jknobs.KNOBS[name].default
+    # Every name the port declares (the gang env contract included) keeps
+    # the reference's default, and the port's families are the reference's.
+    for name, default in tknobs.KNOBS.items():
+        assert default == jknobs.KNOBS[name].default, name
+        assert not jknobs.KNOBS[name].prefix, name
+    assert set(tknobs.FAMILIES) <= set(jknobs.FAMILIES)

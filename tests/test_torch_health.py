@@ -81,6 +81,15 @@ def planes(tmp_path_factory):
             orch.stop()
 
 
+def _as_reference(result):
+    """A probe's (ok, detail) with the port's one departure in the static
+    analysis probe's text put back: with no state the port names its own
+    lint where the reference names its own and `make lint`."""
+    ok, detail = result
+    return ok, detail.replace("`python -m polyaxon_tpu_torch.analysis`)",
+                              "`python -m polyaxon_tpu.analysis` or `make lint`)")
+
+
 def _probe(planes, name):
     return {p: mod.CHECKS[name](orch) if name in mod.CHECKS else getattr(mod, name)(orch)
             for p, (orch, _, mod) in planes.items()}
@@ -90,7 +99,9 @@ def _probe(planes, name):
 def test_a_probe_reports_what_the_reference_reports(planes, name, tmp_path, monkeypatch):
     monkeypatch.setenv("POLYAXON_TPU_LINT_STATE", str(tmp_path / "absent.json"))
     got = _probe(planes, name)
-    assert got["port"] == got["jax"]
+    assert _as_reference(got["port"]) == got["jax"]
+    if name == "static_analysis":
+        assert "`python -m polyaxon_tpu_torch.analysis`" in got["port"][1]
     if name == "fleet":
         assert got["port"][0] is False and "a: 0/2 ready" in got["port"][1]
     if name == "autoscaler":
@@ -148,7 +159,7 @@ def test_the_static_analysis_probe_reads_the_state_as_the_reference_does(planes,
     # The age in seconds is formatted from each probe's own clock.
     assert got["port"][0] == got["jax"][0]
     strip = lambda s: " ".join(w for w in s.split() if not w.rstrip("s").isdigit())  # noqa: E731
-    assert strip(got["port"][1]) == strip(got["jax"][1])
+    assert strip(_as_reference(got["port"])[1]) == strip(got["jax"][1])
     monkeypatch.delenv("POLYAXON_TPU_LINT_STATE")
     monkeypatch.setenv("POLYAXON_TPU_HOME", str(tmp_path))
     assert health.state_file_path() == tmp_path / "analysis" / "last_run.json"
@@ -170,7 +181,9 @@ def test_devices_is_false_without_a_card_and_the_report_is_the_reference_shape(p
     assert list(reports["port"]["checks"]) == list(reports["jax"]["checks"])
     assert reports["port"]["healthy"] is False  # fleet "a" routes nothing
     for name in SAME:
-        assert reports["port"]["checks"][name] == reports["jax"]["checks"][name]
+        port = reports["port"]["checks"][name]
+        assert dict(port, detail=_as_reference((port["ok"], port["detail"]))[1]) == \
+            reports["jax"]["checks"][name]
     assert health.task_counter_snapshot(planes["port"][0]).keys() == \
         jhealth.task_counter_snapshot(planes["jax"][0]).keys()
     assert health.task_counter_snapshot(object()) == {}

@@ -284,6 +284,10 @@ DEPARTURES = (
      "again at each start)", "this process: not enabled in this process"),
     # conf/options.py: the coordinator port range serves torch.distributed.
     ("512-wide torch.distributed coordinator", "512-wide jax.distributed coordinator"),
+    # checks/health.py:check_static_analysis: with no lint state it names the
+    # port's own lint (the package name is already masked to the reference's).
+    ("run `python -m polyaxon_tpu.analysis`)",
+     "run `python -m polyaxon_tpu.analysis` or `make lint`)"),
 )
 
 #: A stored topology where the spec named no accelerator, on each plane: the
