@@ -3,8 +3,8 @@
 // Replaces the TPU kernels `_dq_kernel` and `_dkv_kernel` of
 // polyaxon_tpu/parallel/flash.py (called there through `flash_block_bwd`).
 // Same function, from q, do [BH, Tq, d], k, v [BH, Tk, d] (bf16 or f32,
-// contiguous, d in {64, 128}) and the forward's lse and delta = rowsum(do o)
-// [BH, Tq] (f32):
+// contiguous, d a multiple of 8 from 8 to 256) and the forward's lse and
+// delta = rowsum(do o) [BH, Tq] (f32):
 //   p  = exp(s * sm_scale - lse), s = q k^T, masked to 0 (causal: q and k
 //        share one global offset; a row whose lse is -inf saw no key and
 //        contributes nothing)
@@ -21,7 +21,9 @@
 // GFLOP of products (three per visible pair) or 130.4 us: bound by bytes.
 // The dk/dv pass reads the same and writes dk, dv (2 x 167.8 MB), 676.3 MB
 // or 201.9 us, against 172.0 GFLOP (four products) or 173.9 us: bytes, with
-// the products close behind.
+// the products close behind.  At head_dim 96 (BH = 20 x 32): dq 760.2 MB or
+// 226.9 us, dk/dv 1011.9 MB or 302.1 us; at 256 (BH = 20 x 8): 504.6 MB or
+// 150.6 us, 672.4 MB or 200.7 us; bytes at both.
 //
 // Design.  The TPU runs each pass as a grid whose innermost axis is
 // sequential and carries the accumulator in VMEM scratch; Hopper blocks run
@@ -35,7 +37,10 @@
 //              registers.
 // Each pass picks its kernel by dtype (dispatch by type, not a fallback):
 // bf16 inputs run the tensor-core kernels, float32 inputs the FMA kernels
-// (tensor cores would need TF32 there, a different result).
+// (tensor cores would need TF32 there, a different result).  Each kernel is
+// compiled for tile widths W of 32, 64, 96, 128 and 256 and runs at the
+// least W >= d (`head_dims.cuh`); the tiles' columns d..W are zero in shared
+// memory and never stored.
 //
 // The mma sums of s and dp run in another order than the plain version's,
 // so a p or ds within a few float32 ulps of a bf16 rounding boundary could
@@ -47,16 +52,18 @@
 //
 // dq pass:
 //   bf16, `flash_bwd_dq_bf16_kernel` (mma.sync): 4 warps; 128-row q tiles
-//     at d = 64 (two m16 tiles a warp, so that each K and V fragment read
-//     from shared memory feeds two products) and 64 at d = 128 (one).  The
-//     q and do tiles are staged once; the q rows stay in registers as A
-//     fragments, the do rows are read again for each chunk of keys.  K and
+//     at W <= 64 (two m16 tiles a warp, so that each K and V fragment read
+//     from shared memory feeds two products) and 64 from W = 96 on (one).
+//     The q and do tiles are staged once; the q rows stay in registers as A
+//     fragments up to W = 128 (at W = 256, where dq alone takes 128
+//     registers a lane, they are read again from shared memory as the do
+//     rows are), the do rows are read again for each chunk of keys.  K and
 //     V tiles arrive through cp.async in a two-stage ring, tile j + 1 in
 //     flight while tile j is used.  S = Q K^T and dP = dO V^T are
 //     mma.sync m16n8k16 bf16 products with q rows as mma rows (K and V as B
-//     fragments through ldmatrix), taken over chunks of 32 keys at d = 64
-//     and 64 at d = 128, so that s and dp of a chunk are 32 registers a
-//     lane each.  ds = p (dp - delta) scale is screened (ds only: the pass
+//     fragments through ldmatrix), taken over chunks of 32 keys at W <= 64
+//     and at W = 256 and of 64 at W = 96 and 128, so that s and dp of a
+//     chunk are 32 registers a lane each (16 at W = 256).  ds = p (dp - delta) scale is screened (ds only: the pass
 //     rounds nothing else) and converted in registers into the bf16 A
 //     fragment of dQ += dS K, K through ldmatrix.trans: that conversion is
 //     the TPU kernel's ds.astype(k.dtype), and ds never goes through shared
@@ -64,12 +71,13 @@
 //     tiles are scheduled longest first.  What holds it back: the screen
 //     and the rounds of re-summing (about a quarter of its time), mma.sync at
 //     about two thirds of the wgmma rate, and the 128-row q tiles at
-//     d = 64, which span two key tiles on the diagonal, where part of each
+//     W <= 64, which span two key tiles on the diagonal, where part of each
 //     warp's scores are masked.
 //   float32, `flash_bwd_dq_kernel`: each of the 8 warps owns 8 rows of a
-//     64-row q tile; a lane holds two columns of the 64 x 64 score tile for
-//     each, writes its ds values to a shared tile, and then owns d / 32 dq
-//     columns of each of its rows.  Tiles are staged in shared memory,
+//     64-row q tile (4 of a 32-row tile at W = 256, where 64-row tiles would
+//     not fit in shared memory); a lane holds two columns of the 64 x 64
+//     score tile for each (one of 32 x 32), writes its ds values to a shared
+//     tile, and then owns W / 32 dq columns of each of its rows.  Tiles are staged in shared memory,
 //     padded by one word where read one row per lane, and the products are
 //     plain float32 FMAs: bound by its own instruction rate.  It serves the
 //     small float32 correctness runs.
@@ -86,18 +94,23 @@
 //     do's dtype and of ds to q's dtype, and neither tile goes through
 //     shared memory.  dO and Q enter those products through
 //     ldmatrix.trans.  It screens both p and ds.  q tiles
-//     are 64 rows at d = 64 and 32 at d = 128, so the dK and dV
-//     accumulators (d registers a lane together) sit beside the score
-//     tiles without spills; K and V fragments are re-read from shared
-//     memory for each q tile.  With k tiles of 64 rows the first q tile a
+//     are 64 rows at W <= 64 and 32 from W = 96 on, so the dK and dV
+//     accumulators (W registers a lane together) sit beside the score
+//     tiles without spills; at W = 256 they would take all 256 registers,
+//     so a third grid axis splits the dK and dV columns in two halves of
+//     128: each block computes the whole s^T and dp^T and accumulates its
+//     half (the score products are done twice, the accumulators halved; one
+//     pass for dk and one for dv would save dp^T in the dv pass but needs a
+//     second kernel).  K and V fragments are re-read from shared memory for
+//     each q tile.  With k tiles of 64 rows the first q tile a
 //     causal block visits is (k0 / BQ) * BQ.  What holds it back now: the
 //     screen and the serial FMA chains of the re-summed pairs (a warp's
 //     round stalls its block at the tile's barrier), mma.sync at about two
 //     thirds of the wgmma rate, and the dk/dv pass and the dq pass each
 //     read q, k, v and do (a fused single pass would read them once).
 //   float32, `flash_bwd_dkv_kernel`: the dq pass's FMA design transposed
-//     (a lane holds two q columns of each of its warp's 8 key rows), for
-//     the small float32 correctness runs.
+//     (a lane holds two q columns of each of its warp's 8 key rows; 32-row
+//     tiles at W = 256 again), for the small float32 correctness runs.
 // The ragged tail (T not a multiple of the tile) is masked in the kernels:
 // out-of-range rows load as zeros and are masked out of p (lse = -inf for
 // query rows past the end), so they add nothing, and are never written.
@@ -106,17 +119,23 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "head_dims.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
 // The float32 FMA kernels.  With float32 inputs the TPU kernel's roundings
-// (ds to k's and q's dtype, p to do's) change nothing.
-constexpr int kBlockQ = 64;  // q rows per tile
-constexpr int kBlockK = 64;  // k rows per tile (the causal loop bounds rely on kBlockQ == kBlockK)
+// (ds to k's and q's dtype, p to do's) change nothing.  Tiles are W columns
+// wide; the tensors' rows are d long (d <= W), the columns past d zero in
+// shared memory.
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 64 / kWarps;
+// q rows and k rows per tile, one number: the causal loop bounds rely on
+// the two being equal.  64, and 32 at W = 256, where 64-row tiles would
+// take 273 KB (dq) and 289 KB (dk/dv) of shared memory, past the 227 KB a
+// block may have.
+template <int W>
+constexpr int kF32Tile = W == 256 ? 32 : 64;
 
 // p = exp(s * scale - lse) where kept; 0 where masked or where the row saw
 // no key (lse = -inf, where exp would overflow).
@@ -124,118 +143,130 @@ __device__ __forceinline__ float prob(float s, float lse, bool keep, float scale
   return (keep && lse != -CUDART_INF_F) ? expf(s * scale - lse) : 0.f;
 }
 
-template <int D>
+template <int W>
 constexpr size_t dq_smem_bytes() {
-  // q, do tiles [BQ][D]; k, v tiles [BK][D+1]; ds tile [BQ][BK]; lse, delta [BQ]
-  return sizeof(float) *
-         (2 * kBlockQ * D + 2 * kBlockK * (D + 1) + kBlockQ * kBlockK + 2 * kBlockQ);
+  // q, do tiles [B][W]; k, v tiles [B][W+1]; ds tile [B][B]; lse, delta [B]
+  constexpr int B = kF32Tile<W>;
+  return sizeof(float) * (2 * B * W + 2 * B * (W + 1) + B * B + 2 * B);
 }
 
-template <int D>
+template <int W>
 constexpr size_t dkv_smem_bytes() {
-  // k, v tiles [BK][D]; q, do tiles [BQ][D+1]; p, ds tiles [BK][BQ]; lse, delta [BQ]
-  return sizeof(float) *
-         (2 * kBlockK * D + 2 * kBlockQ * (D + 1) + 2 * kBlockK * kBlockQ + 2 * kBlockQ);
+  // k, v tiles [B][W]; q, do tiles [B][W+1]; p, ds tiles [B][B]; lse, delta [B]
+  constexpr int B = kF32Tile<W>;
+  return sizeof(float) * (2 * B * W + 2 * B * (W + 1) + 2 * B * B + 2 * B);
 }
 
-template <int D>
+// Rows [r0, r0 + B) of a [t, d] float32 matrix into a shared tile of row
+// stride `stride` (W, or W + 1 where a lane reads one row each); rows past t
+// and columns past d arrive as zeros.
+template <int B, int W>
+__device__ __forceinline__ void load_f32_rows(float* s, int stride, const float* g, int r0,
+                                              int t, int d) {
+  for (int i = threadIdx.x; i < B * W; i += kThreads) {
+    const int r = i / W, c = i % W;
+    s[r * stride + c] = (r0 + r < t && c < d) ? g[(size_t)(r0 + r) * d + c] : 0.f;
+  }
+}
+
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int tq, int tk, int causal, float sm_scale) {
+                    float* __restrict__ dq, int tq, int tk, int d, int causal, float sm_scale) {
+  constexpr int B = kF32Tile<W>;      // q rows and k rows per tile
+  constexpr int RW = B / kWarps;      // rows a warp owns
+  constexpr int KL = B / 32;          // key columns a lane owns
   extern __shared__ float smem[];
-  float* qs = smem;                       // [BQ][D]
-  float* dos = qs + kBlockQ * D;          // [BQ][D]
-  float* ks = dos + kBlockQ * D;          // [BK][D+1]
-  float* vs = ks + kBlockK * (D + 1);     // [BK][D+1]
-  float* dss = vs + kBlockK * (D + 1);    // [BQ][BK]
-  float* lses = dss + kBlockQ * kBlockK;  // [BQ]
-  float* deltas = lses + kBlockQ;         // [BQ]
+  float* qs = smem;                   // [B][W]
+  float* dos = qs + B * W;            // [B][W]
+  float* ks = dos + B * W;            // [B][W+1]
+  float* vs = ks + B * (W + 1);       // [B][W+1]
+  float* dss = vs + B * (W + 1);      // [B][B]
+  float* lses = dss + B * B;          // [B]
+  float* deltas = lses + B;           // [B]
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
+  const int q0 = blockIdx.y * B;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int row0 = warp * kRowsPerWarp;  // this warp's first row in the q tile
-  const size_t qoff = ((size_t)bh * tq + q0) * D;
-  const float* kb = k + (size_t)bh * tk * D;
-  const float* vb = v + (size_t)bh * tk * D;
+  const int row0 = warp * RW;  // this warp's first row in the q tile
+  const float* kb = k + (size_t)bh * tk * d;
+  const float* vb = v + (size_t)bh * tk * d;
 
-  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
-    const bool in = q0 + i / D < tq;
-    qs[i] = in ? q[qoff + i] : 0.f;
-    dos[i] = in ? dout[qoff + i] : 0.f;
-  }
-  for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
+  load_f32_rows<B, W>(qs, W, q + (size_t)bh * tq * d, q0, tq, d);
+  load_f32_rows<B, W>(dos, W, dout + (size_t)bh * tq * d, q0, tq, d);
+  for (int i = threadIdx.x; i < B; i += kThreads) {
     const bool in = q0 + i < tq;
     lses[i] = in ? lse[(size_t)bh * tq + q0 + i] : -CUDART_INF_F;
     deltas[i] = in ? delta[(size_t)bh * tq + q0 + i] : 0.f;
   }
 
-  constexpr int kCols = D / 32;  // dq columns per lane
-  float acc[kRowsPerWarp][kCols];
+  constexpr int kCols = W / 32;  // dq columns per lane
+  float acc[RW][kCols];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
+  for (int r = 0; r < RW; ++r)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
 
   // Causal: key tiles that start past this q tile's last row are all masked.
-  const int k_end = causal ? min(tk, q0 + kBlockQ) : tk;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
+  const int k_end = causal ? min(tk, q0 + B) : tk;
+  for (int k0 = 0; k0 < k_end; k0 += B) {
     __syncthreads();  // the previous tile is consumed (and the q tile is stored)
-    for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < tk;
-      ks[r * (D + 1) + c] = in ? kb[(size_t)k0 * D + i] : 0.f;
-      vs[r * (D + 1) + c] = in ? vb[(size_t)k0 * D + i] : 0.f;
-    }
+    load_f32_rows<B, W>(ks, W + 1, kb, k0, tk, d);
+    load_f32_rows<B, W>(vs, W + 1, vb, k0, tk, d);
     __syncthreads();
 
     // s = q k^T and dp = do v^T for this warp's rows; the lane owns key
-    // columns lane and lane + 32.
-    float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
+    // columns lane + 32 j.
+    float s[RW][KL], dp[RW][KL];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    for (int c = 0; c < D; ++c) {
-      const float k_lo = ks[lane * (D + 1) + c];
-      const float k_hi = ks[(lane + 32) * (D + 1) + c];
-      const float v_lo = vs[lane * (D + 1) + c];
-      const float v_hi = vs[(lane + 32) * (D + 1) + c];
+    for (int r = 0; r < RW; ++r)
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float qv = qs[(row0 + r) * D + c];
-        const float dov = dos[(row0 + r) * D + c];
-        s[r][0] = fmaf(qv, k_lo, s[r][0]);
-        s[r][1] = fmaf(qv, k_hi, s[r][1]);
-        dp[r][0] = fmaf(dov, v_lo, dp[r][0]);
-        dp[r][1] = fmaf(dov, v_hi, dp[r][1]);
+      for (int j = 0; j < KL; ++j) s[r][j] = dp[r][j] = 0.f;
+    for (int c = 0; c < d; ++c) {  // the zero columns past d add nothing
+      float kc[KL], vc[KL];
+#pragma unroll
+      for (int j = 0; j < KL; ++j) {
+        kc[j] = ks[(lane + 32 * j) * (W + 1) + c];
+        vc[j] = vs[(lane + 32 * j) * (W + 1) + c];
+      }
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float qv = qs[(row0 + r) * W + c];
+        const float dov = dos[(row0 + r) * W + c];
+#pragma unroll
+        for (int j = 0; j < KL; ++j) {
+          s[r][j] = fmaf(qv, kc[j], s[r][j]);
+          dp[r][j] = fmaf(dov, vc[j], dp[r][j]);
+        }
       }
     }
 
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
+    for (int r = 0; r < RW; ++r) {
       const int row = q0 + row0 + r;
       const float row_lse = lses[row0 + r];
       const float row_delta = deltas[row0 + r];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < KL; ++j) {
         const int col = k0 + lane + 32 * j;
         const bool keep = col < tk && (!causal || row >= col);
         const float p = prob(s[r][j], row_lse, keep, sm_scale);
-        dss[(row0 + r) * kBlockK + lane + 32 * j] = p * (dp[r][j] - row_delta) * sm_scale;
+        dss[(row0 + r) * B + lane + 32 * j] = p * (dp[r][j] - row_delta) * sm_scale;
       }
     }
     __syncwarp();  // a warp reads back only the ds rows it wrote
 
     // dq += ds k; the lane owns dq columns lane + 32 c.
-    for (int j = 0; j < kBlockK; ++j) {
+    for (int j = 0; j < B; ++j) {
       float kv[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) kv[c] = ks[j * (D + 1) + lane + 32 * c];
+      for (int c = 0; c < kCols; ++c) kv[c] = ks[j * (W + 1) + lane + 32 * c];
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float dsv = dss[(row0 + r) * kBlockK + j];
+      for (int r = 0; r < RW; ++r) {
+        const float dsv = dss[(row0 + r) * B + j];
 #pragma unroll
         for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(dsv, kv[c], acc[r][c]);
       }
@@ -243,65 +274,61 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
+  for (int r = 0; r < RW; ++r) {
     if (q0 + row0 + r >= tq) continue;
-    float* dqrow = dq + qoff + (size_t)(row0 + r) * D;
+    float* dqrow = dq + ((size_t)bh * tq + q0 + row0 + r) * d;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dqrow[lane + 32 * c] = acc[r][c];
+    for (int c = 0; c < kCols; ++c)
+      if (lane + 32 * c < d) dqrow[lane + 32 * c] = acc[r][c];
   }
 }
 
-template <int D>
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int tq, int tk, int causal,
-                     float sm_scale) {
+                     float* __restrict__ dk, float* __restrict__ dv, int tq, int tk, int d,
+                     int causal, float sm_scale) {
+  constexpr int B = kF32Tile<W>;      // k rows and q rows per tile
+  constexpr int RW = B / kWarps;      // rows a warp owns
+  constexpr int QL = B / 32;          // query columns a lane owns
   extern __shared__ float smem[];
-  float* ks = smem;                       // [BK][D]
-  float* vs = ks + kBlockK * D;           // [BK][D]
-  float* qs = vs + kBlockK * D;           // [BQ][D+1]
-  float* dos = qs + kBlockQ * (D + 1);    // [BQ][D+1]
-  float* ps = dos + kBlockQ * (D + 1);    // [BK][BQ]
-  float* dss = ps + kBlockK * kBlockQ;    // [BK][BQ]
-  float* lses = dss + kBlockK * kBlockQ;  // [BQ]
-  float* deltas = lses + kBlockQ;         // [BQ]
+  float* ks = smem;                   // [B][W]
+  float* vs = ks + B * W;             // [B][W]
+  float* qs = vs + B * W;             // [B][W+1]
+  float* dos = qs + B * (W + 1);      // [B][W+1]
+  float* ps = dos + B * (W + 1);      // [B][B]
+  float* dss = ps + B * B;            // [B][B]
+  float* lses = dss + B * B;          // [B]
+  float* deltas = lses + B;           // [B]
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlockK;
+  const int k0 = blockIdx.y * B;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int row0 = warp * kRowsPerWarp;  // this warp's first row in the k tile
-  const size_t koff = ((size_t)bh * tk + k0) * D;
-  const float* qb = q + (size_t)bh * tq * D;
-  const float* dob = dout + (size_t)bh * tq * D;
+  const int row0 = warp * RW;  // this warp's first row in the k tile
+  const float* qb = q + (size_t)bh * tq * d;
+  const float* dob = dout + (size_t)bh * tq * d;
 
-  for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
-    const bool in = k0 + i / D < tk;
-    ks[i] = in ? k[koff + i] : 0.f;
-    vs[i] = in ? v[koff + i] : 0.f;
-  }
+  load_f32_rows<B, W>(ks, W, k + (size_t)bh * tk * d, k0, tk, d);
+  load_f32_rows<B, W>(vs, W, v + (size_t)bh * tk * d, k0, tk, d);
 
-  constexpr int kCols = D / 32;  // dk / dv columns per lane
-  float acc_dk[kRowsPerWarp][kCols], acc_dv[kRowsPerWarp][kCols];
+  constexpr int kCols = W / 32;  // dk / dv columns per lane
+  float acc_dk[RW][kCols], acc_dv[RW][kCols];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
+  for (int r = 0; r < RW; ++r)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc_dk[r][c] = acc_dv[r][c] = 0.f;
 
   // Causal: q tiles that end before this k tile's first row are all masked;
-  // with kBlockQ == kBlockK the first q tile to visit is the one at k0.
+  // with q and k tiles of one size the first q tile to visit is the one at k0.
   const int q_begin = causal ? k0 : 0;
-  for (int q0 = q_begin; q0 < tq; q0 += kBlockQ) {
+  for (int q0 = q_begin; q0 < tq; q0 += B) {
     __syncthreads();  // the previous tile is consumed (and the k/v tile is stored)
-    for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool in = q0 + r < tq;
-      qs[r * (D + 1) + c] = in ? qb[(size_t)q0 * D + i] : 0.f;
-      dos[r * (D + 1) + c] = in ? dob[(size_t)q0 * D + i] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
+    load_f32_rows<B, W>(qs, W + 1, qb, q0, tq, d);
+    load_f32_rows<B, W>(dos, W + 1, dob, q0, tq, d);
+    for (int i = threadIdx.x; i < B; i += kThreads) {
       const bool in = q0 + i < tq;
       lses[i] = in ? lse[(size_t)bh * tq + q0 + i] : -CUDART_INF_F;
       deltas[i] = in ? delta[(size_t)bh * tq + q0 + i] : 0.f;
@@ -309,53 +336,58 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     // s^T = k q^T and dp^T = v do^T for this warp's k rows; the lane owns q
-    // columns lane and lane + 32.
-    float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
+    // columns lane + 32 j.
+    float s[RW][QL], dp[RW][QL];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    for (int c = 0; c < D; ++c) {
-      const float q_lo = qs[lane * (D + 1) + c];
-      const float q_hi = qs[(lane + 32) * (D + 1) + c];
-      const float do_lo = dos[lane * (D + 1) + c];
-      const float do_hi = dos[(lane + 32) * (D + 1) + c];
+    for (int r = 0; r < RW; ++r)
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float kv = ks[(row0 + r) * D + c];
-        const float vv = vs[(row0 + r) * D + c];
-        s[r][0] = fmaf(q_lo, kv, s[r][0]);
-        s[r][1] = fmaf(q_hi, kv, s[r][1]);
-        dp[r][0] = fmaf(do_lo, vv, dp[r][0]);
-        dp[r][1] = fmaf(do_hi, vv, dp[r][1]);
+      for (int j = 0; j < QL; ++j) s[r][j] = dp[r][j] = 0.f;
+    for (int c = 0; c < d; ++c) {  // the zero columns past d add nothing
+      float qc[QL], doc[QL];
+#pragma unroll
+      for (int j = 0; j < QL; ++j) {
+        qc[j] = qs[(lane + 32 * j) * (W + 1) + c];
+        doc[j] = dos[(lane + 32 * j) * (W + 1) + c];
+      }
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float kv = ks[(row0 + r) * W + c];
+        const float vv = vs[(row0 + r) * W + c];
+#pragma unroll
+        for (int j = 0; j < QL; ++j) {
+          s[r][j] = fmaf(qc[j], kv, s[r][j]);
+          dp[r][j] = fmaf(doc[j], vv, dp[r][j]);
+        }
       }
     }
 
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
+    for (int r = 0; r < RW; ++r) {
       const int col = k0 + row0 + r;  // the key index
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < QL; ++j) {
         const int qj = lane + 32 * j;
         const int row = q0 + qj;  // the query index
         const bool keep = col < tk && row < tq && (!causal || row >= col);
         const float p = prob(s[r][j], lses[qj], keep, sm_scale);
-        ps[(row0 + r) * kBlockQ + qj] = p;
-        dss[(row0 + r) * kBlockQ + qj] = p * (dp[r][j] - deltas[qj]) * sm_scale;
+        ps[(row0 + r) * B + qj] = p;
+        dss[(row0 + r) * B + qj] = p * (dp[r][j] - deltas[qj]) * sm_scale;
       }
     }
     __syncwarp();  // a warp reads back only the p / ds rows it wrote
 
     // dv += p^T do and dk += ds^T q; the lane owns columns lane + 32 c.
-    for (int j = 0; j < kBlockQ; ++j) {
+    for (int j = 0; j < B; ++j) {
       float dov[kCols], qv[kCols];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        dov[c] = dos[j * (D + 1) + lane + 32 * c];
-        qv[c] = qs[j * (D + 1) + lane + 32 * c];
+        dov[c] = dos[j * (W + 1) + lane + 32 * c];
+        qv[c] = qs[j * (W + 1) + lane + 32 * c];
       }
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float pv = ps[(row0 + r) * kBlockQ + j];
-        const float dsv = dss[(row0 + r) * kBlockQ + j];
+      for (int r = 0; r < RW; ++r) {
+        const float pv = ps[(row0 + r) * B + j];
+        const float dsv = dss[(row0 + r) * B + j];
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           acc_dv[r][c] = fmaf(pv, dov[c], acc_dv[r][c]);
@@ -366,12 +398,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
+  for (int r = 0; r < RW; ++r) {
     if (k0 + row0 + r >= tk) continue;
-    float* dkrow = dk + koff + (size_t)(row0 + r) * D;
-    float* dvrow = dv + koff + (size_t)(row0 + r) * D;
+    float* dkrow = dk + ((size_t)bh * tk + k0 + row0 + r) * d;
+    float* dvrow = dv + ((size_t)bh * tk + k0 + row0 + r) * d;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
+      if (lane + 32 * c >= d) continue;
       dkrow[lane + 32 * c] = acc_dk[r][c];
       dvrow[lane + 32 * c] = acc_dv[r][c];
     }
@@ -387,17 +420,23 @@ using bf16 = __nv_bfloat16;
 constexpr int kTcBlockK = 64;  // key rows per block, 16 per warp
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = kTcWarps * 32;
-// q rows per tile: 64 at d = 64; 32 at d = 128, where the dK and dV
-// accumulators take 128 registers a lane.
-template <int D>
-constexpr int kTcBlockQ = D == 64 ? 64 : 32;
+// q rows per tile: 64 at W <= 64; 32 from W = 96 on, where the dK and dV
+// accumulators take W registers a lane (up to 128, see kDkvCols).
+template <int W>
+constexpr int kTcBlockQ = W <= 64 ? 64 : 32;
+// dK and dV columns a block accumulates: all W, but 128 at W = 256, where
+// both accumulators would take all 256 registers of a lane.  There a third
+// grid axis splits the output columns in two: each block computes the whole
+// s^T and dp^T (over all of d) and accumulates its 128 columns of dK and dV.
+template <int W>
+constexpr int kDkvCols = W == 256 ? 128 : W;
 
-template <int D>
+template <int W>
 constexpr size_t dkv_bf16_smem_bytes() {
-  // k, v tiles [BK][D+8]; q, do rings [2][BQ][D+8]; lse, delta rings [2][BQ] f32;
+  // k, v tiles [BK][W+8]; q, do rings [2][BQ][W+8]; lse, delta rings [2][BQ] f32;
   // per warp, 32 re-summed pairs: results (float2) and (query, key) items
-  return sizeof(bf16) * (2 * kTcBlockK + 4 * kTcBlockQ<D>) * (D + 8) +
-         sizeof(float) * 4 * kTcBlockQ<D> + kTcWarps * 32 * (sizeof(float2) + sizeof(uint32_t));
+  return sizeof(bf16) * (2 * kTcBlockK + 4 * kTcBlockQ<W>) * (W + 8) +
+         sizeof(float) * 4 * kTcBlockQ<W> + kTcWarps * 32 * (sizeof(float2) + sizeof(uint32_t));
 }
 
 // Rounding p and ds to bf16 as the plain version does.  The mma sums of s
@@ -409,9 +448,10 @@ constexpr size_t dkv_bf16_smem_bytes() {
 // order, float32 FMAs over d from 0, which gives its p and ds bit for bit.
 // The screen bounds the two sums' difference by kSumErr (|x| + 16) for a
 // sum x of s or dp, 3e-5 or more: several times what the two orders differ
-// by on sums of 64 to 128 unit-scale products.  Values below kTieFloor are
-// not screened: a flip there moves dq, dk or dv by at most 2^-15 |k|, |q|
-// or |do|.  Each screened pair costs a 64- to 128-step FMA chain, so the
+// by on sums of 64 to 128 unit-scale products (for d up to 256 the bound
+// grows with |x|, as the spread of the sums does).  Values below kTieFloor
+// are not screened: a flip there moves dq, dk or dv by at most 2^-15 |k|,
+// |q| or |do|.  Each screened pair costs a d-step FMA chain, so the
 // floor sets the kernels' price: in the dk/dv pass at 2^-9 about one warp
 // tile in 1.5 has a pair to sum again, at 2^-7 one in 6.
 constexpr float kSumErr = 0x1p-19f;
@@ -453,13 +493,13 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
   return acc;
 }
 
-template <int D>
 __device__ __forceinline__ float2 pair_in_plain_order(const bf16* qrow, const bf16* krow,
                                                       const bf16* dorow, const bf16* vrow,
-                                                      float lse, float delta, float sm_scale) {
+                                                      float lse, float delta, float sm_scale,
+                                                      int d) {
   float s = 0.f, dp = 0.f;
 #pragma unroll 2
-  for (int c = 0; c < D; c += 8) {
+  for (int c = 0; c < d; c += 8) {
     s = dot8(*reinterpret_cast<const uint4*>(qrow + c), *reinterpret_cast<const uint4*>(krow + c), s);
     dp = dot8(*reinterpret_cast<const uint4*>(dorow + c), *reinterpret_cast<const uint4*>(vrow + c),
               dp);
@@ -474,16 +514,16 @@ __device__ __forceinline__ float2 pair_in_plain_order(const bf16* qrow, const bf
 // lst, dlt, and its key, a row of the k and v tiles kst, vst, as
 // query | key << 8; set(i, hit, v) puts v = (p, ds) in place of element i
 // where hit.  The warp lists its pairs in shared memory and each lane sums
-// one, 32 a round.
-template <int D, int N, typename Pair, typename Set>
+// one, 32 a round.  Tiles of row stride W + 8; rows d long.
+template <int W, int N, typename Pair, typename Set>
 __device__ __forceinline__ void resum_near_ties(uint32_t near, Pair pair, Set set,
                                                 const bf16* qst, const bf16* dost,
                                                 const bf16* kst, const bf16* vst,
                                                 const float* lst, const float* dlt,
                                                 uint32_t* items, float2* vals, int lane,
-                                                float sm_scale) {
+                                                float sm_scale, int d) {
   static_assert(N <= 32, "one bit of `near` per element");
-  constexpr int kS = D + 8;
+  constexpr int kS = W + 8;
   const int n = __popc(near);
   int incl = n;  // inclusive prefix sum over the warp's lanes
 #pragma unroll
@@ -505,8 +545,8 @@ __device__ __forceinline__ void resum_near_ties(uint32_t near, Pair pair, Set se
     __syncwarp();
     if (lane < total - r0) {
       const int qi = items[lane] & 0xff, kr = items[lane] >> 8;
-      vals[lane] = pair_in_plain_order<D>(qst + qi * kS, kst + kr * kS, dost + qi * kS,
-                                          vst + kr * kS, lst[qi], dlt[qi], sm_scale);
+      vals[lane] = pair_in_plain_order(qst + qi * kS, kst + kr * kS, dost + qi * kS,
+                                       vst + kr * kS, lst[qi], dlt[qi], sm_scale, d);
     }
     __syncwarp();
 #pragma unroll
@@ -518,16 +558,20 @@ __device__ __forceinline__ void resum_near_ties(uint32_t near, Pair pair, Set se
   }
 }
 
-template <int D>
+// kExact: d is W, a compile-time constant (as in the forward kernel);
+// otherwise d < W.
+template <int W, bool kExact>
 __global__ void __launch_bounds__(kTcThreads)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv, int tq, int tk,
-                          int causal, float sm_scale) {
+                          int d_in, int causal, float sm_scale) {
   using namespace mma_bf16;
-  constexpr int kS = D + 8;  // shared row stride, elements
-  constexpr int BQ = kTcBlockQ<D>;
+  const int d = kExact ? W : d_in;  // the tensors' row length
+  constexpr int kS = W + 8;  // shared row stride, elements
+  constexpr int BQ = kTcBlockQ<W>;
+  constexpr int C = kDkvCols<W>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);                // [BK][kS]
   bf16* vs = ks + kTcBlockK * kS;                              // [BK][kS]
@@ -540,20 +584,21 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kTcBlockK;  // low k tiles walk the most q tiles and start first
+  const int c0 = C == W ? 0 : blockIdx.z * C;  // this block's first dK and dV column
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int key_lo = k0 + warp * 16 + g;  // this lane's key rows: key_lo, key_lo + 8
-  const bf16* qb = q + (size_t)bh * tq * D;
-  const bf16* dob = dout + (size_t)bh * tq * D;
+  const bf16* qb = q + (size_t)bh * tq * d;
+  const bf16* dob = dout + (size_t)bh * tq * d;
   const float* lb = lse + (size_t)bh * tq;
   const float* db = delta + (size_t)bh * tq;
 
   // q, do, lse and delta rows [q0, q0 + BQ) into stage st; rows past tq
   // arrive as zeros and are masked out of p below.
   auto load_q_tile = [&](int q0, int st) {
-    load_rows<BQ, D, kTcThreads>(qs + st * BQ * kS, qb, q0, tq);
-    load_rows<BQ, D, kTcThreads>(dos + st * BQ * kS, dob, q0, tq);
+    load_rows<BQ, W, kTcThreads>(qs + st * BQ * kS, qb, q0, tq, d);
+    load_rows<BQ, W, kTcThreads>(dos + st * BQ * kS, dob, q0, tq, d);
     if (threadIdx.x < 2 * BQ) {
       const int i = threadIdx.x % BQ;
       const bool in = q0 + i < tq;
@@ -568,15 +613,15 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int n_tiles = q_begin < tq ? (tq - q_begin + BQ - 1) / BQ : 0;
 
   const float tie_scale = kSumErr * sm_scale;
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];  // 8 columns per block
+  float acc_dk[C / 8][4], acc_dv[C / 8][4];  // columns c0.., 8 per block
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < C / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
 
   if (n_tiles > 0) {
-    load_rows<kTcBlockK, D, kTcThreads>(ks, k + (size_t)bh * tk * D, k0, tk);
-    load_rows<kTcBlockK, D, kTcThreads>(vs, v + (size_t)bh * tk * D, k0, tk);
+    load_rows<kTcBlockK, W, kTcThreads>(ks, k + (size_t)bh * tk * d, k0, tk, d);
+    load_rows<kTcBlockK, W, kTcThreads>(vs, v + (size_t)bh * tk * d, k0, tk, d);
     load_q_tile(q_begin, 0);
     cp_async_commit();
   }
@@ -592,14 +637,14 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const float* lst = lses + st * BQ;
     const float* dlt = deltas + st * BQ;
 
-    // s^T = k q^T and dp^T = v do^T: 16 keys x BQ queries a warp.
+    // s^T = k q^T and dp^T = v do^T: 16 keys x BQ queries a warp, over all W.
     float s[BQ / 8][4], dp[BQ / 8][4];
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < W / 16; ++kk) {
       uint32_t ka[4], va[4];
       ldmatrix_x4(ka, a_frag(ks, kS, warp * 16, kk * 16, lane));
       ldmatrix_x4(va, a_frag(vs, kS, warp * 16, kk * 16, lane));
@@ -641,7 +686,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     // Element i = j * 4 + e of s and dp: query (i / 4) * 8 + 2t + (i & 1) of
     // the tile, key row g + (i & 2) * 4 of the warp's 16.
     if (__any_sync(0xffffffffu, near))
-      resum_near_ties<D, BQ / 2>(
+      resum_near_ties<W, BQ / 2>(
           near,
           [&](int i) { return ((i / 4) * 8 + 2 * t + (i & 1)) | (g + (i & 2) * 4) << 8; },
           [&](int i, bool hit, float2 x) {
@@ -649,22 +694,22 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
             dp[i / 4][i % 4] = hit ? x.y : dp[i / 4][i % 4];
           },
           qst, dost, ks + warp * 16 * kS, vs + warp * 16 * kS, lst, dlt, items + warp * 32,
-          vals + warp * 32, lane, sm_scale);
+          vals + warp * 32, lane, sm_scale, d);
 
-    // dv += p^T do and dk += ds^T q: p^T and ds^T rounded to bf16 in the A
-    // fragments, do and q through ldmatrix.trans.
+    // dv += p^T do and dk += ds^T q over this block's columns: p^T and ds^T
+    // rounded to bf16 in the A fragments, do and q through ldmatrix.trans.
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       uint32_t pa[4], da[4];
       a_from_acc(pa, s[2 * kk], s[2 * kk + 1]);
       a_from_acc(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
+      for (int j = 0; j < C / 16; ++j) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, bt_pair(dost, kS, kk * 16, j * 16, lane));
+        ldmatrix_x4_trans(b, bt_pair(dost, kS, kk * 16, c0 + j * 16, lane));
         mma(acc_dv[2 * j], pa, b[0], b[1]);
         mma(acc_dv[2 * j + 1], pa, b[2], b[3]);
-        ldmatrix_x4_trans(b, bt_pair(qst, kS, kk * 16, j * 16, lane));
+        ldmatrix_x4_trans(b, bt_pair(qst, kS, kk * 16, c0 + j * 16, lane));
         mma(acc_dk[2 * j], da, b[0], b[1]);
         mma(acc_dk[2 * j + 1], da, b[2], b[3]);
       }
@@ -676,10 +721,11 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int h = 0; h < 2; ++h) {
     const int key = key_lo + 8 * h;
     if (key >= tk) continue;
-    float* dkrow = dk + ((size_t)bh * tk + key) * D + 2 * t;
-    float* dvrow = dv + ((size_t)bh * tk + key) * D + 2 * t;
+    float* dkrow = dk + ((size_t)bh * tk + key) * d + c0 + 2 * t;
+    float* dvrow = dv + ((size_t)bh * tk + key) * d + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < C / 8; ++j) {
+      if (c0 + j * 8 >= d) continue;  // the columns past d are zero padding
       *reinterpret_cast<float2*>(dkrow + j * 8) = make_float2(acc_dk[j][2 * h], acc_dk[j][2 * h + 1]);
       *reinterpret_cast<float2*>(dvrow + j * 8) = make_float2(acc_dv[j][2 * h], acc_dv[j][2 * h + 1]);
     }
@@ -689,42 +735,53 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // dq pass.
 constexpr int kDqBlockK = 64;  // key rows per tile
 
-// 16-row m tiles a warp owns: two at d = 64, so that each K and V fragment
-// read from shared memory feeds two products; one at d = 128, where dq alone
-// takes 64 registers a lane per m tile.
-template <int D>
-constexpr int kDqMTiles = D == 64 ? 2 : 1;
-template <int D>
-constexpr int kDqBlockQ = kTcWarps * 16 * kDqMTiles<D>;  // query rows per block
-// Keys per score chunk: s and dp of a chunk take 32 registers a lane each,
-// one bit of the screen's mask per score.
-template <int D>
-constexpr int kDqChunk = 64 / kDqMTiles<D>;
+// 16-row m tiles a warp owns: two at W <= 64, so that each K and V fragment
+// read from shared memory feeds two products; one from W = 96 on, where dq
+// alone takes W / 2 registers a lane per m tile.
+template <int W>
+constexpr int kDqMTiles = W <= 64 ? 2 : 1;
+template <int W>
+constexpr int kDqBlockQ = kTcWarps * 16 * kDqMTiles<W>;  // query rows per block
+// Keys per score chunk: s and dp of a chunk take 32 registers a lane each
+// (16 at W = 256, beside dq's 128), one bit of the screen's mask per score.
+template <int W>
+constexpr int kDqChunk = W == 256 ? 32 : 64 / kDqMTiles<W>;
+// The q fragments stay in registers for the whole key loop up to W = 128;
+// at W = 256 they are read again from the q tile for each chunk, as the do
+// fragments always are.
+template <int W>
+constexpr bool kDqQInRegs = W <= 128;
+// Blocks an SM: two up to W = 128; at W = 256 the tiles take 200 KB.
+template <int W>
+constexpr int kDqMinBlocks = W == 256 ? 1 : 2;
 
-template <int D>
+template <int W>
 constexpr size_t dq_bf16_smem_bytes() {
-  // q, do tiles [BQ][D+8]; K and V rings [2][BK][D+8]; per warp, 32
+  // q, do tiles [BQ][W+8]; K and V rings [2][BK][W+8]; per warp, 32
   // re-summed pairs: results (float2) and (query, key) items; lse, delta [BQ] f32
-  return sizeof(bf16) * (2 * kDqBlockQ<D> + 4 * kDqBlockK) * (D + 8) +
-         kTcWarps * 32 * (sizeof(float2) + sizeof(uint32_t)) + sizeof(float) * 2 * kDqBlockQ<D>;
+  return sizeof(bf16) * (2 * kDqBlockQ<W> + 4 * kDqBlockK) * (W + 8) +
+         kTcWarps * 32 * (sizeof(float2) + sizeof(uint32_t)) + sizeof(float) * 2 * kDqBlockQ<W>;
 }
 
-// Two blocks an SM, as the forward kernel: the q and dq fragments stay in
-// registers for the whole key loop.  The do fragments are read again from
-// shared memory for each chunk: kept in registers too (`tools/tie_variants.py
-// dq:do_regs`), they made it no faster.
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, 2)
+// Two blocks an SM up to W = 128, as the forward kernel: the q and dq
+// fragments stay in registers for the whole key loop.  The do fragments are
+// read again from shared memory for each chunk: kept in registers too
+// (`tools/tie_variants.py dq:do_regs`), they made it no faster.  kExact: d
+// is W, a compile-time constant; otherwise d < W.
+template <int W, bool kExact>
+__global__ void __launch_bounds__(kTcThreads, kDqMinBlocks<W>)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dq, int tq, int tk, int causal, float sm_scale) {
+                         float* __restrict__ dq, int tq, int tk, int d_in, int causal,
+                         float sm_scale) {
   using namespace mma_bf16;
-  constexpr int kS = D + 8;  // shared row stride, elements
-  constexpr int MT = kDqMTiles<D>;
-  constexpr int BQ = kDqBlockQ<D>;
+  const int d = kExact ? W : d_in;  // the tensors' row length
+  constexpr int kS = W + 8;  // shared row stride, elements
+  constexpr int MT = kDqMTiles<W>;
+  constexpr int BQ = kDqBlockQ<W>;
   constexpr int BK = kDqBlockK;
-  constexpr int KC = kDqChunk<D>;
+  constexpr int KC = kDqChunk<W>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);                // [BQ][kS]
   bf16* dos = qs + BQ * kS;                                    // [BQ][kS]
@@ -742,8 +799,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane / 4, t = lane % 4;
   const int wrow = warp * 16 * MT;  // this warp's first row in the tile
   // This lane's rows: q0 + wrow + 16 mt + g + 8 h, for m tile mt and half h.
-  const bf16* kb = k + (size_t)bh * tk * D;
-  const bf16* vb = v + (size_t)bh * tk * D;
+  const bf16* kb = k + (size_t)bh * tk * d;
+  const bf16* vb = v + (size_t)bh * tk * d;
   const float* lb = lse + (size_t)bh * tq + q0;  // lse and delta of the tile's rows
   const float* db = delta + (size_t)bh * tq + q0;
 
@@ -753,8 +810,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // lse and delta of this lane's rows; a row past tq sees no key (p = 0).
   float lse_r[MT][2], delta_r[MT][2];
-  float acc[MT][D / 8][4];      // dq, 8 columns per block
-  uint32_t qf[MT][D / 16][4];  // the warp's q rows as A fragments
+  float acc[MT][W / 8][4];      // dq, 8 columns per block
+  uint32_t qf[MT][kDqQInRegs<W> ? W / 16 : 1][4];  // the warp's q rows as A fragments
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -765,15 +822,15 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       delta_r[mt][h] = in ? db[r] : 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < W / 8; ++j)
       acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
   }
 
   if (n_tiles > 0) {
-    load_rows<BQ, D, kTcThreads>(qs, q + (size_t)bh * tq * D, q0, tq);
-    load_rows<BQ, D, kTcThreads>(dos, dout + (size_t)bh * tq * D, q0, tq);
-    load_rows<BK, D, kTcThreads>(ks, kb, 0, tk);
-    load_rows<BK, D, kTcThreads>(vs, vb, 0, tk);
+    load_rows<BQ, W, kTcThreads>(qs, q + (size_t)bh * tq * d, q0, tq, d);
+    load_rows<BQ, W, kTcThreads>(dos, dout + (size_t)bh * tq * d, q0, tq, d);
+    load_rows<BK, W, kTcThreads>(ks, kb, 0, tk, d);
+    load_rows<BK, W, kTcThreads>(vs, vb, 0, tk, d);
     for (int i = threadIdx.x; i < 2 * BQ; i += kTcThreads) {
       const int r = i % BQ;
       const bool in = q0 + r < tq;
@@ -787,18 +844,20 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = it * BK;
     const int st = it & 1;
     if (it + 1 < n_tiles) {  // the stage read in iteration it - 1, released by its last barrier
-      load_rows<BK, D, kTcThreads>(ks + (st ^ 1) * BK * kS, kb, k0 + BK, tk);
-      load_rows<BK, D, kTcThreads>(vs + (st ^ 1) * BK * kS, vb, k0 + BK, tk);
+      load_rows<BK, W, kTcThreads>(ks + (st ^ 1) * BK * kS, kb, k0 + BK, tk, d);
+      load_rows<BK, W, kTcThreads>(vs + (st ^ 1) * BK * kS, vb, k0 + BK, tk, d);
     }
     cp_async_commit();  // possibly empty, so that one group always stays in flight
     cp_async_wait<1>();
     __syncthreads();
-    if (it == 0) {
+    if constexpr (kDqQInRegs<W>) {
+      if (it == 0) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          ldmatrix_x4(qf[mt][kk], a_frag(qs, kS, wrow + 16 * mt, kk * 16, lane));
+          for (int kk = 0; kk < W / 16; ++kk)
+            ldmatrix_x4(qf[mt][kk], a_frag(qs, kS, wrow + 16 * mt, kk * 16, lane));
+      }
     }
     const bf16* kst = ks + st * BK * kS;
     const bf16* vst = vs + st * BK * kS;
@@ -818,19 +877,26 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[mt][j][e] = dp[mt][j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t dof[MT][4];
+      for (int kk = 0; kk < W / 16; ++kk) {
+        uint32_t dof[MT][4], qa[MT][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt) {
           ldmatrix_x4(dof[mt], a_frag(dos, kS, wrow + 16 * mt, kk * 16, lane));
+          if constexpr (kDqQInRegs<W>) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qa[mt][e] = qf[mt][kk][e];
+          } else {
+            ldmatrix_x4(qa[mt], a_frag(qs, kS, wrow + 16 * mt, kk * 16, lane));
+          }
+        }
 #pragma unroll
         for (int j = 0; j < KC / 16; ++j) {
           uint32_t b[4];
           ldmatrix_x4(b, b_pair(kst, kS, kc + j * 16, kk * 16, lane));
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            mma(s[mt][2 * j], qf[mt][kk], b[0], b[1]);
-            mma(s[mt][2 * j + 1], qf[mt][kk], b[2], b[3]);
+            mma(s[mt][2 * j], qa[mt], b[0], b[1]);
+            mma(s[mt][2 * j + 1], qa[mt], b[2], b[3]);
           }
           ldmatrix_x4(b, b_pair(vst, kS, kc + j * 16, kk * 16, lane));
 #pragma unroll
@@ -865,7 +931,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // Element i = (mt * KC / 8 + j) * 4 + e of dp: query row
       // wrow + 16 mt + g + (i & 2) * 4 of the tile, key kc + 8 j + 2t + (i & 1).
       if (__any_sync(0xffffffffu, near))
-        resum_near_ties<D, MT * KC / 2>(
+        resum_near_ties<W, MT * KC / 2>(
             near,
             [&](int i) {
               return (wrow + 16 * (i / (KC / 2)) + g + (i & 2) * 4) |
@@ -875,7 +941,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               float& d = dp[i / (KC / 2)][(i / 4) % (KC / 8)][i % 4];
               d = hit ? x.y : d;
             },
-            qs, dos, kst, vst, lses, deltas, items + warp * 32, vals + warp * 32, lane, sm_scale);
+            qs, dos, kst, vst, lses, deltas, items + warp * 32, vals + warp * 32, lane, sm_scale,
+            d);
 
       // dq += ds k: ds rounded to bf16 (k's dtype) in the A fragments, K
       // through ldmatrix.trans.
@@ -885,7 +952,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) a_from_acc(a[mt], dp[mt][2 * kk], dp[mt][2 * kk + 1]);
 #pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
+        for (int j = 0; j < W / 16; ++j) {
           uint32_t b[4];
           ldmatrix_x4_trans(b, bt_pair(kst, kS, kc + kk * 16, j * 16, lane));
 #pragma unroll
@@ -905,10 +972,12 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int h = 0; h < 2; ++h) {
       const int row = q0 + wrow + 16 * mt + g + 8 * h;
       if (row >= tq) continue;
-      float* dqrow = dq + ((size_t)bh * tq + row) * D + 2 * t;
+      float* dqrow = dq + ((size_t)bh * tq + row) * d + 2 * t;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(dqrow + j * 8) = make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+      for (int j = 0; j < W / 8; ++j)
+        if (j * 8 < d)  // the columns past d are zero padding
+          *reinterpret_cast<float2*>(dqrow + j * 8) =
+              make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
     }
 }
 
@@ -917,68 +986,96 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <typename T, typename Kernel, typename... Out>
 cudaError_t launch(Kernel kernel, size_t smem, int threads, dim3 grid, const void* q,
                    const void* k, const void* v, const void* dout, const float* lse,
-                   const float* delta, int tq, int tk, int causal, float sm_scale,
+                   const float* delta, int tq, int tk, int d, int causal, float sm_scale,
                    cudaStream_t stream, Out*... out) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, out..., tq, tk, causal, sm_scale);
+      static_cast<const T*>(dout), lse, delta, out..., tq, tk, d, causal, sm_scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int W>
 cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, float* dq, int bh, int tq, int tk,
-                      int causal, float sm_scale, cudaStream_t stream) {
+                      int d, int causal, float sm_scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch<float>(flash_bwd_dq_kernel<D>, dq_smem_bytes<D>(), kThreads,
-                         dim3(bh, (tq + kBlockQ - 1) / kBlockQ), q, k, v, dout, lse, delta, tq,
-                         tk, causal, sm_scale, stream, dq);
-  return launch<bf16>(flash_bwd_dq_bf16_kernel<D>, dq_bf16_smem_bytes<D>(), kTcThreads,
-                      dim3(bh, (tq + kDqBlockQ<D> - 1) / kDqBlockQ<D>), q, k, v, dout, lse,
-                      delta, tq, tk, causal, sm_scale, stream, dq);
+    return launch<float>(flash_bwd_dq_kernel<W>, dq_smem_bytes<W>(), kThreads,
+                         dim3(bh, (tq + kF32Tile<W> - 1) / kF32Tile<W>), q, k, v, dout, lse,
+                         delta, tq, tk, d, causal, sm_scale, stream, dq);
+  return launch<bf16>(d == W ? flash_bwd_dq_bf16_kernel<W, true>
+                             : flash_bwd_dq_bf16_kernel<W, false>,
+                      dq_bf16_smem_bytes<W>(), kTcThreads,
+                      dim3(bh, (tq + kDqBlockQ<W> - 1) / kDqBlockQ<W>), q, k, v, dout, lse,
+                      delta, tq, tk, d, causal, sm_scale, stream, dq);
 }
 
-template <int D>
+template <int W>
 cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, float* dk, float* dv, int bh,
-                       int tq, int tk, int causal, float sm_scale, cudaStream_t stream) {
+                       int tq, int tk, int d, int causal, float sm_scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch<float>(flash_bwd_dkv_kernel<D>, dkv_smem_bytes<D>(), kThreads,
-                         dim3(bh, (tk + kBlockK - 1) / kBlockK), q, k, v, dout, lse, delta, tq,
-                         tk, causal, sm_scale, stream, dk, dv);
-  return launch<bf16>(flash_bwd_dkv_bf16_kernel<D>, dkv_bf16_smem_bytes<D>(), kTcThreads,
-                      dim3(bh, (tk + kTcBlockK - 1) / kTcBlockK), q, k, v, dout, lse, delta,
-                      tq, tk, causal, sm_scale, stream, dk, dv);
+    return launch<float>(flash_bwd_dkv_kernel<W>, dkv_smem_bytes<W>(), kThreads,
+                         dim3(bh, (tk + kF32Tile<W> - 1) / kF32Tile<W>), q, k, v, dout, lse,
+                         delta, tq, tk, d, causal, sm_scale, stream, dk, dv);
+  return launch<bf16>(d == W ? flash_bwd_dkv_bf16_kernel<W, true>
+                             : flash_bwd_dkv_bf16_kernel<W, false>,
+                      dkv_bf16_smem_bytes<W>(), kTcThreads,
+                      dim3(bh, (tk + kTcBlockK - 1) / kTcBlockK, W / kDkvCols<W>), q, k, v,
+                      dout, lse, delta, tq, tk, d, causal, sm_scale, stream, dk, dv);
+}
+
+using DqFn = decltype(&launch_dq<64>);
+using DkvFn = decltype(&launch_dkv<64>);
+
+// Each pass's launcher at the tile width that holds d.
+DqFn dq_at_width(int d) {
+  switch (head_dims::tile_width(d)) {
+    case 32: return launch_dq<32>;
+    case 64: return launch_dq<64>;
+    case 96: return launch_dq<96>;
+    case 128: return launch_dq<128>;
+    default: return launch_dq<256>;
+  }
+}
+
+DkvFn dkv_at_width(int d) {
+  switch (head_dims::tile_width(d)) {
+    case 32: return launch_dkv<32>;
+    case 64: return launch_dkv<64>;
+    case 96: return launch_dkv<96>;
+    case 128: return launch_dkv<128>;
+    default: return launch_dkv<256>;
+  }
 }
 
 }  // namespace
 
 // C entry points, loaded with ctypes.  dtype: 0 = float32 (the FMA
-// kernels), 1 = bfloat16 (the tensor-core kernels).  The caller has checked
-// shapes, types, contiguity and 16-byte alignment, launches the dq pass
-// only when bh > 0 and tq > 0 and the dk/dv pass only when bh > 0 and
-// tk > 0.  Each returns its launch's CUDA error code (0 = none).
+// kernels), 1 = bfloat16 (the tensor-core kernels); d a multiple of 8 from
+// 8 to 256.  The caller has checked shapes, types, contiguity and 16-byte
+// alignment, launches the dq pass only when bh > 0 and tq > 0 and the dk/dv
+// pass only when bh > 0 and tk > 0.  Each returns its launch's CUDA error
+// code (0 = none).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int bh, int tq,
                             int tk, int d, int dtype, int causal, float sm_scale,
                             void* stream) {
-  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 128)) return cudaErrorInvalidValue;
-  const auto run = d == 64 ? launch_dq<64> : launch_dq<128>;
-  return run(dtype, q, k, v, dout, static_cast<const float*>(lse),
-             static_cast<const float*>(delta), static_cast<float*>(dq), bh, tq, tk, causal,
-             sm_scale, static_cast<cudaStream_t>(stream));
+  if ((dtype != 0 && dtype != 1) || !head_dims::takes(d)) return cudaErrorInvalidValue;
+  return dq_at_width(d)(dtype, q, k, v, dout, static_cast<const float*>(lse),
+                        static_cast<const float*>(delta), static_cast<float*>(dq), bh, tq, tk,
+                        d, causal, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int bh,
                              int tq, int tk, int d, int dtype, int causal, float sm_scale,
                              void* stream) {
-  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 128)) return cudaErrorInvalidValue;
-  const auto run = d == 64 ? launch_dkv<64> : launch_dkv<128>;
-  return run(dtype, q, k, v, dout, static_cast<const float*>(lse),
-             static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
-             bh, tq, tk, causal, sm_scale, static_cast<cudaStream_t>(stream));
+  if ((dtype != 0 && dtype != 1) || !head_dims::takes(d)) return cudaErrorInvalidValue;
+  return dkv_at_width(d)(dtype, q, k, v, dout, static_cast<const float*>(lse),
+                         static_cast<const float*>(delta), static_cast<float*>(dk),
+                         static_cast<float*>(dv), bh, tq, tk, d, causal, sm_scale,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -121,21 +121,22 @@ __device__ __forceinline__ const __nv_bfloat16* bt_pair(const __nv_bfloat16* s, 
   return a_frag(s, stride, r0, c0, lane);  // the same addresses, read transposed
 }
 
-// Stage rows [r0, r0 + ROWS) of a [t, D] bf16 matrix into a shared tile of
-// row stride D + 8 (the 16-byte pad puts the 8 rows of an ldmatrix on 8
-// different bank quads); rows at or past t arrive as zeros.
-template <int ROWS, int D, int THREADS>
+// Stage rows [r0, r0 + ROWS) of a [t, d] bf16 matrix (row stride d, a
+// multiple of 8 up to W) into a shared tile of W columns and row stride
+// W + 8 (the 16-byte pad puts the 8 rows of an ldmatrix on 8 different bank
+// quads); rows at or past t, and columns d..W, arrive as zeros.
+template <int ROWS, int W, int THREADS>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* s, const __nv_bfloat16* g, int r0,
-                                          int t) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks in a row
+                                          int t, int d) {
+  constexpr int kChunks = W / 8;  // 16-byte chunks in a row
   constexpr int kPerThread = (ROWS * kChunks + THREADS - 1) / THREADS;
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
     const int i = threadIdx.x + j * THREADS;
     if (ROWS * kChunks % THREADS != 0 && i >= ROWS * kChunks) break;
     const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool in = r0 + r < t;
-    cp_async16(s + r * (D + 8) + c, in ? g + (size_t)(r0 + r) * D + c : g, in ? 16 : 0);
+    const bool in = r0 + r < t && c < d;
+    cp_async16(s + r * (W + 8) + c, in ? g + (size_t)(r0 + r) * d + c : g, in ? 16 : 0);
   }
 }
 

@@ -6,7 +6,13 @@ custom VJP).  The kernels are hand-written CUDA C++ for ``sm_90a``, built at
 first use and bound through ``ctypes``: ``csrc/flash_fwd.cu`` replaces the
 TPU's ``_fwd_kernel``, ``csrc/flash_bwd.cu`` its ``_dq_kernel`` and
 ``_dkv_kernel``.  With bf16 inputs all three run on the tensor cores
-(``mma.sync``); with float32 inputs they use float32 FMAs.
+(``mma.sync``); with float32 inputs they use float32 FMAs.  Like the Pallas
+kernels (whose blocks take the whole head_dim), they take every head_dim
+from 1 to 256: the C entry points take multiples of 8 (rows of 16-byte
+chunks), and the wrappers pad any other head_dim with zero columns to the
+next multiple of 8 and slice the outputs (zero columns add exact zeros to
+every score and give zero output columns), counting such calls in each
+wrapper's ``padded``.
 
 Each wrapper dispatches on where its tensors lie, and on nothing else: a CPU
 tensor goes to the plain version, a CUDA tensor to the kernel, which either
@@ -42,7 +48,7 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # threads' outputs then missed the reference by 7.5e-5.  The importing
 # thread makes the first call here, before any rank thread starts.
 torch.exp(torch.zeros(1))
-_KERNEL_HEAD_DIMS = (64, 128)
+_MAX_HEAD_DIM = 256  # the widest tile the kernels are compiled for (csrc/head_dims.cuh)
 
 
 def _visible(Tq: int, Tk: int, device: torch.device) -> torch.Tensor:
@@ -98,7 +104,7 @@ def kernel_takes(q_shape: Sequence[int], dtype: torch.dtype) -> bool:
     of :func:`check_kernel_inputs` (layout, alignment) is the wrappers' own
     business and holds for every tensor they make.
     """
-    return dtype in _KERNEL_DTYPES and q_shape[-1] in _KERNEL_HEAD_DIMS
+    return dtype in _KERNEL_DTYPES and 1 <= q_shape[-1] <= _MAX_HEAD_DIM
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -110,13 +116,23 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 q/k/v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[2] not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {_KERNEL_HEAD_DIMS}, got {q.shape[2]}")
+    if not 1 <= q.shape[2] <= _MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes head_dim 1 to {_MAX_HEAD_DIM}, got {q.shape[2]}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel takes contiguous q, k, v")
     _check_aligned(q=q, k=k, v=v)
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
+
+
+def _padded_dim(d: int) -> int:
+    """The head_dim the kernels run ``d`` at: the next multiple of 8."""
+    return -(-d // 8) * 8
+
+
+def _pad(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x with zero columns appended to ``width`` (a fresh contiguous tensor)."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
 @functools.cache  # build and bind once; a failed build is not cached and raises again
@@ -134,22 +150,31 @@ def flash_block_fwd(
 
     q: [BH, Tq, d]; k, v: [BH, Tk, d].  ``causal`` masks assuming q and k
     share a global offset.  On CUDA tensors this launches the kernel (and
-    adds one to ``flash_block_fwd.launches``); on CPU tensors it is the
-    plain version.
+    adds one to ``flash_block_fwd.launches``, and to ``.padded`` where
+    head_dim is not a multiple of 8); on CPU tensors it is the plain version.
     """
     if q.device.type == "cpu":
         return flash_block_fwd_reference(q, k, v, causal=causal, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
+    return _kernel_fwd(q, k, v, causal, sm_scale)
+
+
+def _kernel_fwd(q, k, v, causal, sm_scale):
+    """The CUDA branch of :func:`flash_block_fwd`: check, pad head_dim to a
+    multiple of 8 where it is not one, launch, count, slice."""
     check_kernel_inputs(q, k, v)
     BH, Tq, d = q.shape
-    o = torch.empty((BH, Tq, d), dtype=torch.float32, device=q.device)
+    w = _padded_dim(d)
+    o = torch.empty((BH, Tq, w), dtype=torch.float32, device=q.device)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=q.device)
-    if BH == 0 or Tq == 0:
-        return o, lse
-    _launch_fwd(q, k, v, o, lse, causal, sm_scale)
-    flash_block_fwd.launches += 1
-    return o, lse
+    if BH and Tq:
+        if w != d:
+            q, k, v = (_pad(x, w) for x in (q, k, v))
+            flash_block_fwd.padded += 1
+        _launch_fwd(q, k, v, o, lse, causal, sm_scale)
+        flash_block_fwd.launches += 1
+    return (o if w == d else o[..., :d].contiguous()), lse
 
 
 def _launch_fwd(q, k, v, o, lse, causal, sm_scale) -> None:
@@ -166,6 +191,7 @@ def _launch_fwd(q, k, v, o, lse, causal, sm_scale) -> None:
 
 
 flash_block_fwd.launches = 0
+flash_block_fwd.padded = 0
 
 
 def flash_block_bwd_reference(
@@ -253,18 +279,28 @@ def flash_block_dq(
     lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
 ) -> torch.Tensor:
     """dq of one attention block, float32 [BH, Tq, d]: the dq kernel on CUDA
-    tensors (adding one to ``flash_block_dq.launches``), the plain version
-    on CPU tensors."""
+    tensors (adding one to ``flash_block_dq.launches``, and to ``.padded``
+    where head_dim is not a multiple of 8), the plain version on CPU
+    tensors."""
     if not _on_cuda(q):
         return flash_block_bwd_reference(q, k, v, do, lse, delta, causal=causal,
                                          sm_scale=sm_scale)[0]
+    return _kernel_dq(q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def _kernel_dq(q, k, v, do, lse, delta, causal, sm_scale):
+    """The CUDA branch of :func:`flash_block_dq`, as :func:`_kernel_fwd`."""
     check_bwd_inputs(q, k, v, do, lse, delta)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    d, w = q.shape[2], _padded_dim(q.shape[2])
+    dq = torch.empty((*q.shape[:2], w), dtype=torch.float32, device=q.device)
     if q.shape[0] and q.shape[1]:  # the kernel runs whenever dq is not empty
+        if w != d:
+            q, k, v, do = (_pad(x, w) for x in (q, k, v, do))
+            flash_block_dq.padded += 1
         _launch_bwd(_bwd_kernel_fns()[0], "flash_bwd dq", q, k, v, do, lse, delta, (dq,),
                     causal, sm_scale)
         flash_block_dq.launches += 1
-    return dq
+    return dq if w == d else dq[..., :d].contiguous()
 
 
 def flash_block_dkv(
@@ -272,29 +308,50 @@ def flash_block_dkv(
     lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of one attention block, float32 [BH, Tk, d]: the dk/dv kernel
-    on CUDA tensors (adding one to ``flash_block_dkv.launches``), the plain
-    version on CPU tensors."""
+    on CUDA tensors (adding one to ``flash_block_dkv.launches``, and to
+    ``.padded`` where head_dim is not a multiple of 8), the plain version on
+    CPU tensors."""
     if not _on_cuda(q):
         return flash_block_bwd_reference(q, k, v, do, lse, delta, causal=causal,
                                          sm_scale=sm_scale)[1:]
+    return _kernel_dkv(q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def _kernel_dkv(q, k, v, do, lse, delta, causal, sm_scale):
+    """The CUDA branch of :func:`flash_block_dkv`, as :func:`_kernel_fwd`."""
     check_bwd_inputs(q, k, v, do, lse, delta)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    d, w = k.shape[2], _padded_dim(k.shape[2])
+    dk = torch.empty((*k.shape[:2], w), dtype=torch.float32, device=q.device)
+    dv = torch.empty((*k.shape[:2], w), dtype=torch.float32, device=q.device)
     if k.shape[0] and k.shape[1]:  # the kernel runs whenever dk, dv are not empty
+        if w != d:
+            q, k, v, do = (_pad(x, w) for x in (q, k, v, do))
+            flash_block_dkv.padded += 1
         _launch_bwd(_bwd_kernel_fns()[1], "flash_bwd dk/dv", q, k, v, do, lse, delta,
                     (dk, dv), causal, sm_scale)
         flash_block_dkv.launches += 1
+    if w != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 
 flash_block_dq.launches = 0
 flash_block_dkv.launches = 0
+flash_block_dq.padded = 0
+flash_block_dkv.padded = 0
 
 
 def launch_counts() -> dict:
     """This process's launches of each flash kernel so far, by kernel name."""
     return {"flash_fwd": flash_block_fwd.launches, "flash_bwd_dq": flash_block_dq.launches,
             "flash_bwd_dkv": flash_block_dkv.launches}
+
+
+def padded_counts() -> dict:
+    """Of :func:`launch_counts`, the launches whose head_dim was padded to a
+    multiple of 8, by kernel name."""
+    return {"flash_fwd": flash_block_fwd.padded, "flash_bwd_dq": flash_block_dq.padded,
+            "flash_bwd_dkv": flash_block_dkv.padded}
 
 
 def flash_block_bwd(

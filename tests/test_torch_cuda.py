@@ -42,6 +42,12 @@ def cuda():
     return torch.device("cuda")
 
 
+# Head dims past {64, 128}: each other tile width, one padded to 16 (12),
+# and the widths of Phi-2 (80), Phi-3-mini (96) and Gemma (256).
+WIDE_DIMS = (8, 12, 32, 80, 96, 160, 256)
+TYPES = (torch.bfloat16, torch.float32)
+
+
 @pytest.mark.parametrize(
     "BH, Tq, Tk, d, dtype, causal",
     [
@@ -57,6 +63,12 @@ def cuda():
         *((8, T, T, 64, torch.bfloat16, True) for T in (1, 63, 65, 127, 129)),  # tile edges
         (8, 200, 300, 128, torch.bfloat16, True),  # causal, Tq < Tk
         (8, 300, 200, 128, torch.bfloat16, True),  # causal, Tq > Tk
+        # every tile width (32, 64, 96, 128, 256), a head_dim padded to 16,
+        # ragged ends, one row past a tile edge, Tq != Tk, both types
+        *((8, 129, 129, d, dt, True) for d in WIDE_DIMS for dt in TYPES),
+        *((8, 300, 200, d, dt, False) for d in WIDE_DIMS for dt in TYPES),
+        (16, 1000, 1000, 256, torch.bfloat16, True),
+        (4, 70, 0, 256, torch.bfloat16, True),  # empty key block
     ],
 )
 def test_flash_fwd_kernel_matches_plain(cuda, BH, Tq, Tk, d, dtype, causal):
@@ -101,7 +113,7 @@ def test_flash_kernels_refuse_unaligned_pointers(cuda, dtype):
 
 
 def test_flash_fwd_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(2, 8, 32, device=cuda)
+    q = torch.zeros(2, 8, 257, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash.flash_block_fwd(q, q, q, causal=True, sm_scale=1.0)
     # Under autograd, grads now flow through the kernels (forward, dq, dk/dv).
@@ -158,6 +170,13 @@ def _bwd_inputs(device, BH, Tq, Tk, d, dtype, causal, seed):
         # would certainly round to another bf16 value than in the plain version.
         (64, 1024, 1024, 128, torch.bfloat16, True),
         (64, 1024, 1024, 64, torch.bfloat16, False),
+        # every tile width, a head_dim padded to 16, ragged ends, one row
+        # past a tile edge, Tq != Tk, both types; the screen at d 96 and 256
+        *((8, 129, 129, d, dt, True) for d in WIDE_DIMS for dt in TYPES),
+        *((8, 300, 200, d, dt, False) for d in WIDE_DIMS for dt in TYPES),
+        (64, 1024, 1024, 96, torch.bfloat16, True),
+        (32, 1024, 1024, 256, torch.bfloat16, True),
+        (4, 70, 0, 256, torch.bfloat16, False),  # empty key block
     ],
 )
 def test_flash_bwd_kernels_match_plain(cuda, BH, Tq, Tk, d, dtype, causal):
@@ -198,6 +217,8 @@ def test_flash_bwd_kernels_zero_rows_with_lse_minus_inf(cuda, dtype):
         (8, 300, 200, 64, True),
         (8, 300, 200, 128, False),
         (4, 70, 0, 64, False),
+        *((8, 129, 129, d, True) for d in (8, 32, 80, 96, 160, 256)),
+        (8, 300, 200, 256, False),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -220,10 +241,10 @@ def test_flash_kernels_write_every_output_element(cuda, BH, Tq, Tk, d, causal, d
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_kernels_are_deterministic(cuda, dtype):
+def test_flash_kernels_are_deterministic(cuda, dtype, d=64):
     """No atomics: two runs on the same inputs give bitwise the same o, lse,
     dq, dk and dv."""
-    q, k, v, do, lse, delta = _bwd_inputs(cuda, 16, 300, 300, 64, dtype, True, 7)
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 16, 300, 300, d, dtype, True, 7)
     runs = []
     for _ in range(2):
         o, l = flash.flash_block_fwd(q, k, v, causal=True, sm_scale=0.125)
@@ -232,6 +253,14 @@ def test_flash_kernels_are_deterministic(cuda, dtype):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_are_deterministic_at_wide_head_dims(cuda, dtype, d):
+    """The same at tile widths 96 and 256 (where the dk/dv pass splits its
+    output columns over two blocks)."""
+    test_flash_kernels_are_deterministic(cuda, dtype, d)
 
 
 def test_paged_engine_matches_static_generate(cuda):
@@ -257,7 +286,8 @@ def test_paged_engine_matches_static_generate(cuda):
         stats = engine.stats()
     finally:
         engine.stop()
-    assert outs == [decode.generate(params, torch.tensor([p], device=cuda), cfg,
+    dense = cfg.scaled(attention_impl="dense")  # "auto" would take the kernel for the prefill
+    assert outs == [decode.generate(params, torch.tensor([p], device=cuda), dense,
                                     max_new_tokens=n, device=cuda)[0].tolist() for p, n in traffic]
     assert stats["cow_copies"] >= 1 and stats["prefix_cache_hits"] >= 4
     assert stats["spec_steps"] > 0 and stats["spec_proposed_total"] > 0
@@ -284,11 +314,12 @@ def test_flash_attention_op_matches_plain_on_the_cpu(cuda, B):
 
 def test_auto_attention_at_head_dim_8_gives_the_jax_logits(cuda):
     """``attention_impl="auto"`` at head_dim 8, the reference tests' width:
-    the kernels take head_dim 64 and 128 only, so ``forward`` and greedy
-    ``generate`` take dense attention on the card and give the JAX
-    package's logits (atol 1e-4, float32) and tokens, stored beside
-    ``tests/torch_head_dim8.py``; no kernel launches.  ``"flash"`` still
-    raises there."""
+    the kernels take every head_dim from 1 to 256, so ``forward`` and the
+    prefill of greedy ``generate`` run the forward kernel (float32, the FMA
+    kernel at tile width 32), once a layer each, and give the JAX package's
+    logits (atol 1e-4, float32) and tokens, stored beside
+    ``tests/torch_head_dim8.py``.  ``"flash"`` runs the same kernel, and
+    ``"dense"`` none, to the same logits."""
     from polyaxon_tpu_torch.models.transformer import forward
     from polyaxon_tpu_torch.models.weights import params_from_jax
     from tests import torch_head_dim8 as hd8
@@ -301,12 +332,18 @@ def test_auto_attention_at_head_dim_8_gives_the_jax_logits(cuda):
     before = flash.flash_block_fwd.launches
     with torch.inference_mode():
         logits = forward(params, prompt, cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert flash.flash_block_fwd.launches == before + cfg.n_layers
     tokens = decode.generate(params, prompt, cfg, max_new_tokens=hd8.NEW_TOKENS, device=cuda)
-    assert flash.flash_block_fwd.launches == before
+    assert flash.flash_block_fwd.launches == before + 2 * cfg.n_layers
     np.testing.assert_allclose(logits.cpu().numpy(), stored["logits"], atol=1e-4)
     np.testing.assert_array_equal(tokens.cpu().numpy(), stored["tokens"])
-    with pytest.raises(ValueError, match="head_dim"), torch.inference_mode():
-        forward(params, prompt, cfg.scaled(attention_impl="flash"), device=cuda)
+    for impl, launched in (("flash", cfg.n_layers), ("dense", 0)):
+        before = flash.flash_block_fwd.launches
+        with torch.inference_mode():
+            out = forward(params, prompt, cfg.scaled(attention_impl=impl), device=cuda)
+        assert flash.flash_block_fwd.launches == before + launched, impl
+        np.testing.assert_allclose(out.cpu().numpy(), stored["logits"], atol=1e-4, err_msg=impl)
 
 
 @pytest.mark.parametrize("Hkv, d", [(2, 64), (4, 128)])

@@ -1,8 +1,8 @@
 """Parity of the port's flash attention (polyaxon_tpu_torch.parallel.flash)
 with the JAX package's Pallas kernel, run in interpret mode on the CPU; and
 what ``attention_impl="auto"`` picks (the kernels only where they take the
-head_dim and dtype), with the JAX outputs at head_dim 8 that the card's
-test of that choice compares with.
+head_dim, 1 to 256, and dtype), with the JAX outputs at head_dim 8 that the
+card's test of that choice compares with.
 
 Inputs come from numpy with a fixed seed and go through both packages.
 Tolerances: o atol 2e-5 and lse atol 1e-5 in float32 — both sides compute
@@ -131,13 +131,15 @@ def test_entry_point_rejects_tensors_on_another_device():
 @pytest.mark.parametrize(
     "make, err",
     [
-        (lambda: [torch.zeros(2, 8, 16)] * 3, ValueError),  # head_dim 16
+        (lambda: [torch.zeros(2, 8, 257)] * 3, ValueError),  # head_dim 257
         (lambda: [torch.zeros(2, 8, 64, dtype=torch.float16)] * 3, TypeError),
         (lambda: [torch.zeros(2, 64, 8).transpose(1, 2)] * 3, ValueError),  # strided
         (lambda: [torch.zeros(2, 8, 64), torch.zeros(2, 8, 64), torch.zeros(2, 9, 64)], ValueError),
         (lambda: [torch.zeros(2, 8, 64), torch.zeros(2, 8, 64, dtype=torch.bfloat16),
                   torch.zeros(2, 8, 64)], TypeError),
         (lambda: [torch.zeros(2 * 8 * 64 + 1)[1:].view(2, 8, 64)] * 3, ValueError),  # unaligned
+        (lambda: [torch.zeros(2, 8, 512)] * 3, ValueError),  # head_dim 512
+        (lambda: [torch.zeros(2, 8, 0)] * 3, ValueError),  # head_dim 0
     ],
 )
 def test_kernel_input_checks(make, err):
@@ -160,11 +162,11 @@ def test_head_major_copies_are_contiguous(B):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 96, 128, 256, 1, 12, 80, 257, 512])
 def test_kernel_takes_what_check_kernel_inputs_takes(d, dtype):
     """``attention_impl="auto"``'s predicate says yes exactly where the
     kernels' input check accepts well-formed tensors of that head_dim and
-    dtype."""
+    dtype: float32 and bf16 at every head_dim from 1 to 256."""
     q = torch.zeros(2, 8, d, dtype=dtype)
     try:
         tflash.check_kernel_inputs(q, q.clone(), q.clone())
@@ -172,13 +174,16 @@ def test_kernel_takes_what_check_kernel_inputs_takes(d, dtype):
     except (TypeError, ValueError):
         accepted = False
     assert tflash.kernel_takes(q.shape, dtype) is accepted
+    assert accepted is (dtype in (torch.float32, torch.bfloat16) and d <= 256)
 
 
 @pytest.mark.parametrize("impl, d, dtype, want", [
     ("auto", 64, torch.bfloat16, True), ("auto", 128, torch.float32, True),
-    ("auto", 8, torch.float32, False), ("auto", 32, torch.bfloat16, False),
+    ("auto", 8, torch.float32, True), ("auto", 32, torch.bfloat16, True),
     ("auto", 64, torch.float16, False), ("flash", 8, torch.float32, True),
-    ("dense", 64, torch.bfloat16, False),
+    ("dense", 64, torch.bfloat16, False), ("auto", 96, torch.bfloat16, True),
+    ("auto", 256, torch.bfloat16, True), ("auto", 257, torch.bfloat16, False),
+    ("auto", 512, torch.float32, False), ("dense", 256, torch.bfloat16, False),
 ])
 def test_auto_takes_the_kernels_only_where_they_take_the_shape(impl, d, dtype, want):
     """On a CUDA tensor ``"auto"`` picks the kernels from head_dim and dtype

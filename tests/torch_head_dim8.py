@@ -1,8 +1,9 @@
 """A head_dim-8 model (the JAX package's own test width) with weights drawn
 from numpy, and the JAX package's logits and greedy tokens for it.
 
-``attention_impl="auto"`` on the card must take dense attention here: the
-flash kernels take head_dim 64 and 128 only.  The JAX outputs are stored in
+``attention_impl="auto"`` on the card runs the flash kernels here (they
+take every head_dim from 1 to 256), and must give the JAX package's logits
+and tokens all the same.  The JAX outputs are stored in
 ``torch_head_dim8_jax.npz`` beside this file, so that the card's test,
 which runs where JAX is not installed, can hold the port against them;
 ``tests/test_torch_flash.py`` recomputes them with JAX and checks the file.

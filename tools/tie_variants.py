@@ -43,8 +43,8 @@ SRC_PATH = "polyaxon_tpu_torch/csrc/flash_bwd.cu"
 # Each pass's call of the re-summing, and the (query, key) pairs of a warp
 # tile at d = 64: 16 keys x 64 queries (dk/dv), 32 queries x 32 keys (dq).
 PASSES = {
-    "dkv": ("if (__any_sync(0xffffffffu, near))\n      resum_near_ties<D, BQ / 2>", 16 * 64),
-    "dq": ("if (__any_sync(0xffffffffu, near))\n        resum_near_ties<D, MT * KC / 2>", 32 * 32),
+    "dkv": ("if (__any_sync(0xffffffffu, near))\n      resum_near_ties<W, BQ / 2>", 16 * 64),
+    "dq": ("if (__any_sync(0xffffffffu, near))\n        resum_near_ties<W, MT * KC / 2>", 32 * 32),
 }
 COUNT = ("{ const int nn = __reduce_add_sync(0xffffffffu, __popc(near));\n"
          "      if (lane == 0) { atomicAdd(&g_tie[0], 1ull);"
@@ -60,20 +60,20 @@ FLOOR9 = ("constexpr float kTieFloor = 0x1p-7f;", "constexpr float kTieFloor = 0
 ERR21 = ("constexpr float kSumErr = 0x1p-19f;", "constexpr float kSumErr = 0x1p-21f;")
 UNROLLED = [("#pragma unroll 1\n    for (int kc = 0; kc < BK; kc += KC) {",
              "#pragma unroll\n    for (int kc = 0; kc < BK; kc += KC) {")]
+# (at the tile widths up to 128, whose q fragments stay in registers: the
+# measured shape is d 64)
 DO_REGS = [
-    ("  uint32_t qf[MT][D / 16][4];  // the warp's q rows as A fragments",
-     "  uint32_t qf[MT][D / 16][4], dof[MT][D / 16][4];"),
-    ("""        for (int kk = 0; kk < D / 16; ++kk)
-          ldmatrix_x4(qf[mt][kk], a_frag(qs, kS, wrow + 16 * mt, kk * 16, lane));
-""", """        for (int kk = 0; kk < D / 16; ++kk) {
-          ldmatrix_x4(qf[mt][kk], a_frag(qs, kS, wrow + 16 * mt, kk * 16, lane));
-          ldmatrix_x4(dof[mt][kk], a_frag(dos, kS, wrow + 16 * mt, kk * 16, lane));
-        }
+    ("  uint32_t qf[MT][kDqQInRegs<W> ? W / 16 : 1][4];  // the warp's q rows as A fragments",
+     "  uint32_t qf[MT][kDqQInRegs<W> ? W / 16 : 1][4], dof[MT][W / 16][4];"),
+    ("""          for (int kk = 0; kk < W / 16; ++kk)
+            ldmatrix_x4(qf[mt][kk], a_frag(qs, kS, wrow + 16 * mt, kk * 16, lane));
+""", """          for (int kk = 0; kk < W / 16; ++kk) {
+            ldmatrix_x4(qf[mt][kk], a_frag(qs, kS, wrow + 16 * mt, kk * 16, lane));
+            ldmatrix_x4(dof[mt][kk], a_frag(dos, kS, wrow + 16 * mt, kk * 16, lane));
+          }
 """),
-    ("""        uint32_t dof[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          ldmatrix_x4(dof[mt], a_frag(dos, kS, wrow + 16 * mt, kk * 16, lane));
+    ("""        uint32_t dof[MT][4], qa[MT][4];""", """        uint32_t qa[MT][4];"""),
+    ("""          ldmatrix_x4(dof[mt], a_frag(dos, kS, wrow + 16 * mt, kk * 16, lane));
 """, ""),
     ("mma(dp[mt][2 * j], dof[mt], b[0], b[1]);", "mma(dp[mt][2 * j], dof[mt][kk], b[0], b[1]);"),
     ("mma(dp[mt][2 * j + 1], dof[mt], b[2], b[3]);",
