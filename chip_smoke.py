@@ -171,7 +171,9 @@ control plane's saturation harness.  Phases:
 24. bench.py's trace-overhead arm (16 prompts of 24 tokens, 16 new, 4
     slots, 16 interleaved runs a side on one engine, the garbage collector
     on and its collections counted), in a child process of its own:
-    overhead under 3%, waterfalls within 10% of client latency; then
+    overhead under 3% (the median over the turns of a traced run's wall
+    against its untraced neighbour's; the minima's printed beside it),
+    waterfalls within 10% of client latency; then
     ``lm_server`` with a ``traceparent``: the
     same trace id back, and ``/v1/trace/<id>`` with ``serving.generate``,
     ``serving.request`` and ``serving.queue_wait``;
@@ -320,24 +322,34 @@ control plane's saturation harness.  Phases:
     restored bit for bit equal to the ``full_state`` the ranks gathered
     there; ``maybe_save`` with nothing queued (the flag's all-reduce on the
     hosts, over gloo) timed on an idle card;
-47. mesh serving (phase 34's 2 rank processes run it after their cases):
-    the 671M width cut to 2 layers under ``tp {tensor: 2}``, float32 then
-    bf16, every rank its shards of the seeded weights
-    (``decode.decode_param_shardings``), the decode step and the engine
-    eager (gloo's collectives run on the host): ``sharded_generate_fn`` on 4
-    prompts of 128 tokens, 32 new, and ``ServingEngine(mesh=)`` on 8
-    requests (a 256-token prefix that two later ones hit, a repeating prompt
-    whose drafts the verify step scores), rank 0 leading and rank 1
-    following; against one rank's ``generate`` and eager engine here:
-    float32 tokens equal; bf16 tokens equal but where one rank's top-2
-    logits lie within 2^-3 at the first position that differs (reported);
-    the prefill's last logits within cosine 0.999; the flash forward
-    launched once a layer a rank a ``generate`` and never in the engine;
-    each rank about half of the weights' bytes; no step built after ready on
-    either rank; the engine's ``decode_step_s`` and TTFT p50, and the
-    descriptor broadcast's ms a step;
-48. the non-model services as gangs of the port's worker on the card's host
-    (LocalGangSpawner, accelerator ``h100``, the port from
+47. mesh serving (phase 34's 2 rank processes run it after their cases),
+    three cases at the 671M width: ``tp {tensor: 2}`` at 2 layers,
+    ``pp {pipeline: 2}`` at 4 layers (a stage-owned decode: each rank runs
+    its stage's two layers, the hidden state hops stage to stage, the last
+    stage's logits are broadcast) and ``fsdp {data: 2}`` at 2 layers (each
+    weight gathered at its use; over gloo each gather passes through the
+    host, so this case makes 4 tokens a ``generate`` and serves 3 requests
+    of 4 tokens: the first and the two on its prefix); each
+    float32 then bf16, every rank its
+    shards of the seeded weights (``decode.decode_param_shardings``), the
+    decode step and the engine eager where they call a collective (gloo's
+    run on the host): ``sharded_generate_fn`` on 4 prompts of 128 tokens,
+    32 new, and ``ServingEngine(mesh=)`` on 8 requests (a 256-token prefix
+    that two later ones hit, a repeating prompt whose drafts the verify step
+    scores), rank 0 leading and rank 1 following; against one rank's
+    ``generate`` and eager engine here: float32 tokens equal; bf16 tokens
+    equal but where one rank's top-2 logits lie within 2^-3 at the first
+    position that differs (reported); the decode prefill's last logits
+    within cosine 0.999; the flash forward launched once a layer a rank runs
+    a ``generate`` (2 a rank in each case) and never in the engine; a rank
+    half of the weights' bytes under ``tp`` and ``fsdp``, half of the
+    block's and half of one rank's KV pool under ``pp``; no step built after
+    ready on either rank; each case's wall, the engine's ``decode_step_s``
+    and TTFT p50, the descriptor broadcast's ms a step and, under ``fsdp``,
+    the weight bytes a rank gathers a decode step;
+48. (run while phases 34-47's rank processes run: it takes the host, not
+    the card) the non-model services as gangs of the port's worker on the
+    card's host (LocalGangSpawner, accelerator ``h100``, the port from
     ``allocate_service_port``): ``output_server`` over phase 28's run, one
     file of its outputs (the profiler trace) fetched byte for byte;
     ``kind: notebook`` with no run section (``jupyter`` with a stub
@@ -400,7 +412,8 @@ control plane's saturation harness.  Phases:
     on it (batch 4, prompt 512, 16 new tokens: the prefills' launches) and
     its prefill logits against dense attention as phase 6; then
     ``lm_train`` at Phi-3-mini's 32 heads x 96 on 2 layers of the trunk;
-    in a child process of the script, as phase 24.
+    in a child process of the script, as phase 24, started before phase 57
+    and running beside it (phase 57 takes the host, phase 58 the card).
 
 Any failed check raises, and the script exits non-zero; an atexit hook
 SIGKILLs any replica or gang worker left.  On success its last lines are the serving
@@ -427,6 +440,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import os
 import shutil
 import signal
@@ -3307,10 +3321,11 @@ def phase_warm_boot():
 
 def phase_tracing():
     """(g) bench.py's trace-overhead arm at the 671M width: interleaved
-    runs with request tracing off and on (16 a side in turns, the minimum
-    wall of each), 16 prompts of 24 tokens queued at once; the overhead must
-    stay under 3% and every traced request's waterfall within 10% of its
-    client latency.  Then one lm_server /generate with a traceparent header: the
+    runs with request tracing off and on (16 a side in turns), 16 prompts of
+    24 tokens queued at once; the overhead, the median over the 16 turns of
+    the traced run's wall against its untraced neighbour's, must stay under
+    3% (the minimum against the minimum is printed beside it), and every
+    traced request's waterfall within 10% of its client latency.  Then one lm_server /generate with a traceparent header: the
     answer carries that trace id, and /v1/trace/<id> returns
     serving.generate, serving.request and serving.queue_wait under it."""
     from polyaxon_tpu_torch.builtins.services import lm_server
@@ -3387,9 +3402,15 @@ def phase_tracing():
     finally:
         gc.callbacks.remove(on_collect)
         eng.stop()
+    # The gate's statistic: the median over the turns of each traced run's
+    # wall against its untraced neighbour's (the pattern pairs them: off on,
+    # on off, ...), so that one fast untraced run cannot fail it alone; the
+    # minimum against the minimum is printed beside it.
     off, on = min(walls[False]), min(walls[True])
+    turns = [100.0 * (t / f - 1) for f, t in zip(walls[False], walls[True])]
     out = {"walls_off_s": walls[False], "walls_on_s": walls[True],
-           "overhead_pct": max(0.0, (on - off) / off * 100),
+           "overhead_pct": statistics.median(turns), "overhead_pct_by_turn": turns,
+           "overhead_pct_of_the_minima": max(0.0, (on - off) / off * 100),
            "waterfall_err_pct": max(e for e, _ in errs),
            "waterfall_worst": max(errs, key=lambda e: e[0])[1],
            "gc_collections_off": gcs[False][0], "gc_collections_on": gcs[True][0],
@@ -4556,6 +4577,18 @@ VIT_RANK_LR = 1e-5
 MESH_AXES, MESH_LAYERS, MESH_SEQ = {"tensor": 2}, 2, 512
 MESH_BATCH, MESH_PROMPT, MESH_NEW, MESH_PREFIX, MESH_SLOTS = 4, 128, 32, 256, 8
 MESH_SEED, MESH_BF16_GAP, MESH_LOGITS_COS = 53, 2.0 ** -3, 0.999
+# Phase 47's cases, each a rank case of its own in the 2-rank launch:
+# (strategy, axes, layers, new tokens a generate and a request, the engine's
+# requests after the first).  pp at 4 layers, so that each stage runs two.
+# fsdp gathers every weight over gloo through the host at each device call
+# (537 MB a step in float32 at 2 layers, 1.26 s a step on an H100 80GB
+# HBM3 at 700 W, PERF.md): at phase 47's 32 tokens and 8 requests its case
+# took 244 s a rank, so it
+# serves the first request and the two that hit its prefix, 4 tokens each,
+# and its generate makes 4 tokens.
+MESH_CASES = {"mesh_serving": ("tp", MESH_AXES, MESH_LAYERS, MESH_NEW, 7),
+              "mesh_serving_pp": ("pp", {"pipeline": 2}, 4, MESH_NEW, 7),
+              "mesh_serving_fsdp": ("fsdp", {"data": 2}, MESH_LAYERS, 4, 2)}
 # Phase 41 counts the tokens dropped at these capacity factors from one
 # routing at the initial weights: at MOE_CAPACITY a random init drops none
 # (PR 15 call 2), so the smaller ones show which capacity and ranking apply.
@@ -4817,8 +4850,8 @@ def _sharded_rank_main(world, rank, port, out_dir, cases):
                 out[case] = _sharded_image_rank(case)
             elif case == "ckpt_now":
                 out[case] = _ckpt_now_rank(rank, out_dir)
-            elif case == "mesh_serving":
-                out[case] = _mesh_serving_rank()
+            elif case in MESH_CASES:
+                out[case] = _mesh_serving_rank(case)
             else:
                 out[case] = _sharded_lm_rank(case)
             out[case]["wall_s"] = time.perf_counter() - t
@@ -4871,27 +4904,58 @@ def _run_rank_processes(world, cases):
 
 
 #: The rank processes' cases, in the order each process runs them: phases
-#: 34-46 share one launch of 2 processes and one of 4, so that the later
-#: cases run in processes whose first step (library loads, the kernels'
-#: first launch) an earlier case has paid.
-RANK_CASES = {2: ("fsdp", "tp", "ulysses", "vit_fsdp", "pp", "pp_moe", "vit_tp", "vit_ulysses",
-                  "vit_pp", "cnn_tp", "sp_ring", "ckpt_now", "mesh_serving"),
-              4: ("tp_dp", "pp_tp", "ep", "vit_tp_dp", "vit_pp_tp", "vit_ep", "pp_tp_moe",
-                  "pp_dp_moe")}
+#: 34-47 share launches of 2 processes and of 4, so that the later cases
+#: run in processes whose first step (library loads, the kernels' first
+#: launch) an earlier case has paid.  A tuple of lanes, each a tuple of
+#: ``(world, cases)`` launches: the lanes run at the same time, a lane's
+#: launches one after the other (a ``{world: cases}`` dict is one lane a
+#: world).  Phase 46's checkpoint-now case follows the 4-rank launch: in one
+#: 2-rank launch with the others the 2-rank cases took 134.2 s against the
+#: 4-rank ones' 61.6, and two 2-rank launches at once beside the 4-rank one
+#: slowed all three (137.3, 130.3, 91.8 s: 8 processes on 8 cores; an H100
+#: 80GB HBM3 at 700 W, PERF.md).
+RANK_CASES = (
+    ((2, ("fsdp", "tp", "ulysses", "vit_fsdp", "pp", "pp_moe", "vit_tp", "vit_ulysses",
+          "vit_pp", "cnn_tp", "sp_ring", *MESH_CASES)),),
+    ((4, ("tp_dp", "pp_tp", "ep", "vit_tp_dp", "vit_pp_tp", "vit_ep", "pp_tp_moe",
+          "pp_dp_moe")),
+     (2, ("ckpt_now",))),
+)
+
+
+def _lanes(cases=None) -> tuple:
+    """RANK_CASES as a tuple of lanes (a ``{world: cases}`` dict: one lane a
+    world)."""
+    cases = RANK_CASES if cases is None else cases
+    if isinstance(cases, dict):
+        return tuple(((world, tuple(c)),) for world, c in cases.items())
+    return cases
 
 
 @functools.lru_cache(maxsize=None)
 def _rank_cases():
     """Every case of RANK_CASES run once: ``{world: (results by rank, launch
-    to exit s)}``.  The two launches run at the same time (6 processes on the
+    to exit s)}``, a world's launches merged rank by rank (its wall the
+    longest of them).  The lanes run at the same time (6 processes on the
     card): their processes wait on gloo's host copies and their own boots
     far more than on the card, and this process only waits for them."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(len(RANK_CASES)) as pool:
-        launched = {world: pool.submit(_run_rank_processes, world, list(cases))
-                    for world, cases in RANK_CASES.items()}
-    return {world: done.result() for world, done in launched.items()}
+    def lane(launches):
+        return [(world, _run_rank_processes(world, list(cases))) for world, cases in launches]
+
+    with ThreadPoolExecutor(len(_lanes())) as pool:
+        ran = [done.result() for done in [pool.submit(lane, launches) for launches in _lanes()]]
+    out = {}
+    for world, (ranks, wall) in (launch for lane_ran in ran for launch in lane_ran):
+        if world not in out:
+            out[world] = (ranks, wall)
+            continue
+        merged, longest = out[world]
+        for mine, its in zip(merged, ranks):
+            mine.update(its)
+        out[world] = (merged, max(longest, wall))
+    return out
 
 
 def phase_sharded_strategies():
@@ -4901,7 +4965,8 @@ def phase_sharded_strategies():
 
     (two, wall2), (four, wall4) = _rank_cases()[2], _rank_cases()[4]
     out = {"rank_processes_wall_s": {"2 ranks": wall2, "4 ranks": wall4,
-                                     "cases": {w: list(c) for w, c in RANK_CASES.items()}},
+                                     "lanes": [[[w, list(c)] for w, c in lane]
+                                               for lane in _lanes()]},
            "backend": "gloo across processes on one card", "card": _card()}
     launches = {}
     for name, ranks in (("fsdp", two), ("tp", two), ("ulysses", two), ("tp_dp", four)):
@@ -5609,10 +5674,10 @@ def _moe_mfu(tokens_per_s, cfg):
     return tokens_per_s * fpt / H100_PEAK_FLOPS[torch.bfloat16]
 
 
-def _mesh_cfg(dtype: str):
+def _mesh_cfg(dtype: str, layers: int = MESH_LAYERS):
     from polyaxon_tpu_torch.models.transformer import TransformerConfig
 
-    return TransformerConfig(max_seq=MESH_SEQ, **dict(BENCH_MODEL, n_layers=MESH_LAYERS),
+    return TransformerConfig(max_seq=MESH_SEQ, **dict(BENCH_MODEL, n_layers=layers),
                              dtype=getattr(torch, dtype))
 
 
@@ -5641,22 +5706,24 @@ def _mesh_engine(params, cfg, **kw):
                          device="cuda", **kw)
 
 
-def _mesh_engine_traffic(engine, vocab, echo):
-    """Start ``engine`` and serve phase 47's 8 requests: the first, then (once
-    its first token is out, its prefix cached) the other seven together.
-    Returns their tokens, its stats and latency summaries; stops it."""
+def _mesh_engine_traffic(engine, vocab, echo, new=MESH_NEW, others=7):
+    """Start ``engine`` and serve phase 47's requests of ``new`` tokens: the
+    first, then (once its first token is out, its prefix cached) the first
+    ``others`` of the other seven together.  Returns their tokens, its stats
+    and latency summaries; stops it."""
     _, first, rest = _mesh_prompts(vocab, echo)
+    rest = rest[:others]
     try:
         engine.start()
         if not engine.wait_ready(timeout=600):
             raise AssertionError("phase 47: the engine's warmup did not end")
-        head = engine.submit(first, MESH_NEW)
+        head = engine.submit(first, new)
         deadline = time.monotonic() + 300
         while head.first_token_at is None and not head.done.is_set():
             if time.monotonic() > deadline:
                 raise AssertionError("phase 47: the first request made no token")
             time.sleep(0.01)
-        reqs = [head] + [engine.submit(p, MESH_NEW) for p in rest]
+        reqs = [head] + [engine.submit(p, new) for p in rest]
         tokens = [r.wait(timeout=600) for r in reqs]
         ttfts = [r.first_token_at - r.submitted_at for r in reqs]
     finally:
@@ -5669,12 +5736,40 @@ def _mesh_engine_traffic(engine, vocab, echo):
                     "ttft_s_p50": statistics.median(ttfts)}
 
 
-def _mesh_serving_rank():
-    """This rank's phase 47 (a rank process of ``tp {tensor: 2}``), float32
-    then bf16: its shards of the seeded weights, ``sharded_generate_fn`` on
-    the static batch (once untimed, then timed with the kernels' counts set
-    to 0 just before and read just after), its prefill's last logits (rank
-    0), and the engine: rank 0 leads phase 47's traffic, rank 1 follows."""
+def _gathered_bytes_a_step(params, specs, shard):
+    """The weight bytes a rank receives to gather its weights once, as a
+    decode step does (``DecodeShard.use`` of each of its layers and of the
+    embedding, the final norm and the unembedding): of each dimension split
+    over an axis the step does not keep whole-split (the tensor axis, and a
+    layer's pipeline axis, are kept), the other ranks' shards, in the dtype
+    the step reads it."""
+    from polyaxon_tpu_torch.parallel.axes import spec_axes, tree_map
+
+    sizes = []
+
+    def count(leaf, spec, per_layer):
+        axes = [a for a in spec_axes(spec[1:] if per_layer else spec) if a not in shard.keep]
+        n = math.prod(shard.mesh.shape.get(a, 1) for a in axes)
+        sizes.append((n - 1) * leaf.numel() * leaf.element_size())
+
+    tree_map(lambda leaf, spec: count(leaf, spec, True), params["block"], specs["block"])
+    for name in ("embed", "final_norm", "unembed"):
+        count(params[name], specs[name], False)
+    return sum(sizes)
+
+
+#: The phase 47 cases a rank process has run a generate of (the first pays
+#: the libraries' loads in an untimed call).
+_MESH_WARM: list = []
+
+
+def _mesh_serving_rank(case="mesh_serving"):
+    """This rank's phase 47 case (a rank process of MESH_CASES[case]),
+    float32 then bf16: its shards of the seeded weights,
+    ``sharded_generate_fn`` on the static batch (once untimed, then timed
+    with the kernels' counts set to 0 just before and read just after), its
+    decode prefill's last logits (rank 0), and the engine: rank 0 leads
+    phase 47's traffic, rank 1 follows."""
     from polyaxon_tpu_torch.models import decode
     from polyaxon_tpu_torch.models.transformer import forward, init_params
     from polyaxon_tpu_torch.parallel.axes import tree_shard
@@ -5682,22 +5777,29 @@ def _mesh_serving_rank():
     from polyaxon_tpu_torch.runtime.mesh import mesh_from_world
     from polyaxon_tpu_torch.runtime.optim import tree_leaves
 
-    mesh = mesh_from_world(MESH_AXES)
-    template = template_for("tp", MESH_AXES)
+    strategy, axes, layers, new, others = MESH_CASES[case]
+    mesh = mesh_from_world(axes)
+    template = template_for(strategy, axes)
     rank = torch.distributed.get_rank()
     out = {}
     for dt in ("float32", "bfloat16"):
-        cfg = _mesh_cfg(dt)
+        t0 = time.perf_counter()
+        cfg = _mesh_cfg(dt, layers)
         full = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
         whole_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(full))
+        whole_block = sum(t.numel() * t.element_size() for t in full["block"].values())
         specs = decode.decode_param_shardings(cfg, mesh, template, params=full)
         params = tree_shard(full, specs, mesh)
         del full
         _free()
+        gathered = _gathered_bytes_a_step(decode.cast_weights(params, cfg), specs,
+                                          decode.DecodeShard(cfg, mesh, specs))
         batch, _, _ = _mesh_prompts(cfg.vocab_size)
-        fn, _ = decode.sharded_generate_fn(cfg, mesh, template, max_new_tokens=MESH_NEW,
+        fn, _ = decode.sharded_generate_fn(cfg, mesh, template, max_new_tokens=new,
                                            param_shardings=specs, device="cuda")
-        fn(params, batch, None, 0.0, None)  # the first call's library loads, untimed
+        if not _MESH_WARM:  # the process's first call's library loads, untimed
+            fn(params, batch, None, 0.0, None)
+            _MESH_WARM.append(case)
         torch.cuda.synchronize()
         _reset_counts()
         t = time.perf_counter()
@@ -5707,11 +5809,12 @@ def _mesh_serving_rank():
         gen_launches = _counts()
         with torch.inference_mode():
             logits = forward(params, batch, cfg, template=template, mesh=mesh, specs=specs,
-                             device="cuda")[:, -1].float().cpu()
+                             return_kv=True, device="cuda")[0][:, -1].float().cpu()
         engine = _mesh_engine(params, cfg, mesh=mesh, param_shardings=specs)
         _reset_counts()
         if engine.is_leader:
-            served, stats = _mesh_engine_traffic(engine, cfg.vocab_size, tokens[0].tolist())
+            served, stats = _mesh_engine_traffic(engine, cfg.vocab_size, tokens[0].tolist(),
+                                                 new, others)
         else:
             engine.follow()
             served, stats = None, {k: engine.stats()[k] for k in (
@@ -5721,8 +5824,12 @@ def _mesh_serving_rank():
                    "generate_launches": gen_launches, "engine_tokens": served,
                    "engine_launches": _counts(), "engine": stats,
                    "weight_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
-                   "whole_weight_bytes": whole_bytes,
-                   "prefill_logits": logits.tolist() if rank == 0 else None}
+                   "block_bytes": sum(t.numel() * t.element_size()
+                                      for t in params["block"].values()),
+                   "whole_weight_bytes": whole_bytes, "whole_block_bytes": whole_block,
+                   "gathered_bytes_a_step": gathered,
+                   "prefill_logits": logits.tolist() if rank == 0 else None,
+                   "wall_s": time.perf_counter() - t0}
         del params, engine
         _free()
     return out
@@ -5745,117 +5852,171 @@ def _first_divergence(params, cfg, prompts, one, mesh):
     return out
 
 
-def phase_mesh_serving():
-    """Phase 47 (see the module docstring): the rank processes' runs (with
-    phases 34-46's, ``_rank_cases``) against one rank's ``generate`` and
-    engine in this process.  Returns the flash forward's launches summed
-    over the ranks' generates and engines, and the figures."""
+@functools.lru_cache(maxsize=None)
+def _one_rank_mesh_reference(layers, dt, echo, new, others):
+    """One rank's ``generate`` (timed, with its kernel counts) and eager
+    engine on a phase 47 case's traffic, for its width, dtype, tokens and
+    requests (``echo``: the ranks' first continuation, which one request
+    repeats)."""
     from polyaxon_tpu_torch.models import decode
     from polyaxon_tpu_torch.models.transformer import forward, init_params
 
+    cfg = _mesh_cfg(dt, layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    batch, _, _ = _mesh_prompts(cfg.vocab_size, echo)
+    decode.generate(params, batch, cfg, max_new_tokens=new, device="cuda")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.perf_counter()
+    tokens = decode.generate(params, batch, cfg, max_new_tokens=new, device="cuda")
+    torch.cuda.synchronize()
+    gen_s, launches = time.perf_counter() - t, _counts()
+    with torch.inference_mode():
+        logits = forward(params, batch, cfg, device="cuda")[:, -1].float().cpu()
+    served, stats = _mesh_engine_traffic(_mesh_engine(params, cfg, _eager=True),
+                                         cfg.vocab_size, list(echo), new, others)
+    del params
+    _free()
+    return {"tokens": tokens.tolist(), "generate_s": gen_s, "launches": launches,
+            "logits": logits, "engine_tokens": served, "engine": stats}
+
+
+def phase_mesh_serving():
+    """Phase 47 (see the module docstring): each case's rank processes' runs
+    (with phases 34-46's, ``_rank_cases``) against one rank's ``generate``
+    and engine in this process.  Returns, by case, the flash forward's
+    launches summed over the ranks' generates and engines, and the
+    figures."""
+    from polyaxon_tpu_torch.models.transformer import init_params
+
     (two, wall) = _rank_cases()[2]
-    got = [r["mesh_serving"] for r in two]
-    out = {"axes": MESH_AXES, "layers": MESH_LAYERS, "backend": "gloo across 2 processes on one "
-           "card: the engine and the decode step eager (gloo's collectives run on the host)",
+    out = {"backend": "gloo across 2 processes on one card: the engine and the decode step "
+           "eager where they call a collective (gloo's run on the host)",
            "card": _card(), "bf16_gap_bound": MESH_BF16_GAP, "rank_cases_wall_s": wall}
-    fwd_launches = 0
-    for dt in ("float32", "bfloat16"):
-        cfg = _mesh_cfg(dt)
-        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
-        batch, first, rest = _mesh_prompts(cfg.vocab_size, got[0][dt]["generate_tokens"][0])
-        decode.generate(params, batch, cfg, max_new_tokens=MESH_NEW, device="cuda")
-        torch.cuda.synchronize()
-        _reset_counts()
-        t = time.perf_counter()
-        one_gen = decode.generate(params, batch, cfg, max_new_tokens=MESH_NEW, device="cuda")
-        torch.cuda.synchronize()
-        one_gen_s, one_launches = time.perf_counter() - t, _counts()
-        with torch.inference_mode():
-            one_logits = forward(params, batch, cfg, device="cuda")[:, -1].float().cpu()
-        echo = got[0][dt]["generate_tokens"][0]
-        one_served, one_stats = _mesh_engine_traffic(_mesh_engine(params, cfg, _eager=True),
-                                                     cfg.vocab_size, echo)
-        mesh_logits = torch.tensor(got[0][dt]["prefill_logits"])
-        cos = torch.nn.functional.cosine_similarity(mesh_logits, one_logits, dim=-1)
-        fig = {"generate_one_rank_s": one_gen_s, "generate_ranks_s": [g[dt]["generate_s"]
-                                                                      for g in got],
-               "flash_fwd_launches_a_rank_generate": [g[dt]["generate_launches"][0] for g in got],
-               "flash_fwd_launches_a_rank_engine": [g[dt]["engine_launches"][0] for g in got],
-               "one_rank_generate_launches": one_launches,
-               "weight_bytes_a_rank": [g[dt]["weight_bytes"] for g in got],
-               "one_rank_weight_bytes": got[0][dt]["whole_weight_bytes"],
-               "prefill_logits_cosine_min": float(cos.min()),
-               "prefill_logits_max_abs_diff": float((mesh_logits - one_logits).abs().max()),
-               "engine_leader": got[0][dt]["engine"], "engine_follower": got[1][dt]["engine"],
-               "engine_one_rank": one_stats}
-        prompts_gen = batch.tolist()
-        prompts_eng = [first] + rest
-        one_tok, eng_tok = one_gen.tolist(), got[0][dt]["engine_tokens"]
-        for g in got:
-            if g[dt]["generate_tokens"] != got[0][dt]["generate_tokens"]:
-                raise AssertionError(f"phase 47 {dt}: the ranks' generates differ")
-        mesh_gen = got[0][dt]["generate_tokens"]
-        if dt == "float32":
-            fig["generate_tokens_equal"] = mesh_gen == one_tok
-            fig["engine_tokens_equal"] = eng_tok == one_served
-            fig["spec_equal"] = all(fig["engine_leader"][k] == one_stats[k]
-                                    for k in ("spec_steps", "spec_accepted_total"))
-            if not (fig["generate_tokens_equal"] and fig["engine_tokens_equal"]
-                    and fig["spec_equal"]):
-                raise AssertionError(f"phase 47 float32: the sharded tokens differ from one "
-                                     f"rank's (generate {fig['generate_tokens_equal']}, engine "
-                                     f"{fig['engine_tokens_equal']}, speculation "
-                                     f"{fig['spec_equal']})")
-        else:
-            fig["generate_divergence"] = _first_divergence(params, cfg, prompts_gen, one_tok,
-                                                           mesh_gen)
-            fig["engine_divergence"] = _first_divergence(params, cfg, prompts_eng, one_served,
-                                                         eng_tok)
-            far = [d for d in fig["generate_divergence"] + fig["engine_divergence"]
-                   if not d[2] <= MESH_BF16_GAP]
-            if far:
-                raise AssertionError(f"phase 47 bf16: sharded tokens leave one rank's where its "
-                                     f"top-2 gap exceeds {MESH_BF16_GAP}: {far}")
-        if not fig["prefill_logits_cosine_min"] >= MESH_LOGITS_COS:
-            raise AssertionError(f"phase 47 {dt}: prefill logits cosine "
-                                 f"{fig['prefill_logits_cosine_min']} < {MESH_LOGITS_COS}")
-        if fig["flash_fwd_launches_a_rank_generate"] != [MESH_LAYERS] * 2:
-            raise AssertionError(f"phase 47 {dt}: flash forward launches a rank a generate "
-                                 f"{fig['flash_fwd_launches_a_rank_generate']}, want "
-                                 f"{MESH_LAYERS}")
-        if any(fig["flash_fwd_launches_a_rank_engine"]) or any(
-                c for g in got for c in g[dt]["engine_launches"]):
-            raise AssertionError(f"phase 47 {dt}: the engine launched a flash kernel")
-        ratios = [b / fig["one_rank_weight_bytes"] for b in fig["weight_bytes_a_rank"]]
-        fig["weight_bytes_ratio"] = ratios
-        if not all(0.49 <= r <= 0.51 for r in ratios):
-            raise AssertionError(f"phase 47 {dt}: a rank holds {ratios} of the weights, not half")
-        for role in ("engine_leader", "engine_follower"):
-            if fig[role]["steady_state_compiles"]:
-                raise AssertionError(f"phase 47 {dt}: {role} built a step after ready")
-        if fig["engine_leader"]["prefix_cache_hits"] < 2:
-            raise AssertionError(f"phase 47 {dt}: the traffic missed the prefix cache "
-                                 f"({fig['engine_leader']})")
-        fwd_launches += sum(fig["flash_fwd_launches_a_rank_generate"])
-        fwd_launches += sum(fig["flash_fwd_launches_a_rank_engine"])
-        lat = fig["engine_leader"]["latency"]
-        log(f"phase 47 {dt}: tp {MESH_AXES} over 2 rank processes (gloo, eager), the 671M width "
-            f"at {MESH_LAYERS} layers: generate {fig['generate_ranks_s']} s on the ranks, "
-            f"{one_gen_s:.3f} s on one rank; flash fwd a rank {fig['flash_fwd_launches_a_rank_generate']}"
-            f" (generate), {fig['flash_fwd_launches_a_rank_engine']} (engine); weights a rank "
-            f"{ratios}; prefill logits cosine {fig['prefill_logits_cosine_min']:.6f}, max |d| "
-            f"{fig['prefill_logits_max_abs_diff']:.3g}; engine decode_step_s p50 "
-            f"{lat.get('decode_step_s', {}).get('p50')}, ttft p50 "
-            f"{fig['engine_leader']['ttft_s_p50']:.4f} s, descriptor ms p50 "
-            f"{1e3 * lat.get('mesh_descriptor_s', {}).get('p50', float('nan')):.3f}; one rank's "
-            f"engine (eager) decode_step_s p50 "
-            f"{one_stats['latency'].get('decode_step_s', {}).get('p50')}"
-            + ("" if dt == "float32" else f"; divergences (seq, pos, one rank's top-2 gap): "
-               f"generate {fig['generate_divergence']}, engine {fig['engine_divergence']}"))
-        out[dt] = fig
-        del params
-        _free()
-    return (fwd_launches, 0, 0), out
+    launches = {}
+    for case, (strategy, axes, layers, new, others) in MESH_CASES.items():
+        got = [r[case] for r in two]
+        stages = axes.get("pipeline", 1)
+        pool_share = 1.0 if strategy == "fsdp" else 0.5
+        res = {"strategy": strategy, "axes": axes, "layers": layers, "new_tokens": new,
+               "requests": 1 + others,
+               "case_wall_s_a_rank": [g["wall_s"] for g in got]}
+        fwd_launches = 0
+        for dt in ("float32", "bfloat16"):
+            cfg = _mesh_cfg(dt, layers)
+            echo = tuple(got[0][dt]["generate_tokens"][0])
+            one = _one_rank_mesh_reference(layers, dt, echo, new, others)
+            batch, first, rest = _mesh_prompts(cfg.vocab_size, echo)
+            one_stats = one["engine"]
+            mesh_logits = torch.tensor(got[0][dt]["prefill_logits"])
+            cos = torch.nn.functional.cosine_similarity(mesh_logits, one["logits"], dim=-1)
+            fig = {"wall_s_a_rank": [g[dt]["wall_s"] for g in got],
+                   "generate_one_rank_s": one["generate_s"],
+                   "generate_ranks_s": [g[dt]["generate_s"] for g in got],
+                   "flash_fwd_launches_a_rank_generate": [g[dt]["generate_launches"][0]
+                                                          for g in got],
+                   "flash_fwd_launches_a_rank_engine": [g[dt]["engine_launches"][0] for g in got],
+                   "one_rank_generate_launches": one["launches"],
+                   "weight_bytes_a_rank": [g[dt]["weight_bytes"] for g in got],
+                   "one_rank_weight_bytes": got[0][dt]["whole_weight_bytes"],
+                   "block_bytes_a_rank": [g[dt]["block_bytes"] for g in got],
+                   "one_rank_block_bytes": got[0][dt]["whole_block_bytes"],
+                   "gathered_bytes_a_decode_step": [g[dt]["gathered_bytes_a_step"] for g in got],
+                   "prefill_logits_cosine_min": float(cos.min()),
+                   "prefill_logits_max_abs_diff": float((mesh_logits - one["logits"]).abs().max()),
+                   "engine_leader": got[0][dt]["engine"], "engine_follower": got[1][dt]["engine"],
+                   "engine_one_rank": one_stats}
+            prompts_gen = batch.tolist()
+            prompts_eng = [first] + rest[:others]
+            one_tok, eng_tok, one_served = one["tokens"], got[0][dt]["engine_tokens"], one[
+                "engine_tokens"]
+            for g in got:
+                if g[dt]["generate_tokens"] != got[0][dt]["generate_tokens"]:
+                    raise AssertionError(f"phase 47 {case} {dt}: the ranks' generates differ")
+            mesh_gen = got[0][dt]["generate_tokens"]
+            if dt == "float32":
+                fig["generate_tokens_equal"] = mesh_gen == one_tok
+                fig["engine_tokens_equal"] = eng_tok == one_served
+                fig["spec_equal"] = all(fig["engine_leader"][k] == one_stats[k]
+                                        for k in ("spec_steps", "spec_accepted_total"))
+                if not (fig["generate_tokens_equal"] and fig["engine_tokens_equal"]
+                        and fig["spec_equal"]):
+                    raise AssertionError(
+                        f"phase 47 {case} float32: the sharded tokens differ from one rank's "
+                        f"(generate {fig['generate_tokens_equal']}, engine "
+                        f"{fig['engine_tokens_equal']}, speculation {fig['spec_equal']})")
+            else:
+                params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+                fig["generate_divergence"] = _first_divergence(params, cfg, prompts_gen,
+                                                               one_tok, mesh_gen)
+                fig["engine_divergence"] = _first_divergence(params, cfg, prompts_eng,
+                                                             one_served, eng_tok)
+                del params
+                _free()
+                far = [d for d in fig["generate_divergence"] + fig["engine_divergence"]
+                       if not d[2] <= MESH_BF16_GAP]
+                if far:
+                    raise AssertionError(f"phase 47 {case} bf16: sharded tokens leave one rank's "
+                                         f"where its top-2 gap exceeds {MESH_BF16_GAP}: {far}")
+            if not fig["prefill_logits_cosine_min"] >= MESH_LOGITS_COS:
+                raise AssertionError(f"phase 47 {case} {dt}: prefill logits cosine "
+                                     f"{fig['prefill_logits_cosine_min']} < {MESH_LOGITS_COS}")
+            if fig["flash_fwd_launches_a_rank_generate"] != [layers // stages] * 2:
+                raise AssertionError(f"phase 47 {case} {dt}: flash forward launches a rank a "
+                                     f"generate {fig['flash_fwd_launches_a_rank_generate']}, "
+                                     f"want {layers // stages}")
+            if any(fig["flash_fwd_launches_a_rank_engine"]) or any(
+                    c for g in got for c in g[dt]["engine_launches"]):
+                raise AssertionError(f"phase 47 {case} {dt}: the engine launched a flash kernel")
+            ratios = [b / fig["one_rank_weight_bytes"] for b in fig["weight_bytes_a_rank"]]
+            block = [b / fig["one_rank_block_bytes"] for b in fig["block_bytes_a_rank"]]
+            pools = [fig[role]["kv_pool_rank_bytes"] / one_stats["kv_pool_rank_bytes"]
+                     for role in ("engine_leader", "engine_follower")]
+            fig.update(weight_bytes_ratio=ratios, block_bytes_ratio=block,
+                       kv_pool_rank_bytes_ratio=pools)
+            if strategy == "pp":  # its stage's layers; the embedding and unembedding whole
+                if block != [0.5, 0.5]:
+                    raise AssertionError(f"phase 47 {case} {dt}: a stage holds {block} of the "
+                                         "block's weights, not half")
+            elif not all(0.49 <= r <= 0.51 for r in ratios):
+                raise AssertionError(f"phase 47 {case} {dt}: a rank holds {ratios} of the "
+                                     "weights, not half")
+            if pools != [pool_share] * 2:
+                raise AssertionError(f"phase 47 {case} {dt}: a rank's KV pool is {pools} of one "
+                                     f"rank's, not {pool_share}")
+            for role in ("engine_leader", "engine_follower"):
+                if fig[role]["steady_state_compiles"]:
+                    raise AssertionError(f"phase 47 {case} {dt}: {role} built a step after ready")
+            if fig["engine_leader"]["prefix_cache_hits"] < 2:
+                raise AssertionError(f"phase 47 {case} {dt}: the traffic missed the prefix "
+                                     f"cache ({fig['engine_leader']})")
+            fwd_launches += sum(fig["flash_fwd_launches_a_rank_generate"])
+            fwd_launches += sum(fig["flash_fwd_launches_a_rank_engine"])
+            lat = fig["engine_leader"]["latency"]
+            log(f"phase 47 {case} {dt}: {strategy} {axes} over 2 rank processes (gloo), the "
+                f"671M width at {layers} layers, {new} tokens, {1 + others} requests, "
+                f"{fig['wall_s_a_rank']} s a rank: generate "
+                f"{fig['generate_ranks_s']} s on the ranks, {one['generate_s']:.3f} s on one "
+                f"rank; flash fwd a rank {fig['flash_fwd_launches_a_rank_generate']} "
+                f"(generate), {fig['flash_fwd_launches_a_rank_engine']} (engine); weights a "
+                f"rank {ratios}, the block's {block}, KV pool {pools}; gathered a decode step "
+                f"{fig['gathered_bytes_a_decode_step']} B; prefill logits cosine "
+                f"{fig['prefill_logits_cosine_min']:.6f}, max |d| "
+                f"{fig['prefill_logits_max_abs_diff']:.3g}; engine decode_step_s p50 "
+                f"{lat.get('decode_step_s', {}).get('p50')}, ttft p50 "
+                f"{fig['engine_leader']['ttft_s_p50']:.4f} s, descriptor ms p50 "
+                f"{1e3 * lat.get('mesh_descriptor_s', {}).get('p50', float('nan')):.3f}; one "
+                f"rank's engine (eager) decode_step_s p50 "
+                f"{one_stats['latency'].get('decode_step_s', {}).get('p50')}"
+                + ("" if dt == "float32" else f"; divergences (seq, pos, one rank's top-2 "
+                   f"gap): generate {fig['generate_divergence']}, engine "
+                   f"{fig['engine_divergence']}"))
+            res[dt] = fig
+        out[case] = res
+        launches[case] = (fwd_launches, 0, 0)
+    _one_rank_mesh_reference.cache_clear()
+    _free()
+    return launches, out
 
 
 # -- the services, the ssh transport, the state and the bus (phases 48-50) ---------
@@ -7347,20 +7508,41 @@ def phase_head_widths():
     return launches, out
 
 
-def _head_widths_in_a_process_of_its_own():
-    """Phase 58 in a child process of this script: late in this process a
-    profiled lm_train step's trace once held 7 of its 8 forward kernels
-    while the wrapper counted 8 (a record the profiler lost: the run's loss
-    was bit for bit that of a run whose trace held all 8); in a process of
-    its own every profiled step named every launch."""
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), HEAD_WIDTHS_ONLY],
-                          capture_output=True, text=True, timeout=900)
-    log(proc.stdout.rstrip())
+def _start_head_widths():
+    """Phase 58 in a child process of this script, started: late in this
+    process a profiled lm_train step's trace once held 7 of its 8 forward
+    kernels while the wrapper counted 8 (a record the profiler lost: the
+    run's loss was bit for bit that of a run whose trace held all 8); in a
+    process of its own every profiled step named every launch.  It runs
+    while this process runs phase 57, which takes the host and not the
+    card (its output goes to files: a full pipe would stall it)."""
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_widths_child_"))
+    files = (open(out / "stdout", "w+"), open(out / "stderr", "w+"))
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), HEAD_WIDTHS_ONLY],
+                            stdout=files[0], stderr=files[1], text=True)
+    return proc, files, out
+
+
+def _head_widths_in_a_process_of_its_own(started):
+    """Phase 58's child (``_start_head_widths``) waited for: its launches by
+    path and its figures."""
+    proc, files, out = started
+    try:
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stdout, stderr = ((f.seek(0), f.read())[1] for f in files)
+    for f in files:
+        f.close()
+    shutil.rmtree(out, ignore_errors=True)
+    log(stdout.rstrip())
     if proc.returncode:
         raise AssertionError(f"the head widths phase failed (rc {proc.returncode}):\n"
-                             f"{proc.stderr[-4000:]}")
-    launches, out = json.loads(proc.stdout.strip().splitlines()[-1])
-    return {path: tuple(counts) for path, counts in launches.items()}, out
+                             f"{stderr[-4000:]}")
+    launches, figures = json.loads(stdout.strip().splitlines()[-1])
+    return {path: tuple(counts) for path, counts in launches.items()}, figures
 
 
 def _tracing_in_a_process_of_its_own():
@@ -7485,6 +7667,16 @@ def main() -> int:
     mark("32 vit_train")
     moe_launches, images["lm_train_moe"] = phase_moe_train()
     mark("33 MoE")
+    # The rank processes of phases 34-47 start, and phase 48 (services on
+    # the host, no card) runs while they do; this process would only wait.
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(_rank_cases)
+        control = {"services": phase_services()}
+        mark("48 services (beside the rank processes)")
+        ranks.result()
+    mark("34-47 the rank processes (the rest of their run)")
     sharded_launches, sharded = phase_sharded_strategies()
     mark("34-37 sharded strategies")
     pipeline_launches, pipeline = phase_pipeline_and_experts()
@@ -7493,8 +7685,6 @@ def main() -> int:
     mark("42-46 rest of the parallel layer")
     mesh_launches, mesh_serving = phase_mesh_serving()
     mark("47 mesh serving")
-    control = {"services": phase_services()}
-    mark("48 services")
     ssh_launches, control["ssh_gang"], ssh_run = phase_ssh_gang()
     mark("49 ssh gang")
     control["state_and_bus"] = phase_state_and_bus(ssh_run)
@@ -7512,17 +7702,22 @@ def main() -> int:
     mark("55 pipeline")
     surface_launches, surfaces = phase_surfaces()
     mark("56 the surfaces")
-    analysis_and_cploadgen = phase_analysis_and_cploadgen()
+    widths_child = _start_head_widths()  # phase 58 runs beside phase 57
+    try:
+        analysis_and_cploadgen = phase_analysis_and_cploadgen()
+    except BaseException:
+        widths_child[0].kill()  # the script stops every process it starts
+        raise
     mark("57 analysis and cploadgen")
-    width_launches, head_widths = _head_widths_in_a_process_of_its_own()
-    mark("58 head widths")
+    width_launches, head_widths = _head_widths_in_a_process_of_its_own(widths_child)
+    mark("58 head widths (the rest of its child's run)")
     fwd["train_shape"] = bwd["fwd"]
     by_path = {"lm_generate": gen_launches, "lm_train": train_launches,
                "lm_server": server_launches, "lm_train_t8192": long_launches,
                "lm_train_sp_ring_t16384": ring_launches, "lm_train_resumed": ckpt_launches,
                "lm_train_gang": gang_launches, "train_step_2_ranks": ranks_launches,
                "lm_train_moe": moe_launches, **sharded_launches, **pipeline_launches,
-               **rest_launches, "mesh_serving": mesh_launches,
+               **rest_launches, **mesh_launches,
                "lm_train_ssh_gang": ssh_launches, "lm_train_orchestrator": orch_launches,
                "lm_train_remediated": remedy_launches, "lm_train_sweep": sweep_launches,
                "lm_train_pipeline": pipe_launches["train"],

@@ -21,14 +21,10 @@ from polyaxon_tpu_torch._device import resolve_device
 from polyaxon_tpu_torch.builtins.services import _service_port
 from polyaxon_tpu_torch.builtins.trainers import _int_params, restore_target
 from polyaxon_tpu_torch.models import decode
-from polyaxon_tpu_torch.models.transformer import (
-    SERVING_STRATEGIES,
-    TransformerConfig,
-    init_params,
-)
+from polyaxon_tpu_torch.models.transformer import TransformerConfig, init_params
 from polyaxon_tpu_torch.parallel import flash
 from polyaxon_tpu_torch.parallel.axes import tree_shard
-from polyaxon_tpu_torch.parallel.templates import template_for
+from polyaxon_tpu_torch.parallel.templates import check_mesh, template_for
 from polyaxon_tpu_torch.serving import EngineDrainingError, ServingEngine
 from polyaxon_tpu_torch.stats import get_stats
 from polyaxon_tpu_torch.stats.metrics import (
@@ -249,8 +245,12 @@ def lm_server(ctx: Context) -> None:
     whole on each rank's card, then cut to the rank's shard, so a checkpoint
     written under a training mesh reshards) and the int8 tree are cut by
     ``decode.decode_param_shardings`` / ``quantized_weight_shardings`` under
-    the gang's strategy (``ddp``, ``tp`` or ``tp_dp``); the mesh's rank 0
-    serves HTTP, ``/healthz`` and ``drain``, the other ranks follow its calls
+    the gang's strategy: any template whose rules the port splits
+    (``fsdp`` and ``ep`` gather each weight at its use; ``tp``, ``tp_dp``
+    and ``pp_tp`` split the heads; ``pp`` and ``pp_tp`` give each rank its
+    stage's layers and their KV pool; ``ddp``, ``sp_ring`` and ``ulysses``
+    keep the weights whole on every rank).  The mesh's rank 0 (the first
+    stage under a pipeline) serves HTTP, ``/healthz`` and ``drain``, the other ranks follow its calls
     and succeed when it stops.  A gang over more than one host serves, as the
     reference does, an independent unsharded replica from each host's first
     rank; the host's other ranks wait for stop.
@@ -291,10 +291,7 @@ def _serve(ctx: Context, mesh) -> None:
     sharding = {}
     if mesh is not None:
         template = template_for(ctx.strategy, dict(mesh.shape), ctx.strategy_options)
-        if template.name not in SERVING_STRATEGIES:
-            raise NotImplementedError(
-                f"lm_server across ranks takes one of {', '.join(SERVING_STRATEGIES)}, not "
-                f"{template.name!r} (ROADMAP item 7: multi-process and parallelism)")
+        check_mesh(template, mesh)
         specs = decode.decode_param_shardings(cfg, mesh, template, params=params)
         qspecs = (decode.quantized_weight_shardings(cfg, mesh, template, qweights)
                   if qweights is not None else None)

@@ -22,16 +22,23 @@ hides every read of it.  The paged steps use plain PyTorch attention, as the
 reference uses XLA's: no kernel of the port runs on this path.
 
 Sharded decode (the reference's ``decode_param_shardings``,
-``quantized_weight_shardings`` and ``sharded_generate_fn``): every rank of
-a mesh holds its shard of the weights under a template's rules, fitted to
-the leaves' shapes (an axis that does not divide a dimension leaves it
-whole), and a :class:`DecodeShard` runs every step above on the rank's
-query heads, kv heads and MLP columns, summing over the tensor axis after
-``wo`` and ``wd`` and gathering the vocabulary's logits; weights split
-over another axis (``embed`` over ``data`` under ``tp_dp``) are gathered
-at their use.  The cache and the pool hold the rank's kv heads, all of
-them where they stay whole.  Every rank of the mesh runs every step
-together: the sums and gathers are collectives.
+``quantized_weight_shardings`` and ``sharded_generate_fn``), under every
+template whose rules the port splits: every rank of a mesh holds its shard
+of the weights under the template's rules, fitted to the leaves' shapes (an
+axis that does not divide a dimension leaves it whole), and a
+:class:`DecodeShard` runs every step above on it.  Over a tensor axis
+(``tp``, ``tp_dp``, ``pp_tp``) the rank's query heads, kv heads and MLP
+columns, summing over the axis after ``wo`` and ``wd`` and gathering the
+vocabulary's logits; weights split over another axis (``embed`` over
+``data`` under ``fsdp``, ``ep`` and ``tp_dp``) are gathered at their use;
+over a pipeline axis (``pp``, ``pp_tp``) a rank owns its stage's layers and
+their cache or pool rows, the stages run in turn on the hidden state that
+hops from one to the next, and the last stage's logits are broadcast to
+every rank; ``ddp``, ``sp_ring`` and ``ulysses`` split no weight and decode
+as one card does, on the whole prompt.  The cache and the pool hold the
+rank's kv heads, all of them where they stay whole, of its layers.  Every
+rank of the mesh runs every step together: the sums, gathers, hops and
+broadcasts are collectives.
 
 Where JAX returns a new cache or pool, the port writes it in place
 (``copy_``, ``index_copy_``, ``index_put_``) and returns the same dict, so
@@ -56,7 +63,6 @@ import torch
 
 from polyaxon_tpu_torch._device import DeviceLike, resolve_device
 from polyaxon_tpu_torch.models.transformer import (
-    SERVING_STRATEGIES,
     TensorSplit,
     TransformerConfig,
     _dense_attention,
@@ -73,7 +79,13 @@ from polyaxon_tpu_torch.parallel.axes import (
     tree_map,
     tree_specs,
 )
-from polyaxon_tpu_torch.parallel.collectives import all_gather_cat, reduce_from_group
+from polyaxon_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    broadcast_from,
+    reduce_from_group,
+)
+from polyaxon_tpu_torch.parallel.pipeline import run_stages
+from polyaxon_tpu_torch.parallel.templates import check_mesh
 from polyaxon_tpu_torch.tracking.ledger import record_compile
 
 
@@ -122,13 +134,14 @@ def capture_step(fn: Callable[[], Any], pool=None, warmup: int = 2):
 
 def init_cache(
     cfg: TransformerConfig, batch: int, max_len: int, device: DeviceLike = "cuda",
-    kv_heads: Optional[int] = None,
+    kv_heads: Optional[int] = None, layers: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Zeroed KV cache: k/v [L, B, max_len, Hkv, d] in the compute dtype
-    (``kv_heads``: a rank's, :attr:`DecodeShard.kv_heads`; default all)."""
+    (``kv_heads`` and ``layers``: a rank's, :attr:`DecodeShard.kv_heads` and
+    :attr:`DecodeShard.layers`; default all)."""
     c = cfg
     dev = resolve_device(device)
-    shape = (c.n_layers, batch, max_len, kv_heads or c.kv_heads, c.head_dim)
+    shape = (layers or c.n_layers, batch, max_len, kv_heads or c.kv_heads, c.head_dim)
     return {
         "k": torch.zeros(shape, dtype=c.dtype, device=dev),
         "v": torch.zeros(shape, dtype=c.dtype, device=dev),
@@ -281,13 +294,28 @@ def decode_param_shardings(cfg: TransformerConfig, mesh, template,
 
 class DecodeShard:
     """One rank's part of a sharded decode: the mesh, the spec trees its
-    weights were cut by (``specs``, and ``qspecs`` for an int8 tree), and what
+    weights were cut by (``specs``, and ``qspecs`` for an int8 tree), what
     they split over the tensor axis (:class:`~polyaxon_tpu_torch.models.
-    transformer.TensorSplit`).  The tensor axis is the one mesh axis that
-    splits the heads, the MLP columns or the vocabulary; every other split
-    is gathered at its use (:meth:`use`).  ``capturable``: whether a step can
-    be captured into a CUDA graph (every group NCCL: gloo's collectives run
-    on the host)."""
+    transformer.TensorSplit`) and over the pipeline axis.
+
+    - The tensor axis is the one mesh axis that splits the heads, the MLP
+      columns or the vocabulary (``tp``, ``tp_dp``, ``pp_tp``).
+    - The pipeline axis is the one that splits the block weights' stacked
+      ``layers`` dimension (``pp``, ``pp_tp``; a ``custom`` ``layers``
+      rule).  A rank then owns its stage: :attr:`layers` consecutive layers
+      from :attr:`first_layer`, whose weights it holds and whose cache or
+      pool rows it writes; every step runs the stages in order, the hidden
+      state passing stage to stage (:func:`_run_layers`), and the last
+      stage's logits reach every rank (:func:`_final_logits`).  A layer's
+      weights never leave their stage.
+    - Every other split (``embed`` over ``data`` under ``fsdp``, ``ep`` and
+      ``tp_dp``) is gathered at its use (:meth:`use`).  ``sp_ring`` and
+      ``ulysses`` split no weight: their ranks decode as one card does.
+
+    :attr:`kv_heads` is the rank's kv heads (all of them where they stay
+    whole) and :attr:`layers` its cache depth.  ``capturable``: whether a
+    step can be captured into a CUDA graph (every group the step calls
+    NCCL: gloo's collectives run on the host)."""
 
     #: (weight, dimension) pairs the tensor axis may split.
     _TENSOR_DIMS = {("wq", 2), ("wk", 2), ("wv", 2), ("wo", 1), ("wi", 2), ("wg", 2),
@@ -300,8 +328,13 @@ class DecodeShard:
         self.mesh = mesh
         self.specs = specs
         self.qspecs = qspecs
+        self.vocab_size = cfg.vocab_size
         named = [("embed", specs["embed"]), ("unembed", specs["unembed"])]
         named += [(k, v) for k, v in specs["block"].items()]
+        # A spec tree the rules of a template make has one axis on a tensor
+        # dimension, one for all three of them, and never the tensor axis
+        # elsewhere (parallel/templates.py:check_rules refuses the others);
+        # these checks hold a tree given by hand to the same.
         tensor_axes = set()
         for name, spec in named:
             for dim, entry in enumerate(spec):
@@ -324,20 +357,42 @@ class DecodeShard:
                     raise NotImplementedError(
                         f"{name!r} dimension {dim} split over the tensor axis {axis!r} is not "
                         "ported (ROADMAP item 7: multi-process and parallelism)")
+        stage_axes = {entry_axes(spec[0]) if spec else () for spec in specs["block"].values()}
+        if len(stage_axes) > 1 or any(len(a) > 1 for a in stage_axes):
+            raise NotImplementedError(
+                f"the block's layers split over {sorted(stage_axes)}: the port's stages lie "
+                "along one axis (ROADMAP item 7: multi-process and parallelism)")
+        stage_axis = next(iter(stage_axes), ())
+        stage_axis = stage_axis[0] if stage_axis and mesh.shape.get(stage_axis[0], 1) > 1 else None
         self.keep = (axis,) if axis else ()
         self.split = TensorSplit(cfg, specs, mesh, axis)
         self.kv_heads = cfg.kv_heads // (mesh.shape[axis] if self.split.kv_split else 1)
-        groups = [mesh.group(a) for a, n in mesh.shape.items() if n > 1]
+        #: The pipeline axis (None: every rank runs every layer), its group,
+        #: the stage count, this rank's stage, and the stage's layers.
+        self.stage_axis = stage_axis
+        self.pipe = None if stage_axis is None else mesh.group(stage_axis)
+        self.stages = 1 if stage_axis is None else mesh.shape[stage_axis]
+        self.stage = 0 if stage_axis is None else mesh.rank(stage_axis)
+        self.layers = cfg.n_layers // self.stages
+        self.first_layer = self.stage * self.layers
+        called = {a for _, spec in named for entry in spec for a in entry_axes(entry)}
+        groups = [mesh.group(a) for a in called if mesh.shape.get(a, 1) > 1]
         self.capturable = all(g.name() != "gloo" for g in groups)
+
+    @property
+    def last_stage(self) -> bool:
+        """Whether this rank's stage computes the logits."""
+        return self.stage == self.stages - 1
 
     def check(self, params: Dict[str, Any]) -> None:
         """Raise unless ``params`` are this rank's shards under :attr:`specs`
         (``parallel.axes.tree_shard``), not the whole tree."""
-        heads = params["block"]["wq"].shape[2]
-        if heads != self.split.heads:
+        layers, heads = params["block"]["wq"].shape[0], params["block"]["wq"].shape[2]
+        if heads != self.split.heads or layers != self.layers:
             raise ValueError(
-                f"wq holds {heads} heads where this rank's shard holds {self.split.heads}: pass "
-                "each rank its shards (parallel.axes.tree_shard(params, specs, mesh))")
+                f"wq holds {layers} layers of {heads} heads where this rank's shard holds "
+                f"{self.layers} of {self.split.heads}: pass each rank its shards "
+                "(parallel.axes.tree_shard(params, specs, mesh))")
 
     def use(self, w, spec):
         """``w`` (a rank's shard, or an int8 ``(q, scale)`` pair of them with
@@ -360,7 +415,9 @@ class DecodeShard:
 
     def embed(self, params: Dict[str, Any], tokens: torch.Tensor, dtype) -> torch.Tensor:
         """The tokens' embeddings: a vocabulary-parallel lookup where the
-        table's rows split over the tensor axis."""
+        table's rows split over the tensor axis.  Every stage embeds (a
+        lookup), so that a table split over the pipeline axis is gathered
+        by all of its ranks; the first stage's is the one the layers read."""
         table = self.use(params["embed"], self.specs["embed"]).to(dtype)
         if self.split.vocab is None:
             return table[tokens]
@@ -373,6 +430,22 @@ class DecodeShard:
         return all_gather_cat(local, -1, self.split.vocab)
 
 
+def _run_layers(x: torch.Tensor, shard: Optional[DecodeShard], n_layers: int,
+                body: Callable[[int, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """``x`` through ``body(i, x)`` for each of this rank's layers ``i``; under
+    a pipeline its stage's, the stages in order (``parallel.pipeline.
+    run_stages``): the last stage ends with the model's hidden state."""
+
+    def layers(h: torch.Tensor, n: int) -> torch.Tensor:
+        for i in range(n):
+            h = body(i, h)
+        return h
+
+    if shard is None or shard.pipe is None:
+        return layers(x, n_layers)
+    return run_stages(x, shard.pipe, lambda h: layers(h, shard.layers))
+
+
 def _embed(params, tokens, dtype, shard: Optional[DecodeShard]) -> torch.Tensor:
     if shard is None:
         return params["embed"].to(dtype)[tokens]
@@ -380,17 +453,30 @@ def _embed(params, tokens, dtype, shard: Optional[DecodeShard]) -> torch.Tensor:
 
 
 def _final_logits(params, x, unembed, shard: Optional[DecodeShard], unembed_spec=None):
-    """The final norm and the unembedding of x [B, T, D] → float32 logits."""
+    """The final norm and the unembedding of x [B, T, D] → float32 logits.
+    Under a pipeline the last stage computes them and broadcasts them over
+    the pipeline group, so every rank picks the same token; every stage
+    calls :meth:`DecodeShard.use` on the two weights first (a gather where a
+    ``custom`` rule splits them over the pipeline axis, else nothing)."""
     if shard is None:
         x = _rmsnorm(x, params["final_norm"])
         return torch.einsum("btd,dv->btv", x, _wdq(unembed, x.dtype)).float()
-    x = _rmsnorm(x, shard.use(params["final_norm"], shard.specs["final_norm"]))
-    return shard.logits(x, unembed, unembed_spec)
+    norm = shard.use(params["final_norm"], shard.specs["final_norm"])
+    if shard.pipe is None:
+        return shard.logits(_rmsnorm(x, norm), unembed, unembed_spec)
+    unembed = shard.use(unembed, unembed_spec)
+    if shard.last_stage:
+        local = torch.einsum("btd,dv->btv", _rmsnorm(x, norm), _wdq(unembed, x.dtype)).float()
+        logits = all_gather_cat(local, -1, shard.split.vocab)
+    else:
+        logits = x.new_empty(x.shape[:2] + (shard.vocab_size,), dtype=torch.float32)
+    return broadcast_from(logits, shard.pipe, shard.stages - 1)
 
 
 def _layers_of(params, qweights, shard: Optional[DecodeShard]):
     """``(layer i → its weights, unembed, unembed's spec)`` for the steps:
-    under a shard each weight gathered along its non-tensor splits."""
+    under a shard each weight gathered along its non-tensor splits (``i``
+    counts the rank's own layers: its stage's under a pipeline)."""
     layers, unembed = _decode_weights(params, qweights)
     if shard is None:
         return (lambda i: _layer_at(layers, i)), unembed, None
@@ -479,8 +565,8 @@ def decode_step(
     x = _embed(params, token, c.dtype, shard)[:, None, :]  # [B,1,D]
     layer_at, unembed, uspec = _layers_of(params, qweights, shard)
     split = None if shard is None else shard.split
-    for i in range(c.n_layers):
-        x = _block_step(x, pos, layer_at(i), cache["k"][i], cache["v"][i], c, split)
+    x = _run_layers(x, shard, c.n_layers, lambda i, h: _block_step(
+        h, pos, layer_at(i), cache["k"][i], cache["v"][i], c, split))
     return _final_logits(params, x, unembed, shard, uspec)[:, 0], cache
 
 
@@ -498,9 +584,9 @@ def prefill(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the prompt [B, T] through the training forward, filling
     cache[:, :, :T]; returns (last-position logits [B, vocab], cache).  Under
-    ``template`` and ``mesh`` (one of ``SERVING_STRATEGIES``) the forward runs
-    on the rank's shards cut by ``specs``, and its keys and values are the
-    rank's kv heads."""
+    ``template`` and ``mesh`` the forward is the decode prefill of
+    ``forward(return_kv=True)`` on the rank's shards cut by ``specs``: its
+    keys and values are the rank's kv heads of its stage's layers."""
     logits, (k, v) = forward(params, tokens, cfg, template=template, mesh=mesh,
                              return_kv=True, specs=specs, device=device)
     T = k.shape[2]
@@ -540,24 +626,21 @@ def generate(
     draws from ``generator`` as an eager loop would, and no token reaches
     the host before the end.  On the CPU the same steps run eagerly.
 
-    Sharded (``template`` and ``mesh``, see :func:`sharded_generate_fn`):
-    ``params`` and ``qweights`` are the rank's shards under ``specs`` and
-    ``qspecs``, the prefill runs the template's forward on the rank's heads,
-    and the one-token step runs a :class:`DecodeShard`; every rank returns the
-    same tokens.  Over NCCL the step is captured as above (the prefill's
+    Sharded (``template`` and ``mesh``, any template whose rules the port
+    splits, see :func:`sharded_generate_fn`): ``params`` and ``qweights``
+    are the rank's shards under ``specs`` and ``qspecs``, the prefill runs
+    the template's decode prefill (``forward(return_kv=True)``), and the
+    one-token step runs a :class:`DecodeShard`; every rank returns the same
+    tokens.  Over NCCL the step is captured as above (the prefill's
     collectives have run on the group before the capture); over gloo, whose
-    collectives run on the host, it runs eagerly.
+    collectives run on the host, it runs eagerly where it calls one.
     """
     if cfg.n_experts:
         raise NotImplementedError("MoE decoding is not supported yet")
     dev = resolve_device(device)
     shard = None
     if mesh is not None and mesh.size > 1:
-        if template is None or template.name not in SERVING_STRATEGIES:
-            raise NotImplementedError(
-                f"sharded decode takes one of {', '.join(SERVING_STRATEGIES)}, not "
-                f"{getattr(template, 'name', None)!r} (ROADMAP item 7: multi-process and "
-                "parallelism)")
+        check_mesh(template, mesh)
         if specs is None:
             specs = decode_param_shardings(cfg, mesh, template)
         shard = DecodeShard(cfg, mesh, specs, qspecs)
@@ -574,7 +657,8 @@ def generate(
         generator = torch.Generator(device=dev).manual_seed(0)
     params = cast_weights(params, cfg)
     prompt = prompt.to(dev)
-    cache = init_cache(cfg, B, max_len, dev, kv_heads=None if shard is None else shard.kv_heads)
+    cache = (init_cache(cfg, B, max_len, dev) if shard is None else
+             init_cache(cfg, B, max_len, dev, kv_heads=shard.kv_heads, layers=shard.layers))
     if shard is None:
         logits, cache = prefill(params, prompt, cache, cfg, device=dev)
     else:
@@ -629,8 +713,11 @@ def sharded_generate_fn(
 ):
     """``(fn, specs)`` for decoding across the ranks of ``mesh`` under a
     template (reference :907-962): the template's rules shard every weight
-    (the heads over ``tensor`` under ``tp``), each rank's cache holds its kv
-    heads, and the logits are gathered once a token.
+    (the heads over ``tensor`` under ``tp``, the layers over ``pipeline``
+    under ``pp``, each weight's ``embed`` over ``data`` under ``fsdp``), each
+    rank's cache holds its kv heads of its layers, and every rank gets the
+    logits once a token (gathered over the tensor axis, broadcast from the
+    last stage).
 
     Every rank shards the whole params by ``specs``
     (``parallel.axes.tree_shard(params, specs, mesh)``) and calls ``fn(shard,
@@ -675,17 +762,19 @@ def init_block_pool(
     kv_dtype: Optional[str] = None,
     device: DeviceLike = "cuda",
     kv_heads: Optional[int] = None,
+    layers: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Zeroed paged KV pool: k/v [L, num_blocks, block_size, Hkv, d] in the
     compute dtype, or with ``kv_dtype="int8"`` int8 ``k_q``/``v_q`` of that
     shape and float32 ``k_scale``/``v_scale`` [L, num_blocks, block_size, Hkv]
     (one scale per appended row per kv-head, so the scales split with the
-    rows).  ``kv_heads``: a rank's (:attr:`DecodeShard.kv_heads`; all of
-    them where they stay whole); default the model's."""
+    rows).  ``kv_heads`` and ``layers``: a rank's (:attr:`DecodeShard.kv_heads`,
+    all of them where they stay whole; :attr:`DecodeShard.layers`, its
+    stage's under a pipeline); default the model's."""
     _check_kv_dtype(kv_dtype)
     c = cfg
     dev = resolve_device(device)
-    shape = (c.n_layers, num_blocks, block_size, kv_heads or c.kv_heads, c.head_dim)
+    shape = (layers or c.n_layers, num_blocks, block_size, kv_heads or c.kv_heads, c.head_dim)
     if kv_dtype is None:
         return {
             "k": torch.zeros(shape, dtype=c.dtype, device=dev),
@@ -834,10 +923,9 @@ def _paged_forward(params, pool, x, positions, tables, write_blk, write_off, att
     (of row ``last`` only, [B, 1, vocab], when given: a [1] index tensor)."""
     layer_at, unembed, uspec = _layers_of(params, qweights, shard)
     split = None if shard is None else shard.split
-    for i in range(cfg.n_layers):
-        pool_l = {name: leaf[i] for name, leaf in pool.items()}
-        x = _paged_block(x, positions, layer_at(i), pool_l, tables,
-                         write_blk, write_off, attend, cfg, split)
+    x = _run_layers(x, shard, cfg.n_layers, lambda i, h: _paged_block(
+        h, positions, layer_at(i), {name: leaf[i] for name, leaf in pool.items()}, tables,
+        write_blk, write_off, attend, cfg, split))
     if last is not None:
         x = x.index_select(1, last)
     return _final_logits(params, x, unembed, shard, uspec)

@@ -48,6 +48,7 @@ from polyaxon_tpu_torch._device import DeviceLike, require_on, resolve_device
 from polyaxon_tpu_torch.parallel.axes import Placement, entry_axes
 from polyaxon_tpu_torch.parallel.collectives import (
     all_gather_cat,
+    broadcast_from,
     copy_to_group,
     gather_from_group,
     group_size,
@@ -59,6 +60,7 @@ from polyaxon_tpu_torch.parallel.pipeline import (
     check_stages,
     pipeline_scan,
     pipeline_scan_composed,
+    run_stages,
 )
 from polyaxon_tpu_torch.parallel.ring import ring_attention_sharded
 from polyaxon_tpu_torch.parallel.templates import check_mesh
@@ -75,9 +77,6 @@ _SAVED_NAMES = {
     "save_qkv_attn": ("q_proj", "k_proj", "v_proj", "attn_out"),
 }
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
-#: The templates the decode prefill (``forward(return_kv=True)``) and the
-#: sharded decode take (the reference's tests serve under these three).
-SERVING_STRATEGIES = ("ddp", "tp", "tp_dp")
 #: The MoE balance loss's weight in :func:`loss_fn` (the JAX ``loss_fn``'s
 #: ``aux_weight`` default, which every caller there takes).
 MOE_AUX_WEIGHT = 0.01
@@ -518,21 +517,34 @@ class _Shard:
     composed pipeline, whose microbatches are cut from the global batch
     before the data split, ``runtime.train.shard_batch``), the expert
     axis's group, and the tensor group where it splits each expert's MLP
-    columns."""
+    columns.
 
-    def __init__(self, cfg: TransformerConfig, template, mesh, specs: Any = None) -> None:
+    ``decode``: the decode prefill's (``forward(return_kv=True)``): every
+    rank has the whole prompt, so no sequence axis runs; the pipeline axis
+    is the one that splits the block's ``layers`` in ``specs`` (none where
+    the fitted specs keep them whole), whose stages run their own layers in
+    turn; and a weight that is not a layer's (the embedding, the final norm,
+    the unembedding) is gathered over it where a rule splits it there."""
+
+    def __init__(self, cfg: TransformerConfig, template, mesh, specs: Any = None,
+                 decode: bool = False) -> None:
         self.mesh = mesh
-        self.placement = Placement(param_axes(cfg), template, mesh, specs=specs)
+        self.placement = Placement(param_axes(cfg), template, mesh, specs=specs,
+                                   pipeline_local=not decode)
         self.tp = self.placement.tp_group
         self.split = TensorSplit(cfg, self.placement.specs, mesh, self.placement.tp_axis)
         self.layer_specs = {name: self.placement.spec("block", name)[1:]
                             for name in param_axes(cfg)["block"]}
+        wide = lambda a: a is not None and mesh.shape.get(a, 1) > 1  # noqa: E731
         self.ring_axis = template.ring_axis
         self.ulysses_axis = template.ulysses_axis
         self.pipeline_axis = template.pipeline_axis
+        if decode:
+            lead = entry_axes((self.placement.spec("block", "wq") or (None,))[0])
+            self.ring_axis = self.ulysses_axis = None
+            self.pipeline_axis = lead[0] if len(lead) == 1 and wide(lead[0]) else None
         expert_axis = self.placement.expert_axis
         self.expert_group = None if expert_axis is None else mesh.group(expert_axis)
-        wide = lambda a: a is not None and mesh.shape.get(a, 1) > 1  # noqa: E731
         self.token_batch_axes: tuple = ()
         self.token_seq_axis: Optional[str] = None
         if self.pipeline_axis is None or template.pipeline_composed:
@@ -648,6 +660,14 @@ def _vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor, group) -> t
     return reduce_from_group(torch.where(inside[..., None], rows, torch.zeros_like(rows)), group)
 
 
+def _unstacked(stacked: Dict[str, torch.Tensor]) -> list:
+    """Each layer's weights of stacked ``[L, ...]`` ones (``unbind``, not
+    ``w[i]``: its backward stacks the per-layer grads once)."""
+    per_layer = {name: w.unbind(0) for name, w in stacked.items()}
+    n = len(next(iter(per_layer.values())))
+    return [{name: ws[i] for name, ws in per_layer.items()} for i in range(n)]
+
+
 def forward(
     params: Dict[str, Any],
     tokens: torch.Tensor,
@@ -665,9 +685,17 @@ def forward(
 
     ``return_kv`` also returns the per-layer post-rope, unexpanded (GQA)
     key/value stacks ``(k, v)``, each ``[L,B,T,Hkv,d]`` — the decode
-    prefill fills its cache from them (no MoE; of the templates, the ones
-    serving takes: ``ddp``, ``tp`` and ``tp_dp``, where each rank's stacks
-    hold its kv heads, all of them where they stay whole).  ``specs``: the
+    prefill fills its cache from them (no MoE).  Under a template it is the
+    decode prefill of every rank on the whole prompt ``tokens``: each
+    rank's stacks hold its kv heads (all of them where they stay whole) of
+    its layers; ``fsdp`` and ``ep`` gather each weight at its use, ``tp``,
+    ``tp_dp`` run the rank's heads, ``sp_ring`` and ``ulysses`` run no
+    sequence axis (the prompt is whole on every rank), and under ``pp`` and
+    ``pp_tp`` each stage runs its own layers in turn on what the stage
+    before sent (``parallel.pipeline.run_stages``; its stacks are
+    ``[L/S, ...]``), the last stage's hidden states broadcast over the
+    pipeline group before the final norm, so every rank returns the whole
+    logits.  ``specs``: the
     spec tree ``params`` were cut by when it is not the template's own
     (serving's, fitted to the leaves: ``decode.decode_param_shardings``).  With ``cfg.n_experts`` the result is ``(logits or hidden, (gates
     [L,B,T,E], expert_idx [L,B,T]))``, the per-layer routing that
@@ -705,14 +733,10 @@ def forward(
     c = cfg
     dev = resolve_device(device)
     check_mesh(template, mesh)
-    if return_kv and (c.n_experts or (template is not None
-                                       and template.name not in SERVING_STRATEGIES)):
+    if return_kv and c.n_experts:
         raise NotImplementedError(
-            "return_kv (the decode prefill) takes the dense model (no MoE), without a template "
-            f"or under one of {', '.join(SERVING_STRATEGIES)}, not "
-            + ("MoE" if c.n_experts else f"{template.name!r}")
-            + " (ROADMAP item 7: multi-process and parallelism)"
-        )
+            "return_kv (the decode prefill) takes the dense model (no MoE): MoE decoding is "
+            "not supported yet")
     require_on(dev, embed=params["embed"])
     tokens = tokens.to(dev)
     B, T = tokens.shape
@@ -721,7 +745,8 @@ def forward(
     else:
         positions = positions.to(dev)
 
-    shard = _Shard(c, template, mesh, specs) if template is not None else None
+    shard = (_Shard(c, template, mesh, specs, decode=return_kv) if template is not None
+             else None)
     tp = shard.tp if shard is not None else None
     vocab = shard.split.vocab if shard is not None else None
     if shard is not None and shard.pipeline_axis is not None:
@@ -750,7 +775,20 @@ def forward(
     # expert_idx); under a pipeline the balance loss reduced inside the
     # schedule, as the reference's {"aux_loss": ...} (:622-628).
     stacked = None
-    if shard is not None and shard.pipeline_axis is not None:
+    if return_kv and shard is not None and shard.pipeline_axis is not None:
+        check_stages(c.n_layers, mesh.shape[shard.pipeline_axis])
+        group = mesh.group(shard.pipeline_axis)
+        auxes = []
+
+        def stage(h):
+            for layer in _unstacked(params["block"]):
+                h, aux = block(h, positions, layer)
+                auxes.append(aux)
+            return h
+
+        x = broadcast_from(run_stages(x, group, stage), group, group.size() - 1)
+        stacked = tuple(torch.stack(parts) for parts in zip(*auxes))
+    elif shard is not None and shard.pipeline_axis is not None:
         scan = pipeline_scan_composed if template.pipeline_composed else pipeline_scan
         groups = shard.token_groups
         aux_fn = ((lambda a: moe_aux_loss(a[0], a[1], c.n_experts, groups)) if c.n_experts
@@ -761,11 +799,9 @@ def forward(
         if c.n_experts:
             stacked = {"aux_loss": pp_aux}
     else:
-        # unbind, not w[i]: its backward stacks the per-layer grads once.
-        per_layer = {name: w.unbind(0) for name, w in params["block"].items()}
         auxes = []
-        for i in range(c.n_layers):
-            x, aux = block(x, positions, {name: ws[i] for name, ws in per_layer.items()})
+        for layer in _unstacked(params["block"]):
+            x, aux = block(x, positions, layer)
             auxes.append(aux)
         if return_kv or c.n_experts:
             stacked = tuple(torch.stack(parts) for parts in zip(*auxes))

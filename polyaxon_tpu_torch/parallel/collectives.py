@@ -18,7 +18,9 @@ them itself:
   rank uses as its own term of one objective (MoE's global balance
   statistics, whose ranks' losses the train step weighs by their counts);
 - :func:`send_to_next`: the pipeline's stage hop, rank s to s + 1 (rank 0
-  gets zeros); its backward is the reverse hop.
+  gets zeros); its backward is the reverse hop;
+- :func:`broadcast_from`: one rank's tensor on every rank of a group, no
+  autograd (the stage-owned decode's logits, from the last stage).
 
 Each is the identity for a group of one (None).  They call the list forms
 (``dist.all_gather``, ``dist.reduce_scatter``, ``dist.all_reduce``,
@@ -112,6 +114,20 @@ def hop(x: torch.Tensor, group: dist.ProcessGroup, reverse: bool = False) -> tor
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return got.to(x.device) if staged else got
+
+
+def broadcast_from(x: torch.Tensor, group: Optional[dist.ProcessGroup], src: int) -> torch.Tensor:
+    """Rank ``src`` of ``group``'s ``x`` on every rank of it (the others pass
+    a buffer of its shape and dtype, which is not read); no autograd.  The
+    stage-owned decode's logits, which the last stage computes and every
+    stage picks from.  On a gloo group a CUDA tensor goes through a host
+    copy each way, as :func:`hop`'s; the identity for a group of one."""
+    if group_size(group) == 1:
+        return x
+    staged = x.is_cuda and group.name() == "gloo"
+    out = (x.cpu() if staged else x).contiguous().clone()
+    dist.broadcast(out, group=group, group_src=src)
+    return out.to(x.device) if staged else out
 
 
 class _SendToNext(torch.autograd.Function):

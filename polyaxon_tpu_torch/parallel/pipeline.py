@@ -50,6 +50,25 @@ from polyaxon_tpu_torch.parallel.templates import RuntimeLayerError
 Block = Callable[[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Any]]
 
 
+def run_stages(x: torch.Tensor, group, run_stage: Callable[[torch.Tensor], torch.Tensor]
+               ) -> torch.Tensor:
+    """One input through the stages in order, no microbatches and no
+    autograd: the stage-owned decode's step (``models/decode.py``) and its
+    prefill (``models/transformer.py:forward(return_kv=True)``).  Stage s
+    calls ``run_stage`` on what stage s − 1 sent; after each stage but the
+    last every rank of ``group`` calls :func:`~polyaxon_tpu_torch.parallel.
+    collectives.hop` once, so the last stage ends with the output and the
+    others with a tensor of its shape that nothing reads.  ``group`` None (or
+    of one rank): ``run_stage(x)``."""
+    n = group_size(group)
+    for stage in range(n):
+        if stage == (0 if group is None else group.rank()):
+            x = run_stage(x)
+        if stage < n - 1:
+            x = hop(x, group)
+    return x
+
+
 def check_stages(n_layers: int, n_stages: int) -> None:
     """Raise unless the layers divide into the stages (reference :180, :261)."""
     if n_layers % n_stages:

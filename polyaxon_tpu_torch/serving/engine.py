@@ -84,9 +84,14 @@ Mesh serving.  With ``mesh`` (more than one rank) every rank of the mesh
 builds the engine with its shards of the weights (``param_shardings``,
 ``qweights_shardings``: the spec trees of ``models/decode.py``'s
 ``decode_param_shardings`` and ``quantized_weight_shardings``, by which
-``parallel.axes.tree_shard`` and ``decode.shard_qweights`` cut them) and a
-pool of its kv heads, and the steps run on each rank's heads
-(``decode.DecodeShard``).  The reference runs such a decode inside one
+``parallel.axes.tree_shard`` and ``decode.shard_qweights`` cut them, under
+any template whose rules the port splits) and a pool of its part of each
+block: its kv heads (all of them where they stay whole) of its layers (its
+stage's under ``pp`` and ``pp_tp``).  The steps run on each rank's shards
+(``decode.DecodeShard``): the heads split under a tensor axis, the weights
+gathered at their use under ``fsdp`` and ``ep``, and under a pipeline each
+stage runs its layers in turn, the hidden state hopping stage to stage and
+the last stage's logits broadcast back.  The reference runs such a decode inside one
 process that drives every device, and GSPMD carries the sharding.  The port
 runs one rank a process and a card, for four reasons: NCCL takes one rank a
 device; the Megatron f and g, the vocabulary-parallel embedding and the
@@ -107,10 +112,10 @@ would multiply the host time of a step that already idles on the host.  So:
 - the other ranks, the followers, run :meth:`ServingEngine.follow`: each
   descriptor's call on their own shards, until ``stop``.  Only the leader
   samples: the next descriptor carries the tokens.  Each rank keeps its own
-  shard of a spilled block (the leader's tier names it, the descriptors
+  part of a spilled block (the leader's tier names it, the descriptors
   file and drop it); the persistent store holds the whole block, which the
   leader gathers from the ranks to write and sends whole when it preloads,
-  each rank importing its heads;
+  each rank importing its part (its heads of its stage's layers);
 - a failure of the leader's call sends ``abort`` and closes the mesh (each
   later call raises), and a follower ends on ``abort``, on a failure of its
   own, or after ``mesh_timeout_s`` without a descriptor (an idle leader
@@ -118,7 +123,8 @@ would multiply the host time of a step that already idles on the host.  So:
   group's timeout, never forever.
 
 Over NCCL the family is captured on every rank; over gloo (rank processes
-sharing one card, thread ranks on the CPU) it runs eagerly.  Without a
+sharing one card, thread ranks on the CPU) it runs eagerly where a step
+calls a collective (``DecodeShard.capturable``).  Without a
 mesh nothing of this runs: no group is built and no descriptor sent.
 """
 
@@ -627,17 +633,18 @@ class ServingEngine:
         self._pool = decode.init_block_pool(
             cfg, num_blocks, self.block_size, kv_dtype=self.kv_quantize, device=self.device,
             kv_heads=None if shard is None else shard.kv_heads,
+            layers=None if shard is None else shard.layers,
         )
         #: What the pool leaves store ("int8" or the compute dtype's name) and
         #: their device bytes, on ``/v1/stats`` and the kv_pool_bytes gauge:
-        #: the whole pool's (every rank's kv heads, counted once), and this
-        #: rank's own.
+        #: the whole pool's (every rank's kv heads of every stage's layers,
+        #: counted once), and this rank's own.
         self.kv_dtype = self.kv_quantize or str(cfg.dtype).replace("torch.", "")
         self.kv_pool_rank_bytes = int(
             sum(t.numel() * t.element_size() for t in self._pool.values())
         )
         self.kv_pool_bytes = self.kv_pool_rank_bytes * (
-            cfg.kv_heads // shard.kv_heads if shard is not None else 1)
+            cfg.kv_heads // shard.kv_heads * shard.stages if shard is not None else 1)
         # Per-slot block tables (host truth): -1 = unset, sent to the device
         # as the trash block.
         self._tables = np.full((self.slots, self._table_width), -1, np.int32)
@@ -1153,47 +1160,67 @@ class ServingEngine:
             payloads = [self._own_heads(data) for data in whole]
         self._copy_in(blocks, payloads)
 
-    def _kv_rank(self, rank: Optional[int] = None) -> int:
-        """The index of a rank's kv heads among the pool's shards (this
-        rank's without ``rank``): its place along the tensor axis, ranks
-        lying row-major over the mesh's axes."""
+    def _part_of(self, rank: Optional[int] = None) -> tuple:
+        """A rank's part of each pool block (this rank's without ``rank``):
+        ``(stage, kv shard)``, its place along the pipeline axis and along
+        the tensor axis where the kv heads split (0 where they do not),
+        ranks lying row-major over the mesh's axes."""
         mesh = self._shard.mesh
-        axis = self._shard.keep[0]
-        if rank is None:
-            return mesh.rank(axis)
         names = list(mesh.shape)
-        stride = int(np.prod([mesh.shape[a] for a in names[names.index(axis) + 1:]]))
-        return (rank // stride) % mesh.shape[axis]
+
+        def index(axis):
+            if axis is None:
+                return 0
+            if rank is None:
+                return mesh.rank(axis)
+            stride = int(np.prod([mesh.shape[a] for a in names[names.index(axis) + 1:]]))
+            return (rank // stride) % mesh.shape[axis]
+
+        kv_axis = self._shard.keep[0] if self._shard.split.kv_split else None
+        return index(self._shard.stage_axis), index(kv_axis)
+
+    @property
+    def _pool_split(self) -> bool:
+        """Whether the ranks' pools hold different parts of each block."""
+        return self._shard is not None and (self._shard.split.kv_split
+                                            or self._shard.pipe is not None)
 
     def _own_heads(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """This rank's kv heads (dim 2) of a whole block's payload."""
-        if self._shard is None or not self._shard.split.kv_split:
+        """This rank's part of a whole block's payload: its stage's layers
+        (dim 0) and its kv heads (dim 2)."""
+        if not self._pool_split:
             return data
-        n = self._shard.kv_heads
-        return {name: t.narrow(2, self._kv_rank() * n, n).contiguous() for name, t in data.items()}
+        stage, kv = self._part_of()
+        n, layers = self._shard.kv_heads, self._shard.layers
+        return {name: t.narrow(0, stage * layers, layers).narrow(2, kv * n, n).contiguous()
+                for name, t in data.items()}
 
     def _gather_op(self, sources: List[tuple]) -> Optional[List[Dict[str, torch.Tensor]]]:
         """Whole payloads of ``sources`` (``("block", b)``: a pool block;
         ``("held", handle)``: a spilled one) on the leader, for the
-        persistent store: each rank's kv heads, gathered over the mesh where
-        they split."""
+        persistent store: each rank's part, gathered over the mesh where the
+        pools split (the kv heads over the tensor axis, the layers over the
+        pipeline axis)."""
         blocks = [ref for kind, ref in sources if kind == "block"]
         exported = iter(self._export_blocks(blocks) if blocks else ())
         mine = [next(exported) if kind == "block"
                 else (self._host_tier.get(ref) if self.is_leader else self._held[ref])
                 for kind, ref in sources]
-        if self._shard is None or not self._shard.split.kv_split:
+        if not self._pool_split:
             return mine
         group = self._channel.group
-        owner = {}  # kv shard index -> the first rank holding it
+        owner = {}  # (stage, kv shard) -> the first rank holding it
         for rank in range(group.size()):
-            owner.setdefault(self._kv_rank(rank), rank)
+            owner.setdefault(self._part_of(rank), rank)
+        stages = sorted({stage for stage, _ in owner})
         whole = []
         for data in mine:
             out = {}
             for name, t in data.items():
                 raw = all_gather_cat(t.contiguous().view(torch.uint8)[None], 0, group)
-                out[name] = torch.cat([raw[owner[i]] for i in sorted(owner)], dim=2).view(t.dtype)
+                out[name] = torch.cat([
+                    torch.cat([raw[owner[part]] for part in sorted(owner) if part[0] == stage],
+                              dim=2) for stage in stages], dim=0).view(t.dtype)
             whole.append(out)
         return whole if self.is_leader else None
 
@@ -1746,6 +1773,10 @@ class ServingEngine:
             "descriptors": ch.sent,
             "descriptor_s": round(ch.send_s, 6),
             "closed": self._aborted,
+            # Whether the step family is captured (NCCL groups only) and the
+            # pipeline's stages (1 without one).
+            "captured": self._graphs,
+            "stages": self._shard.stages,
         }
 
     def latency_summaries(self) -> Dict[str, Dict[str, float]]:

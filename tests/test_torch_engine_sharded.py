@@ -8,17 +8,19 @@ other ranks follow (``serving/engine.py``).  Here every rank is a thread
 (``tests/torch_gang_ranks.py``), in float32, on the reference decode test's
 model (vocab 128, d_model 32, 2 layers, 8 heads of 8, d_ff 64, max_seq 48):
 
-- the ``tp`` and ``tp_dp`` engines' greedy tokens equal JAX's ``generate``
-  per request, at the reference engine test's shapes;
+- the ``tp``, ``tp_dp``, ``pp`` and ``fsdp`` engines' greedy tokens equal
+  JAX's ``generate`` per request, at the reference engine test's shapes;
+  under ``pp`` a rank's pool holds its stage's layers;
 - the engine composes as on one card (prefix COW, speculative decoding, the
-  int8 pool, a park's spill and restore, the persistent store): its tokens
-  and counters equal a one-rank engine's, each rank keeps its own shard of a
-  spilled block, the leader's store holds whole blocks (every rank's kv
-  heads, gathered), and a mesh engine boots warm from it;
+  int8 pool, a park's spill and restore, the persistent store) under
+  ``tp``, ``pp`` and ``fsdp``: its tokens and counters equal a one-rank
+  engine's, each rank keeps its own part of a spilled block, the leader's
+  store holds whole blocks (every rank's kv heads of every stage's layers,
+  gathered), and a mesh engine boots warm from it;
 - a failure of the leader's call ends the followers, and a silent leader
   ends them after ``mesh_timeout_s``;
-- ``lm_server`` on two thread ranks answers a ``/generate`` with one rank's
-  tokens;
+- ``lm_server`` on two thread ranks under ``tp``, ``pp`` and ``fsdp``
+  answers a ``/generate`` with one rank's tokens;
 - the spawner launches a rank process a card of a card plan (read without a
   card) and keeps a ``cpu*`` plan at one process a host.
 """
@@ -135,7 +137,9 @@ ENGINE_SHAPES = [(5, 8), (9, 4), (3, 12)]  # (prompt length, new tokens), test_e
     ("tp", {"tensor": 2}, None),
     ("tp_dp", {"data": 2, "tensor": 2}, None),
     ("tp", {"tensor": 4}, 2),
-], ids=["tp-2", "tp_dp-2x2", "tp-4-gqa2"])
+    ("pp", {"pipeline": 2}, None),
+    ("fsdp", {"data": 2}, None),
+], ids=["tp-2", "tp_dp-2x2", "tp-4-gqa2", "pp-2", "fsdp-2"])
 def test_mesh_engine_tokens_equal_jax_generate(strategy, axes, kv):
     rng = np.random.default_rng(9)
     traffic = [([int(x) for x in rng.integers(0, 64, t)], n) for t, n in ENGINE_SHAPES]
@@ -149,11 +153,11 @@ def test_mesh_engine_tokens_equal_jax_generate(strategy, axes, kv):
         assert stats["mesh"]["ranks"] == len(engines)
     s = leader.stats()
     assert s["mesh"]["role"] == "leader" and s["mesh"]["descriptors"] > 0
-    kv_heads = kv or CFG["n_heads"]
+    kv_heads, tensor, stages = kv or CFG["n_heads"], axes.get("tensor", 1), axes.get("pipeline", 1)
     ranks_kv = engines[1]._pool["k"].shape[3]
-    assert ranks_kv == (kv_heads // axes["tensor"] if kv_heads % axes["tensor"] == 0
-                        else kv_heads)
-    assert s["kv_pool_bytes"] == s["kv_pool_rank_bytes"] * kv_heads // ranks_kv
+    assert ranks_kv == (kv_heads // tensor if kv_heads % tensor == 0 else kv_heads)
+    assert engines[1]._pool["k"].shape[0] == CFG["n_layers"] // stages
+    assert s["kv_pool_bytes"] == s["kv_pool_rank_bytes"] * kv_heads // ranks_kv * stages
     assert "mesh_descriptor_s" in leader.latency_summaries()
 
 
@@ -176,14 +180,24 @@ COMPOSED = dict(slots=2, max_len=48, block_size=4, num_blocks=13, prefix_cache=T
                 kv_persist_sig="w1")
 
 
+#: The templates the mesh engine composes under: (strategy, axes, the
+#: dimension a rank's part of a block is half of: kv heads 2, layers 0).
+COMPOSE_CASES = {"tp": ("tp", {"tensor": 2}, 2), "pp": ("pp", {"pipeline": 2}, 0),
+                 "fsdp": ("fsdp", {"data": 2}, None)}
+
+
 @pytest.mark.parametrize("kvq", [None, "int8"])
-def test_mesh_engine_composes_like_one_rank(kvq, tmp_path):
+@pytest.mark.parametrize("case", list(COMPOSE_CASES))
+def test_mesh_engine_composes_like_one_rank(case, kvq, tmp_path):
     """Prefix COW, speculation, a park's spill and restore and the store,
-    under ``tp {tensor: 2}``: the leader's tokens and counters are one rank's
-    (itself JAX's, ``test_torch_kv_offload.py``); each rank held its own
-    shard of each spilled block; the store's blocks are whole (each rank's
-    kv heads, gathered: the rank's pool rows bit for bit), signed and shaped
-    as one rank's store, and a mesh engine boots warm from it."""
+    under ``tp {tensor: 2}``, ``pp {pipeline: 2}`` and ``fsdp {data: 2}``:
+    the leader's tokens and counters are one rank's (itself JAX's,
+    ``test_torch_kv_offload.py``); each rank held its own part of each
+    spilled block (half its kv heads under ``tp``, its stage's layers under
+    ``pp``, all of it under ``fsdp``); the store's blocks are whole (each
+    rank's part, gathered: the rank's pool rows bit for bit), signed and
+    shaped as one rank's store, and a mesh engine boots warm from it."""
+    strategy, axes, halved = COMPOSE_CASES[case]
     traffic = _composed_traffic()
     kw = dict(COMPOSED, kv_quantize=kvq)
     spilled = []
@@ -199,7 +213,7 @@ def test_mesh_engine_composes_like_one_rank(kvq, tmp_path):
 
             eng._ops["export"] = exporting
 
-    (outs, lead), engines = serve_on_mesh({"tensor": 2}, "tp", traffic, together=PHASES,
+    (outs, lead), engines = serve_on_mesh(axes, strategy, traffic, together=PHASES,
                                           on_engine=watch,
                                           kv_persist_dir=str(tmp_path / "mesh"), **kw)
     ref, one = one_rank(traffic, together=PHASES, kv_persist_dir=str(tmp_path / "one"), **kw)
@@ -211,7 +225,10 @@ def test_mesh_engine_composes_like_one_rank(kvq, tmp_path):
         assert s[key] == r[key], key
     assert s["cow_copies"] > 0 and s["block_parks"] > 0 and s["spec_accepted_total"] > 0
     assert s["host_spilled_blocks_total"] > 0 and s["kv_persisted_blocks"] > 0
-    assert spilled and all(t.shape[2] == CFG["n_heads"] // 2 for d in spilled for t in d.values())
+    whole = {name: leaf[:, 0].shape for name, leaf in one._pool.items()}
+    assert spilled and all(
+        t.shape == tuple(n // 2 if dim == halved else n for dim, n in enumerate(whole[name]))
+        for d in spilled for name, t in d.items())
     # The follower holds its shard of exactly the blocks the leader's tier holds.
     assert set(engines[1]._held) == set(lead._host_tier._data) and not engines[1]._staged
 
@@ -230,29 +247,39 @@ def test_mesh_engine_composes_like_one_rank(kvq, tmp_path):
 
     # Booting warm from the mesh's store: the preload scatters each rank's
     # heads, and the tokens stay one rank's.
-    (warm, wl), _ = serve_on_mesh({"tensor": 2}, "tp", traffic, together=PHASES,
+    (warm, wl), _ = serve_on_mesh(axes, strategy, traffic, together=PHASES,
                                   kv_persist_dir=str(tmp_path / "mesh"), **kw)
     assert warm == ref and wl.stats()["kv_preloaded_blocks"] > 0
 
 
-def test_the_store_holds_every_ranks_heads_bit_for_bit(tmp_path):
+@pytest.mark.parametrize("strategy,axes", [
+    ("tp", {"data": 2, "tensor": 2}), ("pp_tp", {"pipeline": 2, "tensor": 2})],
+    ids=["tp-2x2", "pp_tp-2x2"])
+def test_the_store_holds_every_ranks_heads_bit_for_bit(strategy, axes, tmp_path):
     """A block the leader persists is the ranks' pool rows of that block,
-    concatenated over the kv heads in the tensor axis's order."""
+    concatenated over the kv heads in the tensor axis's order and, under a
+    pipeline, over the stages' layers in stage order: every layer of every
+    stage, bit for bit."""
     traffic = _composed_traffic()[:2]
     kw = dict(slots=2, max_len=48, block_size=4, prefix_cache=True, warmup=False,
               kv_persist_sig="w1", kv_persist_dir=str(tmp_path))
-    (_, lead), engines = serve_on_mesh({"data": 2, "tensor": 2}, "tp", traffic,
-                                       together=False, **kw)
+    (_, lead), engines = serve_on_mesh(axes, strategy, traffic, together=False, **kw)
     blocks = {chain: block for chain, block, _ in lead.prefix_cache.hottest_chains(64)}
     meta = lead._kv_store_meta()
     stored = kvstore.load_prefix_store(tmp_path, expect=meta)
     assert stored and meta["kv_heads"] == CFG["n_heads"]
+    # Rank r lies at (outer, tensor) = divmod(r, 2): the data replica or the stage.
+    stage_of = {r: divmod(r, 2)[0] if "pipeline" in axes else 0 for r in range(4)}
     for chain, data in stored:
         b = blocks[chain]
         for name, t in data.items():
-            parts = [engines[r]._pool[name][:, b] for r in (0, 1)]  # tensor ranks 0, 1
-            assert torch.equal(t, torch.cat(parts, dim=2))
-            assert torch.equal(engines[2]._pool[name][:, b], parts[0])  # data replica
+            assert t.shape[0] == CFG["n_layers"]
+            rows = {r: engines[r]._pool[name][:, b] for r in range(4)}
+            stages = [torch.cat([rows[r] for r in range(4) if stage_of[r] == s][:2], dim=2)
+                      for s in sorted(set(stage_of.values()))]
+            assert torch.equal(t, torch.cat(stages, dim=0))
+            if "pipeline" not in axes:
+                assert torch.equal(rows[2], rows[0])  # data replica
 
 
 def test_a_failed_leader_call_ends_the_followers():
@@ -308,7 +335,10 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_lm_server_on_two_ranks_answers_with_one_ranks_tokens():
+@pytest.mark.parametrize("strategy,axes", [
+    ("tp", {"tensor": 2}), ("pp", {"pipeline": 2}), ("fsdp", {"data": 2})],
+    ids=["tp", "pp", "fsdp"])
+def test_lm_server_on_two_ranks_answers_with_one_ranks_tokens(strategy, axes):
     from polyaxon_tpu_torch.builtins.services import lm_server
     from polyaxon_tpu_torch.tracking.context import Context
 
@@ -321,7 +351,7 @@ def test_lm_server_on_two_ranks_answers_with_one_ranks_tokens():
 
     def rank_main(mesh, rank):
         ctx = Context(params=dict(params), process_id=rank, num_processes=2, num_hosts=1,
-                      mesh=mesh, strategy="tp", seed=4, records=[])
+                      mesh=mesh, strategy=strategy, seed=4, records=[])
         if rank == 0:
             def client():
                 try:
@@ -346,7 +376,7 @@ def test_lm_server_on_two_ranks_answers_with_one_ranks_tokens():
         lm_server(ctx)
         return ctx.records
 
-    records = run_mesh_ranks({"tensor": 2}, rank_main, timeout=120)
+    records = run_mesh_ranks(axes, rank_main, timeout=120)
     # One rank's lm_server: the same seeded weights (bf16, as lm_server's
     # config), one card's engine; its tokens are generate's
     # (test_torch_lm_http.py).

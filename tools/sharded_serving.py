@@ -2,8 +2,9 @@
 """``lm_server`` sharded over one host's cards, against one card's ``lm_server``.
 
 Run from the repository root on a machine with 4 cards:
-``python3 tools/sharded_serving.py [--cpu]``.  For ``tp {tensor: 4}`` and
-``tp_dp {data: 2, tensor: 2}`` it launches a ``kind: service`` spec of
+``python3 tools/sharded_serving.py [--cpu] [strategy ...]``.  For ``tp
+{tensor: 4}``, ``tp_dp {data: 2, tensor: 2}``, ``pp {pipeline: 4}`` and
+``pp_tp {pipeline: 2, tensor: 2}`` (the strategies named, or all) it launches a ``kind: service`` spec of
 ``polyaxon_tpu_torch.builtins.services:lm_server`` through
 ``spawner.local.LocalGangSpawner`` with topology ``h100``, ``num_devices: 4``,
 ``num_hosts: 1``: one rank process a card, one NCCL world, the mesh's rank 0
@@ -13,8 +14,10 @@ server gets the same 16 concurrent greedy ``/generate`` requests (distinct
 random prompts, so that no prefix is shared and each request's tokens
 depend on its prompt alone), and the tool reads ``/v1/stats``: the engine's
 ``decode_step_s`` p50, the descriptor broadcast's (``mesh_descriptor_s``)
-p50 and ``steady_state_compiles``; TTFT p50 comes from the answers'
-``ttft_s``.  A server is stopped as the control plane stops a service
+p50, ``steady_state_compiles`` and whether the leader's step family is
+captured (``mesh.captured``: under a pipeline the graphs hold the stage hop's
+NCCL send and receive and the logits' broadcast); TTFT p50 comes from the
+answers' ``ttft_s``.  A server is stopped as the control plane stops a service
 (SIGTERM to each process group).
 
 The rule for the tokens is chip_smoke's phase 47's for bf16 (``lm_server``
@@ -53,8 +56,9 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 RANKS, SEED, GAP, REQUESTS, TIMEOUT_S = 4, 0, 2.0 ** -3, 16, 900
-CASES = (("tp", {"tensor": 4}), ("tp_dp", {"data": 2, "tensor": 2}))
-MODEL = {True: dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, head_dim=16, d_ff=128,
+CASES = (("tp", {"tensor": 4}), ("tp_dp", {"data": 2, "tensor": 2}), ("pp", {"pipeline": 4}),
+         ("pp_tp", {"pipeline": 2, "tensor": 2}))
+MODEL = {True: dict(vocab_size=256, d_model=64, n_layers=4, n_heads=4, head_dim=16, d_ff=128,
                     seq=128, slots=4, block_size=8, prefill_chunk=32, max_new_tokens=8),
          False: dict(vocab_size=32768, d_model=2048, n_layers=8, n_heads=32, head_dim=64,
                      d_ff=8192, seq=1024, slots=8, block_size=16, prefill_chunk=256,
@@ -241,6 +245,8 @@ def main() -> int:
     if sys.argv[1:2] == [CPU_RANK]:
         return _cpu_rank(*sys.argv[2:])
     cpu = "--cpu" in sys.argv[1:]
+    named = [a for a in sys.argv[1:] if not a.startswith("--")]
+    cases = [(s, axes) for s, axes in CASES if not named or s in named]
     model = MODEL[cpu]
     cards = [] if cpu else subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -252,11 +258,15 @@ def main() -> int:
     spawner = LocalGangSpawner(StoreLayout(Path(tempfile.mkdtemp(prefix="sharded-serving-"))),
                                heartbeat_interval=1.0)
     servers = {}
-    for i, (strategy, axes) in enumerate(CASES):
+    for i, (strategy, axes) in enumerate(cases):
         topology = {"accelerator": "h100", "num_devices": RANKS, "num_hosts": 1,
                     "strategy": strategy, "mesh": axes}
-        servers[f"{strategy} {axes}"] = (_serve_cpu(model, strategy, axes) if cpu else
-                                         _serve_gang(spawner, i + 1, model, topology))
+        try:
+            servers[f"{strategy} {axes}"] = (_serve_cpu(model, strategy, axes) if cpu else
+                                             _serve_gang(spawner, i + 1, model, topology))
+        except Exception as e:  # the next case still runs; this one fails the tool
+            print(f"lm_server {strategy} {axes}: FAILED: {e!r}", flush=True)
+            servers[f"{strategy} {axes}"] = {"error": repr(e)}
     if cpu:
         from polyaxon_tpu_torch.builtins.services import lm_server
         from polyaxon_tpu_torch.tracking.context import Context
@@ -277,6 +287,9 @@ def main() -> int:
                                               "num_hosts": 1})
     ok = True
     for name, got in servers.items():
+        if "error" in got:
+            ok = False
+            continue
         got["divergences"] = _first_divergences(model, one["tokens"], got["tokens"], cpu)
         good = (all(gap <= GAP for _, _, gap in got["divergences"])
                 and got["steady_state_compiles"] == 0 and got["mesh"] is not None
@@ -291,13 +304,15 @@ def main() -> int:
               f"({got['tokens_per_s']:.1f} tokens/s); decode_step_s p50 "
               f"{got['decode_step_s_p50']}, TTFT p50 {got['ttft_s_p50']:.4f} s, descriptor "
               f"ms p50 {got['mesh_descriptor_ms_p50']}, steady_state_compiles "
-              f"{got['steady_state_compiles']}; requests whose tokens leave one card's (index, "
+              f"{got['steady_state_compiles']}, captured {got['mesh'].get('captured')}, stages "
+              f"{got['mesh'].get('stages')}, KV pool a rank {got['kv_pool_rank_bytes']} of "
+              f"{got['kv_pool_bytes']} B; requests whose tokens leave one card's (index, "
               f"first position, one card's top-2 gap): {got['divergences']} "
               f"({'ok' if good else 'FAILED'})", flush=True)
     print(f"lm_server on one card: decode_step_s p50 {one['decode_step_s_p50']}, TTFT p50 "
           f"{one['ttft_s_p50']:.4f} s, {one['tokens_per_s']:.1f} tokens/s", flush=True)
     for got in servers.values():
-        got.pop("tokens")
+        got.pop("tokens", None)
     one.pop("tokens")
     print(json.dumps({"ok": ok, "cards": cards, "gap_bound": GAP, "servers": servers,
                       "one_card": one}))
