@@ -425,12 +425,16 @@ control plane's saturation harness.  Phases:
     1e-2 relative of the same model's with dense attention; ``lm_generate``
     on it (batch 4, prompt 512, 16 new tokens: the prefills' launches) and
     its prefill logits against dense attention as phase 6; then the wide
-    kernels past 256 (each block of 128 output columns sums its scores over
-    the whole head_dim in chunks of 64) against their plain versions at
-    head_dim 264, 300 (padded to 304), 384, 512 and 1024, bf16 and float32,
-    causal with a ragged T and full with Tq != Tk, and timed at the training
-    shape at 512 (BH 20 x 4, T 1024) beside their plain versions, SDPA (the
-    backend it takes named) and their bounds; ``lm_train`` and
+    kernels past 256 (the bf16 forward's and dk/dv's blocks own 512 output
+    columns and sum each score once up to head_dim 512; the bf16 dq pass's
+    and the float32 kernels' own 128 and sum their scores over the whole
+    head_dim in chunks of 64) against their plain versions at head_dim 264,
+    300 (padded to 304), 384, 512 and 1024, bf16 and float32, causal with a
+    ragged T and full with Tq != Tk, the bf16 forward's and dk/dv's launches
+    (grid, threads, shared memory, registers) logged at 512 and 1024, and
+    the three timed at the training shape at 512 (BH 20 x 4, T 1024) beside
+    their plain versions, SDPA (the backend it takes named) and their
+    bounds; ``lm_train`` and
     ``lm_generate`` as above with 4 heads x 512 and one KV head (q width
     2048), the profiled step naming each wide kernel once a layer; then
     ``lm_train`` at Phi-3-mini's 32 heads x 96 on 2 layers of the trunk;
@@ -726,14 +730,17 @@ HEAD_WIDTHS_ONLY = "--head-widths-phase"
 CONTROL_LANE = "--control-lane"
 CONTROL_LANES = {"remedy": ("52", "55"), "fleet": ("53", "56")}
 # Past 256 the wide kernels run (csrc/head_dims.cuh): their grids split the
-# output columns in blocks of 128 and each block sums its scores over the
-# whole d in chunks of 64.  Phase 58 holds them to their plain versions at
-# one column block past 256 (264), a d padded from 300 to 304, 384, 512 and
-# 1024, both types; times them at the training shape at d 512 (BH 20 x 4,
-# T 1024, bf16, causal) beside SDPA and the backend it takes; and recuts the
-# 671M trunk's attention to 4 heads x 512 with one KV head (q width 2048, as
-# WIDE_MODEL's 8 x 256) for lm_train and lm_generate, whose profiled step
-# must name each wide kernel once a layer.
+# output columns in blocks.  The bf16 forward and dk/dv kernels own 512
+# columns a block and sum each score once up to d 512; the bf16 dq pass and
+# the float32 kernels own 128 and sum the scores over the whole d in chunks
+# of 64.  Phase 58 holds them to their plain versions at one 128-column
+# block past 256 (264), a d padded from 300 to 304, 384, 512 and 1024, both
+# types; logs the bf16 forward's and dk/dv's launches (grid, threads, shared
+# memory, registers) at d 512 and 1024; times the three at the training
+# shape at d 512 (BH 20 x 4, T 1024, bf16, causal) beside SDPA and the
+# backend it takes; and recuts the 671M trunk's attention to 4 heads x 512
+# with one KV head (q width 2048, as WIDE_MODEL's 8 x 256) for lm_train and
+# lm_generate, whose profiled step must name each wide kernel once a layer.
 HUGE_DIMS = (264, 300, 384, 512, 1024)
 HUGE_TRAIN_SHAPE = (4, 512)  # (H, d) at BH TRAIN_BATCH x H, T TRAIN_SEQ
 HUGE_MODEL = dict(BENCH_MODEL, n_heads=4, head_dim=512, n_kv_heads=1)
@@ -7545,8 +7552,10 @@ def _huge_kernels():
     """The three kernels past 256 against their plain versions at every d of
     HUGE_DIMS, bf16 and float32, causal with one row past a tile edge (a
     ragged T) and full with Tq != Tk; then timed at the training shape at
-    d 512 beside their plain versions, SDPA and their bounds.  Returns the
-    largest errors by kernel and the timed records under ``d512_h4_t1024``."""
+    d 512 beside their plain versions, SDPA and their bounds, and the bf16
+    forward's and dk/dv's launches logged at d 512 and 1024.  Returns the
+    largest errors by kernel and the timed records under
+    ``d512_h4_t1024``."""
     from polyaxon_tpu_torch.parallel import flash
 
     worst = {"fwd": 0.0, "lse": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -7573,6 +7582,8 @@ def _huge_kernels():
     args, kw, errs = _bwd_case(TRAIN_BATCH * H, TRAIN_SEQ, TRAIN_SEQ, d, torch.bfloat16, True)
     label = f"training shape, {H} heads x {d}"
     times = _train_shape_times(label, args, kw, errs, TRAIN_BATCH)
+    for at in (d, 1024):  # past 512 the column blocks come back
+        _log_wide_launches(TRAIN_BATCH * H, TRAIN_SEQ, at)
     q4, k4, v4 = (x.view(TRAIN_BATCH, H, TRAIN_SEQ, d) for x in args[:3])
     backend = _sdpa_backend(q4, k4, v4, True, kw["sm_scale"])
     log(f"  {label}: SDPA takes its {backend} backend")
@@ -7581,6 +7592,28 @@ def _huge_kernels():
     del args, q4, k4, v4
     _free()
     return worst, {f"d{d}_h{H}_t{TRAIN_SEQ}": times}
+
+
+def _log_wide_launches(BH, T, d):
+    """Logs the bf16 wide forward's and dk/dv kernel's launches at (BH, T, d)
+    as their launchers make them (``flash_fwd_wide_bf16_shape``,
+    ``flash_bwd_dkv_wide_bf16_shape`` read the launchers' own helper): grid,
+    threads a block, dynamic shared memory and registers a thread."""
+    import ctypes
+
+    from polyaxon_tpu_torch import _build
+
+    for lib, kernel in (("flash_fwd", "flash_fwd_wide_bf16_kernel"),
+                        ("flash_bwd", "flash_bwd_dkv_wide_bf16_kernel")):
+        fn = getattr(_build.load(lib), kernel.replace("_kernel", "_shape"))
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        got = (ctypes.c_int * 6)()
+        rc = fn(BH, T, d, got)
+        if rc:
+            raise AssertionError(f"{kernel}: launch shape at d {d}: CUDA error {rc}")
+        log(f"  {kernel} at BH {BH}, T {T}, d {d}: grid {list(got[:3])}, "
+            f"{got[3]} threads, {got[4]} B of shared memory, {got[5]} registers")
 
 
 def _width_model_runs(key, model, kernels, launches, out):
@@ -7948,7 +7981,8 @@ def main() -> int:
             record[shape] = dict(times[kind], launches_per_step=width_launches[
                 "lm_train_d512_kv1"][i] / TRAIN_STEPS)
     script_s = time.perf_counter() - t0
-    log(f"chip_smoke: all phases passed in {script_s:.1f} s; by phase: "
+    log(f"chip_smoke: all phases passed in {script_s:.1f} s ({1200 - script_s:.1f} s inside "
+        "the 1,200 s limit); by phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + "; in children beside them: " + ", ".join(f"{k} {v:.1f}" for k, v in beside_s.items()))
     # The serving and long-context figures of this run, on lines of their

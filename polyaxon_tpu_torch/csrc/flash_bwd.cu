@@ -983,14 +983,17 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // d > 256 (`head_dims::wide`): the wide kernels.  A third grid axis splits
-// the output columns (dq, or dk and dv) in blocks of kWideCols; each block
-// sums its scores s and dp over the whole d by streaming the score operands
-// through shared memory in chunks of kWideChunk columns (the float32 sums
-// carry across the chunks), computes p and ds as the kernels above do, and
-// multiplies them by its own columns of k (dq), or of do and q (dk/dv). So
-// every column block computes the same scores: the score products are done
-// d / kWideCols times.  The tensor-core kernels screen p and ds as above and
-// sum the screened pairs again from the rows in device memory.
+// the output columns (dq, or dk and dv).  The float32 kernels and the bf16 dq
+// pass split them in blocks of kWideCols; each block sums its scores s and
+// dp over the whole d by streaming the score operands through shared memory
+// in chunks of kWideChunk columns (the float32 sums carry across the
+// chunks), computes p and ds as the kernels above do, and multiplies them by
+// its own columns of k (dq), or of do and q (dk/dv).  So every column block
+// computes the same scores: the score products are done d / kWideCols
+// times.  The bf16 dk/dv pass owns kWideTileCols columns a block and sums
+// each score once up to d = 512 (see it below).  The tensor-core kernels
+// screen p and ds as above and sum the screened pairs again from the rows in
+// device memory.
 
 constexpr int kWideChunk = head_dims::kWideChunk;
 constexpr int kWideCols = head_dims::kWideCols;
@@ -1274,15 +1277,14 @@ flash_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
-// The tensor-core kernels at d > 256.  Their steps are (tile, chunk) pairs in
-// order; the chunks of step i + 1 arrive through cp.async in a two-stage
+// The tensor-core dq kernel at d > 256.  Its steps are (tile, chunk) pairs
+// in order; the chunks of step i + 1 arrive through cp.async in a two-stage
 // ring while step i is multiplied, and the last chunk's group of a tile also
-// carries the block's columns of the second product's operands (single
-// buffers: their previous readers finished a step earlier, behind a
-// barrier, since a row takes at least five chunks).
+// carries the block's columns of k (a single buffer: its previous readers
+// finished a step earlier, behind a barrier, since a row takes at least five
+// chunks).
 constexpr int kDqWideBlockQ = kTcWarps * 16;  // query rows: one m16 tile a warp
 constexpr int kDqWideBlockK = 32;             // key rows per tile
-constexpr int kDkvWideBlockQ = 32;            // query rows per tile (keys: kTcBlockK)
 
 constexpr size_t dq_wide_bf16_smem_bytes() {
   // q, do chunk rings [2][BQ][CW+8] each; k, v chunk rings [2][BK][CW+8]
@@ -1290,15 +1292,6 @@ constexpr size_t dq_wide_bf16_smem_bytes() {
   return sizeof(bf16) * (4 * (kDqWideBlockQ + kDqWideBlockK) * (kWideChunk + 8) +
                          kDqWideBlockK * (kWideCols + 8)) +
          kTcWarps * 32 * (sizeof(float2) + sizeof(uint32_t));
-}
-
-constexpr size_t dkv_wide_bf16_smem_bytes() {
-  // k, v chunk rings [2][BK][CW+8] each; q, do chunk rings [2][BQ][CW+8]
-  // each; q, do columns [BQ][OC+8] each; lse, delta [BQ] f32; per warp, 32
-  // re-summed pairs
-  return sizeof(bf16) * (4 * (kTcBlockK + kDkvWideBlockQ) * (kWideChunk + 8) +
-                         2 * kDkvWideBlockQ * (kWideCols + 8)) +
-         sizeof(float) * 2 * kDkvWideBlockQ + kTcWarps * 32 * (sizeof(float2) + sizeof(uint32_t));
 }
 
 __global__ void __launch_bounds__(kTcThreads, 2)
@@ -1457,35 +1450,128 @@ flash_bwd_dq_wide_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict
   }
 }
 
-__global__ void __launch_bounds__(kTcThreads)
+// The tensor-core dk/dv kernel at d > 256, `flash_bwd_dkv_wide_bf16_kernel`.
+// It replaces `_dkv_kernel` (polyaxon_tpu/parallel/flash.py:219) past
+// head_dim 256.  What bounds it at lm_train's shape at 4 heads x 512 (BH =
+// 20 x 4, T = 1024, d = 512, bf16, causal) on an H100 SXM: it reads q, k, v,
+// do (4 x 83.9 MB), lse and delta (2 x 0.3 MB) and writes dk and dv (2 x
+// 167.8 MB), 671.7 MB or 0.2005 ms at 3.35 TB/s, against 171.9 GFLOP of
+// products (four per visible pair) or 0.1738 ms: bytes, with the products
+// close behind.
+//
+// Design: the key tile that owns its rows owns their dk and dv columns too,
+// so s^T and dp^T are summed once.  Block (bh, 32-row key tile, column
+// block) owns up to kWideTileCols = 512 columns of dk and dv: all of them up
+// to d = 512.  It walks the 32-row q tiles from the diagonal on; for each,
+// its 8 warps
+//   sum s^T = K Q^T (warps 0-3) and dp^T = V dO^T (warps 4-7) once, over the
+//       whole d: each warp one 16 x 16 piece of a 32 x 32 tile (mma.sync
+//       m16n8k16, ldmatrix-fed, in 16-column steps from column 0), written to
+//       shared memory as float32;
+//   take p^T and ds^T there, four pairs a thread, screen them and sum the
+//       screened pairs again (`resum_near_ties`, from the rows in device
+//       memory), and write both to shared memory as bf16 (the TPU kernel's
+//       roundings of p to do's dtype and of ds to q's);
+//   accumulate dv += p^T dO and dk += ds^T Q, each warp over its own 64
+//       columns for all 32 keys (2 x 8 m16n8 tiles of each, 128 accumulator
+//       registers a lane), p^T and ds^T through ldmatrix, dO and Q through
+//       ldmatrix.trans.
+// Up to d = 512 (kWhole) the k and v rows stay in shared memory for the
+// block's life, and the q, do, lse and delta tiles arrive through cp.async in
+// a two-stage ring, tile j + 1 in flight while tile j is used: 213 KB of
+// shared memory, one block an SM.  Past 512 the column axis of the grid
+// comes back (d / 512 blocks, each summing the scores again), and k, v, q
+// and do stream through the ring in chunks of kWideChunk columns, the
+// block's q and do columns with the last chunk of each q tile.  A cluster of
+// blocks that trade partial scores through distributed shared memory would
+// move about as many bytes between SMs as the repeats cost (see the forward
+// kernel); one block a key tile moves none.
+//
+// The screen.  Each s and dp is summed as in the tensor-core kernels up to
+// d = 256: one mma accumulator over d in 16-column steps from column 0, each
+// step's 16 products inside the mma, against the plain version's float32
+// FMAs over d from 0.  kSumErr (|x| + 16) was set on sums of 64 to 128
+// products.  The two orders' difference is a walk of d roundings of partial
+// sums of about sqrt(d) unit-scale products, so it grows about as d, while
+// the window grows as |x|, about sqrt(d): at d 1024 it holds fewer standard
+// deviations of the difference than at d 64, and no bound is claimed.  What
+// it lets through is measured instead (tools/tie_variants.py, pass
+// dkv_wide, at d 512 and 1024): about the same share of pairs screened in
+// as at d 64, and dk and dv as close to the plain version as there, where
+// without the re-summing they lie 25 to 45 times further off.  The products
+// over the 32 queries of a tile are summed in the same 16-query steps as in
+// the narrow kernels too.
+// What holds it back now: the score products, ldmatrix-fed mma.sync below
+// the wgmma rate, then three barriers a q tile with one block of 8 warps an
+// SM; and the dk/dv and dq passes each read q, k, v and do.
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * 32;
+constexpr int kWideTileCols = head_dims::kWideTileCols;
+constexpr int kDkvWideWarpCols = kWideTileCols / kWideWarps;  // dk and dv columns a warp owns
+constexpr int kDkvWideBlockK = 32;  // key rows a block owns
+constexpr int kDkvWideBlockQ = 32;  // query rows a tile (the causal start needs BQ == BK)
+constexpr int kDkvWideP = kDkvWideBlockQ + 8;  // row stride of the p^T and ds^T tiles (bf16)
+constexpr int kDkvWideF = kDkvWideBlockQ + 4;  // and of the s^T and dp^T tiles (f32)
+
+template <bool kWhole>
+constexpr size_t dkv_wide_bf16_smem_bytes() {
+  // kWhole: k, v [BK][SW+8] (loaded once), q, do rings [2][BQ][SW+8].  Else:
+  // k, v, q, do rings of chunks [2][.][SW+8] and the q and do columns of the
+  // block [2][BQ][OC+8].  Both: p^T, ds^T [BK][BQ+8] bf16; s^T, dp^T
+  // [BK][BQ+4] f32; lse, delta rings [2][BQ] f32; per warp, 32 re-summed pairs.
+  constexpr int kS = head_dims::kWideScoreCols<kWhole> + 8, kV = kWideTileCols + 8;
+  constexpr int BK = kDkvWideBlockK, BQ = kDkvWideBlockQ;
+  return sizeof(bf16) * ((kWhole ? 2 : 4) * BK * kS + 4 * BQ * kS + (kWhole ? 0 : 4 * BQ * kV) +
+                         2 * BK * kDkvWideP) +
+         sizeof(float) * (2 * BK * kDkvWideF + 4 * BQ) +
+         kWideWarps * 32 * (sizeof(float2) + sizeof(uint32_t));
+}
+
+template <bool kWhole>
+__global__ void __launch_bounds__(kWideThreads, 1)
 flash_bwd_dkv_wide_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                const float* __restrict__ lse, const float* __restrict__ delta,
                                float* __restrict__ dk, float* __restrict__ dv, int tq, int tk,
                                int d, int causal, float sm_scale) {
   using namespace mma_bf16;
-  constexpr int CW = kWideChunk, OC = kWideCols;
-  constexpr int BQ = kDkvWideBlockQ, BK = kTcBlockK;
-  constexpr int kC = CW + 8, kV = OC + 8;  // shared row strides, elements
+  // Score columns a stage holds, and their row stride.
+  constexpr int SW = head_dims::kWideScoreCols<kWhole>, kS = SW + 8;
+  constexpr int OC = kWideTileCols, kV = OC + 8, WC = kDkvWideWarpCols;
+  constexpr int BK = kDkvWideBlockK, BQ = kDkvWideBlockQ, kP = kDkvWideP, kF = kDkvWideF;
+  // The second products' q and do rows: the staged tiles themselves when
+  // they are whole, else the block's columns.
+  constexpr int kC = kWhole ? kS : kV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [2][BK][kC]
-  bf16* vs = ks + 2 * BK * kC;                    // [2][BK][kC]
-  bf16* qs = vs + 2 * BK * kC;                    // [2][BQ][kC]
-  bf16* dos = qs + 2 * BQ * kC;                   // [2][BQ][kC]
-  bf16* qcs = dos + 2 * BQ * kC;                  // [BQ][kV]
-  bf16* docs = qcs + BQ * kV;                     // [BQ][kV]
-  float* lses = reinterpret_cast<float*>(docs + BQ * kV);  // [BQ]
-  float* deltas = lses + BQ;                                // [BQ]
-  float2* vals = reinterpret_cast<float2*>(deltas + BQ);    // [warps][32]
-  uint32_t* items = reinterpret_cast<uint32_t*>(vals + kTcWarps * 32);  // [warps][32]
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [1 or 2][BK][kS]
+  bf16* vs = ks + (kWhole ? 1 : 2) * BK * kS;    // [1 or 2][BK][kS]
+  bf16* qs = vs + (kWhole ? 1 : 2) * BK * kS;    // [2][BQ][kS]
+  bf16* dos = qs + 2 * BQ * kS;                  // [2][BQ][kS]
+  bf16* qcs = dos + 2 * BQ * kS;                 // not kWhole: [2][BQ][kV]
+  bf16* docs = qcs + (kWhole ? 0 : 2 * BQ * kV);  // not kWhole: [2][BQ][kV]
+  bf16* pts = docs + (kWhole ? 0 : 2 * BQ * kV);  // [BK][kP]: p^T
+  bf16* dsts = pts + BK * kP;                     // [BK][kP]: ds^T
+  float* sts = reinterpret_cast<float*>(dsts + BK * kP);  // [BK][kF]: s^T
+  float* dpts = sts + BK * kF;                            // [BK][kF]: dp^T
+  float* lses = dpts + BK * kF;                           // [2][BQ]
+  float* deltas = lses + 2 * BQ;                          // [2][BQ]
+  float2* vals = reinterpret_cast<float2*>(deltas + 2 * BQ);             // [warps][32]
+  uint32_t* items = reinterpret_cast<uint32_t*>(vals + kWideWarps * 32);  // [warps][32]
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * BK;
-  const int c0 = blockIdx.z * OC;  // this block's first dk and dv column
+  const int k0 = blockIdx.y * BK;  // low k tiles walk the most q tiles and start first
+  const int c0 = blockIdx.z * OC;  // the block's first dk and dv column
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int key_lo = k0 + warp * 16 + g;  // this lane's key rows: key_lo, key_lo + 8
+  // This warp's score piece: of s^T (prod 0) or dp^T (prod 1), keys 16 sm..,
+  // queries 16 sn.. of the tile.
+  const int prod = warp / 4, sm = (warp / 2) % 2, sn = warp % 2;
+  // Its dk and dv columns wc.. of all BK keys; this lane's keys k0 + 16 mt + g + 8 h.
+  const int wc = c0 + warp * WC;
+  const bool has_cols = wc < d;
+  // This thread's pairs of the tile: key er, queries eq..eq + 3.
+  const int er = threadIdx.x / 8, eq = (threadIdx.x % 8) * 4;
   const bf16* qb = q + (size_t)bh * tq * d;
   const bf16* dob = dout + (size_t)bh * tq * d;
   const bf16* kb = k + (size_t)bh * tk * d;
@@ -1493,138 +1579,182 @@ flash_bwd_dkv_wide_bf16_kernel(const bf16* __restrict__ q, const bf16* __restric
   const float* lb = lse + (size_t)bh * tq;
   const float* db = delta + (size_t)bh * tq;
 
-  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  // Causal: q tiles that end before this k tile's first row are all masked.
+  const int q_begin = causal ? k0 : 0;
   const int n_tiles = q_begin < tq ? (tq - q_begin + BQ - 1) / BQ : 0;
-  const int nc = (d + CW - 1) / CW;
+  const int nc = kWhole ? 1 : (d + SW - 1) / SW;  // chunks a q tile
   const int steps = n_tiles * nc;
 
+  // Step i: q tile i / nc, score chunk i % nc, into stage i & 1; the block's
+  // q and do columns (not kWhole), lse and delta ride with a q tile's last
+  // chunk, into the buffers of its parity.  Rows past tq arrive as zeros
+  // (lse -inf) and are masked out of p below.
   auto load_step = [&](int i) {
-    const int q0 = q_begin + (i / nc) * BQ, c = i % nc, st = i & 1;
-    load_cols<BK, CW, kTcThreads>(ks + st * BK * kC, kb, k0, tk, c * CW, d);
-    load_cols<BK, CW, kTcThreads>(vs + st * BK * kC, vb, k0, tk, c * CW, d);
-    load_cols<BQ, CW, kTcThreads>(qs + st * BQ * kC, qb, q0, tq, c * CW, d);
-    load_cols<BQ, CW, kTcThreads>(dos + st * BQ * kC, dob, q0, tq, c * CW, d);
+    const int j = i / nc, c = i % nc, st = i & 1, q0 = q_begin + j * BQ;
+    if constexpr (!kWhole) {
+      load_cols<BK, SW, kWideThreads>(ks + st * BK * kS, kb, k0, tk, c * SW, d);
+      load_cols<BK, SW, kWideThreads>(vs + st * BK * kS, vb, k0, tk, c * SW, d);
+    }
+    load_cols<BQ, SW, kWideThreads>(qs + st * BQ * kS, qb, q0, tq, c * SW, d);
+    load_cols<BQ, SW, kWideThreads>(dos + st * BQ * kS, dob, q0, tq, c * SW, d);
     if (c == nc - 1) {
-      load_cols<BQ, OC, kTcThreads>(qcs, qb, q0, tq, c0, d);
-      load_cols<BQ, OC, kTcThreads>(docs, dob, q0, tq, c0, d);
+      if constexpr (!kWhole) {
+        load_cols<BQ, OC, kWideThreads>(qcs + (j & 1) * BQ * kV, qb, q0, tq, c0, d);
+        load_cols<BQ, OC, kWideThreads>(docs + (j & 1) * BQ * kV, dob, q0, tq, c0, d);
+      }
       if (threadIdx.x < 2 * BQ) {
         const int r = threadIdx.x % BQ;
         const bool in = q0 + r < tq;
         const float* src = threadIdx.x < BQ ? lb : db;
-        cp_async4((threadIdx.x < BQ ? lses : deltas) + r, in ? src + q0 + r : src, in ? 4 : 0);
+        float* dst = (threadIdx.x < BQ ? lses : deltas) + (j & 1) * BQ + r;
+        cp_async4(dst, in ? src + q0 + r : src, in ? 4 : 0);
       }
     }
   };
 
   const float tie_scale = kSumErr * sm_scale;
-  float acc_dk[OC / 8][4], acc_dv[OC / 8][4];  // columns c0.., 8 per block
+  float acc_dk[2][WC / 8][4], acc_dv[2][WC / 8][4];  // keys 16 mt.., columns wc + 8 j..
 #pragma unroll
-  for (int j = 0; j < OC / 8; ++j)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
-  float s[BQ / 8][4], dp[BQ / 8][4];  // s^T and dp^T of the q tile, summed over the chunks
+    for (int jn = 0; jn < WC / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_dk[mt][jn][e] = acc_dv[mt][jn][e] = 0.f;
+  float sc[2][4];  // the score piece, queries 16 sn + 8 n..
 
   if (steps > 0) {
+    if constexpr (kWhole) {
+      load_cols<BK, SW, kWideThreads>(ks, kb, k0, tk, 0, d);
+      load_cols<BK, SW, kWideThreads>(vs, vb, k0, tk, 0, d);
+    }
     load_step(0);
     cp_async_commit();
   }
   for (int it = 0; it < steps; ++it) {
-    const int c = it % nc, st = it & 1;
-    if (it + 1 < steps) load_step(it + 1);  // the stage of step i - 1, released by its barrier
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
+    const int j = it / nc, c = it % nc, st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // step it has landed, and every warp is done with step it - 1
+    if (it + 1 < steps) {
+      load_step(it + 1);
+      cp_async_commit();
+    }
     if (c == 0) {
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int n = 0; n < 2; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
     }
-    const bf16* kst = ks + st * BK * kC;
-    const bf16* vst = vs + st * BK * kC;
-    const bf16* qst = qs + st * BQ * kC;
-    const bf16* dost = dos + st * BQ * kC;
-#pragma unroll
-    for (int kk = 0; kk < CW / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      ldmatrix_x4(ka, a_frag(kst, kC, warp * 16, kk * 16, lane));
-      ldmatrix_x4(va, a_frag(vst, kC, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int j = 0; j < BQ / 16; ++j) {
-        uint32_t b[4];
-        ldmatrix_x4(b, b_pair(qst, kC, j * 16, kk * 16, lane));
-        mma(s[2 * j], ka, b[0], b[1]);
-        mma(s[2 * j + 1], ka, b[2], b[3]);
-        ldmatrix_x4(b, b_pair(dost, kC, j * 16, kk * 16, lane));
-        mma(dp[2 * j], va, b[0], b[1]);
-        mma(dp[2 * j + 1], va, b[2], b[3]);
-      }
+    const bf16* ast = (prod ? vs : ks) + (kWhole ? 0 : st * BK * kS);
+    const bf16* bst = (prod ? dos : qs) + st * BQ * kS;
+    const int n16 = (min(SW, d - c * SW) + 15) / 16;  // columns past d are zero
+#pragma unroll 4
+    for (int kk = 0; kk < n16; ++kk) {
+      uint32_t a[4], b[4];
+      ldmatrix_x4(a, a_frag(ast, kS, 16 * sm, kk * 16, lane));
+      ldmatrix_x4(b, b_pair(bst, kS, 16 * sn, kk * 16, lane));
+      mma(sc[0], a, b[0], b[1]);
+      mma(sc[1], a, b[2], b[3]);
     }
-    if (c == nc - 1) {  // the tile's scores are whole: p and ds, then dv and dk
-      const int q0 = q_begin + (it / nc) * BQ;
-      const bool masked = q0 + BQ > tq || k0 + BK > tk || (causal && q0 < k0 + BK - 1);
-      uint32_t near = 0;
+    if (c != nc - 1) continue;  // the tile's scores are whole after its last chunk
+
+    float* xt = prod ? dpts : sts;
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * t + (e & 1);  // the query, in the tile
-          const int row = q0 + qi;
-          const int key = key_lo + (e >> 1) * 8;
-          const bool keep = !masked || (key < tk && row < tq && (!causal || row >= key));
-          const float p = prob(s[j][e], lses[qi], keep, sm_scale);
-          const float ds = p * (dp[j][e] - deltas[qi]) * sm_scale;
-          const float es = sum_err(s[j][e], tie_scale);
-          const bool near_p = (p >= kTieFloor) & (tie_gap(p) <= p * es);
-          near |= static_cast<uint32_t>(near_p | near_ds(ds, p, es, sum_err(dp[j][e], tie_scale)))
-                  << (j * 4 + e);
-          dp[j][e] = ds;
-          s[j][e] = p;
-        }
-      if (__any_sync(0xffffffffu, near))
-        resum_near_ties<BQ / 2>(
-            near,
-            [&](int i) { return ((i / 4) * 8 + 2 * t + (i & 1)) | (g + (i & 2) * 4) << 8; },
-            [&](int i, bool hit, float2 x) {
-              s[i / 4][i % 4] = hit ? x.x : s[i / 4][i % 4];
-              dp[i / 4][i % 4] = hit ? x.y : dp[i / 4][i % 4];
-            },
-            qb + (size_t)q0 * d, dob + (size_t)q0 * d, kb + (size_t)(k0 + warp * 16) * d,
-            vb + (size_t)(k0 + warp * 16) * d, lses, deltas, items + warp * 32,
-            vals + warp * 32, lane, sm_scale, d, d);
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(xt + (16 * sm + g + 8 * h) * kF + 16 * sn + 8 * n + 2 * t) =
+            make_float2(sc[n][2 * h], sc[n][2 * h + 1]);
+    __syncthreads();  // s^T and dp^T are whole in shared memory
+
+    // p^T and ds^T = p^T (dp^T - delta) scale of this thread's four pairs;
+    // the mask only where the tiles cross the diagonal or a ragged end.
+    const int q0 = q_begin + j * BQ;
+    const float* lst = lses + (j & 1) * BQ;
+    const float* dlt = deltas + (j & 1) * BQ;
+    const bool masked = q0 + BQ > tq || k0 + BK > tk || (causal && q0 < k0 + BK - 1);
+    const float4 s4 = *reinterpret_cast<const float4*>(sts + er * kF + eq);
+    const float4 dp4 = *reinterpret_cast<const float4*>(dpts + er * kF + eq);
+    const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, dpv[4] = {dp4.x, dp4.y, dp4.z, dp4.w};
+    float p[4], ds[4];
+    uint32_t near = 0;  // pairs whose bf16 rounding the order of the sums could flip
+    const int key = k0 + er;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = eq + e;  // the query, in the tile
+      const int row = q0 + qi;
+      const bool keep = !masked || (key < tk && row < tq && (!causal || row >= key));
+      p[e] = prob(sv[e], lst[qi], keep, sm_scale);
+      ds[e] = p[e] * (dpv[e] - dlt[qi]) * sm_scale;
+      const float es = sum_err(sv[e], tie_scale);
+      // bitwise, not short-circuit: no branch per pair
+      const bool near_p = (p[e] >= kTieFloor) & (tie_gap(p[e]) <= p[e] * es);
+      near |= static_cast<uint32_t>(near_p | near_ds(ds[e], p[e], es, sum_err(dpv[e], tie_scale)))
+              << e;
+    }
+    // Pair i of this thread: query eq + i of the tile, key er of the block's.
+    if (__any_sync(0xffffffffu, near))
+      resum_near_ties<4>(
+          near, [&](int i) { return (eq + i) | er << 8; },
+          [&](int i, bool hit, float2 x) {
+            p[i] = hit ? x.x : p[i];
+            ds[i] = hit ? x.y : ds[i];
+          },
+          qb + (size_t)q0 * d, dob + (size_t)q0 * d, kb + (size_t)k0 * d, vb + (size_t)k0 * d,
+          lst, dlt, items + warp * 32, vals + warp * 32, lane, sm_scale, d, d);
+    *reinterpret_cast<uint2*>(pts + er * kP + eq) =
+        make_uint2(pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]));
+    *reinterpret_cast<uint2*>(dsts + er * kP + eq) =
+        make_uint2(pack_bf16(ds[0], ds[1]), pack_bf16(ds[2], ds[3]));
+    __syncthreads();  // p^T and ds^T are whole in shared memory
+
+    // dv += p^T do and dk += ds^T q over this warp's columns.
+    if (has_cols) {
+      const bf16* qct = kWhole ? qs + st * BQ * kS : qcs + (j & 1) * BQ * kV;
+      const bf16* doct = kWhole ? dos + st * BQ * kS : docs + (j & 1) * BQ * kV;
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        a_from_acc(pa, s[2 * kk], s[2 * kk + 1]);
-        a_from_acc(da, dp[2 * kk], dp[2 * kk + 1]);
+        uint32_t pa[2][4], da[2][4];
 #pragma unroll
-        for (int j = 0; j < OC / 16; ++j) {
+        for (int mt = 0; mt < 2; ++mt) {
+          ldmatrix_x4(pa[mt], a_frag(pts, kP, 16 * mt, kk * 16, lane));
+          ldmatrix_x4(da[mt], a_frag(dsts, kP, 16 * mt, kk * 16, lane));
+        }
+#pragma unroll
+        for (int jp = 0; jp < WC / 16; ++jp) {
           uint32_t b[4];
-          ldmatrix_x4_trans(b, bt_pair(docs, kV, kk * 16, j * 16, lane));
-          mma(acc_dv[2 * j], pa, b[0], b[1]);
-          mma(acc_dv[2 * j + 1], pa, b[2], b[3]);
-          ldmatrix_x4_trans(b, bt_pair(qcs, kV, kk * 16, j * 16, lane));
-          mma(acc_dk[2 * j], da, b[0], b[1]);
-          mma(acc_dk[2 * j + 1], da, b[2], b[3]);
+          ldmatrix_x4_trans(b, bt_pair(doct, kC, kk * 16, wc - c0 + jp * 16, lane));
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma(acc_dv[mt][2 * jp], pa[mt], b[0], b[1]);
+            mma(acc_dv[mt][2 * jp + 1], pa[mt], b[2], b[3]);
+          }
+          ldmatrix_x4_trans(b, bt_pair(qct, kC, kk * 16, wc - c0 + jp * 16, lane));
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma(acc_dk[mt][2 * jp], da[mt], b[0], b[1]);
+            mma(acc_dk[mt][2 * jp + 1], da[mt], b[2], b[3]);
+          }
         }
       }
     }
-    __syncthreads();  // this step's stage (and the q and do columns) are consumed
   }
 
+  if (!has_cols) return;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = key_lo + 8 * h;
-    if (key >= tk) continue;
-    float* dkrow = dk + ((size_t)bh * tk + key) * d + c0 + 2 * t;
-    float* dvrow = dv + ((size_t)bh * tk + key) * d + c0 + 2 * t;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < OC / 8; ++j) {
-      if (c0 + j * 8 >= d) continue;
-      *reinterpret_cast<float2*>(dkrow + j * 8) = make_float2(acc_dk[j][2 * h], acc_dk[j][2 * h + 1]);
-      *reinterpret_cast<float2*>(dvrow + j * 8) = make_float2(acc_dv[j][2 * h], acc_dv[j][2 * h + 1]);
+    for (int h = 0; h < 2; ++h) {
+      const int key = k0 + 16 * mt + g + 8 * h;
+      if (key >= tk) continue;
+      float* dkrow = dk + ((size_t)bh * tk + key) * d + wc + 2 * t;
+      float* dvrow = dv + ((size_t)bh * tk + key) * d + wc + 2 * t;
+#pragma unroll
+      for (int jn = 0; jn < WC / 8; ++jn) {
+        if (wc + jn * 8 >= d) continue;  // the columns past d are zero padding
+        *reinterpret_cast<float2*>(dkrow + jn * 8) =
+            make_float2(acc_dk[mt][jn][2 * h], acc_dk[mt][jn][2 * h + 1]);
+        *reinterpret_cast<float2*>(dvrow + jn * 8) =
+            make_float2(acc_dv[mt][jn][2 * h], acc_dv[mt][jn][2 * h + 1]);
+      }
     }
-  }
 }
 
 // One launch of a kernel of either pass: its dynamic shared memory raised to
@@ -1677,7 +1807,7 @@ cudaError_t launch_dq_wide(int dtype, const void* q, const void* k, const void* 
                            const void* dout, const float* lse, const float* delta, float* dq,
                            int bh, int tq, int tk, int d, int causal, float sm_scale,
                            cudaStream_t stream) {
-  const int blocks = head_dims::wide_blocks(d);
+  const int blocks = head_dims::wide_blocks(d, kWideCols);
   if (dtype == 0)
     return launch<float>(flash_bwd_dq_wide_kernel, dq_wide_smem_bytes(), kThreads,
                          dim3(bh, (tq + kF32WideTile - 1) / kF32WideTile, blocks), q, k, v,
@@ -1687,18 +1817,36 @@ cudaError_t launch_dq_wide(int dtype, const void* q, const void* k, const void* 
                       lse, delta, tq, tk, d, causal, sm_scale, stream, dq);
 }
 
+// The bf16 wide dk/dv kernel's launch for (bh, tk, d): launch_dkv_wide makes
+// it and flash_bwd_dkv_wide_bf16_shape reports it.
+struct DkvWideLaunch {
+  decltype(&flash_bwd_dkv_wide_bf16_kernel<true>) kernel;
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
+DkvWideLaunch dkv_wide_bf16_launch(int bh, int tk, int d) {
+  const bool whole = d <= kWideTileCols;
+  return {whole ? flash_bwd_dkv_wide_bf16_kernel<true> : flash_bwd_dkv_wide_bf16_kernel<false>,
+          dim3(bh, (tk + kDkvWideBlockK - 1) / kDkvWideBlockK,
+               head_dims::wide_blocks(d, kWideTileCols)),
+          kWideThreads,
+          whole ? dkv_wide_bf16_smem_bytes<true>() : dkv_wide_bf16_smem_bytes<false>()};
+}
+
 cudaError_t launch_dkv_wide(int dtype, const void* q, const void* k, const void* v,
                             const void* dout, const float* lse, const float* delta, float* dk,
                             float* dv, int bh, int tq, int tk, int d, int causal,
                             float sm_scale, cudaStream_t stream) {
-  const int blocks = head_dims::wide_blocks(d);
   if (dtype == 0)
     return launch<float>(flash_bwd_dkv_wide_kernel, dkv_wide_smem_bytes(), kThreads,
-                         dim3(bh, (tk + kF32WideTile - 1) / kF32WideTile, blocks), q, k, v,
-                         dout, lse, delta, tq, tk, d, causal, sm_scale, stream, dk, dv);
-  return launch<bf16>(flash_bwd_dkv_wide_bf16_kernel, dkv_wide_bf16_smem_bytes(), kTcThreads,
-                      dim3(bh, (tk + kTcBlockK - 1) / kTcBlockK, blocks), q, k, v, dout, lse,
-                      delta, tq, tk, d, causal, sm_scale, stream, dk, dv);
+                         dim3(bh, (tk + kF32WideTile - 1) / kF32WideTile,
+                              head_dims::wide_blocks(d, kWideCols)),
+                         q, k, v, dout, lse, delta, tq, tk, d, causal, sm_scale, stream, dk, dv);
+  const DkvWideLaunch l = dkv_wide_bf16_launch(bh, tk, d);
+  return launch<bf16>(l.kernel, l.smem, l.threads, l.grid, q, k, v, dout, lse, delta, tq, tk, d,
+                      causal, sm_scale, stream, dk, dv);
 }
 
 using DqFn = decltype(&launch_dq<64>);
@@ -1754,4 +1902,20 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                          static_cast<const float*>(delta), static_cast<float*>(dk),
                          static_cast<float*>(dv), bh, tq, tk, d, causal, sm_scale,
                          static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 wide dk/dv kernel's launch for (bh, tk, d), d past 256, as
+// launch_dkv_wide makes it, for the logs: out[0..5] = grid x, y, z, threads a
+// block, dynamic shared memory bytes and registers a thread
+// (cudaFuncGetAttributes).  Returns its CUDA error code.
+extern "C" int flash_bwd_dkv_wide_bf16_shape(int bh, int tk, int d, int* out) {
+  if (!head_dims::takes(d) || !head_dims::wide(d)) return cudaErrorInvalidValue;
+  const DkvWideLaunch l = dkv_wide_bf16_launch(bh, tk, d);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, l.kernel);
+  if (err != cudaSuccess) return err;
+  const int got[6] = {(int)l.grid.x, (int)l.grid.y, (int)l.grid.z, l.threads, (int)l.smem,
+                      attr.numRegs};
+  for (int i = 0; i < 6; ++i) out[i] = got[i];
+  return cudaSuccess;
 }

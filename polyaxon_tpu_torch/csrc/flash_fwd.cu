@@ -458,14 +458,15 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// d > 256 (`head_dims::wide`): the wide kernels.  Block (bh, q tile, column
-// block) owns kWideCols output columns of its rows; a third grid axis runs
-// the column blocks.  Each block sums its scores S = Q K^T over the whole d,
-// streaming q and k through shared memory in chunks of kWideChunk columns
-// (the float32 sums carry across the chunks), applies the online softmax as
-// the kernels above do, and multiplies p by its own columns of V only.  So
-// every column block computes the same S: the products over d are done
-// d / kWideCols times.  Only column block 0 writes lse.
+// d > 256 (`head_dims::wide`): the wide kernels.  A third grid axis runs
+// column blocks of the output.  The float32 kernel's block (bh, q tile,
+// column block) owns kWideCols output columns of its rows, sums its scores
+// S = Q K^T over the whole d, streaming q and k through shared memory in
+// chunks of kWideChunk columns (the float32 sums carry across the chunks),
+// applies the online softmax as the kernels above do, and multiplies p by
+// its own columns of V only: every column block computes the same S, d /
+// kWideCols times.  The bf16 kernel's blocks own kWideTileCols columns (see
+// below).  Only column block 0 writes lse.
 
 constexpr int kWideChunk = head_dims::kWideChunk;
 constexpr int kWideCols = head_dims::kWideCols;
@@ -595,176 +596,297 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
-constexpr int kWideBlockQ = kWarps * 16;  // query rows a block owns: one m16 tile a warp
-constexpr int kWideBlockK = 64;           // key rows per tile
+// The tensor-core kernel at d > 256, `flash_fwd_wide_bf16_kernel`.  It
+// replaces `_fwd_kernel` (polyaxon_tpu/parallel/flash.py:58) past head_dim
+// 256.  What bounds it at lm_train's shape at 4 heads x 512 (BH = 20 x 4,
+// T = 1024, d = 512, bf16, causal) on an H100 SXM: 419.8 MB moved (q, k, v
+// read, o f32 and lse written), 0.1253 ms at 3.35 TB/s, against 86.0 GFLOP
+// of products over the visible pairs, 0.0869 ms at 989 TFLOP/s: bytes.
+//
+// Design: the tile that owns its rows owns their output columns too, so
+// each score is summed once.  Block (bh, 64-row q tile, column block) owns
+// up to kWideTileCols = 512 output columns: all of them up to d = 512.  Its
+// 8 warps split the scores and the output between them:
+//   S = Q K^T   for a 32-row key tile is summed once over the whole d: warp
+//               w sums rows 16 (w % 4).. of the 64 x 32 tile over one half
+//               (w / 4) of d's 16-column steps, mma.sync m16n8k16 fed by
+//               ldmatrix, four accumulator chains a warp; the second half's
+//               partial sums reach the first half's warps through shared
+//               memory;
+//   softmax     warps 0-3 then own the rows: the online softmax on their
+//               fragments (running max m and sum l in registers), p = exp(s
+//               - m) written to shared memory as bf16 (the TPU kernel's
+//               p.astype(v.dtype)), l summing the unrounded p, and each
+//               row's alpha = exp(m_old - m) beside it;
+//   O += P V    each warp owns 64 of the block's columns for all 64 rows
+//               (4 x 8 m16n8 tiles, 128 accumulator registers a lane),
+//               rescales them by the rows' alpha, and reads the whole p tile
+//               and its own columns of V.
+// Up to d = 512 (kWhole) the q tile stays in shared memory for the whole
+// key loop (64 KB, loaded once), and K and V tiles of 32 rows arrive through
+// cp.async in a two-stage ring, tile j + 1 in flight while tile j is used:
+// 210 KB of shared memory, one block an SM.  Past 512 the column axis of the
+// grid comes back (d / 512 blocks, each summing S again) and q and k stream
+// through the ring in chunks of kWideChunk columns, the block's V columns
+// with the last chunk of each key tile.  A thread-block cluster of d / 128
+// blocks that trade partial S through distributed shared memory would also
+// sum each score once, but at this shape it would move about 2 GB of 64 x
+// 64 float32 partials between SMs a call, about as long as the repeats it
+// saves; one block a row tile moves nothing.  What holds it back now: a
+// key-tile step that all 8 warps walk in step, three barriers apart, with
+// nothing to overlap it (one block an SM), in which issuing the next tile's
+// 64 KB of cp.async stalls under the memory system's back-pressure (spread
+// over the S products, the copies stalled those and the kernel ran slower).
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * 32;
+constexpr int kWideTileCols = head_dims::kWideTileCols;
+constexpr int kWideWarpCols = kWideTileCols / kWideWarps;  // output columns a warp owns
+constexpr int kWideBlockQ = 64;                            // query rows a block owns
+constexpr int kWideBlockK = 32;                            // key rows a tile
+constexpr int kWideP = kWideBlockK + 8;                    // the p tile's row stride (bf16)
+constexpr int kWideX = kWideBlockK + 4;                    // the partial scores' row stride (f32)
 
+template <bool kWhole>
 constexpr size_t bf16_wide_smem_bytes() {
-  // q and k chunk rings [2][BQ][CW+8], [2][BK][CW+8]; v columns [BK][OC+8]
-  return sizeof(bf16) * (2 * (kWideBlockQ + kWideBlockK) * (kWideChunk + 8) +
-                         kWideBlockK * (kWideCols + 8));
+  // q [BQ][SW+8] (kWhole: loaded once; else a two-stage ring of chunks),
+  // K ring [2][BK][SW+8], V ring [2][BK][OC+8], p tile [BQ][BK+8] bf16; the
+  // second half's partial scores [BQ][BK+4], each row's alpha and sum [BQ] f32
+  constexpr int kS = head_dims::kWideScoreCols<kWhole> + 8;
+  return sizeof(bf16) * ((kWhole ? 1 : 2) * kWideBlockQ * kS + 2 * kWideBlockK * kS +
+                         2 * kWideBlockK * (kWideTileCols + 8) + kWideBlockQ * kWideP) +
+         sizeof(float) * (kWideBlockQ * kWideX + 2 * kWideBlockQ);
 }
 
-// The tensor-core kernel at d > 256.  Its steps are (key tile, chunk) pairs
-// in order; the q and k chunks of step i + 1 arrive through cp.async in a
-// two-stage ring while step i is multiplied, and the last chunk's group of a
-// key tile also carries that tile's v columns (a single buffer: its previous
-// readers finished a step earlier, behind a barrier, since a row takes at
-// least five chunks).
-__global__ void __launch_bounds__(kThreads, 2)
+template <bool kWhole>
+__global__ void __launch_bounds__(kWideThreads, 1)
 flash_fwd_wide_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, float* __restrict__ o,
                            float* __restrict__ lse, int tq, int tk, int d, int causal,
                            float sm_scale) {
   using namespace mma_bf16;
-  constexpr int CW = kWideChunk, OC = kWideCols;
-  constexpr int BQ = kWideBlockQ, BK = kWideBlockK;
-  constexpr int kC = CW + 8, kV = OC + 8;  // shared row strides, elements
+  // Score columns a stage holds, and their row stride.
+  constexpr int SW = head_dims::kWideScoreCols<kWhole>, kS = SW + 8;
+  constexpr int BQ = kWideBlockQ, BK = kWideBlockK, OC = kWideTileCols, kV = OC + 8;
+  constexpr int WC = kWideWarpCols;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [2][BQ][kC]
-  bf16* ks = qs + 2 * BQ * kC;                    // [2][BK][kC]
-  bf16* vs = ks + 2 * BK * kC;                    // [BK][kV]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);             // [1 or 2][BQ][kS]
+  bf16* ks = qs + (kWhole ? 1 : 2) * BQ * kS;               // [2][BK][kS]
+  bf16* vs = ks + 2 * BK * kS;                              // [2][BK][kV]
+  bf16* ps = vs + 2 * BK * kV;                              // [BQ][kWideP]
+  float* xs = reinterpret_cast<float*>(ps + BQ * kWideP);   // [BQ][kWideX]
+  float* alphas = xs + BQ * kWideX;                         // [BQ]
+  float* sums = alphas + BQ;                                // [BQ]
 
   const int bh = blockIdx.x;
-  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;
-  const int c0 = blockIdx.z * OC;  // this block's first output column
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;  // longest first
+  const int c0 = blockIdx.z * OC;  // the block's first output column
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int wrow = warp * 16;  // this lane's rows: q0 + wrow + g + 8 h
+  // This warp's scores: rows 16 sm.. of the tile, all BK keys, over half
+  // (hf) of each chunk's 16-column steps.  The warps of half 0 then own the
+  // rows' softmax: this lane's rows 16 sm + g + 8 h.
+  const int sm = warp % 4, hf = warp / 4;
+  // Its output columns wc.. of all BQ rows; this lane's rows 16 mt + g + 8 h.
+  const int wc = c0 + warp * WC;
+  const bool has_cols = wc < d;
   const bf16* qb = q + (size_t)bh * tq * d;
   const bf16* kb = k + (size_t)bh * tk * d;
   const bf16* vb = v + (size_t)bh * tk * d;
 
   const int k_end = causal ? min(tk, q0 + BQ) : tk;
-  const int n_tiles = (k_end + BK - 1) / BK;
-  const int nc = (d + CW - 1) / CW;  // chunks a row
+  const int n_tiles = (k_end + BK - 1) / BK;  // 0 only when tk == 0
+  const int nc = kWhole ? 1 : (d + SW - 1) / SW;  // chunks a key tile
   const int steps = n_tiles * nc;
 
+  // Step i: key tile i / nc, score chunk i % nc, into stage i & 1; the V
+  // columns ride with a key tile's last chunk, into the V stage of its parity.
   auto load_step = [&](int i) {
-    const int kt = i / nc, c = i % nc, st = i & 1;
-    load_cols<BQ, CW, kThreads>(qs + st * BQ * kC, qb, q0, tq, c * CW, d);
-    load_cols<BK, CW, kThreads>(ks + st * BK * kC, kb, kt * BK, tk, c * CW, d);
-    if (c == nc - 1) load_cols<BK, OC, kThreads>(vs, vb, kt * BK, tk, c0, d);
+    const int j = i / nc, c = i % nc, st = i & 1;
+    if constexpr (!kWhole) load_cols<BQ, SW, kWideThreads>(qs + st * BQ * kS, qb, q0, tq, c * SW, d);
+    load_cols<BK, SW, kWideThreads>(ks + st * BK * kS, kb, j * BK, tk, c * SW, d);
+    if (c == nc - 1) load_cols<BK, OC, kWideThreads>(vs + (j & 1) * BK * kV, vb, j * BK, tk, c0, d);
   };
 
-  float m[2], l[2];
-  float acc[OC / 8][4];  // o columns c0.., 8 per block
-  float s[BK / 8][4];    // the key tile's scores, summed over the chunks
+  float m[2], l[2];         // half 0: running max and sum of this lane's rows
+  float acc[4][WC / 8][4];  // o, rows 16 mt.., columns wc + 8 j..
+  float s[BK / 8][4];       // the scores, keys 8 n..
   m[0] = m[1] = -CUDART_INF_F;
   l[0] = l[1] = 0.f;
 #pragma unroll
-  for (int j = 0; j < OC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int j = 0; j < WC / 8; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
 
   if (steps > 0) {
+    if constexpr (kWhole) load_cols<BQ, SW, kWideThreads>(qs, qb, q0, tq, 0, d);
     load_step(0);
     cp_async_commit();
   }
   for (int it = 0; it < steps; ++it) {
-    const int c = it % nc, st = it & 1;
-    if (it + 1 < steps) load_step(it + 1);  // the stage of step i - 1, released by its barrier
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
+    const int j = it / nc, c = it % nc, st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // step it has landed, and every warp is done with step it - 1
+    if (it + 1 < steps) {
+      load_step(it + 1);
+      cp_async_commit();
+    }
     if (c == 0) {
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     }
-    const bf16* qst = qs + st * BQ * kC;
-    const bf16* kst = ks + st * BK * kC;
-#pragma unroll
-    for (int kk = 0; kk < CW / 16; ++kk) {
+    const bf16* qst = kWhole ? qs : qs + st * BQ * kS;
+    const bf16* kst = ks + st * BK * kS;
+    const int n16 = (min(SW, d - c * SW) + 15) / 16;  // columns past d are zero
+    const int mid = (n16 + 1) / 2;
+#pragma unroll 4
+    for (int kk = hf ? mid : 0; kk < (hf ? n16 : mid); ++kk) {
       uint32_t a[4];
-      ldmatrix_x4(a, a_frag(qst, kC, wrow, kk * 16, lane));
+      ldmatrix_x4(a, a_frag(qst, kS, 16 * sm, kk * 16, lane));
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
+      for (int n = 0; n < BK / 16; ++n) {
         uint32_t b[4];
-        ldmatrix_x4(b, b_pair(kst, kC, j * 16, kk * 16, lane));
-        mma(s[2 * j], a, b[0], b[1]);
-        mma(s[2 * j + 1], a, b[2], b[3]);
+        ldmatrix_x4(b, b_pair(kst, kS, 16 * n, kk * 16, lane));
+        mma(s[2 * n], a, b[0], b[1]);
+        mma(s[2 * n + 1], a, b[2], b[3]);
       }
     }
-    if (c == nc - 1) {  // the tile's scores are whole: softmax, then o += p v
-      const int k0 = (it / nc) * BK;
-      const bool masked = k0 + BK > tk || (causal && k0 + BK - 1 > q0);
+    if (c != nc - 1) continue;  // the tile's scores are whole after its last chunk
+
+    if (hf) {  // the second half's partial scores go to the first half's warps
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
+      for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] *= sm_scale;
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(xs + (16 * sm + g + 8 * h) * kWideX + 8 * n + 2 * t) =
+              make_float2(s[n][2 * h], s[n][2 * h + 1]);
+    }
+    __syncthreads();  // the partial scores are in
+    const int k0 = j * BK;
+    const bool masked = k0 + BK > tk || (causal && k0 + BK - 1 > q0);
+    if (!hf) {
+      // Scale, and mask where the tile crosses the diagonal or the ragged end.
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 x = *reinterpret_cast<const float2*>(
+              xs + (16 * sm + g + 8 * h) * kWideX + 8 * n + 2 * t);
+          s[n][2 * h] = (s[n][2 * h] + x.x) * sm_scale;
+          s[n][2 * h + 1] = (s[n][2 * h + 1] + x.y) * sm_scale;
           if (masked) {
-            const int col = k0 + j * 8 + 2 * t + (e & 1);
-            const int row = q0 + wrow + g + (e >> 1) * 8;
-            if (!(col < tk && (!causal || row >= col))) s[j][e] = kNegBig;
+            const int row = q0 + 16 * sm + g + 8 * h;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = k0 + 8 * n + 2 * t + e;
+              if (!(col < tk && (!causal || row >= col))) s[n][2 * h + e] = kNegBig;
+            }
           }
         }
+      // Online softmax on the rows' fragments: p = exp(s - m), taken as
+      // exp2((s - m) log2 e); p goes to the p tile as bf16 (the TPU kernel's
+      // p.astype(v.dtype)), l sums the unrounded p, and each row's alpha =
+      // exp(m_old - m) goes to every warp through shared memory.
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        const int r = 16 * sm + g + 8 * h;
         float mx = m[h];
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+        for (int n = 0; n < BK / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
         const float m_cur = quad_max(mx);
-        const float alpha = exp2f((m[h] - m_cur) * kLog2e);
+        const float alpha = exp2f((m[h] - m_cur) * kLog2e);  // m = -inf on the first tile -> 0
         const float m_log2 = m_cur * kLog2e;
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
+        for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
           for (int e = 2 * h; e < 2 * h + 2; ++e) {
-            const float x = s[j][e];
+            // A masked score is exactly kNegBig; it gets p = 0.
+            const float x = s[n][e];
             const float p = x == kNegBig && masked ? 0.f : exp2f(fmaf(x, kLog2e, -m_log2));
-            s[j][e] = p;
+            s[n][e] = p;
             sum += p;
           }
-        l[h] = l[h] * alpha + sum;
+          *reinterpret_cast<uint32_t*>(ps + r * kWideP + 8 * n + 2 * t) =
+              pack_bf16(s[n][2 * h], s[n][2 * h + 1]);
+        }
+        l[h] = l[h] * alpha + quad_sum(sum);
         m[h] = m_cur;
+        if (t == 0) alphas[r] = alpha;
+      }
+    }
+    __syncthreads();  // the p tile and the rows' alpha are in
+
+    // Every warp: its accumulators rescaled by the rows' alpha, then o += p v
+    // over its columns: p through ldmatrix, V through ldmatrix.trans.
 #pragma unroll
-        for (int j = 0; j < OC / 8; ++j) {
-          acc[j][2 * h] *= alpha;
-          acc[j][2 * h + 1] *= alpha;
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float alpha = alphas[16 * mt + g + 8 * h];
+#pragma unroll
+        for (int jn = 0; jn < WC / 8; ++jn) {
+          acc[mt][jn][2 * h] *= alpha;
+          acc[mt][jn][2 * h + 1] *= alpha;
         }
       }
+    if (has_cols) {
+      const bf16* vst = vs + (j & 1) * BK * kV;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        a_from_acc(a, s[2 * kk], s[2 * kk + 1]);
+        uint32_t a[4][4];
 #pragma unroll
-        for (int j = 0; j < OC / 16; ++j) {
+        for (int mt = 0; mt < 4; ++mt) ldmatrix_x4(a[mt], a_frag(ps, kWideP, 16 * mt, kk * 16, lane));
+#pragma unroll
+        for (int jp = 0; jp < WC / 16; ++jp) {
           uint32_t b[4];
-          ldmatrix_x4_trans(b, bt_pair(vs, kV, kk * 16, j * 16, lane));
-          mma(acc[2 * j], a, b[0], b[1]);
-          mma(acc[2 * j + 1], a, b[2], b[3]);
+          ldmatrix_x4_trans(b, bt_pair(vst, kV, kk * 16, wc - c0 + jp * 16, lane));
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            mma(acc[mt][2 * jp], a[mt], b[0], b[1]);
+            mma(acc[mt][2 * jp + 1], a[mt], b[2], b[3]);
+          }
         }
       }
     }
-    __syncthreads();  // this step's stage (and the v columns) are consumed
   }
 
+  // The rows' sums to every warp; lse once a row (column block 0).
+  if (!hf) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + wrow + g + 8 * h;
-    const float l_row = quad_sum(l[h]);
-    if (row >= tq) continue;
-    const float safe = l_row > 0.f ? l_row : 1.f;
-    float* orow = o + ((size_t)bh * tq + row) * d + c0 + 2 * t;
-#pragma unroll
-    for (int j = 0; j < OC / 8; ++j)
-      if (c0 + j * 8 < d)
-        *reinterpret_cast<float2*>(orow + j * 8) =
-            make_float2(acc[j][2 * h] / safe, acc[j][2 * h + 1] / safe);
-    if (t == 0 && blockIdx.z == 0)
-      lse[(size_t)bh * tq + row] = l_row > 0.f ? m[h] + logf(fmaxf(l_row, 1e-38f)) : -CUDART_INF_F;
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * sm + g + 8 * h;
+      if (t == 0) sums[r] = l[h];
+      if (t == 0 && blockIdx.z == 0 && q0 + r < tq)
+        lse[(size_t)bh * tq + q0 + r] = l[h] > 0.f ? m[h] + logf(fmaxf(l[h], 1e-38f)) : -CUDART_INF_F;
+    }
   }
+  __syncthreads();
+  if (!has_cols) return;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * mt + g + 8 * h;
+      if (q0 + r >= tq) continue;
+      const float l_row = sums[r];
+      const float safe = l_row > 0.f ? l_row : 1.f;
+      float* orow = o + ((size_t)bh * tq + q0 + r) * d + wc + 2 * t;
+#pragma unroll
+      for (int jn = 0; jn < WC / 8; ++jn)
+        if (wc + jn * 8 < d)  // the columns past d are zero padding
+          *reinterpret_cast<float2*>(orow + jn * 8) =
+              make_float2(acc[mt][jn][2 * h] / safe, acc[mt][jn][2 * h + 1] / safe);
+    }
 }
 
 template <typename T, typename Kernel>
-cudaError_t launch_kernel(Kernel kernel, size_t smem, int threads, int block_q, const void* q,
-                          const void* k, const void* v, float* o, float* lse, int bh, int tq,
-                          int tk, int d, int causal, float sm_scale, cudaStream_t stream,
-                          int col_blocks = 1) {
+cudaError_t launch_kernel(Kernel kernel, size_t smem, int threads, dim3 grid, const void* q,
+                          const void* k, const void* v, float* o, float* lse, int tq, int tk,
+                          int d, int causal, float sm_scale, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + block_q - 1) / block_q, col_blocks);
   kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                           static_cast<const T*>(v), o, lse, tq, tk, d, causal,
                                           sm_scale);
@@ -777,25 +899,42 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, float
                    cudaStream_t stream) {
   if (dtype == 0)
     return launch_kernel<float>(flash_fwd_f32_kernel<W>, f32_smem_bytes<W>(), kF32Threads,
-                                kF32BlockQ, q, k, v, o, lse, bh, tq, tk, d, causal, sm_scale,
-                                stream);
+                                dim3(bh, (tq + kF32BlockQ - 1) / kF32BlockQ), q, k, v, o, lse,
+                                tq, tk, d, causal, sm_scale, stream);
   return launch_kernel<bf16>(d == W ? flash_fwd_bf16_kernel<W, true>
                                     : flash_fwd_bf16_kernel<W, false>,
-                             bf16_smem_bytes<W>(), kThreads, kBlockQ<W>, q, k, v, o, lse, bh, tq,
+                             bf16_smem_bytes<W>(), kThreads,
+                             dim3(bh, (tq + kBlockQ<W> - 1) / kBlockQ<W>), q, k, v, o, lse, tq,
                              tk, d, causal, sm_scale, stream);
+}
+
+// The bf16 wide kernel's launch for (bh, tq, d): launch_wide makes it and
+// flash_fwd_wide_bf16_shape reports it.
+struct WideLaunch {
+  decltype(&flash_fwd_wide_bf16_kernel<true>) kernel;
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
+WideLaunch wide_bf16_launch(int bh, int tq, int d) {
+  const bool whole = d <= kWideTileCols;
+  return {whole ? flash_fwd_wide_bf16_kernel<true> : flash_fwd_wide_bf16_kernel<false>,
+          dim3(bh, (tq + kWideBlockQ - 1) / kWideBlockQ, head_dims::wide_blocks(d, kWideTileCols)),
+          kWideThreads, whole ? bf16_wide_smem_bytes<true>() : bf16_wide_smem_bytes<false>()};
 }
 
 cudaError_t launch_wide(int dtype, const void* q, const void* k, const void* v, float* o,
                         float* lse, int bh, int tq, int tk, int d, int causal, float sm_scale,
                         cudaStream_t stream) {
-  const int blocks = head_dims::wide_blocks(d);
   if (dtype == 0)
     return launch_kernel<float>(flash_fwd_wide_f32_kernel, f32_wide_smem_bytes(), kF32Threads,
-                                kF32BlockQ, q, k, v, o, lse, bh, tq, tk, d, causal, sm_scale,
-                                stream, blocks);
-  return launch_kernel<bf16>(flash_fwd_wide_bf16_kernel, bf16_wide_smem_bytes(), kThreads,
-                             kWideBlockQ, q, k, v, o, lse, bh, tq, tk, d, causal, sm_scale,
-                             stream, blocks);
+                                dim3(bh, (tq + kF32BlockQ - 1) / kF32BlockQ,
+                                     head_dims::wide_blocks(d, kWideCols)),
+                                q, k, v, o, lse, tq, tk, d, causal, sm_scale, stream);
+  const WideLaunch l = wide_bf16_launch(bh, tq, d);
+  return launch_kernel<bf16>(l.kernel, l.smem, l.threads, l.grid, q, k, v, o, lse, tq, tk, d,
+                             causal, sm_scale, stream);
 }
 
 }  // namespace
@@ -822,4 +961,20 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
     case 128: return launch<128>(dtype, q, k, v, of, lf, bh, tq, tk, d, causal, sm_scale, s);
     default: return launch<256>(dtype, q, k, v, of, lf, bh, tq, tk, d, causal, sm_scale, s);
   }
+}
+
+// The bf16 wide kernel's launch for (bh, tq, d), d past 256, as launch_wide
+// makes it, for the logs: out[0..5] = grid x, y, z, threads a block, dynamic
+// shared memory bytes and registers a thread (cudaFuncGetAttributes).
+// Returns its CUDA error code.
+extern "C" int flash_fwd_wide_bf16_shape(int bh, int tq, int d, int* out) {
+  if (!head_dims::takes(d) || !head_dims::wide(d)) return cudaErrorInvalidValue;
+  const WideLaunch l = wide_bf16_launch(bh, tq, d);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, l.kernel);
+  if (err != cudaSuccess) return err;
+  const int got[6] = {(int)l.grid.x, (int)l.grid.y, (int)l.grid.z, l.threads, (int)l.smem,
+                      attr.numRegs};
+  for (int i = 0; i < 6; ++i) out[i] = got[i];
+  return cudaSuccess;
 }

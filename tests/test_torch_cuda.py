@@ -48,6 +48,9 @@ WIDE_DIMS = (8, 12, 32, 80, 96, 160, 256)
 # Past 256 the wide kernels run: one column block past 256 (264), one padded
 # from 300 to 304, and 512 and 1024.
 HUGE_DIMS = (264, 300, 512, 1024)
+# The bf16 forward and dk/dv kernels own 512 columns a block: past 512 their
+# column blocks come back (520: a block of 8 columns; 768).
+PAST_TILE_DIMS = (520, 768)
 TYPES = (torch.bfloat16, torch.float32)
 
 
@@ -77,6 +80,13 @@ TYPES = (torch.bfloat16, torch.float32)
         *((8, 300, 200, d, dt, False) for d in HUGE_DIMS for dt in TYPES),
         (16, 1000, 1000, 512, torch.bfloat16, True),
         (4, 70, 0, 512, torch.bfloat16, True),  # empty key block
+        # past 512 columns a block; T one row past a 32-row key tile and a
+        # 64-row query tile; a single query row
+        *((8, 129, 129, d, dt, True) for d in PAST_TILE_DIMS for dt in TYPES),
+        *((8, 300, 200, d, dt, False) for d in PAST_TILE_DIMS for dt in TYPES),
+        *((8, T, T, 512, torch.bfloat16, True) for T in (33, 65)),
+        (8, 1, 1, 512, torch.bfloat16, True),
+        (8, 1, 200, 512, torch.bfloat16, False),
     ],
 )
 def test_flash_fwd_kernel_matches_plain(cuda, BH, Tq, Tk, d, dtype, causal):
@@ -191,6 +201,13 @@ def _bwd_inputs(device, BH, Tq, Tk, d, dtype, causal, seed):
         *((8, 300, 200, d, dt, False) for d in HUGE_DIMS for dt in TYPES),
         (16, 1024, 1024, 512, torch.bfloat16, True),
         (4, 70, 0, 512, torch.bfloat16, False),  # empty key block
+        # past 512 columns a block; T one row past a 32-row tile and a 64-row
+        # tile; a single query row
+        *((8, 129, 129, d, dt, True) for d in PAST_TILE_DIMS for dt in TYPES),
+        *((8, 300, 200, d, dt, False) for d in PAST_TILE_DIMS for dt in TYPES),
+        *((8, T, T, 512, torch.bfloat16, True) for T in (33, 65)),
+        (8, 1, 1, 512, torch.bfloat16, True),
+        (8, 1, 200, 512, torch.bfloat16, False),
     ],
 )
 def test_flash_bwd_kernels_match_plain(cuda, BH, Tq, Tk, d, dtype, causal):
@@ -232,9 +249,11 @@ def test_flash_bwd_kernels_zero_rows_with_lse_minus_inf(cuda, dtype):
         (8, 300, 200, 128, False),
         (4, 70, 0, 64, False),
         # the C entry points take multiples of 8 (the wrappers pad the rest)
-        *((8, 129, 129, d, True) for d in (8, 32, 80, 96, 160, 256, 264, 512, 1024)),
+        *((8, 129, 129, d, True) for d in (8, 32, 80, 96, 160, 256, 264, 512, 520, 768, 1024)),
         (8, 300, 200, 256, False),
         (8, 300, 200, 512, False),
+        (8, 33, 33, 512, True),
+        (8, 1, 200, 768, False),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -275,8 +294,9 @@ def test_flash_kernels_are_deterministic(cuda, dtype, d=64):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernels_are_deterministic_at_wide_head_dims(cuda, dtype, d):
     """The same at tile widths 96 and 256 (where the dk/dv pass splits its
-    output columns over two blocks) and at 512 (the wide kernels, whose
-    three passes split their output columns over four)."""
+    output columns over two blocks) and at 512 (the wide kernels: the
+    forward and dk/dv own all 512 columns in one block and exchange partial
+    scores through shared memory, dq splits them over four blocks)."""
     test_flash_kernels_are_deterministic(cuda, dtype, d)
 
 

@@ -3,14 +3,16 @@
 and what two of the dq kernel's design choices are worth.
 
 Run from the repository root on a machine with one H100 and the CUDA
-toolkit: ``python3 tools/tie_variants.py [--shape BH,T] [variant ...]`` (all
-variants by default).  A variant is ``<pass>:<edit>``, the pass ``dq`` or ``dkv``.  Each
+toolkit: ``python3 tools/tie_variants.py [--shape BH,T[,d]] [variant ...]`` (all
+variants by default).  A variant is ``<pass>:<edit>``, the pass ``dq``, ``dkv`` or
+``dkv_wide`` (the dk/dv kernel past head_dim 256).  Each
 is a copy of ``polyaxon_tpu_torch`` under the git-ignored ``_checkout/v/``
 with that pass's kernel in ``csrc/flash_bwd.cu`` edited as listed below; a
 fresh process builds it and times the pass (``flash_block_dq`` or
 ``flash_block_dkv``) at the 671M training shape (BH 640, T 1024, d 64,
 bf16, causal; CUDA-event median of 20 calls after 5), or at ``--shape``
-(``64,8192``: the long-context shape), and reports its largest distance
+(``64,8192``: the long-context shape; ``80,1024,512``: the training shape at
+4 heads x 512, which runs the ``dkv_wide`` pass), and reports its largest distance
 from the plain version (over the first 8 heads where a plain version of
 all of them would not fit on the card: T above 2048).  The ``count`` edits also count,
 over one call, the warp tiles, the pairs screened in and the rounds of
@@ -41,10 +43,12 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC_PATH = "polyaxon_tpu_torch/csrc/flash_bwd.cu"
 
 # Each pass's call of the re-summing, and the (query, key) pairs of a warp
-# tile at d = 64: 16 keys x 64 queries (dk/dv), 32 queries x 32 keys (dq).
+# tile: 16 keys x 64 queries (dk/dv at d = 64), 32 queries x 32 keys (dq at
+# d = 64), four pairs a lane (dk/dv past d = 256).
 PASSES = {
-    "dkv": ("if (__any_sync(0xffffffffu, near))\n      resum_near_ties<W, BQ / 2>", 16 * 64),
-    "dq": ("if (__any_sync(0xffffffffu, near))\n        resum_near_ties<W, MT * KC / 2>", 32 * 32),
+    "dkv": ("if (__any_sync(0xffffffffu, near))\n      resum_near_ties<BQ / 2>", 16 * 64),
+    "dq": ("if (__any_sync(0xffffffffu, near))\n        resum_near_ties<MT * KC / 2>", 32 * 32),
+    "dkv_wide": ("if (__any_sync(0xffffffffu, near))\n      resum_near_ties<4>", 32 * 4),
 }
 COUNT = ("{ const int nn = __reduce_add_sync(0xffffffffu, __popc(near));\n"
          "      if (lane == 0) { atomicAdd(&g_tie[0], 1ull);"
@@ -105,7 +109,7 @@ EDITS = ("none", "screen", "committed", "count", "floor9", "count_floor9", "err2
 VARIANTS = [f"{p}:{e}" for p in PASSES for e in EDITS] + ["dq:unrolled", "dq:do_regs"]
 
 
-def measure(variant: str, BH: int = 640, T: int = 1024) -> str:
+def measure(variant: str, BH: int = 640, T: int = 1024, d: int = 64) -> str:
     """In a variant's copy: build, run once (reading the counters), time."""
     import ctypes
 
@@ -119,7 +123,6 @@ def measure(variant: str, BH: int = 640, T: int = 1024) -> str:
     report = _build.build(["flash_bwd"])["flash_bwd"]
     spills = [line.strip() for line in report.splitlines()
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    d = 64
     g = torch.Generator(device="cuda").manual_seed(BH + 2 * T + d)
     q, do = (torch.randn(BH, T, d, generator=g, device="cuda").bfloat16() for _ in range(2))
     k, v = (torch.randn(BH, T, d, generator=g, device="cuda").bfloat16() for _ in range(2))
@@ -127,7 +130,7 @@ def measure(variant: str, BH: int = 640, T: int = 1024) -> str:
     o, lse = flash.flash_block_fwd(q, k, v, **kw)
     delta = (do.float() * o.bfloat16().float()).sum(-1)
     args = (q, k, v, do, lse, delta)
-    fn = flash.flash_block_dq if pass_ == "dq" else flash.flash_block_dkv
+    fn = flash.flash_block_dq if pass_ == "dq" else flash.flash_block_dkv  # dispatch by d
     counts = ""
     if edit.startswith("count"):
         lib = _build.load("flash_bwd")
@@ -159,24 +162,24 @@ def measure(variant: str, BH: int = 640, T: int = 1024) -> str:
 
 
 def main() -> int:
-    if len(sys.argv) == 5 and sys.argv[1] == "--measure":
-        print(measure(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])), flush=True)
+    if len(sys.argv) == 6 and sys.argv[1] == "--measure":
+        print(measure(sys.argv[2], *(int(x) for x in sys.argv[3:])), flush=True)
         return 0
     args = sys.argv[1:]
-    BH, T = 640, 1024
+    BH, T, d = 640, 1024, 64
     if args[:1] == ["--shape"]:
-        BH, T = (int(x) for x in args[1].split(","))
+        BH, T, d = ([int(x) for x in args[1].split(",")] + [d])[:3]
         args = args[2:]
     src = open(os.path.join(ROOT, SRC_PATH)).read()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(smi, f"shape BH {BH} T {T}", flush=True)
+    print(smi, f"shape BH {BH} T {T} d {d}", flush=True)
     failed = 0
     for variant in args or VARIANTS:
-        d = os.path.join(ROOT, "_checkout", "v", variant.replace(":", "_"))
-        shutil.rmtree(d, ignore_errors=True)
+        copy = os.path.join(ROOT, "_checkout", "v", variant.replace(":", "_"))
+        shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "polyaxon_tpu_torch"),
-                        os.path.join(d, "polyaxon_tpu_torch"),
+                        os.path.join(copy, "polyaxon_tpu_torch"),
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         text = src
         for old, new in edits(variant):
@@ -185,11 +188,11 @@ def main() -> int:
             text = text.replace(old, new)
         if variant.split(":")[1].startswith("count"):
             text += READ_COUNTERS
-        with open(os.path.join(d, SRC_PATH), "w") as f:
+        with open(os.path.join(copy, SRC_PATH), "w") as f:
             f.write(text)
         run = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", variant,
-                              str(BH), str(T)],
-                             cwd=d, capture_output=True, text=True, timeout=600)
+                              str(BH), str(T), str(d)],
+                             cwd=copy, capture_output=True, text=True, timeout=600)
         failed += run.returncode != 0
         print(variant, run.stdout.strip(), run.stderr.strip()[-2000:] if run.returncode else "",
               flush=True)
